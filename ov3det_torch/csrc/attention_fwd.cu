@@ -1,0 +1,301 @@
+// Attention forward for Hopper (sm_90a): softmax(q k^T * scale) v and the
+// row log-sum-exp.
+//
+// Replaces the Pallas TPU kernel `_fwd_kernel` of
+// ov3det/ops/pallas/attention_kernel.py (called through `_attn_fwd` /
+// `fused_attention`) without its options: no radius bias, no dropout.
+// q (BH, NQ, D), k and v (BH, NK, D) -> out (BH, NQ, D) in the input type and
+// lse (BH, NQ) f32.  Scores, max and sum are f32; for bf16 inputs the
+// probabilities are rounded to bf16 before the PV product and the product
+// accumulates in f32, as on the TPU (attention_kernel.py:124-127).
+//
+// What bounds it on this card: operations.  One encoder layer of the main
+// path (BH = 32, N = 2048, D = 64) is 4 * 32 * 2048^2 * 64 = 34 GFLOP bf16,
+// 35 us at the card's 989 TFLOP/s, against 34 MB of inputs and outputs
+// (10 us at 3.35 TB/s).  The (N, N) scores are never written to memory.
+//
+// Design (bf16): one CTA of 4 warps per (bh, 64-row q tile); each warp owns
+// 16 query rows.  Q, K and V tiles are bf16 in padded shared memory (the
+// pad keeps the fragment loads free of bank conflicts).  Both products run
+// on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); the
+// score accumulators are reused in registers as the A operand of the PV
+// product, as in FlashAttention-2.  An online softmax walks the K tiles with
+// a running f32 max and sum, and the output is divided by the sum at the
+// end.  No pipelining of the tile loads yet, and no wgmma/TMA: later work.
+//
+// Design (f32, used when the model computes in f32): one thread per query
+// row, 64 rows per CTA, K and V tiles in shared memory, plain f32 FMA.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int BQ = 64;  // query rows per CTA (16 per warp)
+constexpr int BK = 64;  // keys per tile
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_u16(unsigned short lo, unsigned short hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// d += a * b for one m16n8k16 tile: a row-major 16x16, b column-major 16x8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          int rows) {
+  constexpr int LD = D + 8;
+  constexpr int VECS = D / 8;  // 16-byte vectors per row
+  for (int e = threadIdx.x; e < rows * VECS; e += kThreads) {
+    const int r = e / VECS, cv = e % VECS;
+    *reinterpret_cast<uint4*>(dst + r * LD + cv * 8) =
+        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + cv * 8);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, int NQ, int NK, float scale,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ lse) {
+  constexpr int LD = D + 8;
+  __shared__ __align__(16) __nv_bfloat16 Qs[BQ * LD];
+  __shared__ __align__(16) __nv_bfloat16 Ks[BK * LD];
+  __shared__ __align__(16) __nv_bfloat16 Vs[BK * LD];
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
+  const __nv_bfloat16* kg = k + static_cast<size_t>(bh) * NK * D;
+  const __nv_bfloat16* vg = v + static_cast<size_t>(bh) * NK * D;
+
+  load_tile<D>(Qs, q + (static_cast<size_t>(bh) * NQ + q0) * D, BQ);
+  __syncthreads();
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    qa[kc][0] = ld32(Qs + r0 * LD + kc * 16 + t4 * 2);
+    qa[kc][1] = ld32(Qs + (r0 + 8) * LD + kc * 16 + t4 * 2);
+    qa[kc][2] = ld32(Qs + r0 * LD + kc * 16 + 8 + t4 * 2);
+    qa[kc][3] = ld32(Qs + (r0 + 8) * LD + kc * 16 + 8 + t4 * 2);
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  const unsigned short* Vu = reinterpret_cast<const unsigned short*>(Vs);
+
+  for (int kt = 0; kt < NK; kt += BK) {
+    __syncthreads();  // the previous tile is consumed
+    load_tile<D>(Ks, kg + static_cast<size_t>(kt) * D, BK);
+    load_tile<D>(Vs, vg + static_cast<size_t>(kt) * D, BK);
+    __syncthreads();
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+      const __nv_bfloat16* krow = Ks + (n * 8 + g) * LD;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        mma_bf16(s[n], qa[kc][0], qa[kc][1], qa[kc][2], qa[kc][3],
+                 ld32(krow + kc * 16 + t4 * 2), ld32(krow + kc * 16 + 8 + t4 * 2));
+      }
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      s[n][0] *= scale;
+      s[n][1] *= scale;
+      s[n][2] *= scale;
+      s[n][3] *= scale;
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float a0 = expf(m0 - mx0), a1 = expf(m1 - mx1);  // 0 on the first tile
+    m0 = mx0;
+    m1 = mx1;
+    float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      s[n][0] = expf(s[n][0] - m0);
+      s[n][1] = expf(s[n][1] - m0);
+      s[n][2] = expf(s[n][2] - m1);
+      s[n][3] = expf(s[n][3] - m1);
+      rs0 += s[n][0] + s[n][1];
+      rs1 += s[n][2] + s[n][3];
+    }
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= a0;
+      o[j][1] *= a0;
+      o[j][2] *= a1;
+      o[j][3] *= a1;
+    }
+
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t) {
+      // score tiles 2t and 2t+1 (keys 16t .. 16t+15) as the A operand
+      const uint32_t pa0 = pack_bf16(s[2 * t][0], s[2 * t][1]);
+      const uint32_t pa1 = pack_bf16(s[2 * t][2], s[2 * t][3]);
+      const uint32_t pa2 = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
+      const uint32_t pa3 = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+      const int kr = t * 16 + t4 * 2;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = j * 8 + g;
+        const uint32_t b0 = pack_u16(Vu[kr * LD + col], Vu[(kr + 1) * LD + col]);
+        const uint32_t b1 = pack_u16(Vu[(kr + 8) * LD + col], Vu[(kr + 9) * LD + col]);
+        mma_bf16(o[j], pa0, pa1, pa2, pa3, b0, b1);
+      }
+    }
+  }
+
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  const size_t row0 = static_cast<size_t>(bh) * NQ + q0 + r0;
+  const size_t row1 = row0 + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(out + row0 * D + col) =
+        pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
+    *reinterpret_cast<uint32_t*>(out + row1 * D + col) =
+        pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
+  }
+  if (t4 == 0) {
+    lse[row0] = m0 + logf(l0);
+    lse[row1] = m1 + logf(l1);
+  }
+}
+
+constexpr int BKF = 32;  // keys per tile of the f32 kernel
+
+template <int D>
+__global__ void __launch_bounds__(BQ)
+attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, int NQ, int NK, float scale,
+             float* __restrict__ out, float* __restrict__ lse) {
+  __shared__ float Ks[BKF][D];
+  __shared__ float Vs[BKF][D];
+  const int bh = blockIdx.y;
+  const size_t row = static_cast<size_t>(bh) * NQ + blockIdx.x * BQ + threadIdx.x;
+  const float* kg = k + static_cast<size_t>(bh) * NK * D;
+  const float* vg = v + static_cast<size_t>(bh) * NK * D;
+  float qr[D], acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    qr[d] = q[row * D + d];
+    acc[d] = 0.0f;
+  }
+  float m = -INFINITY, l = 0.0f;
+  for (int kt = 0; kt < NK; kt += BKF) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < BKF * D; e += BQ) {
+      Ks[e / D][e % D] = kg[static_cast<size_t>(kt) * D + e];
+      Vs[e / D][e % D] = vg[static_cast<size_t>(kt) * D + e];
+    }
+    __syncthreads();
+    float s[BKF];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < BKF; ++j) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j][d], dot);
+      s[j] = dot * scale;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float a = expf(m - mx);
+    m = mx;
+    float rs = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BKF; ++j) {
+      s[j] = expf(s[j] - m);
+      rs += s[j];
+    }
+    l = l * a + rs;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] *= a;
+#pragma unroll
+    for (int j = 0; j < BKF; ++j) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(s[j], Vs[j][d], acc[d]);
+    }
+  }
+  const float inv = 1.0f / l;
+#pragma unroll
+  for (int d = 0; d < D; ++d) out[row * D + d] = acc[d] * inv;
+  lse[row] = m + logf(l);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, int BH, int NQ, int NK,
+                   int is_bf16, float scale, void* out, float* lse, cudaStream_t s) {
+  const dim3 grid(NQ / BQ, BH);
+  if (is_bf16) {
+    attn_fwd_bf16<D><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), NQ, NK, scale,
+        static_cast<__nv_bfloat16*>(out), lse);
+  } else {
+    attn_fwd_f32<D><<<grid, BQ, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), NQ, NK, scale, static_cast<float*>(out), lse);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (BH, NQ, D), k and v (BH, NK, D), contiguous, bf16 (is_bf16 = 1) or f32;
+// out (BH, NQ, D) of the same type, lse (BH, NQ) f32.  NQ and NK multiples
+// of 64; D one of 16, 32, 64.  Returns a cudaError_t.
+extern "C" int ov3_attention_fwd(const void* q, const void* k, const void* v, int BH,
+                                 int NQ, int NK, int D, int is_bf16, float scale,
+                                 void* out, float* lse, cudaStream_t stream) {
+  if (BH <= 0 || NQ <= 0 || NK <= 0 || NQ % BQ != 0 || NK % BK != 0)
+    return cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch<16>(q, k, v, BH, NQ, NK, is_bf16, scale, out, lse, stream);
+    case 32: return launch<32>(q, k, v, BH, NQ, NK, is_bf16, scale, out, lse, stream);
+    case 64: return launch<64>(q, k, v, BH, NQ, NK, is_bf16, scale, out, lse, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* ov3_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,150 @@
+"""Dense, normalisation and MLP building blocks with flax's numerics.
+
+Counterpart of `ov3det/models/mlp.py`.  The cast sites follow flax, not
+PyTorch habit:
+  * `Dense` with a compute dtype casts its input and its f32 weights to that
+    dtype and returns it; without one it computes in the promoted type of
+    input and weights (f32).
+  * `LayerNorm` and `BatchNorm` compute in f32 whatever their input and
+    return f32, so the residual stream stays f32.
+  * Parameters are stored in f32 and cast at use.
+BatchNorm normalises each channel over all leading axes; this slice runs it
+in eval mode only (running statistics).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_TRUNC_STD = 0.87962566103423978  # std of the unit normal truncated to [-2, 2]
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` with flax `nn.Dense` numerics.
+
+    `init` is "lecun" (flax's default, truncated normal of variance
+    1/fan_in) or "xavier" (uniform, as the transformer layers use).
+    """
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None, init: str = "lecun"):
+        self.compute_dtype = compute_dtype
+        self.init = init
+        super().__init__(in_features, out_features, bias=bias)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        # nn.Linear.__init__ calls this without a generator: fill
+        # deterministically and leave the global RNG alone; models draw
+        # their weights from an explicit generator afterwards.
+        with torch.no_grad():
+            if self.bias is not None:
+                self.bias.zero_()
+            if generator is None:
+                self.weight.zero_()
+            elif self.init == "xavier":
+                nn.init.xavier_uniform_(self.weight, generator=generator)
+            else:
+                std = 1.0 / math.sqrt(self.in_features) / _TRUNC_STD
+                nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` (fast variance, f32 compute) with eps 1e-5."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm` over all leading axes, eval mode (running stats).
+
+    Training-mode statistics (flax momentum 0.9, biased variance) come with
+    the training step.
+    """
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "training-mode BatchNorm is not ported yet; call .eval()")
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x.float() - self.running_mean) * mul + self.bias
+
+
+class GenericMLP(nn.Module):
+    """Counterpart of flax `GenericMLP`: Dense [+ norm] + ReLU per hidden
+    width, then the output Dense [+ norm] [+ ReLU].  Dropout
+    sites are identities in eval mode and are not built here."""
+
+    def __init__(self, in_dim: int, hidden_dims: Sequence[int], output_dim: int,
+                 norm: Optional[str] = None,
+                 hidden_use_bias: bool = False, output_use_bias: bool = True,
+                 output_use_activation: bool = False, output_use_norm: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if norm not in (None, "bn"):  # the detector's MLPs use no other
+            raise ValueError(f"unknown norm {norm!r}")
+        self.output_use_activation = output_use_activation
+        dims = [in_dim, *hidden_dims]
+        self.layers = nn.ModuleList(
+            Dense(a, b, bias=hidden_use_bias, compute_dtype=compute_dtype)
+            for a, b in zip(dims[:-1], dims[1:])
+        )
+        self.layers.append(Dense(dims[-1], output_dim, bias=output_use_bias,
+                                 compute_dtype=compute_dtype))
+        norm_dims = list(hidden_dims) if norm else []
+        if norm and output_use_norm:
+            norm_dims.append(output_dim)
+        self.norms = nn.ModuleList(BatchNorm(d) for d in norm_dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_hidden = len(self.layers) - 1
+        for i in range(n_hidden):
+            x = self.layers[i](x)
+            if self.norms:
+                x = self.norms[i](x)
+            x = F.relu(x)
+        x = self.layers[-1](x)
+        if len(self.norms) > n_hidden:
+            x = self.norms[-1](x)
+        if self.output_use_activation:
+            x = F.relu(x)
+        return x

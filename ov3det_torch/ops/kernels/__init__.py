@@ -1,0 +1,7 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+`fps`, `ball_group` and `attention` each hold a wrapper that launches its
+CUDA kernel (`ov3det_torch/csrc/*.cu`) for CUDA tensors and counts the
+launch in its `launches` attribute; CPU tensors take the plain version in
+the same module.  `_build` compiles and binds the sources at first use.
+"""
