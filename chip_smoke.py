@@ -3,28 +3,45 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from `ov3det_torch/csrc/` (one nvcc each, all
+Builds the CUDA kernels from `ov3det_torch/csrc/` (one nvcc per source, all
 at once), then:
   1. prints the card's name and power limit, and the build time;
   2. holds each kernel against its plain PyTorch version on the card at the
-     shapes the serving path gives it (FPS 8 x 20000 -> 2048 and
-     8 x 2048 -> 128, indices equal; ball-group 8 x 20000, M = 2048, K = 64,
-     C = 0 and C = 3, exact; attention forward BH = 32, N = 2048, D = 64:
-     bf16 output within 2e-2 of the plain version in f32, LSE within 1e-3;
-     the f32 variant within 1e-4) and times kernel, plain version and, for
-     attention, `F.scaled_dot_product_attention` as a yardstick;
+     shapes the main paths give it, and times kernel, plain version and,
+     where one exists, a PyTorch call as a yardstick:
+       FPS 8 x 20000 -> 2048 and 8 x 2048 -> 128, indices equal;
+       ball-group 8 x 20000, M = 2048, K = 64, C = 0 and C = 3, exact;
+       attention BH = 32, N = 2048, D = 64 (the encoder of the training
+       step): the dropout mask read back through the forward, dq and dk/dv
+       kernels equals the plain hash exactly; forward, dq and dk/dv in bf16,
+       with dropout 0.1 and without, within 2e-2 of the largest value of
+       the plain version in f32 (LSE within 1e-3); the f32 variants within
+       1e-4 of it;
   3. serves 3 requests of 8 synthetic scenes x 20 000 points through
      `Detector` at the full width of `sunrgbd_quick()` (seeded random
-     weights): launch counts reset just before, read just after; each
-     request must launch FPS twice, the ball-group once, attention 3 times;
+     weights): each request must launch FPS twice, the ball-group once, the
+     attention forward 3 times and no backward kernel;
   4. runs one scene at f32 on the card and on the CPU (plain versions) with
      the same weights: query indices equal, box corners within 1e-3;
-  5. prints the kernels line, the card line, and last
-     {"ok": true, "device": {...}}.
-Exits non-zero, printing no result, without CUDA or without the package
-beside this file.  Any failed check raises.
+  5. trains: `build_training(sunrgbd_quick(), ...)` on the card takes one
+     warm-up step and 5 timed steps on seeded synthetic batches (8 scenes x
+     20 000 points, dropout as configured); each step must launch FPS twice,
+     the ball-group once and each attention kernel 3 times, and give a
+     finite loss and gradient norm.  Then a synchronised split of a step
+     into forward, criterion, backward and optimiser, one step under
+     torch.profiler, and the peak device memory of a step;
+  6. takes one training step at f32 with every dropout at 0 on one scene at
+     full width, on the card and on the CPU from the same weights: matched
+     masks equal, every loss within 1e-4 relative, grad_norm within 1e-3;
+  7. prints the kernels line (launches summed over the serving and training
+     runs of 3 and 5), the card line, and last {"ok": true, "device": {...}}.
+Launch counts are set to 0 just before the serving run and the training
+run, and read just after each.  Exits non-zero, printing no result, without
+CUDA or without the package beside this file.  Any failed check raises.
 """
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,6 +52,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, NUM_POINTS, REQUESTS = 8, 20000, 3  # sunrgbd_quick's data part
+TRAIN_STEPS = 5
+ITERS_PER_EPOCH = 1000  # sets only the learning-rate schedule of the train phase
 F32_PEAK, BF16_PEAK, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12  # H100 SXM data sheet
 
 
@@ -43,6 +62,29 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per compiled kernel from nvcc's `-Xptxas -v` report:
+    registers, spill stores and shared memory."""
+    import re
+
+    lines, kernel = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"(attn_(?:fwd|dq|dkv)_(?:bf16|f32)|fps_kernel|pick_kernel|fill_kernel)"
+                          r"(?:ILi(\d+)E)?", m.group(1))
+            kernel = (t.group(1) + (f"<{t.group(2)}>" if t.group(2) else "")) if t else m.group(1)
+        elif "spill stores" in line and kernel:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif "Used" in line and "registers" in line and kernel:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{kernel}: {regs} registers, {spill} B spilled, "
+                         f"{smem.group(1) if smem else 0} B shared")
+            kernel = None
+    return lines
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -69,10 +111,30 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def check_kernels(batch: dict, dev: torch.device) -> dict:
-    """Phase 2: every kernel against its plain version, timed; returns the
-    per-kernel entries for one request's work on the serving path."""
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches in `.launches`."""
     from ov3det_torch.ops.kernels import attention, ball_group, fps
+
+    return {"fps": fps.fps, "ball_group": ball_group.ball_group,
+            "attention_fwd": attention.attention_fwd, "attention_dq": attention.attention_dq,
+            "attention_dkv": attention.attention_dkv}
+
+
+def kernel_sources() -> dict:
+    """name -> (source in the repo, the TPU kernel it replaces)."""
+    from ov3det_torch.ops.kernels import attention, ball_group, fps
+
+    return {"fps": (fps.SOURCE, fps.REPLACES),
+            "ball_group": (ball_group.SOURCE, ball_group.REPLACES),
+            "attention_fwd": (attention.SOURCE, attention.REPLACES),
+            "attention_dq": (attention.BWD_SOURCE, attention.DQ_REPLACES),
+            "attention_dkv": (attention.BWD_SOURCE, attention.DKV_REPLACES)}
+
+
+def check_kernels(batch: dict, dev: torch.device) -> dict:
+    """Phase 2: the point kernels against their plain versions, timed;
+    returns their entries for one request's work on the serving path."""
+    from ov3det_torch.ops.kernels import ball_group, fps
 
     xyz = torch.from_numpy(batch["point_clouds"]).to(dev)
     B, N, _ = xyz.shape
@@ -119,34 +181,142 @@ def check_kernels(batch: dict, dev: torch.device) -> dict:
                                  bound_ms=b_ms, bound_by=b_by, library_ms=None,
                                  work="one request: 8x20000, M=2048, K=64, C=0")
 
-    # attention forward: the encoder's BH = 8 x 4 heads, N = 2048, D = 64, 3 layers
+    return entries
+
+
+def reveal_masks(A, seed, rate: float, BH: int, N: int, D: int, dev) -> dict:
+    """The dropout mask as each bf16 kernel applies it, read back exactly.
+
+    With q = 0 every probability is 1/N, so a kernel's output is 0 exactly
+    where it dropped a position.  One-hot operands pick D columns per launch:
+      forward: V = one-hot(key t*D + d)      -> out[q, d]  = m(q, t*D + d) / N
+      dq:      K = one-hot, V = dO = 1        -> dq[q, d]   ~ m(q, t*D + d)
+      dk/dv:   dO = one-hot(query t*D + d)    -> dv[key, d] = m(t*D + d, key) / N
+    """
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    zero, ones = torch.zeros(BH, N, D, **bf), torch.ones(BH, N, D, **bf)
+    lse = torch.full((BH, N, 1), math.log(N), dtype=torch.float32, device=dev)
+    no_delta = torch.zeros(BH, N, 1, dtype=torch.float32, device=dev)
+    eye = torch.eye(D, **bf)
+    seen = {name: torch.empty(BH, N, N, dtype=torch.bool, device=dev)
+            for name in ("attention_fwd", "attention_dq", "attention_dkv")}
+    for t in range(N // D):
+        cols = slice(t * D, (t + 1) * D)
+        sel = torch.zeros(BH, N, D, **bf)
+        sel[:, cols] = eye
+        out, _ = A.attention_fwd(zero, zero, sel, rate, seed)
+        seen["attention_fwd"][:, :, cols] = out != 0
+        dq = A.attention_dq(zero, sel, ones, ones, lse, no_delta, rate, seed)
+        seen["attention_dq"][:, :, cols] = dq != 0
+        _, dv = A.attention_dkv(zero, zero, zero, sel, lse, no_delta, rate, seed)
+        seen["attention_dkv"][:, cols, :] = (dv != 0).transpose(1, 2)
+    return seen
+
+
+def check_attention(dev: torch.device) -> dict:
+    """Phase 2, attention: the three kernels of the training step's encoder
+    (BH = 8 x 4 heads, N = 2048, D = 64) against their plain versions, per
+    call.  The operands (8 MB each) stay in the 50 MB L2 between timed
+    launches."""
+    from ov3det_torch.ops.kernels import attention as A
+
+    BH, N, D, rate = 32, 2048, 64, 0.1
     g = torch.Generator().manual_seed(1)
-    BH, L, D = 32, 2048, 64
-    q, k, v = (torch.randn(BH, L, D, generator=g).to(dev) for _ in range(3))
-    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-    out, lse = attention.attention_fwd(qb, kb, vb)
-    ref, ref_lse = attention.attention_fwd_plain(qb.float(), kb.float(), vb.float())
-    err = (out.float() - ref).abs().max().item()
-    lse_err = (lse - ref_lse).abs().max().item()
-    require(err <= 2e-2 and lse_err <= 1e-3, f"attention bf16: out err {err}, lse err {lse_err}")
-    out32, lse32 = attention.attention_fwd(q, k, v)
-    ref32, ref_lse32 = attention.attention_fwd_plain(q, k, v)
-    err32 = max((out32 - ref32).abs().max().item(), (lse32 - ref_lse32).abs().max().item())
-    require(err32 <= 1e-4, f"attention f32 differs from plain by {err32}")
-    ms = cuda_ms(lambda: attention.attention_fwd(qb, kb, vb), 20)
-    ms32 = cuda_ms(lambda: attention.attention_fwd(q, k, v), 3)
-    plain = cuda_ms(lambda: attention.attention_fwd_plain(qb, kb, vb), 5)
-    q4, k4, v4 = (t.view(8, 4, L, D) for t in (qb, kb, vb))
-    library = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4), 20)
-    ops = 4 * BH * L * L * D
-    nbytes = 4 * BH * L * D * 2 + BH * L * 4
-    b_ms, b_by = bound_ms(nbytes, ops, BF16_PEAK)
-    print(f"attention_fwd: bf16 out err {err:.2e} (vs plain f32), lse err {lse_err:.2e}, "
-          f"f32 err {err32:.2e}; per call: kernel {ms:.3f} ms (f32 kernel {ms32:.3f} ms), "
-          f"plain {plain:.3f} ms, sdpa {library:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    entries["attention_fwd"] = dict(max_abs_err=err, ms=3 * ms, plain_ms=3 * plain,
-                                    bound_ms=3 * b_ms, bound_by=b_by, library_ms=3 * library,
-                                    work="one request: 3 calls of BH=32, N=2048, D=64 bf16")
+    q, k, v, do = (torch.randn(BH, N, D, generator=g).to(dev) for _ in range(4))
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    seed = torch.tensor([20260101], dtype=torch.int32, device=dev)
+
+    kept = A.drop_mask(seed, BH, N, N, rate) != 0
+    seen = reveal_masks(A, seed, rate, BH, N, D, dev)
+    for name, mask in seen.items():
+        flips = int((mask != kept).sum())
+        require(flips == 0, f"{name}: the dropout mask differs from the hash at {flips} positions")
+    print(f"attention dropout p={rate}: the masks of the forward, dq and dk/dv kernels equal "
+          f"the hash at all {kept.numel()} positions (kept share {kept.float().mean().item():.4f})")
+    del kept, seen
+
+    def rel(got, want):  # max error over the largest magnitude of the plain version
+        err = (got.float() - want).abs().max()
+        abs_err[0] = max(abs_err[0], err.item())
+        return (err / want.abs().max()).item()
+
+    errs = {"attention_fwd": 0.0, "attention_dq": 0.0, "attention_dkv": 0.0}
+    abs_err = [0.0]
+    for p in (0.0, rate):
+        out, lse = A.attention_fwd(qb, kb, vb, p, seed)
+        ref, ref_lse = A.attention_fwd_plain(qb.float(), kb.float(), vb.float(), p, seed)
+        abs_err[0] = 0.0
+        e_out, e_lse = rel(out, ref), (lse - ref_lse).abs().max().item()
+        errs["attention_fwd"] = max(errs["attention_fwd"], abs_err[0])
+        require(e_out <= 2e-2 and e_lse <= 1e-3, f"attention_fwd bf16 p={p}: {e_out}, lse {e_lse}")
+        delta = (dob.float() * out.float()).sum(-1, keepdim=True)
+        dq = A.attention_dq(qb, kb, vb, dob, lse, delta, p, seed)
+        dk, dv = A.attention_dkv(qb, kb, vb, dob, lse, delta, p, seed)
+        f32 = [t.float() for t in (qb, kb, vb, dob)]
+        rdq = A.attention_dq_plain(*f32, lse, delta, p, seed)
+        rdk, rdv = A.attention_dkv_plain(*f32, lse, delta, p, seed)
+        abs_err[0] = 0.0
+        e_dq = rel(dq, rdq)
+        errs["attention_dq"] = max(errs["attention_dq"], abs_err[0])
+        abs_err[0] = 0.0
+        e_dkv = max(rel(dk, rdk), rel(dv, rdv))
+        errs["attention_dkv"] = max(errs["attention_dkv"], abs_err[0])
+        require(e_dq <= 2e-2 and e_dkv <= 2e-2, f"attention backward bf16 p={p}: dq {e_dq}, dk/dv {e_dkv}")
+
+        out32, lse32 = A.attention_fwd(q, k, v, p, seed)
+        ref32, rlse32 = A.attention_fwd_plain(q, k, v, p, seed)
+        d32 = (do * out32).sum(-1, keepdim=True)
+        e32 = [rel(out32, ref32), (lse32 - rlse32).abs().max().item(),
+               rel(A.attention_dq(q, k, v, do, lse32, d32, p, seed),
+                   A.attention_dq_plain(q, k, v, do, lse32, d32, p, seed))]
+        e32 += [rel(a, b) for a, b in zip(A.attention_dkv(q, k, v, do, lse32, d32, p, seed),
+                                          A.attention_dkv_plain(q, k, v, do, lse32, d32, p, seed))]
+        require(max(e32) <= 1e-4, f"attention f32 p={p}: out, lse, dq, dk, dv errors {e32}")
+        print(f"attention p={p}: bf16 error over the largest plain value: out {e_out:.2e}, "
+              f"lse {e_lse:.2e} (abs), dq {e_dq:.2e}, dk/dv {e_dkv:.2e}; f32 variants "
+              f"{max(e32):.2e}")
+
+    out, lse = A.attention_fwd(qb, kb, vb, rate, seed)
+    delta = (dob.float() * out.float()).sum(-1, keepdim=True)
+    times = {
+        "attention_fwd": (lambda: A.attention_fwd(qb, kb, vb, rate, seed),
+                          lambda: A.attention_fwd_plain(qb, kb, vb, rate, seed)),
+        "attention_dq": (lambda: A.attention_dq(qb, kb, vb, dob, lse, delta, rate, seed),
+                         lambda: A.attention_dq_plain(qb, kb, vb, dob, lse, delta, rate, seed)),
+        "attention_dkv": (lambda: A.attention_dkv(qb, kb, vb, dob, lse, delta, rate, seed),
+                          lambda: A.attention_dkv_plain(qb, kb, vb, dob, lse, delta, rate, seed)),
+    }
+    no_drop = {
+        "attention_fwd": cuda_ms(lambda: A.attention_fwd(qb, kb, vb), 20),
+        "attention_dq": cuda_ms(lambda: A.attention_dq(qb, kb, vb, dob, lse, delta), 20),
+        "attention_dkv": cuda_ms(lambda: A.attention_dkv(qb, kb, vb, dob, lse, delta), 20),
+    }
+    # yardsticks: PyTorch's fused attention without dropout; its backward
+    # computes dq, dk and dv in one call
+    q4, k4, v4 = (t.view(8, 4, N, D).detach().requires_grad_() for t in (qb, kb, vb))
+    library_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4), 20)
+    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+    g4 = dob.view(8, 4, N, D)
+    library_bwd = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 20)
+    library = {"attention_fwd": library_fwd, "attention_dq": library_bwd,
+               "attention_dkv": library_bwd}
+    flops = {"attention_fwd": 4, "attention_dq": 6, "attention_dkv": 8}  # x BH N^2 D
+    tensor = BH * N * D * 2  # bytes of one bf16 operand
+    nbytes = {"attention_fwd": 4 * tensor + BH * N * 4,  # q, k, v in; out, lse out
+              "attention_dq": 5 * tensor + 2 * BH * N * 4,  # q, k, v, dO, lse, delta in; dq out
+              "attention_dkv": 6 * tensor + 2 * BH * N * 4}
+    entries = {}
+    for name, (kernel, plain) in times.items():
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+        b_ms, b_by = bound_ms(nbytes[name], flops[name] * BH * N * N * D, BF16_PEAK)
+        print(f"{name}: per call with dropout {rate}: kernel {ms:.3f} ms (without dropout "
+              f"{no_drop[name]:.3f} ms), plain {plain_ms:.3f} ms, library {library[name]:.3f} ms"
+              f"{' (SDPA backward: dq, dk and dv)' if name != 'attention_fwd' else ' (SDPA)'}, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        entries[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=library[name], ms_no_dropout=no_drop[name],
+                             work=f"one call, BH=32, N=2048, D=64 bf16, dropout {rate}; "
+                                  "max_abs_err of bf16 against the plain version in f32")
     return entries
 
 
@@ -198,15 +368,56 @@ def stage_times(det, batch: dict, reps: int = 3) -> None:
     print(f"stages of one request (synchronised, median of {reps}): {parts}")
 
 
+def profile(title: str, fn) -> None:
+    """Run `fn` once under torch.profiler; print the wall time, the device
+    busy time (kernels only), the kernel count, the idle share and the top
+    kernels and ops by device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def device_us(e):  # the attribute's name changed across PyTorch versions
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernels are the device events; a CPU op's self device time is that of
+    # the kernels it launched, so the two groups are listed apart and only
+    # the kernels are summed
+    rows = [e for e in prof.key_averages() if device_us(e) > 0]
+    kernels = sorted((e for e in rows if e.device_type != torch.autograd.DeviceType.CPU),
+                     key=device_us, reverse=True)
+    ops = sorted((e for e in rows if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in kernels)
+    if not kernels:
+        print(f"{title}: wall {wall_us / 1e3:.2f} ms, device time not measured "
+              "(the profiler recorded no device events)")
+    else:
+        print(f"{title}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+              f"in {sum(e.count for e in kernels)} kernels (idle share "
+              f"{1 - busy_us / wall_us:.3f})")
+    for name, group in (("kernels", kernels), ("ops, by the device time of their kernels", ops)):
+        print(f" {name}:")
+        for e in group[:12]:
+            print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    host = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(" ops, by host time (self, profiler on):")
+    for e in host[:8]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
 def serve(batches: list, dev: torch.device) -> dict:
     """Phase 3: the serving path at full width; returns the launch counts."""
     from ov3det_torch.config import sunrgbd_quick
     from ov3det_torch.engine.infer import Detector
-    from ov3det_torch.ops.kernels import attention, ball_group, fps
 
-    wrappers = {"fps": fps.fps, "ball_group": ball_group.ball_group,
-                "attention_fwd": attention.attention_fwd}
-    per_request = {"fps": 2, "ball_group": 1, "attention_fwd": 3}
+    wrappers = kernel_wrappers()
+    per_request = {"fps": 2, "ball_group": 1, "attention_fwd": 3, "attention_dq": 0,
+                   "attention_dkv": 0}
     det = Detector(sunrgbd_quick(), device=dev, seed=0)
     det.detect(batches[0])  # warm-up: cuBLAS handles, allocator
     for w in wrappers.values():
@@ -230,46 +441,16 @@ def serve(batches: list, dev: torch.device) -> dict:
     stage_times(det, batches[-1])
 
     # one more request under the profiler: device time by kernel and idle share
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        det.detect(batches[-1])
-        wall_us = (time.perf_counter() - t0) * 1e6
-    def device_us(e):  # the attribute's name changed across PyTorch versions
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    # kernels are the device events; a CPU op's self device time is that of
-    # the kernels it launched, so the two groups are listed apart and only
-    # the kernels are summed
-    rows = [e for e in prof.key_averages() if device_us(e) > 0]
-    kernels = sorted((e for e in rows if e.device_type != torch.autograd.DeviceType.CPU),
-                     key=device_us, reverse=True)
-    ops = sorted((e for e in rows if e.device_type == torch.autograd.DeviceType.CPU),
-                 key=device_us, reverse=True)
-    busy_us = sum(device_us(e) for e in kernels)
-    if not kernels:
-        print(f"profiled request: wall {wall_us / 1e3:.2f} ms, device time not measured "
-              "(the profiler recorded no device events)")
-    else:
-        print(f"profiled request: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
-              f"in {sum(e.count for e in kernels)} kernels (idle share "
-              f"{1 - busy_us / wall_us:.3f})")
-    for title, group in (("kernels", kernels), ("ops, by the device time of their kernels", ops)):
-        print(f" {title}:")
-        for e in group[:12]:
-            print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    profile("profiled request", lambda: det.detect(batches[-1]))
     return counts
 
 
 def card_vs_cpu(batch: dict) -> None:
     """Phase 4: the same weights at f32 on the card and on the CPU."""
-    import dataclasses
-
     from ov3det_torch.config import sunrgbd_quick
     from ov3det_torch.models.detr3d import Model3DETR
 
-    cfg = dataclasses.replace(sunrgbd_quick(), compute_dtype="float32")
+    cfg = dataclasses.replace(sunrgbd_quick().model, compute_dtype="float32")
     scene = {k: torch.from_numpy(batch[k][:1]) for k in
              ("point_clouds", "point_cloud_dims_min", "point_cloud_dims_max")}
     outs = {}
@@ -283,6 +464,131 @@ def card_vs_cpu(batch: dict) -> None:
     err = (outs["cuda"]["box_corners"] - outs["cpu"]["box_corners"]).abs().max().item()
     require(err <= 1e-3, f"box corners differ between card and CPU by {err}")
     print(f"card vs CPU (f32, one scene): query indices equal, box_corners max err {err:.2e}")
+
+
+def train_batches(n: int, dev: torch.device) -> list:
+    """n seeded synthetic batches of `sunrgbd_quick()`'s data part, on `dev`."""
+    from ov3det_torch.config import sunrgbd_quick
+    from ov3det_torch.datasets.synthetic import make_batch
+    from ov3det_torch.engine.train import batch_to_device
+
+    cfg = sunrgbd_quick()
+    return [batch_to_device(make_batch(
+        np.random.default_rng(200 + i), batch_size=cfg.data.batch_size_per_device,
+        num_points=cfg.data.num_points, max_num_obj=cfg.data.max_num_obj,
+        num_semcls=cfg.model.num_semcls, num_angle_bin=cfg.model.num_angle_bin), dev)
+        for i in range(n)]
+
+
+def train(dev: torch.device) -> dict:
+    """Phase 5: training steps of `sunrgbd_quick()` at full width on the
+    card; returns the launch counts of the timed steps."""
+    from ov3det_torch.config import sunrgbd_quick
+    from ov3det_torch.engine.train import build_training
+
+    training = build_training(sunrgbd_quick(), ITERS_PER_EPOCH, device=dev, seed=0)
+    step = training.train_step
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = train_batches(TRAIN_STEPS + 1, dev)
+    wrappers = kernel_wrappers()
+    per_step = {"fps": 2, "ball_group": 1, "attention_fwd": 3, "attention_dq": 3,
+                "attention_dkv": 3}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batches[0], gen)  # warm-up: cuBLAS handles, allocator
+    print(f"train warm-up step: {(time.perf_counter() - t0) * 1e3:.2f} ms, "
+          f"loss {metrics['loss'].item():.4f}")
+    for w in wrappers.values():
+        w.launches = 0
+    for i, batch in enumerate(batches[1:]):
+        before = {n: w.launches for n, w in wrappers.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {n: w.launches - before[n] for n, w in wrappers.items()}
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        require(delta == per_step, f"train step {i}: launches {delta}, expected {per_step}")
+        require(math.isfinite(loss) and math.isfinite(gnorm), f"train step {i}: loss {loss}, grad_norm {gnorm}")
+        require(len(metrics) == 8 * 7 + 2, f"train step {i}: {len(metrics)} metrics")
+        print(f"train step {i}: {ms:.2f} ms, loss {loss:.4f}, grad_norm {gnorm:.4f}, "
+              f"lr {training.schedule(training.optimizer.count - 1):.3e}, launches {delta}")
+    counts = {n: w.launches for n, w in wrappers.items()}
+
+    # a synchronised split of a step, median of 3
+    rows = []
+    for batch in batches[1:4]:
+        marks = []
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, gen, mark=mark)
+        times = [t for _, t in marks]
+        rows.append({name: (t - prev) * 1e3 for (name, t), prev in zip(marks, [t0] + times[:-1])})
+    parts = ", ".join(f"{k} {np.median([r[k] for r in rows]):.2f} ms" for k in rows[0])
+    print(f"stages of one train step (synchronised, median of 3): {parts} "
+          "(criterion = GIoU over 8x8x128x64 pairs, auction, losses)")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(batches[1], gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"peak device memory of a train step: {peak / 2**30:.3f} GiB "
+          f"({base / 2**30:.3f} GiB held before it: weights, Adam moments, batches)")
+    profile("profiled train step", lambda: step(batches[2], gen))
+    return counts
+
+
+def train_card_vs_cpu() -> None:
+    """Phase 6: one f32 training step with every dropout at 0 on one scene at
+    full width, on the card and on the CPU, from the same weights."""
+    from ov3det_torch.config import sunrgbd_quick
+    from ov3det_torch.engine.train import build_training
+    from ov3det_torch.losses.criterion import compute_assignments
+
+    base = sunrgbd_quick()
+    model_cfg = dataclasses.replace(
+        base.model, compute_dtype="float32", mlp_dropout=0.0,
+        encoder=dataclasses.replace(base.model.encoder, dropout=0.0),
+        decoder=dataclasses.replace(base.model.decoder, dropout=0.0))
+    cfg = dataclasses.replace(base, model=model_cfg)
+    res = {}
+    for name in ("cuda", "cpu"):
+        dev = torch.device(name)
+        batch = {k: v[:1].to(dev) for k, v in train_batches(1, torch.device("cpu"))[0].items()}
+        training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=1)
+        model = training.model
+        gen = torch.Generator(device=dev).manual_seed(0)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        model.train()
+        with torch.no_grad():  # the matcher's masks of this step
+            out = model({k: batch[k] for k in ("point_clouds", "point_cloud_dims_min",
+                                                "point_cloud_dims_max")}, gen)
+            targets = dict(batch, nactual_gt=batch["gt_box_present"].sum(1).long())
+            assign = compute_assignments(out, targets, cfg.loss, rotated_boxes=True)
+        model.load_state_dict(start)  # the probe moved the running statistics
+        t0 = time.perf_counter()
+        metrics = training.train_step(batch, gen)
+        res[name] = ({k: v.cpu() for k, v in assign.items()},
+                     {k: v.item() for k, v in metrics.items()})
+        print(f"f32 train step on {name}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    (a_gpu, m_gpu), (a_cpu, m_cpu) = res["cuda"], res["cpu"]
+    for k in ("per_prop_gt_inds", "proposal_matched_mask"):
+        require(torch.equal(a_gpu[k], a_cpu[k]), f"card vs CPU: {k} differ")
+    worst = max(abs(m_gpu[k] - v) / max(abs(v), 1e-6) for k, v in m_cpu.items() if k != "grad_norm")
+    g_err = abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) / m_cpu["grad_norm"]
+    require(worst <= 1e-4, f"card vs CPU: a loss differs by {worst} relative")
+    require(g_err <= 1e-3, f"card vs CPU: grad_norm differs by {g_err} relative")
+    print(f"card vs CPU (f32 train step, one scene, dropout 0): matched masks equal, "
+          f"losses within {worst:.2e} relative, grad_norm {m_gpu['grad_norm']:.5f} vs "
+          f"{m_cpu['grad_norm']:.5f} ({g_err:.2e})")
 
 
 def main() -> int:
@@ -300,29 +606,30 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached libraries'}")
     for name, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"  {name}: {line}")
 
     batches = [make_batch(np.random.default_rng(100 + r), batch_size=BATCH,
                           num_points=NUM_POINTS, num_semcls=20, num_angle_bin=12)
                for r in range(REQUESTS)]
     dev = torch.device("cuda")
-    entries = check_kernels(batches[0], dev)
-    counts = serve(batches, dev)
+    entries = {**check_kernels(batches[0], dev), **check_attention(dev)}
+    served = serve(batches, dev)
     card_vs_cpu(batches[0])
+    trained = train(dev)
+    counts = {name: served[name] + trained[name] for name in kernel_wrappers()}
+    train_card_vs_cpu()
 
-    from ov3det_torch.ops.kernels import attention, ball_group, fps
-    modules = {"fps": fps, "ball_group": ball_group, "attention_fwd": attention}
     kernels = []
-    for name, entry in entries.items():
-        require(counts[name] > 0, f"{name} was not launched on the serving path")
-        kernels.append({"name": name, "route": "cuda", "source": modules[name].SOURCE,
-                        "replaces": modules[name].REPLACES, "launches": counts[name], **entry})
+    for name, (source, replaces) in kernel_sources().items():
+        require(counts[name] > 0, f"{name} was not launched on the main paths")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": counts[name], **entries[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

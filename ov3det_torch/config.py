@@ -1,15 +1,18 @@
-"""Model configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-Copies of the model part of the JAX package's config tree
-(`ov3det/config.py:15-76, 238-251`), kept here so that the port imports
-nothing of the JAX package.  Field names and defaults are the same.
+Copies of the JAX package's config tree (`ov3det/config.py:15-134,
+191-251`): model, matcher, loss, optimiser, the data fields the training
+step reads, and the run config.  They are kept here so that the port
+imports nothing of the JAX package.  Field names and defaults are the same.
 
 Two fields of the JAX `ModelConfig` have no counterpart: `fps_shards` and
 `query_fps_shards` select an approximate strided FPS on non-TPU backends.
 The port always runs exact greedy FPS, as the TPU kernel does.
 
-Configurations outside the eval-mode vanilla-encoder slice raise
-`NotImplementedError`: the masked encoder and the `first_k` ball query.
+Configurations outside the ported slices raise `NotImplementedError`: the
+masked encoder, the `first_k` ball query, the 2D-alignment loss and the
+teacher.  `TeacherConfig` has no copy: the teacher comes with the
+open-vocabulary slice.
 """
 from __future__ import annotations
 
@@ -77,8 +80,91 @@ class ModelConfig:
             raise ValueError(f"unknown pos_embed {self.pos_embed!r}")
 
 
-def sunrgbd_quick() -> ModelConfig:
-    """Model part of reference scripts/sunrgbd_quick.sh, as the JAX package's
-    `sunrgbd_quick()` sets it.  Its data part is batch 8 of 20 000 points."""
-    return ModelConfig(num_semcls=20, num_angle_bin=12, num_queries=128,
-                       compute_dtype="bfloat16")
+@dataclass(frozen=True)
+class MatcherConfig:
+    """Hungarian matcher costs (reference main.py:89-93)."""
+
+    cost_class: float = 1.0
+    cost_objectness: float = 0.0
+    cost_center: float = 0.0
+    cost_giou: float = 2.0
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss weights (reference main.py:95-105).  `teacher_per_layer` of the
+    JAX config belongs to the teacher and has no copy."""
+
+    matcher: MatcherConfig = field(default_factory=MatcherConfig)
+    giou_weight: float = 0.0
+    sem_cls_weight: float = 1.0
+    no_object_weight: float = 0.2
+    angle_cls_weight: float = 0.1
+    angle_reg_weight: float = 0.5
+    center_weight: float = 5.0
+    size_weight: float = 1.0
+    alignment_2d_weight: float = 0.0
+    giou_compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    matcher_giou: str = "rotated"  # "rotated" | "axis_aligned"
+
+    def __post_init__(self):
+        if self.alignment_2d_weight > 0:
+            raise NotImplementedError(
+                "the 2D-alignment loss needs the teacher, which is not ported yet")
+        if self.giou_compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown giou_compute_dtype {self.giou_compute_dtype!r}")
+        if self.matcher_giou not in ("rotated", "axis_aligned"):
+            raise ValueError(f"unknown matcher_giou {self.matcher_giou!r}")
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """AdamW + cosine schedule (reference main.py:31-41, engine.py:22-44)."""
+
+    base_lr: float = 5e-4
+    warm_lr: float = 1e-6
+    warm_lr_epochs: int = 9
+    final_lr: float = 1e-6
+    weight_decay: float = 0.1
+    filter_biases_wd: bool = False
+    clip_gradient: float = 0.1
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The data fields the training step reads (`ov3det/config.py:137-188`);
+    paths, workers and the TPU transport's codecs are not copied."""
+
+    dataset_name: str = "scannet"
+    num_points: int = 40000
+    batch_size_per_device: int = 8
+    max_num_obj: int = 64
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Top-level run config (reference main.py:178-196): the fields the
+    training step and its schedule read."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    max_epoch: int = 720
+
+
+def sunrgbd_quick() -> TrainConfig:
+    """reference scripts/sunrgbd_quick.sh, as the JAX package's
+    `sunrgbd_quick()` sets it: GIoU weight 0, matcher objectness and center
+    costs 5; batch 8 of 20 000 points."""
+    return TrainConfig(
+        model=ModelConfig(num_semcls=20, num_angle_bin=12, num_queries=128,
+                          compute_dtype="bfloat16"),
+        loss=LossConfig(
+            matcher=MatcherConfig(cost_class=1.0, cost_objectness=5.0, cost_center=5.0,
+                                  cost_giou=3.0),
+            giou_weight=0.0,
+        ),
+        data=DataConfig(dataset_name="sunrgbd", num_points=20000),
+        max_epoch=90,
+    )

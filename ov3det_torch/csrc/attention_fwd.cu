@@ -3,7 +3,11 @@
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of
 // ov3det/ops/pallas/attention_kernel.py (called through `_attn_fwd` /
-// `fused_attention`) without its options: no radius bias, no dropout.
+// `fused_attention`) with its attention-weight dropout; the radius bias is
+// not ported yet.  Dropout multiplies the normalised probabilities by the
+// hash mask of `_drop_mask` (attention_common.cuh) before the PV product;
+// the running sum and the LSE come from the unmasked probabilities, as on
+// the TPU (attention_kernel.py:115-127).
 // q (BH, NQ, D), k and v (BH, NK, D) -> out (BH, NQ, D) in the input type and
 // lse (BH, NQ) f32.  Scores, max and sum are f32; for bf16 inputs the
 // probabilities are rounded to bf16 before the PV product and the product
@@ -21,63 +25,29 @@
 // score accumulators are reused in registers as the A operand of the PV
 // product, as in FlashAttention-2.  An online softmax walks the K tiles with
 // a running f32 max and sum, and the output is divided by the sum at the
-// end.  No pipelining of the tile loads yet, and no wgmma/TMA: later work.
+// end.  With dropout each probability is multiplied by its mask value
+// (0 or 1 / (1 - p)) before it is rounded to bf16 for the PV product.  No
+// pipelining of the tile loads yet, and no wgmma/TMA: later work.
 //
 // Design (f32, used when the model computes in f32): one thread per query
 // row, 64 rows per CTA, K and V tiles in shared memory, plain f32 FMA.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_common.cuh"
 
 #include <cmath>
 #include <cstdint>
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per CTA (16 per warp)
-constexpr int BK = 64;  // keys per tile
-constexpr int kThreads = 128;
+using namespace ov3;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_u16(unsigned short lo, unsigned short hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// d += a * b for one m16n8k16 tile: a row-major 16x16, b column-major 16x8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int rows) {
-  constexpr int LD = D + 8;
-  constexpr int VECS = D / 8;  // 16-byte vectors per row
-  for (int e = threadIdx.x; e < rows * VECS; e += kThreads) {
-    const int r = e / VECS, cv = e % VECS;
-    *reinterpret_cast<uint4*>(dst + r * LD + cv * 8) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + cv * 8);
-  }
-}
+constexpr int BQ = kTile;  // query rows per CTA (16 per warp)
+constexpr int BK = kTile;  // keys per tile
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, int NQ, int NK, float scale,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ lse) {
+              Dropout drop, __nv_bfloat16* __restrict__ out, float* __restrict__ lse) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) __nv_bfloat16 Qs[BQ * LD];
   __shared__ __align__(16) __nv_bfloat16 Ks[BK * LD];
@@ -88,24 +58,18 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
   const __nv_bfloat16* kg = k + static_cast<size_t>(bh) * NK * D;
   const __nv_bfloat16* vg = v + static_cast<size_t>(bh) * NK * D;
+  const uint32_t base = drop.active ? drop_base(*drop.seed, bh) : 0u;
 
   load_tile<D>(Qs, q + (static_cast<size_t>(bh) * NQ + q0) * D, BQ);
   __syncthreads();
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    qa[kc][0] = ld32(Qs + r0 * LD + kc * 16 + t4 * 2);
-    qa[kc][1] = ld32(Qs + (r0 + 8) * LD + kc * 16 + t4 * 2);
-    qa[kc][2] = ld32(Qs + r0 * LD + kc * 16 + 8 + t4 * 2);
-    qa[kc][3] = ld32(Qs + (r0 + 8) * LD + kc * 16 + 8 + t4 * 2);
-  }
+  load_a_frags<D>(qa, Qs, r0, t4);
 
   float o[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-  const unsigned short* Vu = reinterpret_cast<const unsigned short*>(Vs);
 
   for (int kt = 0; kt < NK; kt += BK) {
     __syncthreads();  // the previous tile is consumed
@@ -114,16 +78,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     __syncthreads();
 
     float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-      const __nv_bfloat16* krow = Ks + (n * 8 + g) * LD;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        mma_bf16(s[n], qa[kc][0], qa[kc][1], qa[kc][2], qa[kc][3],
-                 ld32(krow + kc * 16 + t4 * 2), ld32(krow + kc * 16 + 8 + t4 * 2));
-      }
-    }
+    rows_times_tile_t<D>(s, qa, Ks, g, t4);
 
     float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -165,23 +120,18 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       o[j][2] *= a1;
       o[j][3] *= a1;
     }
-
+    if (drop.active) {  // the sums above stay unmasked
 #pragma unroll
-    for (int t = 0; t < BK / 16; ++t) {
-      // score tiles 2t and 2t+1 (keys 16t .. 16t+15) as the A operand
-      const uint32_t pa0 = pack_bf16(s[2 * t][0], s[2 * t][1]);
-      const uint32_t pa1 = pack_bf16(s[2 * t][2], s[2 * t][3]);
-      const uint32_t pa2 = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
-      const uint32_t pa3 = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
-      const int kr = t * 16 + t4 * 2;
+      for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int col = j * 8 + g;
-        const uint32_t b0 = pack_u16(Vu[kr * LD + col], Vu[(kr + 1) * LD + col]);
-        const uint32_t b1 = pack_u16(Vu[(kr + 8) * LD + col], Vu[(kr + 9) * LD + col]);
-        mma_bf16(o[j], pa0, pa1, pa2, pa3, b0, b1);
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + r0 + (i >> 1) * 8;
+          const int col = kt + n * 8 + t4 * 2 + (i & 1);
+          s[n][i] *= drop_keep(base, row, col, drop.threshold) ? drop.keep_scale : 0.0f;
+        }
       }
     }
+    acc_times_tile<D>(o, s, Vs, g, t4);
   }
 
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
@@ -206,12 +156,14 @@ constexpr int BKF = 32;  // keys per tile of the f32 kernel
 template <int D>
 __global__ void __launch_bounds__(BQ)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, int NQ, int NK, float scale,
+             const float* __restrict__ v, int NQ, int NK, float scale, Dropout drop,
              float* __restrict__ out, float* __restrict__ lse) {
   __shared__ float Ks[BKF][D];
   __shared__ float Vs[BKF][D];
   const int bh = blockIdx.y;
-  const size_t row = static_cast<size_t>(bh) * NQ + blockIdx.x * BQ + threadIdx.x;
+  const int qrow = blockIdx.x * BQ + threadIdx.x;
+  const size_t row = static_cast<size_t>(bh) * NQ + qrow;
+  const uint32_t base = drop.active ? drop_base(*drop.seed, bh) : 0u;
   const float* kg = k + static_cast<size_t>(bh) * NK * D;
   const float* vg = v + static_cast<size_t>(bh) * NK * D;
   float qr[D], acc[D];
@@ -249,6 +201,11 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     l = l * a + rs;
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] *= a;
+    if (drop.active) {  // after the unmasked sum
+#pragma unroll
+      for (int j = 0; j < BKF; ++j)
+        s[j] *= drop_keep(base, qrow, kt + j, drop.threshold) ? drop.keep_scale : 0.0f;
+    }
 #pragma unroll
     for (int j = 0; j < BKF; ++j) {
 #pragma unroll
@@ -263,17 +220,18 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, int BH, int NQ, int NK,
-                   int is_bf16, float scale, void* out, float* lse, cudaStream_t s) {
+                   int is_bf16, float scale, Dropout drop, void* out, float* lse,
+                   cudaStream_t s) {
   const dim3 grid(NQ / BQ, BH);
   if (is_bf16) {
     attn_fwd_bf16<D><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), NQ, NK, scale,
+        static_cast<const __nv_bfloat16*>(v), NQ, NK, scale, drop,
         static_cast<__nv_bfloat16*>(out), lse);
   } else {
     attn_fwd_f32<D><<<grid, BQ, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), NQ, NK, scale, static_cast<float*>(out), lse);
+        static_cast<const float*>(v), NQ, NK, scale, drop, static_cast<float*>(out), lse);
   }
   return cudaGetLastError();
 }
@@ -282,16 +240,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, int BH, int NQ, 
 
 // q (BH, NQ, D), k and v (BH, NK, D), contiguous, bf16 (is_bf16 = 1) or f32;
 // out (BH, NQ, D) of the same type, lse (BH, NQ) f32.  NQ and NK multiples
-// of 64; D one of 16, 32, 64.  Returns a cudaError_t.
+// of 64; D one of 16, 32, 64.  Dropout is on when `dropout` is 1: `seed`
+// points to one int32 on the device, keep_scale = 1 / (1 - p) and
+// threshold = min(int(p * 2^32), 2^32 - 1).  Returns a cudaError_t.
 extern "C" int ov3_attention_fwd(const void* q, const void* k, const void* v, int BH,
                                  int NQ, int NK, int D, int is_bf16, float scale,
-                                 void* out, float* lse, cudaStream_t stream) {
-  if (BH <= 0 || NQ <= 0 || NK <= 0 || NQ % BQ != 0 || NK % BK != 0)
+                                 int dropout, const int* seed, float keep_scale,
+                                 unsigned int threshold, void* out, float* lse,
+                                 cudaStream_t stream) {
+  if (BH <= 0 || NQ <= 0 || NK <= 0 || NQ % BQ != 0 || NK % BK != 0 ||
+      (dropout && seed == nullptr))
     return cudaErrorInvalidValue;
+  const Dropout drop{seed, keep_scale, threshold, dropout};
   switch (D) {
-    case 16: return launch<16>(q, k, v, BH, NQ, NK, is_bf16, scale, out, lse, stream);
-    case 32: return launch<32>(q, k, v, BH, NQ, NK, is_bf16, scale, out, lse, stream);
-    case 64: return launch<64>(q, k, v, BH, NQ, NK, is_bf16, scale, out, lse, stream);
+    case 16: return launch<16>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, out, lse, stream);
+    case 32: return launch<32>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, out, lse, stream);
+    case 64: return launch<64>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, out, lse, stream);
     default: return cudaErrorInvalidValue;
   }
 }

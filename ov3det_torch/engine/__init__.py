@@ -1,1 +1,1 @@
-"""Entry points of the port: the eval step and the detector."""
+"""Entry points of the port: the eval step, the detector and the training step."""

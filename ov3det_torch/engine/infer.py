@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ov3det_torch.config import ModelConfig
+from ov3det_torch.config import ModelConfig, TrainConfig
 from ov3det_torch.eval.parse import assemble_predictions, parse_predictions
 from ov3det_torch.models.detr3d import Model3DETR, last_layer_outputs
 
@@ -21,9 +21,10 @@ INPUT_KEYS = ("point_clouds", "point_cloud_dims_min", "point_cloud_dims_max")
 
 def make_eval_step(model: Model3DETR):
     """Eval forward: batch dict of tensors -> the final decoder layer's
-    outputs (what evaluation consumes)."""
+    outputs (what evaluation consumes).  Puts the model in eval mode."""
 
     def eval_step(batch: dict) -> dict:
+        model.eval()
         with torch.inference_mode():
             return last_layer_outputs(model({k: batch[k] for k in INPUT_KEYS}))
 
@@ -34,13 +35,16 @@ class Detector:
     """A detector on one device: `detect(batch)` returns one
     `(classes (M,), corners (M, 8, 3), scores (M,))` triple per scene.
 
+    `cfg` is a `TrainConfig` (its model part is used) or a `ModelConfig`.
     `state_dict` is a port state_dict (see `models.convert`); without one the
     weights are the seeded random initialisation.  `device` defaults to
     CUDA and raises when no card is present.
     """
 
-    def __init__(self, cfg: ModelConfig, state_dict: Optional[dict] = None,
+    def __init__(self, cfg: TrainConfig | ModelConfig, state_dict: Optional[dict] = None,
                  device=None, seed: int = 0):
+        if isinstance(cfg, TrainConfig):
+            cfg = cfg.model
         self.model = Model3DETR(cfg, device=device, seed=seed)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)

@@ -1,6 +1,6 @@
 """Box codecs and coordinate-frame transforms in torch.
 
-Counterpart of `ov3det/geometry/boxes.py:35-179`; same conventions:
+Counterpart of `ov3det/geometry/boxes.py:35-190`; same conventions:
 points in upright-depth coords (X right, Y forward, Z up), box corners in
 camera coords (X right, Y down, Z forward), corners 0-3 the top face.
 Every function works on arbitrary leading batch dims.
@@ -67,6 +67,19 @@ def corners_from_upright_depth_param(center_depth, size, angle) -> torch.Tensor:
     return box_corners_from_param(size, angle, flip_axis_to_camera(center_depth))
 
 
+def gt_corners_upright_depth(center, half_size, heading) -> torch.Tensor:
+    """Upright-depth corners (..., 8, 3) of a half-size parametrised GT box:
+    rotz(-heading) of the (+-l, +-w, +-h) half extents (reference
+    datasets/sunrgbd.py:155-165)."""
+    signs = half_size.new_tensor
+    sx = half_size[..., 0:1] * signs((-1.0, 1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0))
+    sy = half_size[..., 1:2] * signs((1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0))
+    sz = half_size[..., 2:3] * signs((1.0, 1.0, 1.0, 1.0, -1.0, -1.0, -1.0, -1.0))
+    local = torch.stack([sx, sy, sz], dim=-1)
+    rotated = torch.einsum("...kj,...ij->...ki", local, rotz_batch(-heading))
+    return rotated + center[..., None, :]
+
+
 def shift_scale_points(xyz, src_range, dst_range=None) -> torch.Tensor:
     """Affine-map (B, N, 3) points from the src AABB range into dst range
     (default the unit box); ranges are pairs of (B, 3) min/max."""
@@ -80,6 +93,18 @@ def shift_scale_points(xyz, src_range, dst_range=None) -> torch.Tensor:
     return (xyz - src_min[:, None, :]) * dst_diff / src_diff + dst_min[:, None, :]
 
 
+def angle_to_bin(angle: torch.Tensor, num_bins: int):
+    """Continuous heading -> (bin id int64, residual): bin centres at
+    k * 2 pi / num_bins, residual in [-pi / num_bins, pi / num_bins)
+    (reference datasets/sunrgbd.py:102-120)."""
+    two_pi = 2.0 * math.pi
+    per = two_pi / num_bins
+    shifted = torch.remainder(torch.remainder(angle, two_pi) + per / 2.0, two_pi)
+    cls = torch.floor(shifted / per).to(torch.int64)
+    residual = shifted - (cls.to(angle.dtype) * per + per / 2.0)
+    return cls, residual
+
+
 def bin_to_angle(cls, residual, num_bins: int, to_label_format: bool = True):
     """Heading bin + residual -> angle, optionally wrapped to (-pi, pi]
     (reference datasets/sunrgbd.py:122-140)."""
@@ -88,3 +113,13 @@ def bin_to_angle(cls, residual, num_bins: int, to_label_format: bool = True):
     if to_label_format:
         angle = torch.where(angle > math.pi, angle - 2.0 * math.pi, angle)
     return angle
+
+
+def box_volume_from_corners(corners: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Volume of (..., 8, 3) corners from the three edge lengths at corner 0,
+    each squared length clamped at eps (reference utils/box_util.py:443-463)."""
+    def edge(i, j):
+        d = corners[..., i, :] - corners[..., j, :]
+        return torch.sqrt(torch.clamp((d * d).sum(-1), min=eps))
+
+    return edge(0, 1) * edge(1, 2) * edge(0, 4)

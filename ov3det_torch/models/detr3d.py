@@ -1,4 +1,4 @@
-"""3DETR open-vocabulary detector in PyTorch, eval mode.
+"""3DETR open-vocabulary detector in PyTorch.
 
 Counterpart of `ov3det/models/detr3d.py:57-288` with the vanilla encoder:
 
@@ -13,6 +13,13 @@ text-embedding matrix (`text_embed`, a buffer), the intended logits of the
 JAX package (not the reference's query-class scrambled ones).  Outputs keep
 the JAX dtypes: at bf16 compute the heads' outputs are bf16, the logits,
 boxes and coordinates f32.
+
+Training mode (`model.train()`) is the forward of `make_train_step`:
+BatchNorm on batch statistics (updating the running ones), the dropout sites
+of the encoder, the decoder and the heads (`mlp_dropout`), each mask drawn
+from the `torch.Generator` given to `forward`.  The class probabilities
+(`objectness_prob`, `sem_cls_prob`) carry no gradient, as at
+`ov3det/models/detr3d.py:259`.
 """
 from __future__ import annotations
 
@@ -67,7 +74,8 @@ class Model3DETR(nn.Module):
     """The detector.  Built on `device` (CUDA unless the caller passes
     "cpu"; raises when CUDA is asked for and absent) with weights drawn from
     a `torch.Generator` seeded with `seed`, on the CPU, so one seed gives the
-    same weights on every device.  Eval mode only in this slice."""
+    same weights on every device.  Built in eval mode; `.train()` switches to
+    the training forward."""
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
@@ -81,7 +89,7 @@ class Model3DETR(nn.Module):
             mlp_dims=tuple(cfg.preenc_mlp[:-1]) + (enc.dim,), compute_dtype=dtype,
         )
         self.encoder = TransformerEncoder(enc.num_layers, enc.dim, enc.num_heads,
-                                          enc.ffn_dim, enc.activation, dtype)
+                                          enc.ffn_dim, enc.dropout, enc.activation, dtype)
         self.encoder_to_decoder_projection = GenericMLP(
             enc.dim, [enc.dim, enc.dim], dec.dim, norm="bn",
             output_use_activation=True, output_use_norm=True, output_use_bias=False,
@@ -91,11 +99,11 @@ class Model3DETR(nn.Module):
             dec.dim, [dec.dim], dec.dim, hidden_use_bias=True, output_use_activation=True,
         )
         self.decoder = TransformerDecoder(dec.num_layers, dec.dim, dec.num_heads,
-                                          dec.ffn_dim, dtype)
+                                          dec.ffn_dim, dec.dropout, dtype)
 
         def head(out_dim):
             return GenericMLP(dec.dim, [dec.dim, dec.dim], out_dim, norm="bn",
-                              compute_dtype=dtype)
+                              dropout=cfg.mlp_dropout, compute_dtype=dtype)
 
         self.visual_embed_head = head(cfg.clip_embed_dim)
         self.center_head = head(3)
@@ -116,12 +124,12 @@ class Model3DETR(nn.Module):
         with torch.no_grad():
             self.text_embed.normal_(generator=generator).div_(math.sqrt(self.cfg.clip_embed_dim))
 
-    def forward(self, inputs: dict) -> dict:
+    def forward(self, inputs: dict, generator: torch.Generator | None = None) -> dict:
         """inputs: point_clouds (B, N, 3 [+3 color]), point_cloud_dims_min/max
         (B, >=3).  Returns the outputs of `ov3det/models/detr3d.py:260-276`,
-        stacked (L, B, Q, ...), plus query_xyz (B, Q, 3) and query_inds (B, Q)."""
-        if self.training:
-            raise NotImplementedError("the training forward is not ported yet; call .eval()")
+        stacked (L, B, Q, ...), plus query_xyz (B, Q, 3) and query_inds (B, Q).
+        `generator` (on the inputs' device) draws the dropout masks of the
+        training forward; eval mode draws nothing."""
         cfg = self.cfg
         pc = inputs["point_clouds"]
         expected = 6 if cfg.use_color else 3
@@ -133,7 +141,7 @@ class Model3DETR(nn.Module):
         feats = pc[..., 3:] if cfg.use_color else None
 
         pre_xyz, pre_feats, _ = self.pre_encoder(xyz, feats)
-        enc_xyz, enc_feats, _ = self.encoder(pre_feats, pre_xyz)
+        enc_xyz, enc_feats, _ = self.encoder(pre_feats, pre_xyz, generator=generator)
         enc_feats = self.encoder_to_decoder_projection(enc_feats)
 
         query_inds = furthest_point_sample(enc_xyz, cfg.num_queries)
@@ -141,14 +149,14 @@ class Model3DETR(nn.Module):
         query_embed = self.query_projection(self.pos_embedding(query_xyz, (pc_min, pc_max)))
         enc_pos = self.pos_embedding(enc_xyz, (pc_min, pc_max))
         box_features = self.decoder(torch.zeros_like(query_embed), enc_feats,
-                                    query_pos=query_embed, mem_pos=enc_pos)
+                                    query_pos=query_embed, mem_pos=enc_pos, generator=generator)
 
-        visual_embeds = self.visual_embed_head(box_features)
+        visual_embeds = self.visual_embed_head(box_features, generator)
         cls_logits = torch.matmul(visual_embeds.float(), self.text_embed.t())
-        center_offset = torch.sigmoid(self.center_head(box_features)) - 0.5
-        size_normalized = torch.sigmoid(self.size_head(box_features))
-        angle_logits = self.angle_cls_head(box_features)
-        angle_residual_normalized = self.angle_residual_head(box_features)
+        center_offset = torch.sigmoid(self.center_head(box_features, generator)) - 0.5
+        size_normalized = torch.sigmoid(self.size_head(box_features, generator))
+        angle_logits = self.angle_cls_head(box_features, generator)
+        angle_residual_normalized = self.angle_residual_head(box_features, generator)
         angle_residual = angle_residual_normalized * (math.pi / cfg.num_angle_bin)
 
         center_norm, center_unnorm, size_unnorm, angle, corners = decode_boxes(
@@ -157,7 +165,7 @@ class Model3DETR(nn.Module):
             query_xyz=query_xyz, pc_min=pc_min, pc_max=pc_max,
             num_angle_bin=cfg.num_angle_bin,
         )
-        probs = torch.softmax(cls_logits, dim=-1)
+        probs = torch.softmax(cls_logits.detach(), dim=-1)
         return {
             "visual_embeds": visual_embeds,
             "sem_cls_logits": cls_logits,

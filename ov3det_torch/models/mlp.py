@@ -8,8 +8,10 @@ PyTorch habit:
   * `LayerNorm` and `BatchNorm` compute in f32 whatever their input and
     return f32, so the residual stream stays f32.
   * Parameters are stored in f32 and cast at use.
-BatchNorm normalises each channel over all leading axes; this slice runs it
-in eval mode only (running statistics).
+BatchNorm normalises each channel over all leading axes, with flax's
+training-mode statistics (below).  Dropout follows flax `nn.Dropout`: per
+element, kept values divided by the keep probability in the input's dtype,
+with the mask drawn from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -21,6 +23,18 @@ import torch.nn.functional as F
 from torch import nn
 
 _TRUNC_STD = 0.87962566103423978  # std of the unit normal truncated to [-2, 2]
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout` in training: each element kept with probability
+    1 - rate (uniform draw below it) and divided by it, else zeroed."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("training-mode dropout needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 class Dense(nn.Linear):
@@ -80,10 +94,15 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax `nn.BatchNorm` over all leading axes, eval mode (running stats).
+    """flax `nn.BatchNorm` (momentum 0.9, eps 1e-5) over all leading axes.
 
-    Training-mode statistics (flax momentum 0.9, biased variance) come with
-    the training step.
+    Eval mode normalises with the running statistics.  Training mode, as
+    flax computes it: the batch mean and the fast biased variance
+    mean(x^2) - mean^2 (clamped at 0) in f32 over every axis but the last,
+    the input normalised with them (the gradient flows through both), and
+    the running statistics updated in place to 0.9 old + 0.1 batch with the
+    biased variance.  `torch.nn.functional.batch_norm` would keep the
+    unbiased variance instead.
     """
 
     def __init__(self, dim: int, eps: float = 1e-5):
@@ -102,26 +121,32 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet; call .eval()")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+        x = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
+                self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class GenericMLP(nn.Module):
-    """Counterpart of flax `GenericMLP`: Dense [+ norm] + ReLU per hidden
-    width, then the output Dense [+ norm] [+ ReLU].  Dropout
-    sites are identities in eval mode and are not built here."""
+    """Counterpart of flax `GenericMLP`: Dense [+ norm] + ReLU [+ dropout in
+    training] per hidden width, then the output Dense [+ norm] [+ ReLU]."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int], output_dim: int,
-                 norm: Optional[str] = None,
+                 norm: Optional[str] = None, dropout: float = 0.0,
                  hidden_use_bias: bool = False, output_use_bias: bool = True,
                  output_use_activation: bool = False, output_use_norm: bool = False,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if norm not in (None, "bn"):  # the detector's MLPs use no other
             raise ValueError(f"unknown norm {norm!r}")
+        self.dropout = dropout
         self.output_use_activation = output_use_activation
         dims = [in_dim, *hidden_dims]
         self.layers = nn.ModuleList(
@@ -135,13 +160,15 @@ class GenericMLP(nn.Module):
             norm_dims.append(output_dim)
         self.norms = nn.ModuleList(BatchNorm(d) for d in norm_dims)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         n_hidden = len(self.layers) - 1
         for i in range(n_hidden):
             x = self.layers[i](x)
             if self.norms:
                 x = self.norms[i](x)
             x = F.relu(x)
+            if self.training:
+                x = dropout(x, self.dropout, generator)
         x = self.layers[-1](x)
         if len(self.norms) > n_hidden:
             x = self.norms[-1](x)

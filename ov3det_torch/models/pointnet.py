@@ -4,6 +4,9 @@ Counterpart of `ov3det/models/pointnet.py:31-87` on its bucketed path:
 FPS -> fused ball-group (the kernels) -> shared MLP (Dense + BatchNorm + ReLU
 per width) -> max-pool over the neighbour axis.  The ball-group emits the
 neighbour-major (B, K, M, 3 + C) layout, so the pool reduces axis 1.
+In training mode the BatchNorms use the batch statistics.  No gradient
+reaches the grouped coordinates: the selection carries none in JAX either,
+and the detector passes no features.
 """
 from __future__ import annotations
 

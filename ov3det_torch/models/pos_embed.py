@@ -3,8 +3,10 @@
 Counterpart of `ov3det/models/pos_embed.py` at its defaults (3-d input,
 Gaussian scale 1, coordinates normalised to the scene's box, temperature
 1e4, scale 2 pi); output (B, N, d_pos) channels-last.  `gauss_B` is a
-parameter, as in the JAX package (which keeps it in params and stops its
-gradient at use); the original torch code held it as a buffer.
+parameter, as in the JAX package (`ov3det/models/pos_embed.py:38-46`, which
+keeps it in params and stops its gradient at use), so its `.grad` stays
+None; the training step's AdamW still decays it, as optax does.  The
+original torch code held it as a buffer.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ class PositionEmbeddingCoords(nn.Module):
         if pos_type == "fourier":
             if d_pos % 2:
                 raise ValueError("fourier embedding needs an even d_pos")
-            self.gauss_B = nn.Parameter(torch.zeros(3, d_pos // 2), requires_grad=False)
+            self.gauss_B = nn.Parameter(torch.zeros(3, d_pos // 2))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         if self.pos_type == "fourier":

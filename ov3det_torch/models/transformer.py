@@ -1,16 +1,27 @@
 """Pre-norm transformer encoder/decoder for point tokens.
 
-Counterpart of `ov3det/models/transformer.py:42-66, 138-213, 262-322`
-(vanilla encoder and decoder, eval mode: the dropout sites are identities
-and are not built).  Layout is channels-last (B, N, C); the multi-head
-attention keeps flax's (B, N, H, D) head layout.
+Counterpart of `ov3det/models/transformer.py:42-93, 138-213, 262-322`
+(vanilla encoder and decoder).  Layout is channels-last (B, N, C); the
+multi-head attention keeps flax's (B, N, H, D) head layout.
 
 Attention dispatch, as `fused_attention_eligible` without its TPU test:
 shapes with NQ * NK >= 1M, NQ and NK multiples of 128 and D a multiple of 8
-(the encoder's 2048 x 2048 self-attention) go through the attention kernel
-wrapper; every other attention (the decoder's 128 x 128 self- and
-128 x 2048 cross-attention) is the plain matmul + softmax of flax's
-`nn.dot_product_attention`, in the working dtype.
+(the encoder's 2048 x 2048 self-attention) go through the fused attention
+(`ops.kernels.attention.fused_attention`: the CUDA kernels forward and
+backward, an autograd function); every other attention (the decoder's
+128 x 128 self- and 128 x 2048 cross-attention) is the plain matmul +
+softmax of flax's `nn.dot_product_attention`, in the working dtype.
+
+Training-mode dropout, as the JAX package has it:
+  * residual and FFN dropouts per element (flax `nn.Dropout`);
+  * attention-weight dropout on the fused path per (b, h, q, k), from the
+    kernel's hash of an int32 seed drawn from the generator;
+  * attention-weight dropout on the plain path with ONE (NQ, NK) mask
+    shared across batch and heads: flax's `MultiHeadDotProductAttention`
+    drops the `broadcast_dropout` argument for an attention function that
+    does not take it, so `nn.dot_product_attention` runs with its default
+    `broadcast_dropout=True`.
+Every mask comes from the `torch.Generator` passed to `forward`.
 """
 from __future__ import annotations
 
@@ -21,8 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ov3det_torch.models.mlp import Dense, LayerNorm
-from ov3det_torch.ops.kernels.attention import attention_fwd
+from ov3det_torch.models.mlp import Dense, LayerNorm, dropout
+from ov3det_torch.ops.kernels.attention import fused_attention
 
 ACTIVATIONS = {  # the encoder's choices (EncoderConfig.activation)
     "relu": F.relu,
@@ -36,32 +47,44 @@ def fused_attention_eligible(NQ: int, NK: int, D: int) -> bool:
     return NQ % 128 == 0 and NK % 128 == 0 and D % 8 == 0 and NQ * NK >= 1024 * 1024
 
 
-def dot_product_attention(q, k, v) -> torch.Tensor:
-    """flax `nn.dot_product_attention` without mask or dropout: q scaled by
-    1/sqrt(D), scores, softmax and the value product all in q's dtype.
-    q (B, NQ, H, D), k and v (B, NK, H, D) -> (B, NQ, H, D)."""
+def dot_product_attention(q, k, v, dropout_rate: float = 0.0,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax `nn.dot_product_attention` without mask: q scaled by 1/sqrt(D),
+    scores, softmax and the value product all in q's dtype.  With dropout
+    the weights are multiplied by keep / keep_prob in that dtype, `keep` one
+    (NQ, NK) draw broadcast over batch and heads (flax's default
+    `broadcast_dropout=True`).  q (B, NQ, H, D), k and v (B, NK, H, D) ->
+    (B, NQ, H, D)."""
     depth = q.shape[-1]
     q = q / torch.tensor(math.sqrt(depth), dtype=torch.float32).to(q.dtype)
     w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("training-mode attention dropout needs a torch.Generator")
+        keep_prob = 1.0 - dropout_rate
+        keep = torch.rand(w.shape[-2:], generator=generator, device=w.device) < keep_prob
+        w = w * (keep.to(w.dtype) / torch.tensor(keep_prob, dtype=w.dtype))  # a CPU scalar: no copy
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 class MultiheadAttention(nn.Module):
     """flax `nn.MultiHeadDotProductAttention` (qkv_features = out_features =
-    dim) with the port's attention dispatch."""
+    dim) with the port's attention dispatch and, in training, attention-weight
+    dropout at `dropout`."""
 
-    def __init__(self, dim: int, num_heads: int,
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
         self.num_heads = num_heads
+        self.dropout = dropout
         self.q_proj = Dense(dim, dim, compute_dtype=compute_dtype, init="xavier")
         self.k_proj = Dense(dim, dim, compute_dtype=compute_dtype, init="xavier")
         self.v_proj = Dense(dim, dim, compute_dtype=compute_dtype, init="xavier")
         self.out_proj = Dense(dim, dim, compute_dtype=compute_dtype, init="xavier")
 
-    def forward(self, q_in, k_in, v_in) -> torch.Tensor:
+    def forward(self, q_in, k_in, v_in, generator: Optional[torch.Generator] = None):
         B, NQ, _ = q_in.shape
         NK = k_in.shape[1]
         H = self.num_heads
@@ -69,14 +92,21 @@ class MultiheadAttention(nn.Module):
         k = self.k_proj(k_in).view(B, NK, H, -1)
         v = self.v_proj(v_in).view(B, NK, H, -1)
         D = q.shape[-1]
+        rate = self.dropout if self.training else 0.0
         if fused_attention_eligible(NQ, NK, D):
             def heads(x, n):  # (B, N, H, D) -> (B*H, N, D); at B = 1 reshape is a strided view
                 return x.transpose(1, 2).reshape(B * H, n, D).contiguous()
 
-            out, _ = attention_fwd(heads(q, NQ), heads(k, NK), heads(v, NK))
+            seed = None
+            if rate > 0.0:
+                if generator is None:
+                    raise ValueError("training-mode attention dropout needs a torch.Generator")
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=q.device, dtype=torch.int32)
+            out = fused_attention(heads(q, NQ), heads(k, NK), heads(v, NK), rate, seed)
             out = out.view(B, H, NQ, D).transpose(1, 2)
         else:
-            out = dot_product_attention(q, k, v)
+            out = dot_product_attention(q, k, v, rate, generator)
         return self.out_proj(out.reshape(B, NQ, H * D))
 
 
@@ -87,64 +117,72 @@ def _with_pos(x, pos):
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm self-attention layer (reference models/transformer.py:213-295)."""
 
-    def __init__(self, dim: int, num_heads: int = 4, ffn_dim: int = 128,
+    def __init__(self, dim: int, num_heads: int = 4, ffn_dim: int = 128, dropout: float = 0.1,
                  activation: str = "relu", compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.act = ACTIVATIONS[activation]
+        self.dropout = dropout
         self.norm1 = LayerNorm(dim)
-        self.self_attn = MultiheadAttention(dim, num_heads, compute_dtype)
+        self.self_attn = MultiheadAttention(dim, num_heads, dropout, compute_dtype)
         self.norm2 = LayerNorm(dim)
         self.linear1 = Dense(dim, ffn_dim, compute_dtype=compute_dtype, init="xavier")
         self.linear2 = Dense(ffn_dim, dim, compute_dtype=compute_dtype, init="xavier")
 
-    def forward(self, x, pos=None):
+    def forward(self, x, pos=None, generator: Optional[torch.Generator] = None):
+        rate = self.dropout if self.training else 0.0
         y = self.norm1(x)
         qk = _with_pos(y, pos)
-        x = x + self.self_attn(qk, qk, y)
-        y = self.norm2(x)
-        return x + self.linear2(self.act(self.linear1(y)))
+        x = x + dropout(self.self_attn(qk, qk, y, generator), rate, generator)
+        y = dropout(self.act(self.linear1(self.norm2(x))), rate, generator)
+        return x + dropout(self.linear2(y), rate, generator)
 
 
 class TransformerEncoder(nn.Module):
     """Vanilla encoder: full self-attention over all point tokens."""
 
     def __init__(self, num_layers: int, dim: int, num_heads: int = 4, ffn_dim: int = 128,
-                 activation: str = "relu", compute_dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, activation: str = "relu",
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(dim, num_heads, ffn_dim, activation, compute_dtype)
+            TransformerEncoderLayer(dim, num_heads, ffn_dim, dropout, activation, compute_dtype)
             for _ in range(num_layers)
         )
 
-    def forward(self, feats, xyz, pos=None):
+    def forward(self, feats, xyz, pos=None, generator: Optional[torch.Generator] = None):
         """Returns (xyz, feats, None): the vanilla encoder does not downsample."""
         for layer in self.layers:
-            feats = layer(feats, pos=pos)
+            feats = layer(feats, pos=pos, generator=generator)
         return xyz, feats, None
 
 
 class TransformerDecoderLayer(nn.Module):
     """Pre-norm self + cross attention (reference models/transformer.py:298-393)."""
 
-    def __init__(self, dim: int, num_heads: int = 4, ffn_dim: int = 256,
+    def __init__(self, dim: int, num_heads: int = 4, ffn_dim: int = 256, dropout: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = LayerNorm(dim)
-        self.self_attn = MultiheadAttention(dim, num_heads, compute_dtype)
+        self.self_attn = MultiheadAttention(dim, num_heads, dropout, compute_dtype)
         self.norm2 = LayerNorm(dim)
-        self.cross_attn = MultiheadAttention(dim, num_heads, compute_dtype)
+        self.cross_attn = MultiheadAttention(dim, num_heads, dropout, compute_dtype)
         self.norm3 = LayerNorm(dim)
         self.linear1 = Dense(dim, ffn_dim, compute_dtype=compute_dtype, init="xavier")
         self.linear2 = Dense(ffn_dim, dim, compute_dtype=compute_dtype, init="xavier")
 
-    def forward(self, tgt, memory, query_pos=None, mem_pos=None):
+    def forward(self, tgt, memory, query_pos=None, mem_pos=None,
+                generator: Optional[torch.Generator] = None):
+        rate = self.dropout if self.training else 0.0
         y = self.norm1(tgt)
         qk = _with_pos(y, query_pos)
-        tgt = tgt + self.self_attn(qk, qk, y)
+        tgt = tgt + dropout(self.self_attn(qk, qk, y, generator), rate, generator)
         y = self.norm2(tgt)
-        tgt = tgt + self.cross_attn(_with_pos(y, query_pos), _with_pos(memory, mem_pos), memory)
-        y = self.norm3(tgt)
-        return tgt + self.linear2(torch.relu(self.linear1(y)))
+        ca = self.cross_attn(_with_pos(y, query_pos), _with_pos(memory, mem_pos), memory,
+                             generator)
+        tgt = tgt + dropout(ca, rate, generator)
+        y = dropout(torch.relu(self.linear1(self.norm3(tgt))), rate, generator)
+        return tgt + dropout(self.linear2(y), rate, generator)
 
 
 class TransformerDecoder(nn.Module):
@@ -152,17 +190,18 @@ class TransformerDecoder(nn.Module):
     as (num_layers, B, Q, C) (reference models/transformer.py:114-139)."""
 
     def __init__(self, num_layers: int, dim: int, num_heads: int = 4, ffn_dim: int = 256,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.norm = LayerNorm(dim)
         self.layers = nn.ModuleList(
-            TransformerDecoderLayer(dim, num_heads, ffn_dim, compute_dtype)
+            TransformerDecoderLayer(dim, num_heads, ffn_dim, dropout, compute_dtype)
             for _ in range(num_layers)
         )
 
-    def forward(self, tgt, memory, query_pos=None, mem_pos=None):
+    def forward(self, tgt, memory, query_pos=None, mem_pos=None,
+                generator: Optional[torch.Generator] = None):
         inter = []
         for layer in self.layers:
-            tgt = layer(tgt, memory, query_pos=query_pos, mem_pos=mem_pos)
+            tgt = layer(tgt, memory, query_pos=query_pos, mem_pos=mem_pos, generator=generator)
             inter.append(self.norm(tgt))
         return torch.stack(inter, dim=0)

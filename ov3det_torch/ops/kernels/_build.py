@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 with `nvcc -gencode arch=compute_90a,code=sm_90a` into
 `ov3det_torch/_build/lib<name>-<hash>.so` at first use.  The hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing here runs at import time: the CPU tests import
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is.  Nothing here runs at import time: the CPU tests import
 every module on machines without nvcc or a card.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("fps", "ball_group", "attention_fwd")
+KERNEL_SOURCES = ("fps", "ball_group", "attention_fwd", "attention_bwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,6 +42,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,15 +1,32 @@
-"""Attention forward: the CUDA kernel's wrapper and its plain version.
+"""Fused attention: the CUDA kernels' wrappers, their plain versions, and
+the autograd function that joins them.
 
-The kernel (`ov3det_torch/csrc/attention_fwd.cu`) replaces the Pallas TPU
-kernel `_fwd_kernel` (`ov3det/ops/pallas/attention_kernel.py:106`) as
-`_attn_fwd` calls it on the main path: no dropout, no radius bias.
-q (BH, NQ, D), k and v (BH, NK, D) -> (out (BH, NQ, D) in q's dtype,
-lse (BH, NQ, 1) f32).  Scores and softmax are f32 whatever the input type.
+The kernels replace the Pallas TPU kernels of
+`ov3det/ops/pallas/attention_kernel.py` as `_attn` / `_attn_bwd` call them
+on the main path, with attention-weight dropout and without the radius bias:
+  * `attention_fwd` (`csrc/attention_fwd.cu`) replaces `_fwd_kernel`:
+    q (BH, NQ, D), k and v (BH, NK, D) -> (out (BH, NQ, D) in q's dtype,
+    lse (BH, NQ, 1) f32);
+  * `attention_dq` and `attention_dkv` (`csrc/attention_bwd.cu`) replace
+    `_dq_kernel` and `_dkv_kernel`: dq, and dk with dv, from the saved LSE
+    and delta = rowsum(dO * out).
+Scores and softmax are f32 whatever the input type.  Dropout zeroes a
+probability where the hash of (seed, bh, row, col) of `_drop_mask`
+(`attention_kernel.py:48-72`) is below min(int(p 2^32), 2^32 - 1) and
+scales the rest by f32 1 / (1 - p), so the forward and both backward
+kernels regenerate the same mask from indices alone.  `seed` is an int32
+tensor of one element on the tensors' device (the kernels read it there;
+no host sync).
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch in
+`.launches`; CPU tensors take the plain version, and a CUDA tensor never
+does.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,9 +35,14 @@ from ov3det_torch.ops.kernels import _build
 
 SOURCE = "ov3det_torch/csrc/attention_fwd.cu"
 REPLACES = "ov3det/ops/pallas/attention_kernel.py:106"
+BWD_SOURCE = "ov3det_torch/csrc/attention_bwd.cu"
+DQ_REPLACES = "ov3det/ops/pallas/attention_kernel.py:130"
+DKV_REPLACES = "ov3det/ops/pallas/attention_kernel.py:155"
 
-_HEAD_DIMS = (16, 32, 64)  # head widths the kernel is instantiated for
-_TILE = 64  # NQ and NK must be multiples of the kernel's row and key tiles
+_HEAD_DIMS = (16, 32, 64)  # head widths the kernels are instantiated for
+_TILE = 64  # NQ and NK must be multiples of the kernels' row and key tiles
+_MASK32 = 0xFFFFFFFF
+_HASH = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)  # seed, bh, row, col
 
 
 def _scale(D: int) -> float:
@@ -28,67 +50,245 @@ def _scale(D: int) -> float:
     return float(np.float32(1.0 / math.sqrt(D)))
 
 
-def attention_fwd_plain(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
+def dropout_params(rate: float) -> tuple[float, int]:
+    """(keep_scale, threshold) of the TPU kernels: f32(1 / (1 - p)) and
+    min(int(p * 2^32), 2^32 - 1)."""
+    return float(np.float32(1.0 / (1.0 - rate))), min(int(rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 a in [0, 2^32) and a 32-bit constant,
+    multiplied in 16-bit halves so that no int64 product overflows."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def drop_mask(seed: torch.Tensor, BH: int, NQ: int, NK: int, rate: float) -> torch.Tensor:
+    """The (BH, NQ, NK) f32 dropout mask of `_drop_mask`: 0 where dropped,
+    f32(1 / (1 - p)) where kept.  seed: int32 tensor of one element."""
+    keep_scale, threshold = dropout_params(rate)
+    dev = seed.device
+    idx = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
+    s = seed.reshape(()).to(torch.int64) & _MASK32  # two's complement -> uint32
+    h = (_mul32(s, _HASH[0]) + _mul32(idx(BH), _HASH[1])[:, None, None]
+         + _mul32(idx(NQ), _HASH[2])[None, :, None] + _mul32(idx(NK), _HASH[3])[None, None, :])
+    h = h & _MASK32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return torch.where(h >= threshold, keep_scale, 0.0).to(torch.float32)
+
+
+def _scores(q, k):
+    return torch.matmul(q.float(), k.float().transpose(1, 2)) * _scale(q.shape[-1])
+
+
+def attention_fwd_plain(q, k, v, dropout_rate: float = 0.0, seed=None):
     """Plain PyTorch version of the TPU kernel's forward
-    (attention_kernel.py:106-127): f32 scores and softmax, the normalised
-    probabilities cast to v's dtype before the PV product, f32 accumulation,
-    output in q's dtype, row log-sum-exp in f32."""
-    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * _scale(q.shape[-1])
+    (attention_kernel.py:106-127): f32 scores and softmax, the LSE from the
+    unmasked probabilities, the dropout mask applied to the normalised
+    probabilities, which are cast to v's dtype before the PV product; f32
+    accumulation, output in q's dtype."""
+    s = _scores(q, k)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
     lse = m + torch.log(l)
-    a = (e / l).to(v.dtype).float()
-    out = torch.matmul(a, v.float()).to(q.dtype)
+    a = e / l
+    if dropout_rate > 0.0:
+        a = a * drop_mask(seed, *s.shape, dropout_rate)
+    out = torch.matmul(a.to(v.dtype).float(), v.float()).to(q.dtype)
     return out, lse
 
 
-def attention_fwd(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
-    """softmax(q k^T / sqrt(D)) v and the row LSE; see the module docstring.
+def _probs_and_dp(q, k, v, do, lse, dropout_rate, seed):
+    """e = exp(s - lse) and dP = dO v^T (masked), both f32, and the mask."""
+    e = torch.exp(_scores(q, k) - lse)
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    mask = None
+    if dropout_rate > 0.0:
+        mask = drop_mask(seed, *e.shape, dropout_rate)
+        dp = dp * mask
+    return e, dp, mask
 
-    Launches the CUDA kernel for CUDA tensors (bf16 on the tensor cores,
-    f32 with plain FMA); CPU tensors take :func:`attention_fwd_plain`.
-    """
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("attention_fwd expects (BH, N, D) tensors")
+
+def attention_dq_plain(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None):
+    """Plain version of `_dq_kernel` (attention_kernel.py:130-152):
+    dq = (e * (mask * dO v^T - delta) * scale) k, ds cast to k's dtype
+    before the product, f32 accumulation, dq in q's dtype."""
+    e, dp, _ = _probs_and_dp(q, k, v, do, lse, dropout_rate, seed)
+    ds = e * (dp - delta) * _scale(q.shape[-1])
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def attention_dkv_plain(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None):
+    """Plain version of `_dkv_kernel` (attention_kernel.py:155-201):
+    dv = (e * mask)^T dO with e * mask cast to dO's dtype, dk = ds^T q with
+    ds cast to q's dtype; f32 accumulation, outputs in k's and v's dtypes."""
+    e, dp, mask = _probs_and_dp(q, k, v, do, lse, dropout_rate, seed)
+    a = e if mask is None else e * mask
+    ds = e * (dp - delta) * _scale(q.shape[-1])
+    dv = torch.matmul(a.to(do.dtype).float().transpose(1, 2), do.float()).to(v.dtype)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), q.float()).to(k.dtype)
+    return dk, dv
+
+
+def _check(name: str, q, k, v, extra=()) -> bool:
+    """Validate the operands; True when they lie on a CUDA device (the
+    kernel runs), False on the CPU (the plain version runs)."""
+    if any(t.dim() != 3 for t in (q, k, v, *extra)):
+        raise ValueError(f"{name} expects (BH, N, D) tensors")
     BH, NQ, D = q.shape
     NK = k.shape[1]
-    if k.shape != (BH, NK, D) or v.shape != (BH, NK, D):
-        raise ValueError(f"shapes differ: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("attention_fwd expects q, k, v all bfloat16 or all float32")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v lie on different devices")
+    if k.shape != (BH, NK, D) or v.shape != (BH, NK, D) or any(t.shape != q.shape for t in extra):
+        raise ValueError(f"{name}: shapes differ: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    tensors = (q, k, v, *extra)
+    if len({t.dtype for t in tensors}) != 1 or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} expects its tensors all bfloat16 or all float32")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: the tensors lie on different devices")
     if q.device.type == "cpu":
-        return attention_fwd_plain(q, k, v)
+        return False
     if q.device.type != "cuda":
-        raise ValueError(f"attention_fwd runs on cuda or cpu tensors, got {q.device}")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
     if D not in _HEAD_DIMS or NQ % _TILE or NK % _TILE:
         raise ValueError(
-            f"attention kernel takes D in {_HEAD_DIMS} and NQ, NK multiples of "
+            f"{name} kernel takes D in {_HEAD_DIMS} and NQ, NK multiples of "
             f"{_TILE}; got D={D}, NQ={NQ}, NK={NK}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
-        raise ValueError("attention_fwd expects contiguous tensors on 16-byte boundaries")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError(f"{name} expects contiguous tensors on 16-byte boundaries")
+    return True
+
+
+def _dropout_args(dropout_rate: float, seed: Optional[torch.Tensor], device) -> list:
+    """(on, seed pointer, keep_scale, threshold) for the C entry points."""
+    if dropout_rate <= 0.0:
+        return [0, None, 1.0, 0]
+    if seed is None or seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != device:
+        raise ValueError("dropout needs an int32 seed tensor of one element on the tensors' device")
+    keep_scale, threshold = dropout_params(dropout_rate)
+    return [1, seed.data_ptr(), keep_scale, threshold]
+
+
+def _row_stats_ok(name, q, *stats):
+    BH, NQ, _ = q.shape
+    for t in stats:
+        if t.shape != (BH, NQ, 1) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: lse and delta must be contiguous f32 (BH, NQ, 1)")
+
+
+def attention_fwd(q, k, v, dropout_rate: float = 0.0, seed=None):
+    """softmax(q k^T / sqrt(D)) [dropout] v and the row LSE; see the module
+    docstring.  bf16 runs on the tensor cores, f32 with plain FMA."""
+    if not _check("attention_fwd", q, k, v):
+        return attention_fwd_plain(q, k, v, dropout_rate, seed)
+    BH, NQ, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, NQ, 1), dtype=torch.float32, device=q.device)
-    lib = _build.load("attention_fwd", _SIGNATURES)
+    drop = _dropout_args(dropout_rate, seed, q.device)
+    lib = _build.load("attention_fwd", _FWD_SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.ov3_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), BH, NQ, NK, D,
-            int(q.dtype == torch.bfloat16), _scale(D), out.data_ptr(), lse.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), BH, NQ, k.shape[1], D,
+            int(q.dtype == torch.bfloat16), _scale(D), *drop, out.data_ptr(), lse.data_ptr(),
             stream)
     _build.check(lib, status, "attention_fwd")
     attention_fwd.launches += 1
     return out, lse
 
 
-attention_fwd.launches = 0
+def attention_dq(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None):
+    """dq of the fused attention (BH, NQ, D), in q's dtype."""
+    if not _check("attention_dq", q, k, v, (do,)):
+        return attention_dq_plain(q, k, v, do, lse, delta, dropout_rate, seed)
+    _row_stats_ok("attention_dq", q, lse, delta)
+    BH, NQ, D = q.shape
+    dq = torch.empty_like(q)
+    drop = _dropout_args(dropout_rate, seed, q.device)
+    lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.ov3_attention_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), BH, NQ, k.shape[1], D, int(q.dtype == torch.bfloat16), _scale(D),
+            *drop, dq.data_ptr(), stream)
+    _build.check(lib, status, "attention_dq")
+    attention_dq.launches += 1
+    return dq
 
-_SIGNATURES = {
+
+def attention_dkv(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None):
+    """(dk, dv) of the fused attention (BH, NK, D), in k's and v's dtype."""
+    if not _check("attention_dkv", q, k, v, (do,)):
+        return attention_dkv_plain(q, k, v, do, lse, delta, dropout_rate, seed)
+    _row_stats_ok("attention_dkv", q, lse, delta)
+    BH, NQ, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    drop = _dropout_args(dropout_rate, seed, q.device)
+    lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.ov3_attention_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), BH, NQ, k.shape[1], D, int(q.dtype == torch.bfloat16), _scale(D),
+            *drop, dk.data_ptr(), dv.data_ptr(), stream)
+    _build.check(lib, status, "attention_dkv")
+    attention_dkv.launches += 1
+    return dk, dv
+
+
+attention_fwd.launches = 0
+attention_dq.launches = 0
+attention_dkv.launches = 0
+
+
+class FusedAttention(torch.autograd.Function):
+    """The custom VJP `_attn` / `_attn_bwd` (attention_kernel.py:212-332):
+    the forward saves q, k, v, out, lse and the seed; the backward takes
+    delta = rowsum(dO * out) in f32 and runs dq and dk/dv.  Each wrapper
+    picks its kernel or, for CPU tensors, its plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, dropout_rate: float):
+        out, lse = attention_fwd(q, k, v, dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse, seed)
+        ctx.dropout_rate = dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, seed = ctx.saved_tensors
+        rate = ctx.dropout_rate
+        do = g.to(q.dtype).contiguous()
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        dq = attention_dq(q, k, v, do, lse, delta, rate, seed)
+        dk, dv = attention_dkv(q, k, v, do, lse, delta, rate, seed)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(q, k, v, dropout_rate: float = 0.0, seed: Optional[torch.Tensor] = None):
+    """Differentiable fused attention on (BH, N, D) tensors.  With dropout,
+    `seed` is the int32 one-element tensor of the hash; without, it may be
+    None."""
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout needs a seed tensor")
+    return FusedAttention.apply(q, k, v, seed, float(dropout_rate))
+
+
+_DROP_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_uint]
+_FWD_SIGNATURES = {
     "ov3_attention_fwd": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROP_ARGS
+        + [ctypes.c_void_p] * 3,
         ctypes.c_int,
     ),
+}
+_BWD_HEAD = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROP_ARGS
+_BWD_SIGNATURES = {
+    "ov3_attention_dq": (_BWD_HEAD + [ctypes.c_void_p] * 2, ctypes.c_int),
+    "ov3_attention_dkv": (_BWD_HEAD + [ctypes.c_void_p] * 3, ctypes.c_int),
 }

@@ -62,7 +62,8 @@ def test_config_rejects_what_is_not_ported():
         tc.ModelConfig(encoder=tc.EncoderConfig(kind="masked"))
     with pytest.raises(NotImplementedError):
         tc.ModelConfig(ball_query_method="first_k")
-    j, t = jc.sunrgbd_quick().model, tc.sunrgbd_quick()
+    jq, tq = jc.sunrgbd_quick(), tc.sunrgbd_quick()
+    j, t = jq.model, tq.model
     shared = {f.name for f in dataclasses.fields(t)}
     for name in shared - {"encoder", "decoder"}:
         assert getattr(t, name) == getattr(j, name), name
@@ -70,6 +71,14 @@ def test_config_rejects_what_is_not_ported():
     enc = dataclasses.asdict(j.encoder)
     enc.pop("masking_radius")
     assert dataclasses.asdict(t.encoder) == enc
+    # the training part: loss, matcher, optimiser, the data fields, the run
+    jloss = dataclasses.asdict(jq.loss)
+    jloss.pop("teacher_per_layer")
+    assert dataclasses.asdict(tq.loss) == jloss
+    assert dataclasses.asdict(tq.optim) == dataclasses.asdict(jq.optim)
+    for f in dataclasses.fields(tq.data):
+        assert getattr(tq.data, f.name) == getattr(jq.data, f.name), f.name
+    assert tq.max_epoch == jq.max_epoch
 
 
 @pytest.mark.parametrize("kw", [dict(num_points=2048, num_angle_bin=12, num_semcls=20),
@@ -178,13 +187,13 @@ def test_attention_kernel_gets_contiguous_heads(batch, monkeypatch):
     # the head split is a strided view unless it is copied
     from ov3det_torch.models import transformer
 
-    seen, real = [], transformer.attention_fwd
+    seen, real = [], transformer.fused_attention
 
-    def spy(q, k, v):
+    def spy(q, k, v, *args):
         seen.append(all(t.is_contiguous() for t in (q, k, v)))
-        return real(q, k, v)
+        return real(q, k, v, *args)
 
-    monkeypatch.setattr(transformer, "attention_fwd", spy)
+    monkeypatch.setattr(transformer, "fused_attention", spy)
     x = torch.from_numpy(np.random.default_rng(5).normal(size=(batch, 1024, 64)).astype(np.float32))
     transformer.MultiheadAttention(64, 4)(x, x, x)
     assert seen == [True]
@@ -258,3 +267,91 @@ def test_whole_eval_forward_matches_jax(bridged, dtype):
         for key in ("sem_cls_logits", "center_normalized", "size_normalized"):
             assert got[key].dtype == getattr(torch, str(want[key].dtype)), key
             _close(got[key], want[key].astype(np.float32), rtol=0, atol=3e-2)
+
+
+# ------------------------------------------------------------ training mode
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batchnorm_training_statistics_match_flax(dtype):
+    import flax.linen as fnn
+
+    from ov3det_torch.models.mlp import BatchNorm
+
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(2, 10, 24)) * 1.5 + 0.5).astype(np.float32)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    v = tp.to_numpy(bn.init(jax.random.PRNGKey(0), jx))
+    v["params"]["scale"] = rng.uniform(0.5, 2, 24).astype(np.float32)
+    v["params"]["bias"] = rng.normal(size=24).astype(np.float32)
+    v["batch_stats"] = tp.randomize_batch_stats(v["batch_stats"], rng)
+    want, upd = bn.apply(v, jx, mutable=["batch_stats"])
+    m = BatchNorm(24).train()
+    m.load_state_dict(_port_state(convert._norm, "m", v["params"], v["batch_stats"]))
+    got = m(_t(x).to(getattr(torch, dtype)))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    _close(got, want, rtol=0, atol=1e-6)
+    _close(m.running_mean, upd["batch_stats"]["mean"], rtol=0, atol=1e-6)
+    _close(m.running_var, upd["batch_stats"]["var"], rtol=0, atol=1e-6)
+
+
+def test_encoder_layer_training_gradients_match_flax(monkeypatch):
+    # 1024 tokens: the fused attention, forward and backward; the JAX side
+    # through its Pallas kernels and custom VJP in interpret mode
+    monkeypatch.setenv("OV3DET_ATTENTION", "fused")
+    rng = np.random.default_rng(8)
+    x, pos = (rng.normal(size=(2, 1024, 64)).astype(np.float32) for _ in range(2))
+    w = rng.normal(size=(2, 1024, 64)).astype(np.float32)
+    jm = JEncLayer(dim=64, num_heads=4, ffn_dim=96, dropout=0.0)
+    v = _init(jm, jnp.asarray(x), pos=jnp.asarray(pos))
+
+    def loss(params, x, pos):
+        out = jm.apply({"params": params}, x, pos=pos, train=True, rngs={"dropout": jax.random.PRNGKey(0)})
+        return jnp.sum(out * w)
+
+    jgrads = jax.grad(loss, argnums=(0, 1, 2))(v["params"], jnp.asarray(x), jnp.asarray(pos))
+    m = TransformerEncoderLayer(64, 4, 96, dropout=0.0).train()
+    m.load_state_dict(_port_state(convert._transformer_layer, "m", v["params"]))
+    tx, tpos = _t(x).requires_grad_(), _t(pos).requires_grad_()
+    (m(tx, pos=tpos, generator=torch.Generator()) * _t(w)).sum().backward()
+    tol = dict(rtol=1e-4, atol=1e-4)
+    _close(tx.grad, jgrads[1], **tol)
+    _close(tpos.grad, jgrads[2], **tol)
+    want = _port_state(convert._transformer_layer, "m", tp.to_numpy(jgrads[0]))
+    for name, p in m.named_parameters():
+        _close(p.grad, want[name].numpy(), **tol)
+
+
+def test_decoder_attention_dropout_mask_is_shared_across_batch_and_heads():
+    # flax drops `broadcast_dropout` for the decoder's attention function,
+    # so nn.dot_product_attention draws ONE (NQ, NK) mask; q = 0 makes every
+    # weight 1/NK and v = identity reads each weight back
+    from ov3det_torch.models.transformer import dot_product_attention
+
+    B, H, NQ, NK, rate = 3, 4, 16, 32, 0.3
+    q = torch.zeros(B, NQ, H, NK)
+    eye = torch.eye(NK)[None, :, None, :].expand(B, NK, H, NK)
+    out = dot_product_attention(q, q[:, :1].expand(B, NK, H, NK), eye, rate,
+                                torch.Generator().manual_seed(0))  # (B, NQ, H, NK)
+    kept = out != 0
+    assert (kept == kept[:1, :, :1]).all()  # the same mask in every batch row and head
+    assert 0.5 < kept.float().mean() < 0.9
+    np.testing.assert_allclose(out[kept].numpy(), 1 / NK / (1 - rate), rtol=1e-6)
+
+    # the encoder's residual dropout is per element instead
+    from ov3det_torch.models.mlp import dropout
+    mask = dropout(torch.ones(B, NQ, 64), 0.3, torch.Generator().manual_seed(0)) != 0
+    assert not (mask == mask[:1]).all()
+
+
+def test_training_forward_needs_a_generator_and_detaches_probabilities():
+    _, tcfg = tp.configs("float32")
+    model = Model3DETR(tcfg, device="cpu").train()
+    batch = tp.make_batch(seed=1)
+    inputs = {k: _t(batch[k]) for k in tp.INPUT_KEYS}
+    with pytest.raises(ValueError, match="Generator"):
+        model(inputs)
+    out = model(inputs, torch.Generator().manual_seed(0))
+    assert out["sem_cls_logits"].requires_grad
+    assert not out["sem_cls_prob"].requires_grad and not out["objectness_prob"].requires_grad
+    again = model(inputs, torch.Generator().manual_seed(0))  # the same draws, the same output
+    torch.testing.assert_close(again["sem_cls_logits"], out["sem_cls_logits"], rtol=0, atol=0)

@@ -166,3 +166,67 @@ def test_gather_points_matches_jax():
     want = np.asarray(jax_gather(jnp.asarray(pts), jnp.asarray(inds, jnp.int32)))
     got = pointcloud.gather_points(torch.from_numpy(pts), torch.from_numpy(inds))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------- attention dropout, backward
+@pytest.mark.parametrize("seed", [0, 7, -5, 2 ** 31 - 1, -2 ** 31])
+def test_drop_mask_equals_pallas_hash_exactly(seed):
+    from ov3det.ops.pallas.attention_kernel import _drop_mask
+
+    BH, tq, nq, nk, rate = 3, 64, 192, 320, 0.1
+    keep_scale, threshold = attention.dropout_params(rate)
+    want = np.stack([np.concatenate([np.asarray(_drop_mask(
+        seed, bh, qi, tq, nk, keep_scale, jnp.uint32(threshold))) for qi in range(nq // tq)])
+        for bh in range(BH)])
+    got = attention.drop_mask(torch.tensor([seed], dtype=torch.int32), BH, nq, nk, rate)
+    np.testing.assert_array_equal(got.numpy(), want)  # bit for bit
+    assert abs(float((want == 0).mean()) - rate) < 0.01
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_forward_and_backward_match_pallas_vjp(rate):
+    q, k, v = _qkv(8)
+    g = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    B, N, H, D = q.shape
+    seed = 1234
+
+    def fn(q, k, v):
+        return fused_attention(q, k, v, dropout_rate=rate, dropout_seed=seed, interpret=True)
+
+    want, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g))
+    tq, tk, tv = (_heads(a).requires_grad_() for a in (q, k, v))
+    out = attention.fused_attention(tq, tk, tv, rate,
+                                    torch.tensor([seed], dtype=torch.int32) if rate else None)
+    out.backward(_heads(g))
+
+    def back(t):  # (B*H, N, D) -> (B, N, H, D)
+        return t.detach().numpy().reshape(B, H, N, D).transpose(0, 2, 1, 3)
+
+    np.testing.assert_allclose(back(out), np.asarray(want), rtol=0, atol=1e-5)
+    for t, w in zip((tq, tk, tv), want_grads):
+        np.testing.assert_allclose(back(t.grad), np.asarray(w), rtol=0, atol=1e-5)
+
+
+def test_backward_wrappers_take_plain_versions_on_cpu_without_counting():
+    q, k, v = (_heads(a) for a in _qkv(10))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    seed = torch.tensor([3], dtype=torch.int32)
+    out, lse = attention.attention_fwd(q, k, v, 0.1, seed)
+    delta = (do * out).sum(-1, keepdim=True)
+    before = (attention.attention_fwd.launches, attention.attention_dq.launches,
+              attention.attention_dkv.launches)
+    dq = attention.attention_dq(q, k, v, do, lse, delta, 0.1, seed)
+    dk, dv = attention.attention_dkv(q, k, v, do, lse, delta, 0.1, seed)
+    np.testing.assert_array_equal(dq.numpy(), attention.attention_dq_plain(
+        q, k, v, do, lse, delta, 0.1, seed).numpy())
+    for a, b in zip((dk, dv), attention.attention_dkv_plain(q, k, v, do, lse, delta, 0.1, seed)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (attention.attention_fwd.launches, attention.attention_dq.launches,
+            attention.attention_dkv.launches) == before
+    with pytest.raises(TypeError):
+        attention.attention_dq(q, k, v, do.bfloat16(), lse, delta)
+    with pytest.raises(ValueError):
+        attention.attention_dkv(q, k, v, do[:, :64], lse, delta)
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, k, v, 0.1, None)
