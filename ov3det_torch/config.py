@@ -10,9 +10,11 @@ Two fields of the JAX `ModelConfig` have no counterpart: `fps_shards` and
 The port always runs exact greedy FPS, as the TPU kernel does.
 
 Configurations outside the ported slices raise `NotImplementedError`: the
-masked encoder, the `first_k` ball query, the 2D-alignment loss and the
-teacher.  `TeacherConfig` has no copy: the teacher comes with the
-open-vocabulary slice.
+`first_k` ball query, the 2D-alignment loss and the teacher.
+`TeacherConfig` has no copy: the teacher comes with the open-vocabulary
+slice.  The masked encoder (3DETR-m) is built from `scannet_quick()` with
+`dataclasses.replace`, as `scripts/scannet_masked_timing.py` builds it; there
+is no function of its own, in either package.
 """
 from __future__ import annotations
 
@@ -23,13 +25,18 @@ from dataclasses import dataclass, field
 class EncoderConfig:
     """Transformer encoder (reference main.py:52-62)."""
 
-    kind: str = "vanilla"  # only "vanilla" is ported
+    kind: str = "vanilla"  # "vanilla" | "masked"
     num_layers: int = 3
     dim: int = 256
     ffn_dim: int = 128
     num_heads: int = 4
     dropout: float = 0.1
     activation: str = "relu"
+    # Distance thresholds of the masked layers, kept as the reference has
+    # them: it squares [0.4, 0.8, 1.2] and compares the unsquared distance
+    # with the result, so the squared radii in effect are r * r =
+    # 0.0256 / 0.4096 / 2.0736.
+    masking_radius: tuple[float, ...] = (0.4**2, 0.8**2, 1.2**2)
 
 
 @dataclass(frozen=True)
@@ -60,15 +67,18 @@ class ModelConfig:
     preenc_radius: float = 0.2
     preenc_nsample: int = 64
     preenc_mlp: tuple[int, ...] = (64, 128, 256)
+    # the masked encoder's interim set abstraction after its layer 0
+    interim_radius: float = 0.4
+    interim_nsample: int = 32
+    interim_mlp: tuple[int, ...] = (256, 256, 256)
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
     ball_query_method: str = "bucketed"  # only "bucketed" is ported
 
     def __post_init__(self):
-        if self.encoder.kind != "vanilla":
-            raise NotImplementedError(
-                f"encoder kind {self.encoder.kind!r} is not ported yet; "
-                "only the vanilla encoder is"
-            )
+        if self.encoder.kind not in ("vanilla", "masked"):
+            raise ValueError(f"unknown encoder kind {self.encoder.kind!r}")
+        if self.encoder.kind == "masked" and len(self.encoder.masking_radius) != self.encoder.num_layers:
+            raise ValueError("masking_radius needs one radius per encoder layer")
         if self.ball_query_method != "bucketed":
             raise NotImplementedError(
                 f"ball_query_method {self.ball_query_method!r} is not ported "
@@ -151,6 +161,19 @@ class TrainConfig:
     optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
     max_epoch: int = 720
+
+
+def scannet_quick() -> TrainConfig:
+    """reference scripts/scannet_quick.sh, as the JAX package's
+    `scannet_quick()` sets it: 18 classes, axis-aligned boxes (1 angle bin),
+    256 queries, GIoU loss weight 1; batch 8 of 40 000 points."""
+    return TrainConfig(
+        model=ModelConfig(num_semcls=18, num_angle_bin=1, num_queries=256,
+                          compute_dtype="bfloat16"),
+        loss=LossConfig(giou_weight=1.0),
+        data=DataConfig(dataset_name="scannet", num_points=40000),
+        max_epoch=90,
+    )
 
 
 def sunrgbd_quick() -> TrainConfig:

@@ -1,14 +1,20 @@
 // Attention backward for Hopper (sm_90a): dq, and dk with dv, from the
-// forward's saved row log-sum-exp, with the attention-weight dropout.
+// forward's saved row log-sum-exp, with the attention-weight dropout and the
+// masked encoder's radius bias.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel` of
 // ov3det/ops/pallas/attention_kernel.py (called through `_attn_bwd`):
-//   e  = exp(q k^T * scale - lse)              (the forward's probabilities)
+//   e  = exp(q k^T * scale [+ bias] - lse)     (the forward's probabilities)
 //   dp = mask * (dO v^T)                        (mask 0 or 1 / (1 - p))
 //   ds = e * (dp - delta) * scale,  delta = rowsum(dO * out)
 //   dq = ds k,   dk = ds^T q,   dv = (e * mask)^T dO
-// The mask is the forward's hash of (seed, bh, row, col), recomputed; the
-// radius bias is not ported yet.  Rounding follows the TPU kernels: for bf16
+// The mask is the forward's hash of (seed, bh, row, col), recomputed.  The
+// radius bias (0 or -1e9, attention_common.cuh) is recomputed from the
+// points as the forward adds it, so e is exactly 0 outside the radius; it
+// is a template flag, and the kernels without it compile as they did before
+// it.  With it, the points of the tile that the loop walks sit in shared
+// memory beside the tile, and those of the CTA's own rows too (the dkv
+// kernel is at the register limit).  Rounding follows the TPU kernels: for bf16
 // inputs ds is rounded to bf16 before ds k and ds^T q, and e * mask before
 // (e * mask)^T dO; every product accumulates in f32; the outputs are in the
 // input type.
@@ -45,16 +51,18 @@ namespace {
 using namespace ov3;
 
 // ----------------------------------------------------------------- bf16 dq
-template <int D>
+template <int D, bool RADIUS>
 __global__ void __launch_bounds__(kThreads)
 attn_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta, int NQ, int NK,
-             float scale, Dropout drop, __nv_bfloat16* __restrict__ dq) {
+             float scale, Dropout drop, Radius rad, __nv_bfloat16* __restrict__ dq) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) __nv_bfloat16 As[kTile * LD];  // Q, then dO, tile
   __shared__ __align__(16) __nv_bfloat16 Ks[kTile * LD];
   __shared__ __align__(16) __nv_bfloat16 Vs[kTile * LD];
+  __shared__ float4 Qp[RADIUS ? kTile : 1];  // the points of the CTA's query rows
+  __shared__ float4 Kp[RADIUS ? kTile : 1];  // and of the K tile
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -64,9 +72,11 @@ attn_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   const __nv_bfloat16* kg = k + static_cast<size_t>(bh) * NK * D;
   const __nv_bfloat16* vg = v + static_cast<size_t>(bh) * NK * D;
   const uint32_t base = drop.active ? drop_base(*drop.seed, bh) : 0u;
+  const int b = RADIUS ? bh / rad.heads : 0;
 
   uint32_t qa[D / 16][4], da[D / 16][4];
   load_tile<D>(As, q + qoff, kTile);
+  if (RADIUS) load_points(Qp, rad.qxyz, b, NQ, q0, kTile);
   __syncthreads();
   load_a_frags<D>(qa, As, r0, t4);
   __syncthreads();
@@ -86,6 +96,7 @@ attn_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     __syncthreads();
     load_tile<D>(Ks, kg + static_cast<size_t>(kt) * D, kTile);
     load_tile<D>(Vs, vg + static_cast<size_t>(kt) * D, kTile);
+    if (RADIUS) load_points(Kp, rad.kxyz, b, NK, kt, kTile);
     __syncthreads();
     float s[kTile / 8][4], dp[kTile / 8][4];
     rows_times_tile_t<D>(s, qa, Ks, g, t4);
@@ -95,7 +106,11 @@ attn_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool hi = i >> 1;
-        const float e = expf(s[n][i] * scale - (hi ? lse1 : lse0));
+        float x = s[n][i] * scale;
+        if (RADIUS)
+          x = __fadd_rn(__fmul_rn(s[n][i], scale),
+                        radius_bias(Qp[r0 + (hi ? 8 : 0)], Kp[n * 8 + t4 * 2 + (i & 1)], rad.r2));
+        const float e = expf(x - (hi ? lse1 : lse0));
         float d = dp[n][i];
         if (drop.active) {
           const int row = q0 + r0 + (hi ? 8 : 0);
@@ -117,17 +132,19 @@ attn_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 }
 
 // ---------------------------------------------------------------- bf16 dkv
-template <int D>
+template <int D, bool RADIUS>
 __global__ void __launch_bounds__(kThreads)
 attn_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta, int NQ, int NK,
-              float scale, Dropout drop, __nv_bfloat16* __restrict__ dk,
+              float scale, Dropout drop, Radius rad, __nv_bfloat16* __restrict__ dk,
               __nv_bfloat16* __restrict__ dv) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) __nv_bfloat16 Qs[kTile * LD];  // K first, then Q tiles
   __shared__ __align__(16) __nv_bfloat16 Ds[kTile * LD];  // V first, then dO tiles
   __shared__ float lse_s[kTile], delta_s[kTile];
+  __shared__ float4 Kp[RADIUS ? kTile : 1];  // the points of the CTA's key rows
+  __shared__ float4 Qp[RADIUS ? kTile : 1];  // and of the Q tile
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -139,10 +156,12 @@ attn_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const float* lg = lse + static_cast<size_t>(bh) * NQ;
   const float* dlg = delta + static_cast<size_t>(bh) * NQ;
   const uint32_t base = drop.active ? drop_base(*drop.seed, bh) : 0u;
+  const int b = RADIUS ? bh / rad.heads : 0;
 
   uint32_t ka[D / 16][4], va[D / 16][4];
   load_tile<D>(Qs, k + koff, kTile);
   load_tile<D>(Ds, v + koff, kTile);
+  if (RADIUS) load_points(Kp, rad.kxyz, b, NK, k0, kTile);
   __syncthreads();
   load_a_frags<D>(ka, Qs, r0, t4);
   load_a_frags<D>(va, Ds, r0, t4);
@@ -162,6 +181,7 @@ attn_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       lse_s[threadIdx.x] = lg[qt + threadIdx.x];
       delta_s[threadIdx.x] = dlg[qt + threadIdx.x];
     }
+    if (RADIUS) load_points(Qp, rad.qxyz, b, NQ, qt, kTile);
     __syncthreads();
     float st[kTile / 8][4], dpt[kTile / 8][4];  // rows = keys, columns = queries
     rows_times_tile_t<D>(st, ka, Qs, g, t4);
@@ -171,7 +191,11 @@ attn_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qc = n * 8 + t4 * 2 + (i & 1);  // query within the tile
-        const float e = expf(st[n][i] * scale - lse_s[qc]);
+        float x = st[n][i] * scale;
+        if (RADIUS)
+          x = __fadd_rn(__fmul_rn(st[n][i], scale),
+                        radius_bias(Qp[qc], Kp[r0 + ((i >> 1) ? 8 : 0)], rad.r2));
+        const float e = expf(x - lse_s[qc]);
         float m = 1.0f;
         if (drop.active) {
           const int key = k0 + r0 + ((i >> 1) ? 8 : 0);
@@ -200,17 +224,21 @@ attn_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 constexpr int BF = 64;   // rows (threads) per CTA of the f32 kernels
 constexpr int TF = 16;   // rows of the other side per shared tile
 
-template <int D>
+template <int D, bool RADIUS>
 __global__ void __launch_bounds__(BF)
 attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta, int NQ, int NK,
-            float scale, Dropout drop, float* __restrict__ dq) {
+            float scale, Dropout drop, Radius rad, float* __restrict__ dq) {
   __shared__ float Ks[TF][D];
   __shared__ float Vs[TF][D];
+  __shared__ float4 Kp[RADIUS ? TF : 1];
   const int bh = blockIdx.y;
   const int qrow = blockIdx.x * BF + threadIdx.x;
   const size_t row = static_cast<size_t>(bh) * NQ + qrow;
+  const int b = RADIUS ? bh / rad.heads : 0;
+  const float4 qp = RADIUS ? load_point(rad.qxyz, static_cast<size_t>(b) * NQ + qrow)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float* kg = k + static_cast<size_t>(bh) * NK * D;
   const float* vg = v + static_cast<size_t>(bh) * NK * D;
   const uint32_t base = drop.active ? drop_base(*drop.seed, bh) : 0u;
@@ -228,6 +256,7 @@ attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       Ks[e / D][e % D] = kg[static_cast<size_t>(kt) * D + e];
       Vs[e / D][e % D] = vg[static_cast<size_t>(kt) * D + e];
     }
+    if (RADIUS) load_points(Kp, rad.kxyz, b, NK, kt, TF);
     __syncthreads();
     for (int j = 0; j < TF; ++j) {
       float s = 0.0f, dp = 0.0f;
@@ -236,7 +265,9 @@ attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
         s = fmaf(qr[d], Ks[j][d], s);
         dp = fmaf(dr[d], Vs[j][d], dp);
       }
-      const float e = expf(s * scale - lr);
+      float x = s * scale;
+      if (RADIUS) x = __fadd_rn(__fmul_rn(s, scale), radius_bias(qp, Kp[j], rad.r2));
+      const float e = expf(x - lr);
       if (drop.active)
         dp *= drop_keep(base, qrow, kt + j, drop.threshold) ? drop.keep_scale : 0.0f;
       const float ds = e * (dp - dl) * scale;
@@ -248,15 +279,17 @@ attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < D; ++d) dq[row * D + d] = acc[d];
 }
 
-template <int D>
+template <int D, bool RADIUS>
 __global__ void __launch_bounds__(BF)
 attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta, int NQ, int NK,
-             float scale, Dropout drop, float* __restrict__ dk, float* __restrict__ dv) {
+             float scale, Dropout drop, Radius rad, float* __restrict__ dk,
+             float* __restrict__ dv) {
   __shared__ float Qs[TF][D];
   __shared__ float Ds[TF][D];
   __shared__ float ls[TF], dls[TF];
+  __shared__ float4 Qp[RADIUS ? TF : 1];
   __shared__ float dka[D][BF];  // accumulators, one column per thread
   __shared__ float dva[D][BF];
   const int bh = blockIdx.y;
@@ -266,6 +299,9 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* qg = q + static_cast<size_t>(bh) * NQ * D;
   const float* dg = dout + static_cast<size_t>(bh) * NQ * D;
   const uint32_t base = drop.active ? drop_base(*drop.seed, bh) : 0u;
+  const int b = RADIUS ? bh / rad.heads : 0;
+  const float4 kp = RADIUS ? load_point(rad.kxyz, static_cast<size_t>(b) * NK + key)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float kr[D], vr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -284,6 +320,7 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       ls[t] = lse[static_cast<size_t>(bh) * NQ + qt + t];
       dls[t] = delta[static_cast<size_t>(bh) * NQ + qt + t];
     }
+    if (RADIUS) load_points(Qp, rad.qxyz, b, NQ, qt, TF);
     __syncthreads();
     for (int i = 0; i < TF; ++i) {
       float s = 0.0f, dp = 0.0f;
@@ -292,7 +329,9 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         s = fmaf(Qs[i][d], kr[d], s);
         dp = fmaf(Ds[i][d], vr[d], dp);
       }
-      const float e = expf(s * scale - ls[i]);
+      float x = s * scale;
+      if (RADIUS) x = __fadd_rn(__fmul_rn(s, scale), radius_bias(Qp[i], kp, rad.r2));
+      const float e = expf(x - ls[i]);
       float m = 1.0f;
       if (drop.active) m = drop_keep(base, qt + i, key, drop.threshold) ? drop.keep_scale : 0.0f;
       const float a = e * m;
@@ -311,66 +350,92 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool RADIUS>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, int BH, int NQ, int NK,
-                      int is_bf16, float scale, Dropout drop, void* dq, cudaStream_t s) {
+                      int is_bf16, float scale, Dropout drop, Radius rad, void* dq,
+                      cudaStream_t s) {
   if (is_bf16) {
-    attn_dq_bf16<D><<<dim3(NQ / kTile, BH), kThreads, 0, s>>>(
+    attn_dq_bf16<D, RADIUS><<<dim3(NQ / kTile, BH), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
-        delta, NQ, NK, scale, drop, static_cast<__nv_bfloat16*>(dq));
+        delta, NQ, NK, scale, drop, rad, static_cast<__nv_bfloat16*>(dq));
   } else {
-    attn_dq_f32<D><<<dim3(NQ / BF, BH), BF, 0, s>>>(
+    attn_dq_f32<D, RADIUS><<<dim3(NQ / BF, BH), BF, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, NQ, NK,
-        scale, drop, static_cast<float*>(dq));
+        scale, drop, rad, static_cast<float*>(dq));
   }
   return cudaGetLastError();
+}
+
+template <int D, bool RADIUS>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, int BH, int NQ, int NK,
+                       int is_bf16, float scale, Dropout drop, Radius rad, void* dk, void* dv,
+                       cudaStream_t s) {
+  if (is_bf16) {
+    attn_dkv_bf16<D, RADIUS><<<dim3(NK / kTile, BH), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
+        delta, NQ, NK, scale, drop, rad, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv));
+  } else {
+    attn_dkv_f32<D, RADIUS><<<dim3(NK / BF, BH), BF, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, NQ, NK,
+        scale, drop, rad, static_cast<float*>(dk), static_cast<float*>(dv));
+  }
+  return cudaGetLastError();
+}
+
+// The dq launch for head width D, with or without the radius bias.
+template <int D>
+cudaError_t dq_for(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, int BH, int NQ, int NK, int is_bf16,
+                   float scale, Dropout drop, Radius rad, void* dq, cudaStream_t s) {
+  return rad.qxyz ? launch_dq<D, true>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale,
+                                       drop, rad, dq, s)
+                  : launch_dq<D, false>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale,
+                                        drop, rad, dq, s);
 }
 
 template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, int BH, int NQ, int NK,
-                       int is_bf16, float scale, Dropout drop, void* dk, void* dv,
-                       cudaStream_t s) {
-  if (is_bf16) {
-    attn_dkv_bf16<D><<<dim3(NK / kTile, BH), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
-        delta, NQ, NK, scale, drop, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv));
-  } else {
-    attn_dkv_f32<D><<<dim3(NK / BF, BH), BF, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, NQ, NK,
-        scale, drop, static_cast<float*>(dk), static_cast<float*>(dv));
-  }
-  return cudaGetLastError();
+cudaError_t dkv_for(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, int BH, int NQ, int NK, int is_bf16,
+                    float scale, Dropout drop, Radius rad, void* dk, void* dv, cudaStream_t s) {
+  return rad.qxyz ? launch_dkv<D, true>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale,
+                                        drop, rad, dk, dv, s)
+                  : launch_dkv<D, false>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale,
+                                         drop, rad, dk, dv, s);
 }
 
-bool bad_shape(int BH, int NQ, int NK, int dropout, const int* seed) {
+bool bad_shape(int BH, int NQ, int NK, int dropout, const int* seed, const float* qxyz,
+               const float* kxyz, int heads) {
   return BH <= 0 || NQ <= 0 || NK <= 0 || NQ % kTile != 0 || NK % kTile != 0 ||
-         (dropout && seed == nullptr);
+         (dropout && seed == nullptr) ||
+         (qxyz && (kxyz == nullptr || heads <= 0 || BH % heads != 0));
 }
 
 }  // namespace
 
 // q, dout (BH, NQ, D), k, v (BH, NK, D), contiguous, all bf16 (is_bf16 = 1)
 // or all f32; lse and delta (BH, NQ) f32.  dq (BH, NQ, D) in the input type.
-// NQ and NK multiples of 64; D one of 16, 32, 64.  Dropout parameters as
-// for ov3_attention_fwd.  Returns a cudaError_t.
+// NQ and NK multiples of 64; D one of 16, 32, 64.  Dropout and radius
+// parameters as for ov3_attention_fwd.  Returns a cudaError_t.
 extern "C" int ov3_attention_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse, const float* delta,
                                 int BH, int NQ, int NK, int D, int is_bf16, float scale,
                                 int dropout, const int* seed, float keep_scale,
-                                unsigned int threshold, void* dq, cudaStream_t stream) {
-  if (bad_shape(BH, NQ, NK, dropout, seed)) return cudaErrorInvalidValue;
+                                unsigned int threshold, const float* qxyz, const float* kxyz,
+                                float r2, int heads, void* dq, cudaStream_t stream) {
+  if (bad_shape(BH, NQ, NK, dropout, seed, qxyz, kxyz, heads)) return cudaErrorInvalidValue;
   const Dropout drop{seed, keep_scale, threshold, dropout};
+  const Radius rad{qxyz, kxyz, r2, heads};
   switch (D) {
-    case 16: return launch_dq<16>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, dq, stream);
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, dq, stream);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, dq, stream);
+    case 16: return dq_for<16>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dq, stream);
+    case 32: return dq_for<32>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dq, stream);
+    case 64: return dq_for<64>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dq, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -380,14 +445,16 @@ extern "C" int ov3_attention_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
                                  int BH, int NQ, int NK, int D, int is_bf16, float scale,
                                  int dropout, const int* seed, float keep_scale,
-                                 unsigned int threshold, void* dk, void* dv,
+                                 unsigned int threshold, const float* qxyz, const float* kxyz,
+                                 float r2, int heads, void* dk, void* dv,
                                  cudaStream_t stream) {
-  if (bad_shape(BH, NQ, NK, dropout, seed)) return cudaErrorInvalidValue;
+  if (bad_shape(BH, NQ, NK, dropout, seed, qxyz, kxyz, heads)) return cudaErrorInvalidValue;
   const Dropout drop{seed, keep_scale, threshold, dropout};
+  const Radius rad{qxyz, kxyz, r2, heads};
   switch (D) {
-    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, dk, dv, stream);
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, dk, dv, stream);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, dk, dv, stream);
+    case 16: return dkv_for<16>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
+    case 32: return dkv_for<32>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
+    case 64: return dkv_for<64>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
     default: return cudaErrorInvalidValue;
   }
 }

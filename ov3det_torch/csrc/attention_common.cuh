@@ -1,6 +1,6 @@
 // Pieces shared by the attention kernels (attention_fwd.cu, attention_bwd.cu):
-// bf16 packing, the mma.sync m16n8k16 tile product, padded tile loads, and
-// the stateless dropout hash.
+// bf16 packing, the mma.sync m16n8k16 tile product, padded tile loads, the
+// stateless dropout hash and the radius bias.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -140,5 +140,45 @@ struct Dropout {
   uint32_t threshold;
   int active;
 };
+
+// The radius bias of `_radius_bias` (ov3det/ops/pallas/attention_kernel.py:
+// 84-103), the masked encoder's geometric mask: 0 where d2 < r2, -1e9
+// elsewhere, added to the scaled score.  d2 is the expanded form with no
+// clamp, in the reference's order: (|q|^2 - 2 q.k) + |k|^2, with
+// |p|^2 = (x*x + y*y) + z*z and q.k = (qx*kx + qy*ky) + qz*kz, every
+// operation rounded on its own (__fmul_rn/__fadd_rn: no contraction into an
+// FMA), so the mask equals the plain version's bit for bit.  The
+// coordinates are f32 (B, N, 3), shared by the H heads of a batch row
+// (b = bh / heads); r2 is the f32 squared radius.
+struct Radius {
+  const float* qxyz;
+  const float* kxyz;
+  float r2;
+  int heads;
+};
+
+constexpr float kRadiusNeg = -1e9f;
+
+// (x, y, z, |p|^2) of point i of a (B, N, 3) f32 array.
+__device__ __forceinline__ float4 load_point(const float* xyz, size_t i) {
+  const float x = xyz[3 * i], y = xyz[3 * i + 1], z = xyz[3 * i + 2];
+  return make_float4(x, y, z,
+                     __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
+}
+
+__device__ __forceinline__ float radius_bias(float4 q, float4 k, float r2) {
+  const float dot =
+      __fadd_rn(__fadd_rn(__fmul_rn(q.x, k.x), __fmul_rn(q.y, k.y)), __fmul_rn(q.z, k.z));
+  const float d2 = __fadd_rn(__fsub_rn(q.w, __fmul_rn(2.0f, dot)), k.w);
+  return d2 < r2 ? 0.0f : kRadiusNeg;
+}
+
+// Loads `rows` points starting at row `row0` of batch row b into shared
+// memory, one thread per point.
+__device__ __forceinline__ void load_points(float4* dst, const float* xyz, int b, int N,
+                                            int row0, int rows) {
+  for (int t = threadIdx.x; t < rows; t += blockDim.x)
+    dst[t] = load_point(xyz, static_cast<size_t>(b) * N + row0 + t);
+}
 
 }  // namespace ov3

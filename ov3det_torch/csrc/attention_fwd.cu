@@ -1,13 +1,16 @@
-// Attention forward for Hopper (sm_90a): softmax(q k^T * scale) v and the
-// row log-sum-exp.
+// Attention forward for Hopper (sm_90a): softmax(q k^T * scale [+ radius
+// bias]) v and the row log-sum-exp.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of
 // ov3det/ops/pallas/attention_kernel.py (called through `_attn_fwd` /
-// `fused_attention`) with its attention-weight dropout; the radius bias is
-// not ported yet.  Dropout multiplies the normalised probabilities by the
-// hash mask of `_drop_mask` (attention_common.cuh) before the PV product;
-// the running sum and the LSE come from the unmasked probabilities, as on
-// the TPU (attention_kernel.py:115-127).
+// `fused_attention`) with its options: attention-weight dropout and the
+// masked encoder's radius bias.  Dropout multiplies the normalised
+// probabilities by the hash mask of `_drop_mask` (attention_common.cuh)
+// before the PV product; the running sum and the LSE come from the unmasked
+// probabilities, as on the TPU (attention_kernel.py:115-127).  The radius
+// bias (attention_common.cuh, `_radius_bias`) adds 0 or -1e9 to each scaled
+// score; it is a template flag, so the kernels without it compile as they
+// did before it.
 // q (BH, NQ, D), k and v (BH, NK, D) -> out (BH, NQ, D) in the input type and
 // lse (BH, NQ) f32.  Scores, max and sum are f32; for bf16 inputs the
 // probabilities are rounded to bf16 before the PV product and the product
@@ -26,11 +29,19 @@
 // product, as in FlashAttention-2.  An online softmax walks the K tiles with
 // a running f32 max and sum, and the output is divided by the sum at the
 // end.  With dropout each probability is multiplied by its mask value
-// (0 or 1 / (1 - p)) before it is rounded to bf16 for the PV product.  No
+// (0 or 1 / (1 - p)) before it is rounded to bf16 for the PV product.  With
+// the radius, each thread keeps the points of its two query rows in
+// registers and the K tile's 64 points sit in shared memory beside it.  A
+// tile whose keys all lie outside the radius gives a running max near -1e9
+// and a sum of up to 64; the first in-radius score rescales both by
+// exp(-1e9 - m) = 0, and every row has one (its own token, at d2 ~ 0), so
+// the LSE and the output are those of the in-radius keys alone.  Tiles wholly
+// outside the radius are still computed: skipping them is later work.  No
 // pipelining of the tile loads yet, and no wgmma/TMA: later work.
 //
 // Design (f32, used when the model computes in f32): one thread per query
-// row, 64 rows per CTA, K and V tiles in shared memory, plain f32 FMA.
+// row, 64 rows per CTA, K and V tiles (and, with the radius, their points)
+// in shared memory, plain f32 FMA.
 #include "attention_common.cuh"
 
 #include <cmath>
@@ -43,15 +54,17 @@ using namespace ov3;
 constexpr int BQ = kTile;  // query rows per CTA (16 per warp)
 constexpr int BK = kTile;  // keys per tile
 
-template <int D>
+template <int D, bool RADIUS>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, int NQ, int NK, float scale,
-              Dropout drop, __nv_bfloat16* __restrict__ out, float* __restrict__ lse) {
+              Dropout drop, Radius rad, __nv_bfloat16* __restrict__ out,
+              float* __restrict__ lse) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) __nv_bfloat16 Qs[BQ * LD];
   __shared__ __align__(16) __nv_bfloat16 Ks[BK * LD];
   __shared__ __align__(16) __nv_bfloat16 Vs[BK * LD];
+  __shared__ float4 Kp[RADIUS ? BK : 1];  // the K tile's points (x, y, z, |k|^2)
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -65,6 +78,12 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   uint32_t qa[D / 16][4];
   load_a_frags<D>(qa, Qs, r0, t4);
+  const int b = RADIUS ? bh / rad.heads : 0;
+  float4 qp0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), qp1 = qp0;  // rows r0, r0 + 8
+  if (RADIUS) {
+    qp0 = load_point(rad.qxyz, static_cast<size_t>(b) * NQ + q0 + r0);
+    qp1 = load_point(rad.qxyz, static_cast<size_t>(b) * NQ + q0 + r0 + 8);
+  }
 
   float o[D / 8][4];
 #pragma unroll
@@ -75,6 +94,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     __syncthreads();  // the previous tile is consumed
     load_tile<D>(Ks, kg + static_cast<size_t>(kt) * D, BK);
     load_tile<D>(Vs, vg + static_cast<size_t>(kt) * D, BK);
+    if (RADIUS) load_points(Kp, rad.kxyz, b, NK, kt, BK);
     __syncthreads();
 
     float s[BK / 8][4];
@@ -87,6 +107,13 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       s[n][1] *= scale;
       s[n][2] *= scale;
       s[n][3] *= scale;
+      if (RADIUS) {
+        const float4 k0 = Kp[n * 8 + t4 * 2], k1 = Kp[n * 8 + t4 * 2 + 1];
+        s[n][0] = __fadd_rn(s[n][0], radius_bias(qp0, k0, rad.r2));
+        s[n][1] = __fadd_rn(s[n][1], radius_bias(qp0, k1, rad.r2));
+        s[n][2] = __fadd_rn(s[n][2], radius_bias(qp1, k0, rad.r2));
+        s[n][3] = __fadd_rn(s[n][3], radius_bias(qp1, k1, rad.r2));
+      }
       mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
       mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
     }
@@ -153,16 +180,20 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 
 constexpr int BKF = 32;  // keys per tile of the f32 kernel
 
-template <int D>
+template <int D, bool RADIUS>
 __global__ void __launch_bounds__(BQ)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, int NQ, int NK, float scale, Dropout drop,
-             float* __restrict__ out, float* __restrict__ lse) {
+             Radius rad, float* __restrict__ out, float* __restrict__ lse) {
   __shared__ float Ks[BKF][D];
   __shared__ float Vs[BKF][D];
+  __shared__ float4 Kp[RADIUS ? BKF : 1];
   const int bh = blockIdx.y;
   const int qrow = blockIdx.x * BQ + threadIdx.x;
   const size_t row = static_cast<size_t>(bh) * NQ + qrow;
+  const int b = RADIUS ? bh / rad.heads : 0;
+  const float4 qp = RADIUS ? load_point(rad.qxyz, static_cast<size_t>(b) * NQ + qrow)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const uint32_t base = drop.active ? drop_base(*drop.seed, bh) : 0u;
   const float* kg = k + static_cast<size_t>(bh) * NK * D;
   const float* vg = v + static_cast<size_t>(bh) * NK * D;
@@ -179,6 +210,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       Ks[e / D][e % D] = kg[static_cast<size_t>(kt) * D + e];
       Vs[e / D][e % D] = vg[static_cast<size_t>(kt) * D + e];
     }
+    if (RADIUS) load_points(Kp, rad.kxyz, b, NK, kt, BKF);
     __syncthreads();
     float s[BKF];
     float mx = m;
@@ -188,6 +220,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j][d], dot);
       s[j] = dot * scale;
+      if (RADIUS) s[j] = __fadd_rn(s[j], radius_bias(qp, Kp[j], rad.r2));
       mx = fmaxf(mx, s[j]);
     }
     const float a = expf(m - mx);
@@ -218,22 +251,32 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   lse[row] = m + logf(l);
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, int BH, int NQ, int NK,
-                   int is_bf16, float scale, Dropout drop, void* out, float* lse,
+template <int D, bool RADIUS>
+cudaError_t launch_variant(const void* q, const void* k, const void* v, int BH, int NQ, int NK,
+                   int is_bf16, float scale, Dropout drop, Radius rad, void* out, float* lse,
                    cudaStream_t s) {
   const dim3 grid(NQ / BQ, BH);
   if (is_bf16) {
-    attn_fwd_bf16<D><<<grid, kThreads, 0, s>>>(
+    attn_fwd_bf16<D, RADIUS><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), NQ, NK, scale, drop,
+        static_cast<const __nv_bfloat16*>(v), NQ, NK, scale, drop, rad,
         static_cast<__nv_bfloat16*>(out), lse);
   } else {
-    attn_fwd_f32<D><<<grid, BQ, 0, s>>>(
+    attn_fwd_f32<D, RADIUS><<<grid, BQ, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), NQ, NK, scale, drop, static_cast<float*>(out), lse);
+        static_cast<const float*>(v), NQ, NK, scale, drop, rad, static_cast<float*>(out),
+        lse);
   }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, int BH, int NQ, int NK,
+                   int is_bf16, float scale, Dropout drop, Radius rad, void* out, float* lse,
+                   cudaStream_t s) {
+  return rad.qxyz
+             ? launch_variant<D, true>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, rad, out, lse, s)
+             : launch_variant<D, false>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, rad, out, lse, s);
 }
 
 }  // namespace
@@ -242,20 +285,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, int BH, int NQ, 
 // out (BH, NQ, D) of the same type, lse (BH, NQ) f32.  NQ and NK multiples
 // of 64; D one of 16, 32, 64.  Dropout is on when `dropout` is 1: `seed`
 // points to one int32 on the device, keep_scale = 1 / (1 - p) and
-// threshold = min(int(p * 2^32), 2^32 - 1).  Returns a cudaError_t.
+// threshold = min(int(p * 2^32), 2^32 - 1).  The radius bias is on when
+// `qxyz` is not null: qxyz (BH / heads, NQ, 3) and kxyz (BH / heads, NK, 3)
+// f32 contiguous, r2 the f32 squared radius.  Returns a cudaError_t.
 extern "C" int ov3_attention_fwd(const void* q, const void* k, const void* v, int BH,
                                  int NQ, int NK, int D, int is_bf16, float scale,
                                  int dropout, const int* seed, float keep_scale,
-                                 unsigned int threshold, void* out, float* lse,
-                                 cudaStream_t stream) {
+                                 unsigned int threshold, const float* qxyz,
+                                 const float* kxyz, float r2, int heads, void* out,
+                                 float* lse, cudaStream_t stream) {
   if (BH <= 0 || NQ <= 0 || NK <= 0 || NQ % BQ != 0 || NK % BK != 0 ||
-      (dropout && seed == nullptr))
+      (dropout && seed == nullptr) ||
+      (qxyz && (kxyz == nullptr || heads <= 0 || BH % heads != 0)))
     return cudaErrorInvalidValue;
   const Dropout drop{seed, keep_scale, threshold, dropout};
+  const Radius rad{qxyz, kxyz, r2, heads};
   switch (D) {
-    case 16: return launch<16>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, out, lse, stream);
-    case 32: return launch<32>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, out, lse, stream);
-    case 64: return launch<64>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, out, lse, stream);
+    case 16: return launch<16>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, rad, out, lse, stream);
+    case 32: return launch<32>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, rad, out, lse, stream);
+    case 64: return launch<64>(q, k, v, BH, NQ, NK, is_bf16, scale, drop, rad, out, lse, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -12,6 +12,12 @@ are those `ov3det/models/convert_3detr.py:37-215` targets) onto the
       query/key/value kernel (d, H, hd) -> {q,k,v}_proj.weight (H*hd, d)
       out kernel (H, hd, d)             -> out_proj.weight (d, H*hd)
   pos_embedding/gauss_B, frozen/text_embed as they are.
+
+The masked encoder's tree needs nothing more: its interim set abstraction
+sits in the detector's scope (`interim_downsample/Dense_i`,
+`BatchNorm_i` -> `interim_downsample.layers.i`, `.norms.i`), its layers
+under `encoder` as the vanilla ones, and its projection with one hidden
+layer is a `GenericMLP` like the other.
 """
 from __future__ import annotations
 

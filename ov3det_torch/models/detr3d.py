@@ -1,10 +1,13 @@
 """3DETR open-vocabulary detector in PyTorch.
 
-Counterpart of `ov3det/models/detr3d.py:57-288` with the vanilla encoder:
+Counterpart of `ov3det/models/detr3d.py:57-288`:
 
   pre-encoder SA (N points -> 2048 tokens: FPS + ball-group kernels)
   -> transformer encoder (attention kernel on the 2048 x 2048 self-attention)
-  -> encoder->decoder projection -> FPS query seeds + position embeddings
+     or the masked encoder (3DETR-m: the attention kernel with the radius
+     bias, and the interim SA 2048 -> 1024 tokens after its layer 0)
+  -> encoder->decoder projection (two hidden layers; one for the masked
+     encoder) -> FPS query seeds + position embeddings
   -> decoder (every layer's state kept, stacked on a leading L axis)
   -> MLP heads -> box decode.
 
@@ -38,7 +41,11 @@ from ov3det_torch.geometry.boxes import (
 from ov3det_torch.models.mlp import GenericMLP
 from ov3det_torch.models.pointnet import PointnetSAModule
 from ov3det_torch.models.pos_embed import PositionEmbeddingCoords
-from ov3det_torch.models.transformer import TransformerDecoder, TransformerEncoder
+from ov3det_torch.models.transformer import (
+    MaskedTransformerEncoder,
+    TransformerDecoder,
+    TransformerEncoder,
+)
 from ov3det_torch.ops.pointcloud import furthest_point_sample, gather_points
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -88,11 +95,24 @@ class Model3DETR(nn.Module):
             nsample=cfg.preenc_nsample, in_channels=3 if cfg.use_color else 0,
             mlp_dims=tuple(cfg.preenc_mlp[:-1]) + (enc.dim,), compute_dtype=dtype,
         )
-        self.encoder = TransformerEncoder(enc.num_layers, enc.dim, enc.num_heads,
-                                          enc.ffn_dim, enc.dropout, enc.activation, dtype)
+        if enc.kind == "masked":
+            # registered here, not under `encoder`: the flax tree has it in
+            # the detector's scope (detr3d.py:123-132)
+            self.interim_downsample = PointnetSAModule(
+                npoint=cfg.preenc_npoints // 2, radius=cfg.interim_radius,
+                nsample=cfg.interim_nsample, in_channels=enc.dim,
+                mlp_dims=tuple(cfg.interim_mlp[:-1]) + (enc.dim,), compute_dtype=dtype,
+            )
+            self.encoder = MaskedTransformerEncoder(
+                enc.num_layers, enc.dim, enc.masking_radius, enc.num_heads, enc.ffn_dim,
+                enc.dropout, enc.activation, dtype)
+        else:
+            self.encoder = TransformerEncoder(enc.num_layers, enc.dim, enc.num_heads,
+                                              enc.ffn_dim, enc.dropout, enc.activation, dtype)
         self.encoder_to_decoder_projection = GenericMLP(
-            enc.dim, [enc.dim, enc.dim], dec.dim, norm="bn",
-            output_use_activation=True, output_use_norm=True, output_use_bias=False,
+            enc.dim, [enc.dim] if enc.kind == "masked" else [enc.dim, enc.dim], dec.dim,
+            norm="bn", output_use_activation=True, output_use_norm=True,
+            output_use_bias=False,
         )
         self.pos_embedding = PositionEmbeddingCoords(dec.dim, pos_type=cfg.pos_embed)
         self.query_projection = GenericMLP(
@@ -141,7 +161,11 @@ class Model3DETR(nn.Module):
         feats = pc[..., 3:] if cfg.use_color else None
 
         pre_xyz, pre_feats, _ = self.pre_encoder(xyz, feats)
-        enc_xyz, enc_feats, _ = self.encoder(pre_feats, pre_xyz, generator=generator)
+        if cfg.encoder.kind == "masked":
+            enc_xyz, enc_feats, _ = self.encoder(pre_feats, pre_xyz, self.interim_downsample,
+                                                 generator=generator)
+        else:
+            enc_xyz, enc_feats, _ = self.encoder(pre_feats, pre_xyz, generator=generator)
         enc_feats = self.encoder_to_decoder_projection(enc_feats)
 
         query_inds = furthest_point_sample(enc_xyz, cfg.num_queries)

@@ -5,8 +5,11 @@ FPS -> fused ball-group (the kernels) -> shared MLP (Dense + BatchNorm + ReLU
 per width) -> max-pool over the neighbour axis.  The ball-group emits the
 neighbour-major (B, K, M, 3 + C) layout, so the pool reduces axis 1.
 In training mode the BatchNorms use the batch statistics.  No gradient
-reaches the grouped coordinates: the selection carries none in JAX either,
-and the detector passes no features.
+reaches the grouped coordinates: the selection carries none in JAX either.
+The features do get one (the ball-group's backward, `BallGroup`): the
+masked encoder's interim set abstraction groups the encoder's 256-channel
+token features and trains through them.  The pre-encoder groups the raw
+input colour, or nothing.
 """
 from __future__ import annotations
 

@@ -1,16 +1,19 @@
 """Pre-norm transformer encoder/decoder for point tokens.
 
-Counterpart of `ov3det/models/transformer.py:42-93, 138-213, 262-322`
-(vanilla encoder and decoder).  Layout is channels-last (B, N, C); the
-multi-head attention keeps flax's (B, N, H, D) head layout.
+Counterpart of `ov3det/models/transformer.py:42-322`: the vanilla and the
+radius-masked encoder, and the decoder.  Layout is channels-last (B, N, C);
+the multi-head attention keeps flax's (B, N, H, D) head layout.
 
 Attention dispatch, as `fused_attention_eligible` without its TPU test:
 shapes with NQ * NK >= 1M, NQ and NK multiples of 128 and D a multiple of 8
-(the encoder's 2048 x 2048 self-attention) go through the fused attention
+(the encoder's 2048 x 2048 self-attention, the masked encoder's 2048 and
+1024 tokens) go through the fused attention
 (`ops.kernels.attention.fused_attention`: the CUDA kernels forward and
-backward, an autograd function); every other attention (the decoder's
-128 x 128 self- and 128 x 2048 cross-attention) is the plain matmul +
-softmax of flax's `nn.dot_product_attention`, in the working dtype.
+backward, an autograd function), the masked encoder's radius as the
+kernels' radius bias; every other attention (the decoder's, a masked layer
+at fewer tokens) is the plain matmul + softmax of flax's
+`nn.dot_product_attention`, in the working dtype, with the masked layer's
+boolean mask filled in as flax does.
 
 Training-mode dropout, as the JAX package has it:
   * residual and FFN dropouts per element (flax `nn.Dropout`);
@@ -48,16 +51,21 @@ def fused_attention_eligible(NQ: int, NK: int, D: int) -> bool:
 
 
 def dot_product_attention(q, k, v, dropout_rate: float = 0.0,
-                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """flax `nn.dot_product_attention` without mask: q scaled by 1/sqrt(D),
-    scores, softmax and the value product all in q's dtype.  With dropout
-    the weights are multiplied by keep / keep_prob in that dtype, `keep` one
-    (NQ, NK) draw broadcast over batch and heads (flax's default
-    `broadcast_dropout=True`).  q (B, NQ, H, D), k and v (B, NK, H, D) ->
-    (B, NQ, H, D)."""
+                          generator: Optional[torch.Generator] = None,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax `nn.dot_product_attention`: q scaled by 1/sqrt(D), scores,
+    softmax and the value product all in q's dtype.  `mask` (broadcast to
+    (B, H, NQ, NK), True = may attend) fills the scores it excludes with the
+    dtype's `finfo.min` before the softmax.  With dropout the weights are
+    multiplied by keep / keep_prob in that dtype, `keep` one (NQ, NK) draw
+    broadcast over batch and heads (flax's default `broadcast_dropout=True`).
+    q (B, NQ, H, D), k and v (B, NK, H, D) -> (B, NQ, H, D)."""
     depth = q.shape[-1]
     q = q / torch.tensor(math.sqrt(depth), dtype=torch.float32).to(q.dtype)
-    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    w = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0:
         if generator is None:
             raise ValueError("training-mode attention dropout needs a torch.Generator")
@@ -84,7 +92,11 @@ class MultiheadAttention(nn.Module):
         self.v_proj = Dense(dim, dim, compute_dtype=compute_dtype, init="xavier")
         self.out_proj = Dense(dim, dim, compute_dtype=compute_dtype, init="xavier")
 
-    def forward(self, q_in, k_in, v_in, generator: Optional[torch.Generator] = None):
+    def forward(self, q_in, k_in, v_in, generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None, radius=None):
+        """`mask`: a boolean mask for the plain path; `radius`: (q_xyz,
+        k_xyz, r2) for the fused path, which callers take only where
+        `fused_attention_eligible` holds."""
         B, NQ, _ = q_in.shape
         NK = k_in.shape[1]
         H = self.num_heads
@@ -93,7 +105,11 @@ class MultiheadAttention(nn.Module):
         v = self.v_proj(v_in).view(B, NK, H, -1)
         D = q.shape[-1]
         rate = self.dropout if self.training else 0.0
-        if fused_attention_eligible(NQ, NK, D):
+        eligible = fused_attention_eligible(NQ, NK, D) and mask is None
+        if radius is not None and not eligible:
+            raise ValueError("the radius bias runs only on the fused path: check "
+                             "fused_attention_eligible first")
+        if eligible:
             def heads(x, n):  # (B, N, H, D) -> (B*H, N, D); at B = 1 reshape is a strided view
                 return x.transpose(1, 2).reshape(B * H, n, D).contiguous()
 
@@ -103,10 +119,10 @@ class MultiheadAttention(nn.Module):
                     raise ValueError("training-mode attention dropout needs a torch.Generator")
                 seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                      device=q.device, dtype=torch.int32)
-            out = fused_attention(heads(q, NQ), heads(k, NK), heads(v, NK), rate, seed)
+            out = fused_attention(heads(q, NQ), heads(k, NK), heads(v, NK), rate, seed, radius)
             out = out.view(B, H, NQ, D).transpose(1, 2)
         else:
-            out = dot_product_attention(q, k, v, rate, generator)
+            out = dot_product_attention(q, k, v, rate, generator, mask)
         return self.out_proj(out.reshape(B, NQ, H * D))
 
 
@@ -128,11 +144,12 @@ class TransformerEncoderLayer(nn.Module):
         self.linear1 = Dense(dim, ffn_dim, compute_dtype=compute_dtype, init="xavier")
         self.linear2 = Dense(ffn_dim, dim, compute_dtype=compute_dtype, init="xavier")
 
-    def forward(self, x, pos=None, generator: Optional[torch.Generator] = None):
+    def forward(self, x, pos=None, generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None, radius=None):
         rate = self.dropout if self.training else 0.0
         y = self.norm1(x)
         qk = _with_pos(y, pos)
-        x = x + dropout(self.self_attn(qk, qk, y, generator), rate, generator)
+        x = x + dropout(self.self_attn(qk, qk, y, generator, mask, radius), rate, generator)
         y = dropout(self.act(self.linear1(self.norm2(x))), rate, generator)
         return x + dropout(self.linear2(y), rate, generator)
 
@@ -154,6 +171,56 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             feats = layer(feats, pos=pos, generator=generator)
         return xyz, feats, None
+
+
+class MaskedTransformerEncoder(nn.Module):
+    """Radius-masked encoder with the interim set abstraction after layer 0
+    (`ov3det/models/transformer.py:216-259`, reference
+    models/transformer.py:144-209).
+
+    Layer i lets a token attend to the tokens within `masking_radius[i]`
+    (a distance, compared with the squared distance: see
+    `EncoderConfig.masking_radius`).  Where the fused attention takes the
+    layer, the radius is its in-kernel bias with the expanded distance of
+    `_radius_bias`; elsewhere a (B, 1, N, N) boolean mask from the directly
+    subtracted distance goes to the plain attention.  The interim
+    downsample is passed to `forward`: its weights belong to the detector
+    (`interim_downsample`), as in the JAX variable tree.
+    """
+
+    def __init__(self, num_layers: int, dim: int, masking_radius, num_heads: int = 4,
+                 ffn_dim: int = 128, dropout: float = 0.1, activation: str = "relu",
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if len(masking_radius) != num_layers:
+            raise ValueError("masking_radius needs one radius per layer")
+        self.masking_radius = tuple(masking_radius)
+        self.head_dim = dim // num_heads
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(dim, num_heads, ffn_dim, dropout, activation, compute_dtype)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, feats, xyz, interim_downsample: nn.Module, pos=None,
+                generator: Optional[torch.Generator] = None):
+        """Returns (xyz, feats, inds) of the 1/2 downsampled tokens; inds are
+        the interim FPS indices."""
+        inds = None
+        for idx, layer in enumerate(self.layers):
+            r = self.masking_radius[idx]
+            N = feats.shape[1]
+            mask = radius = None
+            if fused_attention_eligible(N, N, self.head_dim):
+                radius = (xyz, xyz, r * r)
+            else:
+                diff = xyz[:, :, None, :] - xyz[:, None, :, :]
+                d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+                      + diff[..., 2] * diff[..., 2])
+                mask = (d2 < r * r)[:, None]
+            feats = layer(feats, pos=pos, generator=generator, mask=mask, radius=radius)
+            if idx == 0:
+                xyz, feats, inds = interim_downsample(xyz, feats)
+        return xyz, feats, inds
 
 
 class TransformerDecoderLayer(nn.Module):

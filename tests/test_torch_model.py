@@ -57,20 +57,14 @@ def _port_state(sd_fn, prefix, *args):
 
 
 # ------------------------------------------------------------ config, data
-def test_config_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tc.ModelConfig(encoder=tc.EncoderConfig(kind="masked"))
-    with pytest.raises(NotImplementedError):
-        tc.ModelConfig(ball_query_method="first_k")
-    jq, tq = jc.sunrgbd_quick(), tc.sunrgbd_quick()
+def _same_train_config(tq, jq):
+    """Every field of the port's TrainConfig equals the JAX one's."""
     j, t = jq.model, tq.model
-    shared = {f.name for f in dataclasses.fields(t)}
-    for name in shared - {"encoder", "decoder"}:
-        assert getattr(t, name) == getattr(j, name), name
-    assert dataclasses.asdict(t.decoder) == dataclasses.asdict(j.decoder)
-    enc = dataclasses.asdict(j.encoder)
-    enc.pop("masking_radius")
-    assert dataclasses.asdict(t.encoder) == enc
+    for f in dataclasses.fields(t):
+        if f.name in ("encoder", "decoder"):
+            assert dataclasses.asdict(getattr(t, f.name)) == dataclasses.asdict(getattr(j, f.name))
+        else:
+            assert getattr(t, f.name) == getattr(j, f.name), f.name
     # the training part: loss, matcher, optimiser, the data fields, the run
     jloss = dataclasses.asdict(jq.loss)
     jloss.pop("teacher_per_layer")
@@ -79,6 +73,20 @@ def test_config_rejects_what_is_not_ported():
     for f in dataclasses.fields(tq.data):
         assert getattr(tq.data, f.name) == getattr(jq.data, f.name), f.name
     assert tq.max_epoch == jq.max_epoch
+
+
+def test_config_rejects_what_is_not_ported():
+    with pytest.raises(NotImplementedError):
+        tc.ModelConfig(ball_query_method="first_k")
+    # the masked encoder is ported: accepted, with the reference's radii
+    masked = tc.ModelConfig(encoder=tc.EncoderConfig(kind="masked", dropout=0.3))
+    assert dataclasses.asdict(masked.encoder) == dataclasses.asdict(
+        jc.EncoderConfig(kind="masked", dropout=0.3))
+    assert masked.encoder.masking_radius == jc.EncoderConfig().masking_radius
+    with pytest.raises(ValueError):
+        tc.ModelConfig(encoder=tc.EncoderConfig(kind="masked", num_layers=2))
+    _same_train_config(tc.sunrgbd_quick(), jc.sunrgbd_quick())
+    _same_train_config(tc.scannet_quick(), jc.scannet_quick())
 
 
 @pytest.mark.parametrize("kw", [dict(num_points=2048, num_angle_bin=12, num_semcls=20),

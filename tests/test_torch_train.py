@@ -28,9 +28,7 @@ import torch
 
 from ov3det import config as jc
 from ov3det.engine.schedule import make_lr_schedule as jax_schedule
-from ov3det.engine.train import TrainState
 from ov3det.engine.train import build_optimizer as jax_build_optimizer
-from ov3det.engine.train import make_train_step as jax_make_train_step
 from ov3det.geometry import boxes as jboxes
 from ov3det.geometry.iou import generalized_box3d_iou as jax_giou
 from ov3det.losses.criterion import compute_assignments as jax_assignments
@@ -41,8 +39,6 @@ from ov3det_torch.engine import train as T
 from ov3det_torch.geometry import boxes as tboxes
 from ov3det_torch.geometry.iou import generalized_box3d_iou
 from ov3det_torch.losses.criterion import set_criterion
-from ov3det_torch.models.convert import from_flax_variables
-from ov3det_torch.models.detr3d import Model3DETR
 from ov3det_torch.ops.hungarian import auction_lap
 from tests import torch_parity as tp
 
@@ -177,13 +173,14 @@ def test_auction_lap_fallback_phases_match_jax():
 
 # ------------------------------------------------------------ criterion
 def _outputs(batch, L=3, Q=24, C=10, nbins=12, seed=4):
-    """Random stacked model outputs (L, B, Q, ...) with consistent boxes."""
+    """Random stacked model outputs (L, B, Q, ...) with consistent boxes
+    (unrotated with one angle bin, as the detector decodes them)."""
     rng = np.random.default_rng(seed)
     B = batch["point_clouds"].shape[0]
     f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
     centers = rng.uniform(-2, 2, (L, B, Q, 3)).astype(np.float32)
     sizes = rng.uniform(0.2, 1.5, (L, B, Q, 3)).astype(np.float32)
-    angles = rng.uniform(-np.pi, np.pi, (L, B, Q)).astype(np.float32)
+    angles = rng.uniform(-np.pi, np.pi, (L, B, Q)).astype(np.float32) * (nbins > 1)
     logits = f(L, B, Q, C + 1)
     probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
     lo, hi = batch["point_cloud_dims_min"], batch["point_cloud_dims_max"]
@@ -199,19 +196,35 @@ def _outputs(batch, L=3, Q=24, C=10, nbins=12, seed=4):
     }
 
 
-@pytest.mark.parametrize("matcher_giou", ["rotated", "axis_aligned"])
-def test_set_criterion_matches_jax(matcher_giou):
+def _criterion_case(case):
+    """(batch, outputs, JAX loss config, port loss config, angle bins)."""
+    if case == "scannet_masked":  # 3DETR-m: axis-aligned boxes, its run script's weights
+        from ov3det.datasets import make_batch as jax_make_batch
+
+        batch = jax_make_batch(np.random.default_rng(5), batch_size=2, num_points=2048,
+                               num_semcls=10, num_angle_bin=1)
+        kw = dict(giou_weight=1.0, no_object_weight=0.25)
+        return (batch, _outputs(batch, nbins=1),
+                dataclasses.replace(jc.scannet_quick().loss, matcher=jc.MatcherConfig(1, 0, 0, 2),
+                                    **kw),
+                dataclasses.replace(tc.scannet_quick().loss, matcher=tc.MatcherConfig(1, 0, 0, 2),
+                                    **kw), 1)
     batch = tp.make_batch(seed=5)
-    out = _outputs(batch)
-    jloss = dataclasses.replace(jc.sunrgbd_quick().loss, matcher_giou=matcher_giou, giou_weight=1.0)
-    tloss = dataclasses.replace(tc.sunrgbd_quick().loss, matcher_giou=matcher_giou, giou_weight=1.0)
+    return (batch, _outputs(batch),
+            dataclasses.replace(jc.sunrgbd_quick().loss, matcher_giou=case, giou_weight=1.0),
+            dataclasses.replace(tc.sunrgbd_quick().loss, matcher_giou=case, giou_weight=1.0), 12)
+
+
+@pytest.mark.parametrize("case", ["rotated", "axis_aligned", "scannet_masked"])
+def test_set_criterion_matches_jax(case):
+    batch, out, jloss, tloss, nbins = _criterion_case(case)
     grad_keys = ("center_normalized", "size_normalized", "sem_cls_logits", "angle_logits",
                  "angle_residual_normalized", "box_corners")
 
     def jtotal(diff):
         o = dict({k: jnp.asarray(v) for k, v in out.items()}, **diff)
         return jax_criterion(o, {k: jnp.asarray(v) for k, v in batch.items()}, jloss,
-                             num_angle_bin=12, num_semcls=10)
+                             num_angle_bin=nbins, num_semcls=10)
 
     (_, want), jgrads = jax.value_and_grad(jtotal, has_aux=True)(
         {k: jnp.asarray(out[k]) for k in grad_keys})
@@ -219,10 +232,10 @@ def test_set_criterion_matches_jax(matcher_giou):
     jassign = jax_assignments({k: jnp.asarray(v) for k, v in out.items()},
                               dict({k: jnp.asarray(v) for k, v in batch.items()},
                                    nactual_gt=jnp.asarray(batch["gt_box_present"].sum(1), jnp.int32)),
-                              jloss, rotated_boxes=True)
+                              jloss, rotated_boxes=nbins > 1)
 
     tout = {k: _t(v).requires_grad_(k in grad_keys) for k, v in out.items()}
-    total, got = set_criterion(tout, T.batch_to_device(batch, "cpu"), tloss, 12, 10)
+    total, got = set_criterion(tout, T.batch_to_device(batch, "cpu"), tloss, nbins, 10)
     assert set(got) == set(want) and "loss_cardinality" in got and "loss_center_1" in got
     for k, w in want.items():
         np.testing.assert_allclose(got[k].item(), w, rtol=1e-5, atol=1e-7, err_msg=k)
@@ -230,11 +243,14 @@ def test_set_criterion_matches_jax(matcher_giou):
     for k in grad_keys:
         np.testing.assert_allclose(tout[k].grad.numpy(), np.asarray(jgrads[k]),
                                    rtol=1e-4, atol=1e-6, err_msg=k)
+    if case == "scannet_masked":  # the GIoU loss carries gradient into the corners
+        assert got["loss_giou"].item() > 0 and tout["box_corners"].grad.abs().sum() > 0
 
     from ov3det_torch.losses.criterion import compute_assignments
     targets = dict(T.batch_to_device(batch, "cpu"),
                    nactual_gt=_t(batch["gt_box_present"].sum(1)).long())
-    assign = compute_assignments({k: v.detach() for k, v in tout.items()}, targets, tloss, True)
+    assign = compute_assignments({k: v.detach() for k, v in tout.items()}, targets, tloss,
+                                 nbins > 1)
     for k in ("per_prop_gt_inds", "proposal_matched_mask"):
         np.testing.assert_array_equal(assign[k].numpy(), np.asarray(jassign[k]), err_msg=k)
 
@@ -293,81 +309,10 @@ def test_adamw_matches_optax(filter_biases_wd):
 
 
 # ------------------------------------------------------------ whole step
-def _zero_dropout(m):
-    return dataclasses.replace(m, encoder=dataclasses.replace(m.encoder, dropout=0.0),
-                               decoder=dataclasses.replace(m.decoder, dropout=0.0),
-                               mlp_dropout=0.0)
-
-
 def test_two_training_steps_match_jax_make_train_step():
-    batch = tp.make_batch(seed=0)
     jm, tm = tp.configs("float32")
-    jm, tm = _zero_dropout(jm), _zero_dropout(tm)
     jq, tq = jc.sunrgbd_quick(), tc.sunrgbd_quick()
-    jcfg = dataclasses.replace(jq, model=jm, optim=dataclasses.replace(jq.optim, warm_lr_epochs=0))
-    tcfg = dataclasses.replace(tq, model=tm, optim=dataclasses.replace(tq.optim, warm_lr_epochs=0))
-    model, variables = tp.jax_model_and_variables(jm, batch)
-
-    # JAX: make_train_step from these variables; the matcher's masks of step 1
-    tx = jax_build_optimizer(jcfg.optim, jax_schedule(jcfg.optim, jcfg.max_epoch, 100))
-    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                       batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
-                       frozen=jax.tree_util.tree_map(jnp.asarray, variables["frozen"]),
-                       opt_state=tx.init(params))
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jout, _ = model.apply(variables, {k: jbatch[k] for k in tp.INPUT_KEYS}, train=True,
-                          mutable=["batch_stats"])
-    jassign = jax_assignments(jout, dict(jbatch, nactual_gt=jnp.sum(jbatch["gt_box_present"], 1)
-                                         .astype(jnp.int32)), jcfg.loss, rotated_boxes=True)
-    jstep = jax_make_train_step(model, tx, jcfg.loss, jm.num_angle_bin, jm.num_semcls)
-    want = []
-    for i in range(2):
-        state, metrics = jstep(state, jbatch, jax.random.PRNGKey(i))
-        want.append(({k: float(v) for k, v in metrics.items()}, from_flax_variables({
-            "params": jax.tree_util.tree_map(np.asarray, state.params),
-            "batch_stats": jax.tree_util.tree_map(np.asarray, state.batch_stats),
-            "frozen": variables["frozen"]})))
-
-    # the port: build from the same weights, two steps
-    net = Model3DETR(tm, device="cpu")
-    net.load_state_dict(from_flax_variables(variables))
-    opt = T.build_optimizer(net, tcfg.optim, T.make_lr_schedule(tcfg.optim, tcfg.max_epoch, 100))
-    step = T.make_train_step(net, opt, tcfg.loss, tm.num_angle_bin, tm.num_semcls)
-    tbatch = T.batch_to_device(batch, "cpu")
-    start = {k: v.clone() for k, v in net.state_dict().items()}
-
-    from ov3det_torch.losses.criterion import compute_assignments
-    net.train()
-    with torch.no_grad():
-        tout = net({k: tbatch[k] for k in tp.INPUT_KEYS}, torch.Generator())
-    net.load_state_dict(start)  # the probe forward moved the running stats
-    targets = dict(tbatch, nactual_gt=tbatch["gt_box_present"].sum(1).long())
-    assign = compute_assignments(tout, targets, tcfg.loss, rotated_boxes=True)
-    for k in ("per_prop_gt_inds", "proposal_matched_mask"):
-        np.testing.assert_array_equal(assign[k].numpy(), np.asarray(jassign[k]), err_msg=k)
-
-    gen = torch.Generator().manual_seed(0)
-    for i, rtol in enumerate((1e-4, 2e-3)):
-        got = step(tbatch, gen)
-        metrics, sd_want = want[i]
-        assert set(got) == set(metrics)
-        for k, w in metrics.items():
-            np.testing.assert_allclose(float(got[k]), w, rtol=rtol, atol=1e-6, err_msg=f"{k}, step {i}")
-        sd = net.state_dict()
-        for k, w in sd_want.items():
-            if "running" in k:
-                np.testing.assert_allclose(sd[k].numpy(), w.numpy(), rtol=0, atol=1e-4, err_msg=k)
-        np.testing.assert_allclose(sd["pos_embedding.gauss_B"].numpy(),
-                                   sd_want["pos_embedding.gauss_B"].numpy(), rtol=0, atol=1e-6)
-        if i == 0:
-            diffs = torch.cat([(sd[k] - w).abs().flatten() for k, w in sd_want.items()
-                               if "running" not in k and k != "text_embed"])
-            assert float((diffs <= 1e-6).float().mean()) >= 0.995
-            assert float(diffs.max()) <= 2 * LR
-    # gauss_B moved by the weight decay alone
-    assert not torch.equal(net.pos_embedding.gauss_B.detach(), start["pos_embedding.gauss_B"])
-    assert net.pos_embedding.gauss_B.grad is None
+    tp.assert_two_steps_match(tp.make_batch(seed=0), jq, tq, jm, tm, LR)
 
 
 def test_build_training_defaults_to_cuda():
