@@ -5,7 +5,9 @@
 
 Builds the CUDA kernels from `ov3det_torch/csrc/` (one nvcc per source, all
 at once), then:
-  1. prints the card's name and power limit, and the build time;
+  1. prints the card's name and power limit, the build time, each kernel's
+     registers and shared memory (ptxas) and, from `cuobjdump -sass`, that the
+     wgmma kernels hold HGMMA and LDGSTS (cp.async) and no HMMA;
   2. holds each kernel against its plain PyTorch version on the card at the
      shapes the main paths give it, and times kernel, plain version and,
      where one exists, a PyTorch call as a yardstick:
@@ -16,7 +18,15 @@ at once), then:
        kernels equals the plain hash exactly; forward, dq and dk/dv in bf16,
        with dropout 0.1 and without, within 2e-2 of the largest value of
        the plain version in f32 (LSE within 1e-3); the f32 variants within
-       1e-4 of it;
+       1e-4 of it.  The forward and dk/dv run their wgmma design at these
+       shapes; their first (mma.sync) design, reached through the wrappers'
+       `_impl="mma"`, must agree with it within the same tolerance and is
+       timed in turns beside it (the wgmma design must be the faster), and
+       is held against the plain version at N = 192, a shape it still
+       serves.  Each time stands beside the plain version's, SDPA's without
+       dropout and with the kernel's rate, and a bound: the largest of
+       bytes, tensor operations, one exponential a score and, with dropout,
+       the hash's integer operations;
   3. serves 3 requests of 8 synthetic scenes x 20 000 points through
      `Detector` at the full width of `sunrgbd_quick()` (seeded random
      weights): each request must launch FPS twice, the ball-group once, the
@@ -45,8 +55,11 @@ at once), then:
        token coordinates from the FPS picks above: the radius mask read
        back through the forward, dq and dk/dv kernels equals the plain
        version's bit for bit, bf16 within 2e-2 and f32 within 1e-4 of the
-       plain version (dropout 0 and 0.3), each timed beside its plain
-       version and `scaled_dot_product_attention` with the boolean mask;
+       plain version (dropout 0 and 0.3), the two designs of the forward
+       and dk/dv agreeing, each timed beside the first design, its plain
+       version and `scaled_dot_product_attention` with the boolean mask
+       (without dropout and with 0.3); the share of 64 x 64 and 128 x 128
+       (q, k) tiles with no in-radius pair is printed;
        serving: 3 requests, each launching FPS 3 times, the ball-group
        twice, the radius forward 3 times and no backward kernel;
        training: one warm-up and 3 timed steps, each launching FPS 3 times,
@@ -79,6 +92,11 @@ SCANNET_POINTS = 40000  # scannet_quick's data part, batch 8 as well
 TRAIN_STEPS, MASKED_TRAIN_STEPS = 5, 3
 ITERS_PER_EPOCH = 1000  # sets only the learning-rate schedule of the train phase
 F32_PEAK, BF16_PEAK, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12  # H100 SXM data sheet
+EX2_PER_SM_CLOCK, INT_LANES_PER_SM_CLOCK = 16, 64  # special-function and int32 results an SM a clock
+# integer operations a score of the dropout hash with its row term formed once a
+# thread and its column term advanced once a tile: 1.5 adds, the finaliser's
+# 3 shifts, 3 xors and 2 multiplies, the compare and the select
+HASH_OPS_PER_SCORE = 11
 
 
 def card_line() -> str:
@@ -97,9 +115,9 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"(attn_(?:fwd|dq|dkv)_(?:bf16|f32)|fps_kernel|pick_kernel|fill_kernel)"
-                          r"(?:ILi(\d+)E(?:Lb([01])E)?)?", m.group(1))
-            args = [a for a in (t.group(2), {"1": "radius", "0": None}.get(t.group(3)))
+            t = re.search(r"(attn_(?:fwd|dq|dkv)_(?:bf16|f32|wgmma)|fps_kernel|pick_kernel|"
+                          r"fill_kernel)(?:ILi(\d+)E)?(?:ILb([01])E|Lb([01])E)?", m.group(1))
+            args = [a for a in (t.group(2), {"1": "radius"}.get(t.group(3) or t.group(4)))
                     if a] if t else []
             kernel = (t.group(1) + (f"<{', '.join(args)}>" if args else "")) if t else m.group(1)
         elif "spill stores" in line and kernel:
@@ -110,6 +128,40 @@ def ptxas_summary(log: str) -> list:
             lines.append(f"{kernel}: {regs} registers, {spill} B spilled, "
                          f"{smem.group(1) if smem else 0} B shared")
             kernel = None
+    return lines
+
+
+def sass_summary() -> list:
+    """What the wgmma attention kernels compile to, from `cuobjdump -sass` of
+    the two attention libraries: per kernel the count of warpgroup products
+    (HGMMA), of mma.sync products (HMMA) and of asynchronous 16-byte copies
+    (LDGSTS).  A wgmma kernel must hold the first and the last and no HMMA."""
+    import re
+
+    from ov3det_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return [f"SASS not inspected: no cuobjdump beside {_build.nvcc_path()}"]
+    lines = []
+    for name in ("attention_fwd", "attention_bwd"):
+        res = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                             capture_output=True, text=True, timeout=300, check=True)
+        counts, kernel = {}, None
+        for line in res.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                t = re.search(r"attn_(?:fwd|dkv)_wgmmaILb([01])E", m.group(1))
+                kernel = (t.group(0).split("IL")[0] + ("<radius>" if t.group(1) == "1" else "")) if t else None
+            elif kernel:
+                for op in ("HGMMA", "HMMA", "LDGSTS"):
+                    if re.search(rf"\b{op}\b", line):
+                        counts.setdefault(kernel, dict(HGMMA=0, HMMA=0, LDGSTS=0))[op] += 1
+        for kernel, c in counts.items():
+            require(c["HGMMA"] > 0 and c["LDGSTS"] > 0 and c["HMMA"] == 0,
+                    f"{kernel} must run on wgmma and cp.async alone: {c}")
+            lines.append(f"{kernel}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA, {c['LDGSTS']} LDGSTS in its SASS")
+        require(len(counts) == 2, f"{name}: expected two wgmma kernels in the SASS, found {sorted(counts)}")
     return lines
 
 
@@ -127,9 +179,53 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def designs_in_turns(kernel, rate: float, seed, reps: int) -> tuple:
+    """(ms, ms without dropout, the same two of the first design) of
+    `kernel(p, seed, impl)`, timed this design, the first, the first, this,
+    the smaller of each pair kept."""
+    ms, nd_ms = cuda_ms(lambda: kernel(rate, seed), reps), cuda_ms(lambda: kernel(0.0, None), reps)
+    old_ms = cuda_ms(lambda: kernel(rate, seed, "mma"), reps)
+    old_nd = cuda_ms(lambda: kernel(0.0, None, "mma"), reps)
+    old_ms = min(old_ms, cuda_ms(lambda: kernel(rate, seed, "mma"), reps))
+    old_nd = min(old_nd, cuda_ms(lambda: kernel(0.0, None, "mma"), reps))
+    ms = min(ms, cuda_ms(lambda: kernel(rate, seed), reps))
+    nd_ms = min(nd_ms, cuda_ms(lambda: kernel(0.0, None), reps))
+    return ms, nd_ms, old_ms, old_nd
+
+
 def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_rates() -> tuple[float, float]:
+    """(exponentials a second, int32 operations a second) of the card: 16 and
+    64 results an SM a clock, at the SM count and clock the card reports."""
+    props = torch.cuda.get_device_properties(0)
+    khz = getattr(props, "clock_rate", None)
+    if not khz:  # older PyTorch: nvidia-smi gives the maximum SM clock in MHz
+        res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60, check=True)
+        khz = float(res.stdout.strip().splitlines()[0]) * 1e3
+    per_s = props.multi_processor_count * khz * 1e3
+    return EX2_PER_SM_CLOCK * per_s, INT_LANES_PER_SM_CLOCK * per_s
+
+
+def attention_bound(nbytes: float, tensor_flops: float, scores: float, dropout: bool,
+                    f32_ops: float = 0.0) -> dict:
+    """The least time of one attention kernel call: the largest of its bytes
+    at the memory rate, its tensor operations at the bf16 peak, one
+    exponential a score, its f32 operations (the radius test) and, with
+    dropout, the hash's integer operations.  Returns bound_ms, bound_by
+    ("bytes" or "operations") and bound_term, the term that won."""
+    ex2_rate, int_rate = sm_rates()
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S, "tensor operations": tensor_flops / BF16_PEAK,
+             "exponentials": scores / ex2_rate, "distance test": f32_ops / F32_PEAK}
+    if dropout:
+        terms["hash"] = HASH_OPS_PER_SCORE * scores / int_rate
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=terms[term] * 1e3, bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term)
 
 
 def require(cond: bool, what: str) -> None:
@@ -311,6 +407,14 @@ def check_attention(dev: torch.device) -> dict:
         e_dkv = max(rel(dk, rdk), rel(dv, rdv))
         errs["attention_dkv"] = max(errs["attention_dkv"], abs_err[0])
         require(e_dq <= 2e-2 and e_dkv <= 2e-2, f"attention backward bf16 p={p}: dq {e_dq}, dk/dv {e_dkv}")
+        # the first (mma.sync) design of the forward and dk/dv on the same inputs
+        old_out, old_lse = A.attention_fwd(qb, kb, vb, p, seed, _impl="mma")
+        old_dk, old_dv = A.attention_dkv(qb, kb, vb, dob, lse, delta, p, seed, _impl="mma")
+        e_old = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                    for a, b in ((out, old_out), (dk, old_dk), (dv, old_dv)))
+        e_old_lse = (lse - old_lse).abs().max().item()
+        require(e_old <= 2e-2 and e_old_lse <= 1e-3,
+                f"attention p={p}: the wgmma and mma.sync designs differ by {e_old}, lse {e_old_lse}")
 
         out32, lse32 = A.attention_fwd(q, k, v, p, seed)
         ref32, rlse32 = A.attention_fwd_plain(q, k, v, p, seed)
@@ -322,51 +426,102 @@ def check_attention(dev: torch.device) -> dict:
                                           A.attention_dkv_plain(q, k, v, do, lse32, d32, p, seed))]
         require(max(e32) <= 1e-4, f"attention f32 p={p}: out, lse, dq, dk, dv errors {e32}")
         print(f"attention p={p}: bf16 error over the largest plain value: out {e_out:.2e}, "
-              f"lse {e_lse:.2e} (abs), dq {e_dq:.2e}, dk/dv {e_dkv:.2e}; f32 variants "
-              f"{max(e32):.2e}")
+              f"lse {e_lse:.2e} (abs), dq {e_dq:.2e}, dk/dv {e_dkv:.2e}; wgmma against mma.sync "
+              f"design {e_old:.2e}, lse {e_old_lse:.2e}; f32 variants {max(e32):.2e}")
+
+    first_design_check(A, dev)
 
     out, lse = A.attention_fwd(qb, kb, vb, rate, seed)
     delta = (dob.float() * out.float()).sum(-1, keepdim=True)
-    times = {
-        "attention_fwd": (lambda: A.attention_fwd(qb, kb, vb, rate, seed),
+    bwd = (qb, kb, vb, dob, lse, delta)
+    # name -> (kernel(p, seed, impl), plain version with dropout)
+    calls = {
+        "attention_fwd": (lambda p, sd, impl=None: A.attention_fwd(qb, kb, vb, p, sd, _impl=impl),
                           lambda: A.attention_fwd_plain(qb, kb, vb, rate, seed)),
-        "attention_dq": (lambda: A.attention_dq(qb, kb, vb, dob, lse, delta, rate, seed),
-                         lambda: A.attention_dq_plain(qb, kb, vb, dob, lse, delta, rate, seed)),
-        "attention_dkv": (lambda: A.attention_dkv(qb, kb, vb, dob, lse, delta, rate, seed),
-                          lambda: A.attention_dkv_plain(qb, kb, vb, dob, lse, delta, rate, seed)),
+        "attention_dq": (lambda p, sd: A.attention_dq(*bwd, p, sd),
+                         lambda: A.attention_dq_plain(*bwd, rate, seed)),
+        "attention_dkv": (lambda p, sd, impl=None: A.attention_dkv(*bwd, p, sd, _impl=impl),
+                          lambda: A.attention_dkv_plain(*bwd, rate, seed)),
     }
-    no_drop = {
-        "attention_fwd": cuda_ms(lambda: A.attention_fwd(qb, kb, vb), 20),
-        "attention_dq": cuda_ms(lambda: A.attention_dq(qb, kb, vb, dob, lse, delta), 20),
-        "attention_dkv": cuda_ms(lambda: A.attention_dkv(qb, kb, vb, dob, lse, delta), 20),
-    }
-    # yardsticks: PyTorch's fused attention without dropout; its backward
-    # computes dq, dk and dv in one call
+    # yardsticks: PyTorch's fused attention without dropout and with the
+    # kernels' rate; its backward computes dq, dk and dv in one call
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = (t.view(8, 4, N, D).detach().requires_grad_() for t in (qb, kb, vb))
-    library_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4), 20)
-    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
     g4 = dob.view(8, 4, N, D)
-    library_bwd = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 20)
-    library = {"attention_fwd": library_fwd, "attention_dq": library_bwd,
-               "attention_dkv": library_bwd}
+    library, library_drop = {}, {}
+    for p, into in ((0.0, library), (rate, library_drop)):
+        into["attention_fwd"] = cuda_ms(lambda: sdpa(q4, k4, v4, dropout_p=p), 20)
+        o4 = sdpa(q4, k4, v4, dropout_p=p)
+        into["attention_dq"] = into["attention_dkv"] = cuda_ms(
+            lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 20)
     flops = {"attention_fwd": 4, "attention_dq": 6, "attention_dkv": 8}  # x BH N^2 D
     tensor = BH * N * D * 2  # bytes of one bf16 operand
     nbytes = {"attention_fwd": 4 * tensor + BH * N * 4,  # q, k, v in; out, lse out
               "attention_dq": 5 * tensor + 2 * BH * N * 4,  # q, k, v, dO, lse, delta in; dq out
               "attention_dkv": 6 * tensor + 2 * BH * N * 4}
+    scores = BH * N * N  # one exponential each, recomputed in dq and in dk/dv
+    ex2_rate, int_rate = sm_rates()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"bounds: {sms} SMs at {ex2_rate / EX2_PER_SM_CLOCK / sms / 1e9:.3f} GHz: "
+          f"{ex2_rate:.3e} exponentials/s, {int_rate:.3e} int32 operations/s, "
+          f"{HASH_OPS_PER_SCORE} of them a score for the dropout hash")
     entries = {}
-    for name, (kernel, plain) in times.items():
-        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
-        b_ms, b_by = bound_ms(nbytes[name], flops[name] * BH * N * N * D, BF16_PEAK)
+    for name, (kernel, plain) in calls.items():
+        extra = {}
+        if name == "attention_dq":  # dq has the first design only
+            ms, nd_ms = cuda_ms(lambda: kernel(rate, seed), 20), cuda_ms(lambda: kernel(0.0, None), 20)
+        else:
+            ms, nd_ms, old_ms, old_nd = designs_in_turns(kernel, rate, seed, 20)
+            require(ms < old_ms and nd_ms < old_nd,
+                    f"{name}: the wgmma design ({ms:.3f} / {nd_ms:.3f} ms with / without dropout) is "
+                    f"not faster than the mma.sync design ({old_ms:.3f} / {old_nd:.3f} ms)")
+            extra = dict(design="wgmma, cp.async ring", ms_previous_design=old_ms,
+                         ms_previous_design_no_dropout=old_nd)
+        plain_ms = cuda_ms(plain, 3)
+        args = (nbytes[name], flops[name] * BH * N * N * D, scores)
+        bound, bound_nd = attention_bound(*args, dropout=True), attention_bound(*args, dropout=False)
+        was = (f"; mma.sync design {extra['ms_previous_design']:.3f} ms ({extra['ms_previous_design_no_dropout']:.3f})"
+               if extra else "")
         print(f"{name}: per call with dropout {rate}: kernel {ms:.3f} ms (without dropout "
-              f"{no_drop[name]:.3f} ms), plain {plain_ms:.3f} ms, library {library[name]:.3f} ms"
+              f"{nd_ms:.3f} ms){was}, plain {plain_ms:.3f} ms, library "
+              f"{library_drop[name]:.3f} ms with dropout {rate} ({library[name]:.3f} ms without)"
               f"{' (SDPA backward: dq, dk and dv)' if name != 'attention_fwd' else ' (SDPA)'}, "
-              f"bound {b_ms:.4f} ms ({b_by})")
-        entries[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=library[name], ms_no_dropout=no_drop[name],
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_term']}; without dropout "
+              f"{bound_nd['bound_ms']:.4f} ms, {bound_nd['bound_term']})")
+        entries[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, **bound,
+                             library_ms=library[name], library_ms_dropout=library_drop[name],
+                             ms_no_dropout=nd_ms, bound_ms_no_dropout=bound_nd["bound_ms"],
+                             bound_term_no_dropout=bound_nd["bound_term"], **extra,
                              work=f"one call, BH=32, N=2048, D=64 bf16, dropout {rate}; "
                                   "max_abs_err of bf16 against the plain version in f32")
     return entries
+
+
+def first_design_check(A, dev: torch.device) -> None:
+    """The first (mma.sync) forward and dk/dv stay the route of every bf16
+    shape the wgmma design does not take: held against their plain versions
+    at N = 192 (a multiple of 64, not of 128), with dropout and the radius."""
+    BH, N, D, rate = 8, 192, 64, 0.1
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn(BH, N, D, generator=g).to(dev).bfloat16() for _ in range(4))
+    xyz = torch.rand(2, N, 3, generator=g).to(dev)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    require(A._route(q.dtype, D, N, N) == "mma", "N = 192 must take the first design")
+    worst = 0.0
+    for radius in (None, (xyz, xyz, 0.25)):
+        out, lse = A.attention_fwd(q, k, v, rate, seed, radius)
+        f32 = [t.float() for t in (q, k, v, do)]
+        ref, ref_lse = A.attention_fwd_plain(*f32[:3], rate, seed, radius)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        pairs = [(out, ref)] + list(zip(A.attention_dkv(q, k, v, do, lse, delta, rate, seed, radius),
+                                        A.attention_dkv_plain(*f32, lse, delta, rate, seed, radius)))
+        err = max(((a.float() - b).abs().max() / b.abs().max()).item() for a, b in pairs)
+        e_lse = (lse - ref_lse).abs().max().item()
+        require(err <= 2e-2 and e_lse <= 1e-3,
+                f"first design at N=192, radius {radius is not None}: {err}, lse {e_lse}")
+        worst = max(worst, err)
+    print(f"attention, first design (mma.sync) at BH=8, N=192: forward and dk/dv within "
+          f"{worst:.2e} of the largest plain value, with dropout {rate}, with and without the radius")
 
 
 def check_masked_points(batch: dict, dev: torch.device) -> tuple:
@@ -424,10 +579,13 @@ def check_masked_points(batch: dict, dev: torch.device) -> tuple:
     # the card's index_add_ sums with atomics, in another order than the CPU
     require(g_err <= 1e-5, f"ball_group feature gradient: card vs CPU {g_err} relative")
     g_ms = cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, 0.4, 32, g, 256), 5)
+    # its bound: the grouped gradient read once, the feature gradient written once
+    g_bound = (g.numel() + B * 2048 * 256) * 4 / HBM_BYTES_PER_S * 1e3
     print(f"ball_group feature gradient (plain PyTorch on both devices, as XLA in JAX): card vs "
-          f"CPU within {g_err:.2e} of the largest value; {g_ms:.3f} ms on the card")
+          f"CPU within {g_err:.2e} of the largest value; {g_ms:.3f} ms on the card, bound "
+          f"{g_bound:.4f} ms (bytes)")
     bg_extra = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    ms_pre_encoder=ms_pre, feature_grad_ms=g_ms,
+                    ms_pre_encoder=ms_pre, feature_grad_ms=g_ms, feature_grad_bound_ms=g_bound,
                     work="one interim SA call: 8x2048, M=1024, K=32, C=256")
     return {"fps": fps_extra, "ball_group": bg_extra}, pre_xyz, mid_xyz
 
@@ -444,14 +602,23 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
     seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
     names = ("attention_fwd", "attention_dq", "attention_dkv")
     flops = {"attention_fwd": 4, "attention_dq": 6, "attention_dkv": 8}  # x in-radius pairs x D
-    tot = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ms_no_dropout=0.0,
-                   max_abs_err=0.0, bound_time={"bytes": 0.0, "operations": 0.0}) for n in names}
+    tot = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_ms_no_dropout=0.0, library_ms=0.0,
+                   library_ms_dropout=0.0, ms_no_dropout=0.0, max_abs_err=0.0, bound_time={})
+           for n in names}
+    for n in ("attention_fwd", "attention_dkv"):
+        tot[n].update(ms_previous_design=0.0, ms_previous_design_no_dropout=0.0)
+    empty_tiles = []
     for xyz, r in ((pre_xyz, 0.4 ** 2), (mid_xyz, 0.8 ** 2), (mid_xyz, 1.2 ** 2)):
         B, N, _ = xyz.shape
         BH, r2 = B * H, r * r
         radius = (xyz, xyz, r2)
         inside = A.radius_mask(xyz, xyz, r2)
         share = inside.float().mean().item()
+        # (q, k) tiles with no pair inside the radius: what skipping them could save
+        empty = {T: 1.0 - inside.view(B, N // T, T, N // T, T).any(dim=4).any(dim=2).float().mean().item()
+                 for T in (64, 128)}
+        empty_tiles.append(dict(N=N, r2=r2, in_radius_share=share, empty_64x64=empty[64],
+                                empty_128x128=empty[128]))
         want = inside.repeat_interleave(H, dim=0)
         for name, mask in reveal_masks(A, None, 0.0, BH, N, D, dev, radius).items():
             flips = int((mask != want).sum())
@@ -479,6 +646,13 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
                     tot[n]["max_abs_err"] = max(tot[n]["max_abs_err"], err)
                     worst[n] = max(worst[n], err / b.abs().max().item())
             e_lse = (lse - ref_lse).abs().max().item()
+            # the first (mma.sync) design of the forward and dk/dv on the same inputs
+            old_out, old_lse = A.attention_fwd(qb, kb, vb, p, seed, radius, _impl="mma")
+            olds = [old_out, *A.attention_dkv(qb, kb, vb, dob, lse, delta, p, seed, radius, _impl="mma")]
+            e_old = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                        for a, b in zip(got["attention_fwd"] + got["attention_dkv"], olds))
+            require(e_old <= 2e-2 and (lse - old_lse).abs().max().item() <= 1e-3,
+                    f"radius N={N} r2={r2:.4f} p={p}: the wgmma and mma.sync designs differ by {e_old}")
             out32, lse32 = A.attention_fwd(q, k, v, p, seed, radius)
             ref32, rlse32 = A.attention_fwd_plain(q, k, v, p, seed, radius)
             d32 = (do * out32).sum(-1, keepdim=True)
@@ -490,70 +664,93 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
             e32 = max(((a - b).abs().max() / b.abs().max()).item() for a, b in pairs)
             require(max(worst.values()) <= 2e-2 and e_lse <= 1e-3 and e32 <= 1e-4,
                     f"radius N={N} r2={r2:.4f} p={p}: bf16 {worst}, lse {e_lse}, f32 {e32}")
-        print(f"attention radius N={N} r2={r2:.4f}: in-radius share {share:.4f}; the masks of the "
+        print(f"attention radius N={N} r2={r2:.4f}: in-radius share {share:.4f}; (q, k) tiles with "
+              f"no in-radius pair: {empty[64]:.4f} of the 64x64, {empty[128]:.4f} of the 128x128; "
+              f"the masks of the "
               f"forward, dq and dk/dv kernels equal the plain version's at all {BH * N * N} "
               f"positions; bf16 error over the largest plain value {max(worst.values()):.2e}, "
               f"lse {e_lse:.2e}; f32 {e32:.2e}")
 
         out, lse = A.attention_fwd(qb, kb, vb, rate, seed, radius)
         delta = (dob.float() * out.float()).sum(-1, keepdim=True)
+        bwd = (qb, kb, vb, dob, lse, delta)
+        # name -> (kernel(p, seed, impl), plain version with dropout)
         calls = {
-            "attention_fwd": (lambda: A.attention_fwd(qb, kb, vb, rate, seed, radius),
-                              lambda: A.attention_fwd_plain(qb, kb, vb, rate, seed, radius),
-                              lambda: A.attention_fwd(qb, kb, vb, 0.0, None, radius)),
-            "attention_dq": (lambda: A.attention_dq(qb, kb, vb, dob, lse, delta, rate, seed, radius),
-                             lambda: A.attention_dq_plain(qb, kb, vb, dob, lse, delta, rate, seed,
-                                                          radius),
-                             lambda: A.attention_dq(qb, kb, vb, dob, lse, delta, 0.0, None, radius)),
-            "attention_dkv": (lambda: A.attention_dkv(qb, kb, vb, dob, lse, delta, rate, seed,
-                                                      radius),
-                              lambda: A.attention_dkv_plain(qb, kb, vb, dob, lse, delta, rate, seed,
-                                                            radius),
-                              lambda: A.attention_dkv(qb, kb, vb, dob, lse, delta, 0.0, None,
-                                                      radius)),
+            "attention_fwd": (lambda p, sd, impl=None: A.attention_fwd(qb, kb, vb, p, sd, radius,
+                                                                       _impl=impl),
+                              lambda: A.attention_fwd_plain(qb, kb, vb, rate, seed, radius)),
+            "attention_dq": (lambda p, sd: A.attention_dq(*bwd, p, sd, radius),
+                             lambda: A.attention_dq_plain(*bwd, rate, seed, radius)),
+            "attention_dkv": (lambda p, sd, impl=None: A.attention_dkv(*bwd, p, sd, radius,
+                                                                       _impl=impl),
+                              lambda: A.attention_dkv_plain(*bwd, rate, seed, radius)),
         }
         # yardstick: PyTorch's fused attention with the (B, 1, N, N) boolean
-        # mask, no dropout; its backward computes dq, dk and dv in one call
+        # mask, without dropout and with the kernels' rate; its backward
+        # computes dq, dk and dv in one call
         q4, k4, v4 = (t.view(B, H, N, D).detach().requires_grad_() for t in (qb, kb, vb))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         mask4 = inside[:, None]
-        lib_fwd = cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask4), 10)
-        o4 = sdpa(q4, k4, v4, attn_mask=mask4)
         g4 = dob.view(B, H, N, D)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 10)
-        del o4
+        lib = {}
+        for p in (0.0, rate):
+            fwd_ms = cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask4, dropout_p=p), 10)
+            o4 = sdpa(q4, k4, v4, attn_mask=mask4, dropout_p=p)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 10)
+            lib[p] = {"attention_fwd": fwd_ms, "attention_dq": bwd_ms, "attention_dkv": bwd_ms}
+            del o4
         pairs_in = inside.sum().item() * H  # (bh, q, k) pairs inside the radius
         tensor = BH * N * D * 2
         nbytes = {"attention_fwd": 4 * tensor + BH * N * 4,
                   "attention_dq": 5 * tensor + 2 * BH * N * 4,
                   "attention_dkv": 6 * tensor + 2 * BH * N * 4}
-        for n, (kernel, plain, no_drop) in calls.items():
-            ms, plain_ms, nd_ms = cuda_ms(kernel, 10), cuda_ms(plain, 2), cuda_ms(no_drop, 10)
-            # what this data needs: the products of the in-radius pairs (bf16)
-            # and the distance test of every (b, q, k) pair (9 f32 operations)
-            t_bytes = (nbytes[n] + 2 * B * N * 12) / HBM_BYTES_PER_S * 1e3
-            t_ops = (flops[n] * pairs_in * D / BF16_PEAK + 9 * B * N * N / F32_PEAK) * 1e3
-            lib = lib_fwd if n == "attention_fwd" else lib_bwd
+        for n, (kernel, plain) in calls.items():
+            was = ""
+            if n == "attention_dq":  # dq has the first design only
+                ms, nd_ms = cuda_ms(lambda: kernel(rate, seed), 10), cuda_ms(lambda: kernel(0.0, None), 10)
+            else:
+                ms, nd_ms, old_ms, old_nd = designs_in_turns(kernel, rate, seed, 10)
+                tot[n]["ms_previous_design"] += old_ms
+                tot[n]["ms_previous_design_no_dropout"] += old_nd
+                was = f"; mma.sync design {old_ms:.3f} ms ({old_nd:.3f})"
+            plain_ms = cuda_ms(plain, 2)
+            # what this data needs: the products, exponentials and hashes of
+            # the in-radius pairs, and the distance test of every (b, q, k)
+            # pair (9 f32 operations)
+            args = (nbytes[n] + 2 * B * N * 12, flops[n] * pairs_in * D, pairs_in)
+            bound = attention_bound(*args, dropout=True, f32_ops=9 * B * N * N)
+            bound_nd = attention_bound(*args, dropout=False, f32_ops=9 * B * N * N)
             print(f"{n}_radius N={N} r2={r2:.4f}: kernel {ms:.3f} ms with dropout {rate} "
-                  f"({nd_ms:.3f} ms without), plain {plain_ms:.3f} ms, library {lib:.3f} ms "
+                  f"({nd_ms:.3f} ms without){was}, plain {plain_ms:.3f} ms, library "
+                  f"{lib[rate][n]:.3f} ms with dropout {rate} ({lib[0.0][n]:.3f} ms without) "
                   f"(SDPA with the boolean mask{', backward: dq, dk and dv' if n != 'attention_fwd' else ''})"
-                  f", bound {max(t_bytes, t_ops):.4f} ms "
-                  f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+                  f", bound {bound['bound_ms']:.4f} ms ({bound['bound_term']})")
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("ms_no_dropout", nd_ms),
-                             ("library_ms", lib), ("bound_ms", max(t_bytes, t_ops))):
+                             ("library_ms", lib[0.0][n]), ("library_ms_dropout", lib[rate][n]),
+                             ("bound_ms", bound["bound_ms"]),
+                             ("bound_ms_no_dropout", bound_nd["bound_ms"])):
                 tot[n][key] += val
-            tot[n]["bound_time"]["bytes"] += t_bytes
-            tot[n]["bound_time"]["operations"] += t_ops
+            bt = tot[n]["bound_time"]
+            bt[bound["bound_term"]] = bt.get(bound["bound_term"], 0.0) + bound["bound_ms"]
         del q4, k4, v4, mask4, inside
     entries = {}
     for n in names:
         e = tot[n]
         bt = e.pop("bound_time")
+        term = max(bt, key=bt.get)
+        if "ms_previous_design" in e:
+            require(e["ms"] <= e["ms_previous_design"]
+                    and e["ms_no_dropout"] <= e["ms_previous_design_no_dropout"],
+                    f"{n}_radius: the wgmma design ({e['ms']:.3f} / {e['ms_no_dropout']:.3f} ms) is "
+                    f"slower than the mma.sync design ({e['ms_previous_design']:.3f} / "
+                    f"{e['ms_previous_design_no_dropout']:.3f} ms)")
+            e["design"] = "wgmma, cp.async ring"
         entries[f"{n}_radius"] = dict(
-            e, bound_by=max(bt, key=bt.get),
+            e, bound_by="bytes" if term == "bytes" else "operations", bound_term=term,
+            empty_tiles=empty_tiles,
             work="one masked training step: N=2048 r2=0.0256 + N=1024 r2=0.4096 + N=1024 "
                  "r2=2.0736, BH=32, D=64 bf16, dropout 0.3; library: SDPA with the boolean "
-                 "mask, no dropout; max_abs_err of bf16 against the plain version in f32")
+                 "mask; max_abs_err of bf16 against the plain version in f32")
     return entries
 
 
@@ -867,6 +1064,8 @@ def main() -> int:
     for name, log in sorted(logs.items()):
         for line in ptxas_summary(log):
             print(f"  {name}: {line}")
+    for line in sass_summary():
+        print(f"  {line}")
 
     dev = torch.device("cuda")
     sun, masked = sunrgbd_quick(), scannet_masked()

@@ -13,35 +13,62 @@
 // points as the forward adds it, so e is exactly 0 outside the radius; it
 // is a template flag, and the kernels without it compile as they did before
 // it.  With it, the points of the tile that the loop walks sit in shared
-// memory beside the tile, and those of the CTA's own rows too (the dkv
-// kernel is at the register limit).  Rounding follows the TPU kernels: for bf16
+// memory beside the tile.  Rounding follows the TPU kernels: for bf16
 // inputs ds is rounded to bf16 before ds k and ds^T q, and e * mask before
 // (e * mask)^T dO; every product accumulates in f32; the outputs are in the
 // input type.
 //
-// What bounds it on this card: operations.  On the main path (BH = 32,
-// N = 2048, D = 64) dq recomputes two N x N products and does one more:
-// 6 * 32 * 2048^2 * 64 = 52 GFLOP, 52 us at 989 TFLOP/s; dk/dv do four:
-// 69 GFLOP, 69 us.  Their inputs and outputs are 34-42 MB (~12 us at
-// 3.35 TB/s).  The (N, N) blocks never leave the SM.
+// What bounds it on this card (BH = 32, N = 2048, D = 64, the main path): dq
+// recomputes two N x N products and does one more, 6 * 32 * 2048^2 * 64 =
+// 52 GFLOP, 52 us at 989 TFLOP/s; dk/dv do four, 69 GFLOP, 69 us.  Each
+// recomputes the 1.3e8 exponentials (35 us at 16 a clock and SM) and, with
+// dropout, the hash (about 11 integer operations a score, ~90 us at 64 lanes
+// a clock and SM if nothing hides them).  Inputs and outputs are 34-42 MB
+// (~12 us at 3.35 TB/s).  The (N, N) blocks never leave the SM.
 //
-// Design (bf16): as the forward, mma.sync m16n8k16 on bf16 tiles in padded
-// shared memory, 4 warps of 16 rows each.
+// Design of dk/dv (bf16, D = 64, NQ and NK multiples of 128:
+// `attn_dkv_wgmma`).  One CTA of two warpgroups per (bh, 128 keys), looping
+// over the query tiles (the TPU's grid of one program per bh would give 32
+// CTAs on 132 SMs); a warpgroup owns 64 keys.  No atomics: the sums run in
+// one order.
+//   * All four products by wgmma.mma_async m64n64k16 (attention_hopper.cuh).
+//     S^T = K Q^T and dP^T = V dO^T take the CTA's K and V tiles, resident in
+//     swizzled shared memory, as A and the loop's Q and dO tiles K-major as
+//     B.  dV += (e mask)^T dO and dK += ds^T Q take the left operand from the
+//     accumulators of the first two, packed to bf16, and the same dO and Q
+//     tiles read MN-major through the descriptor's transpose bit: one
+//     128-byte-swizzled tile serves both readings, and nothing is gathered 16
+//     bits at a time.
+//   * The Q and dO tiles of 64 queries go through a ring of 3 stages filled
+//     by cp.async (16 bytes a thread, the swizzle computed by hand), two
+//     tiles ahead of their use, with one __syncthreads a tile; K and V ride
+//     in the first group.  cp.async rather than TMA for the reasons given in
+//     attention_fwd.cu.  The tile's lse (times log2 e), delta and, with the
+//     radius, points are prefetched two tiles ahead into registers and
+//     written to double-buffered shared arrays one tile ahead.
+//   * e = 2^(s scale log2(e) - lse log2(e)) in one FMA and one ex2.approx;
+//     outside the radius e is selected to 0, which is what exp(-1e9 - lse)
+//     gives.  The hash's (seed, bh, key) term is formed once a thread and the
+//     query term advances by a constant a tile; the finaliser is unchanged.
+// One CTA of 256 threads an SM.  Measured times, beside those of the
+// mma.sync design below, are in PERF.md.
+//
+// Design (bf16 dq, and dk/dv at other shapes: the first design): as the first
+// forward, mma.sync m16n8k16 on bf16 tiles in padded shared memory, 4 warps
+// of 16 rows each, synchronous tile loads.
 //   dq:  one CTA per (bh, 64-query tile).  Q and dO fragments stay in
 //        registers; the loop over 64-key tiles forms S = Q K^T and
 //        dP = dO V^T in registers, turns them into ds, and accumulates
 //        ds K with ds as the A operand straight from the accumulators.
 //   dkv: one CTA per (bh, 64-key tile), looping over the query tiles, as in
-//        FlashAttention-2 (the TPU's grid of one program per bh would give 32
-//        CTAs on 132 SMs; this gives 1024).  K and V fragments stay in
-//        registers; each step forms S^T = K Q^T and dP^T = V dO^T, and
-//        accumulates dv += (e * mask)^T dO and dk += ds^T Q.
-// No pipelining of the tile loads and no wgmma/TMA yet: later work.
+//        FlashAttention-2.  K and V fragments stay in registers; each step
+//        forms S^T = K Q^T and dP^T = V dO^T, and accumulates
+//        dv += (e * mask)^T dO and dk += ds^T Q.
 //
 // Design (f32, used when the model computes in f32): dq one thread per query
 // row and dk/dv one thread per key row, tiles of the other side in shared
 // memory, plain f32 FMA.
-#include "attention_common.cuh"
+#include "attention_hopper.cuh"
 
 #include <cmath>
 #include <cstdint>
@@ -220,6 +247,171 @@ attn_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
 }
 
+// ------------------------------------------ bf16 dkv, D = 64: wgmma design
+template <bool RADIUS>
+__global__ void __launch_bounds__(hopper::kCtaThreads, 1)
+attn_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta, int NQ, int NK,
+               float scale, Dropout drop, Radius rad, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv) {
+  using namespace hopper;
+  constexpr int D = kHeadDim;
+  extern __shared__ unsigned char ring_raw[];
+  __shared__ __align__(8) float lse_s[2][kLoopRows];    // two Q tiles' lse * log2(e),
+  __shared__ __align__(8) float delta_s[2][kLoopRows];  // delta
+  __shared__ float4 Qp[RADIUS ? 2 : 1][RADIUS ? kLoopRows : 1];  // and points
+  const uint32_t Ks = (smem_u32(ring_raw) + 1023u) & ~1023u;  // the CTA's 128 keys
+  const uint32_t Vs = Ks + kCtaTileBytes;
+  const uint32_t ring = Vs + kCtaTileBytes;  // stage s: Q tile, dO tile
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + g;  // this thread's keys of the CTA: r0, r0 + 8
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kCtaRows;
+  const int ntiles = NQ / kLoopRows;
+  const size_t koff = (static_cast<size_t>(bh) * NK + k0) * D;
+  const __nv_bfloat16* qg = q + static_cast<size_t>(bh) * NQ * D;
+  const __nv_bfloat16* dg = dout + static_cast<size_t>(bh) * NQ * D;
+  const float* lg = lse + static_cast<size_t>(bh) * NQ;
+  const float* dlg = delta + static_cast<size_t>(bh) * NQ;
+  const int b = RADIUS ? bh / rad.heads : 0;
+  const float* qpts = RADIUS ? rad.qxyz + static_cast<size_t>(b) * NQ * 3 : nullptr;
+
+  auto fetch = [&](int t) {  // tile t into its stage; one group a call, empty past the end
+    if (t < ntiles) {
+      const uint32_t stage = ring + (t % kStages) * kStageBytes;
+      const size_t off = static_cast<size_t>(t) * kLoopRows * D;
+      load_tile_async<kLoopRows, kCtaThreads>(stage, qg + off, tid);
+      load_tile_async<kLoopRows, kCtaThreads>(stage + kLoopTileBytes, dg + off, tid);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<kCtaRows, kCtaThreads>(Ks, k + koff, tid);  // in the group of tile 0
+  load_tile_async<kCtaRows, kCtaThreads>(Vs, v + koff, tid);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+
+  // thread tid < 64: the row statistics of query tid of the tile after next
+  float nl = 0.0f, nd = 0.0f, px = 0.0f, py = 0.0f, pz = 0.0f;
+  if (tid < kLoopRows) {
+    lse_s[0][tid] = lg[tid] * kLog2e;
+    delta_s[0][tid] = dlg[tid];
+    if (RADIUS) Qp[0][tid] = load_point(qpts, tid);
+    if (ntiles > 1) {
+      nl = lg[kLoopRows + tid];
+      nd = dlg[kLoopRows + tid];
+      if (RADIUS) {
+        const float* p = qpts + 3 * (kLoopRows + tid);
+        px = p[0], py = p[1], pz = p[2];
+      }
+    }
+  }
+  float4 kp0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), kp1 = kp0;  // points of keys r0, r0 + 8
+  if (RADIUS) {
+    kp0 = load_point(rad.kxyz, static_cast<size_t>(b) * NK + k0 + r0);
+    kp1 = load_point(rad.kxyz, static_cast<size_t>(b) * NK + k0 + r0 + 8);
+  }
+  const float c = scale * kLog2e;
+  uint32_t hkey0 = 0u, hkey1 = 0u, hq = 0u;
+  if (drop.active) {
+    const uint32_t base = drop_base(*drop.seed, bh);
+    hkey0 = base + static_cast<uint32_t>(k0 + r0) * kHashCol;
+    hkey1 = hkey0 + 8u * kHashCol;
+    hq = static_cast<uint32_t>(t4 * 2) * kHashRow;
+  }
+  const uint64_t k_desc = tile_desc(Ks + wg * kLoopTileBytes);  // this warpgroup's 64 keys
+  const uint64_t v_desc = tile_desc(Vs + wg * kLoopTileBytes);
+
+  float dka[8][4], dva[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.0f;
+    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.0f;
+  }
+
+  for (int qt = 0; qt < ntiles; ++qt) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile qt have landed
+    fence_proxy_async();
+    __syncthreads();               // everyone's have; tile qt - 1 is consumed
+    fetch(qt + kStages - 1);       // into the stage of tile qt - 1
+    if (tid < kLoopRows) {
+      if (qt + 1 < ntiles) {
+        lse_s[(qt + 1) & 1][tid] = nl * kLog2e;
+        delta_s[(qt + 1) & 1][tid] = nd;
+        if (RADIUS) Qp[(qt + 1) & 1][tid] = make_point(px, py, pz);
+      }
+      if (qt + 2 < ntiles) {
+        nl = lg[(qt + 2) * kLoopRows + tid];
+        nd = dlg[(qt + 2) * kLoopRows + tid];
+        if (RADIUS) {
+          const float* p = qpts + 3 * ((qt + 2) * kLoopRows + tid);
+          px = p[0], py = p[1], pz = p[2];
+        }
+      }
+    }
+    const uint32_t stage = ring + (qt % kStages) * kStageBytes;
+    const uint64_t q_desc = tile_desc(stage), do_desc = tile_desc(stage + kLoopTileBytes);
+
+    float st[8][4], dpt[8][4];  // rows = keys, columns = queries
+    wgmma_fence();
+    tile_times_tile_t(st, k_desc, q_desc);
+    tile_times_tile_t(dpt, v_desc, do_desc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const int cur = qt & 1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int qc = n * 8 + t4 * 2;  // this thread's two queries of the block
+      const float2 l2 = *reinterpret_cast<const float2*>(&lse_s[cur][qc]);
+      const float2 d2 = *reinterpret_cast<const float2*>(&delta_s[cur][qc]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = i & 1;
+        const bool hi = i >> 1;
+        float e = ex2(fmaf(st[n][i], c, -(j ? l2.y : l2.x)));
+        if (RADIUS) e = inside_radius(Qp[cur][qc + j], hi ? kp1 : kp0, rad.r2) ? e : 0.0f;
+        float m = 1.0f;
+        if (drop.active)
+          m = drop_scale((hi ? hkey1 : hkey0) + hq + static_cast<uint32_t>(n * 8 + j) * kHashRow,
+                         drop.threshold, drop.keep_scale);
+        st[n][i] = e * m;                                              // a^T
+        dpt[n][i] = e * (dpt[n][i] * m - (j ? d2.y : d2.x)) * scale;  // ds^T
+      }
+    }
+    if (drop.active) hq += static_cast<uint32_t>(kLoopRows) * kHashRow;
+
+    uint32_t pa[4][4], dsa[4][4];
+    pack_frags(pa, st);
+    pack_frags(dsa, dpt);
+    fence_regs(pa);
+    fence_regs(dsa);
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+    frags_times_tile(dva, pa, do_desc);  // dv += a^T dO
+    frags_times_tile(dka, dsa, q_desc);  // dk += ds^T Q
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dva);
+    fence_regs(dka);
+  }
+
+  const size_t row0 = static_cast<size_t>(bh) * NK + k0 + r0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(dk + row0 * D + col) = pack_bf16(dka[j][0], dka[j][1]);
+    *reinterpret_cast<uint32_t*>(dk + (row0 + 8) * D + col) = pack_bf16(dka[j][2], dka[j][3]);
+    *reinterpret_cast<uint32_t*>(dv + row0 * D + col) = pack_bf16(dva[j][0], dva[j][1]);
+    *reinterpret_cast<uint32_t*>(dv + (row0 + 8) * D + col) = pack_bf16(dva[j][2], dva[j][3]);
+  }
+}
+
 // ------------------------------------------------------------------ f32
 constexpr int BF = 64;   // rows (threads) per CTA of the f32 kernels
 constexpr int TF = 16;   // rows of the other side per shared tile
@@ -389,6 +581,24 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <bool RADIUS>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, int BH, int NQ, int NK,
+                             float scale, Dropout drop, Radius rad, void* dk, void* dv,
+                             cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_dkv_wgmma<RADIUS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hopper::kDkvSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  attn_dkv_wgmma<RADIUS><<<dim3(NK / hopper::kCtaRows, BH), hopper::kCtaThreads,
+                           hopper::kDkvSmemBytes, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
+      delta, NQ, NK, scale, drop, rad, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv));
+  return cudaGetLastError();
+}
+
 // The dq launch for head width D, with or without the radius bias.
 template <int D>
 cudaError_t dq_for(const void* q, const void* k, const void* v, const void* dout,
@@ -440,7 +650,36 @@ extern "C" int ov3_attention_dq(const void* q, const void* k, const void* v,
   }
 }
 
-// As ov3_attention_dq; writes dk and dv (BH, NK, D) in the input type.
+namespace {
+
+// dk and dv for any shape the kernels take; `by_shape` sends what the wgmma
+// design takes (hopper::takes) to it, 0 keeps everything on the first design.
+cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* delta, int BH, int NQ, int NK, int D,
+                int is_bf16, float scale, int dropout, const int* seed, float keep_scale,
+                unsigned int threshold, const float* qxyz, const float* kxyz, float r2,
+                int heads, void* dk, void* dv, cudaStream_t stream, bool by_shape) {
+  if (bad_shape(BH, NQ, NK, dropout, seed, qxyz, kxyz, heads)) return cudaErrorInvalidValue;
+  const Dropout drop{seed, keep_scale, threshold, dropout};
+  const Radius rad{qxyz, kxyz, r2, heads};
+  if (by_shape && hopper::takes(NQ, NK, D, is_bf16))
+    return qxyz ? launch_dkv_wgmma<true>(q, k, v, dout, lse, delta, BH, NQ, NK, scale, drop,
+                                         rad, dk, dv, stream)
+                : launch_dkv_wgmma<false>(q, k, v, dout, lse, delta, BH, NQ, NK, scale, drop,
+                                          rad, dk, dv, stream);
+  switch (D) {
+    case 16: return dkv_for<16>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
+    case 32: return dkv_for<32>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
+    case 64: return dkv_for<64>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// As ov3_attention_dq; writes dk and dv (BH, NK, D) in the input type.  bf16
+// with D = 64 and NQ, NK multiples of 128 runs the wgmma design, every other
+// shape the first one: the route depends on the shape alone.
 extern "C" int ov3_attention_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
                                  int BH, int NQ, int NK, int D, int is_bf16, float scale,
@@ -448,15 +687,21 @@ extern "C" int ov3_attention_dkv(const void* q, const void* k, const void* v,
                                  unsigned int threshold, const float* qxyz, const float* kxyz,
                                  float r2, int heads, void* dk, void* dv,
                                  cudaStream_t stream) {
-  if (bad_shape(BH, NQ, NK, dropout, seed, qxyz, kxyz, heads)) return cudaErrorInvalidValue;
-  const Dropout drop{seed, keep_scale, threshold, dropout};
-  const Radius rad{qxyz, kxyz, r2, heads};
-  switch (D) {
-    case 16: return dkv_for<16>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
-    case 32: return dkv_for<32>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
-    case 64: return dkv_for<64>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dk, dv, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return dkv(q, k, v, dout, lse, delta, BH, NQ, NK, D, is_bf16, scale, dropout, seed,
+             keep_scale, threshold, qxyz, kxyz, r2, heads, dk, dv, stream, true);
+}
+
+// The same on the first design (mma.sync or f32) whatever the shape: the
+// yardstick beside which the wgmma design is timed and checked.
+extern "C" int ov3_attention_dkv_mma(const void* q, const void* k, const void* v,
+                                     const void* dout, const float* lse, const float* delta,
+                                     int BH, int NQ, int NK, int D, int is_bf16, float scale,
+                                     int dropout, const int* seed, float keep_scale,
+                                     unsigned int threshold, const float* qxyz,
+                                     const float* kxyz, float r2, int heads, void* dk, void* dv,
+                                     cudaStream_t stream) {
+  return dkv(q, k, v, dout, lse, delta, BH, NQ, NK, D, is_bf16, scale, dropout, seed,
+             keep_scale, threshold, qxyz, kxyz, r2, heads, dk, dv, stream, false);
 }
 
 extern "C" const char* ov3_error_string(int code) {

@@ -32,6 +32,14 @@ not the ball-group's direct subtraction.
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 `.launches`, or in `.radius_launches` for the variant with the radius bias;
 CPU tensors take the plain version, and a CUDA tensor never does.
+
+The forward and dk/dv have two designs in their sources, and the shape
+alone picks one (`_route`): bf16 with D = 64 and NQ, NK multiples of 128
+runs the Hopper design (wgmma.mma_async on swizzled tiles from a cp.async
+ring), every other shape the first design (mma.sync for bf16, plain FMA
+for f32).  The two wrappers take a private `_impl="mma"` that keeps a CUDA
+call on the first design, so that the two can be timed and compared on
+one card; dq has the first design only.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ DKV_RADIUS_REPLACES = "ov3det/ops/pallas/attention_kernel.py:173"
 
 _HEAD_DIMS = (16, 32, 64)  # head widths the kernels are instantiated for
 _TILE = 64  # NQ and NK must be multiples of the kernels' row and key tiles
+_HOPPER_D, _HOPPER_TILE = 64, 128  # what the wgmma design takes: `hopper::takes` in csrc
 _RADIUS_NEG = -1e9  # the radius bias outside the radius, `_NEG` of the TPU kernel
 _MASK32 = 0xFFFFFFFF
 _HASH = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)  # seed, bh, row, col
@@ -210,6 +219,27 @@ def _check(name: str, q, k, v, extra=()) -> bool:
     return True
 
 
+def _route(dtype: torch.dtype, D: int, NQ: int, NK: int) -> str:
+    """The design the forward and dk/dv launch functions pick for a shape,
+    as `hopper::takes` of `csrc/attention_hopper.cuh` decides it: "wgmma"
+    or "mma" (the first design, f32 included)."""
+    hopper = (dtype == torch.bfloat16 and D == _HOPPER_D and NQ % _HOPPER_TILE == 0
+              and NK % _HOPPER_TILE == 0)
+    return "wgmma" if hopper else "mma"
+
+
+def _entry(name: str, impl: Optional[str], on_cuda: bool) -> str:
+    """The C entry point of `name` for the private `_impl` argument: None is
+    the route by shape, "mma" the first design whatever the shape."""
+    if impl is None:
+        return f"ov3_{name}"
+    if impl != "mma":
+        raise ValueError(f"{name}: _impl is None (the route by shape) or 'mma', got {impl!r}")
+    if not on_cuda:
+        raise ValueError(f"{name}: _impl chooses between CUDA kernels; these tensors lie on the CPU")
+    return f"ov3_{name}_mma"
+
+
 def _dropout_args(dropout_rate: float, seed: Optional[torch.Tensor], device) -> list:
     """(on, seed pointer, keep_scale, threshold) for the C entry points."""
     if dropout_rate <= 0.0:
@@ -250,11 +280,13 @@ def _row_stats_ok(name, q, *stats):
             raise ValueError(f"{name}: lse and delta must be contiguous f32 (BH, NQ, 1)")
 
 
-def attention_fwd(q, k, v, dropout_rate: float = 0.0, seed=None, radius=None):
+def attention_fwd(q, k, v, dropout_rate: float = 0.0, seed=None, radius=None, _impl=None):
     """softmax(q k^T / sqrt(D) [+ radius bias]) [dropout] v and the row LSE;
     see the module docstring.  bf16 runs on the tensor cores, f32 with plain
     FMA."""
-    if not _check("attention_fwd", q, k, v):
+    on_cuda = _check("attention_fwd", q, k, v)
+    entry = _entry("attention_fwd", _impl, on_cuda)
+    if not on_cuda:
         return attention_fwd_plain(q, k, v, dropout_rate, seed, radius)
     BH, NQ, D = q.shape
     out = torch.empty_like(q)
@@ -264,7 +296,7 @@ def attention_fwd(q, k, v, dropout_rate: float = 0.0, seed=None, radius=None):
     lib = _build.load("attention_fwd", _FWD_SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ov3_attention_fwd(
+        status = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), BH, NQ, k.shape[1], D,
             int(q.dtype == torch.bfloat16), _scale(D), *drop, *rad, out.data_ptr(),
             lse.data_ptr(), stream)
@@ -294,9 +326,12 @@ def attention_dq(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None, 
     return dq
 
 
-def attention_dkv(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None, radius=None):
+def attention_dkv(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None, radius=None,
+                  _impl=None):
     """(dk, dv) of the fused attention (BH, NK, D), in k's and v's dtype."""
-    if not _check("attention_dkv", q, k, v, (do,)):
+    on_cuda = _check("attention_dkv", q, k, v, (do,))
+    entry = _entry("attention_dkv", _impl, on_cuda)
+    if not on_cuda:
         return attention_dkv_plain(q, k, v, do, lse, delta, dropout_rate, seed, radius)
     _row_stats_ok("attention_dkv", q, lse, delta)
     BH, NQ, D = q.shape
@@ -306,7 +341,7 @@ def attention_dkv(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None,
     lib = _build.load("attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ov3_attention_dkv(
+        status = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), BH, NQ, k.shape[1], D, int(q.dtype == torch.bfloat16), _scale(D),
             *drop, *rad, dk.data_ptr(), dv.data_ptr(), stream)
@@ -364,16 +399,13 @@ def fused_attention(q, k, v, dropout_rate: float = 0.0, seed: Optional[torch.Ten
 
 _DROP_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_uint]
 _RADIUS_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
-_FWD_SIGNATURES = {
-    "ov3_attention_fwd": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROP_ARGS
-        + _RADIUS_ARGS + [ctypes.c_void_p] * 3,
-        ctypes.c_int,
-    ),
-}
+_FWD_SIGNATURE = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROP_ARGS
+                  + _RADIUS_ARGS + [ctypes.c_void_p] * 3, ctypes.c_int)
+_FWD_SIGNATURES = {"ov3_attention_fwd": _FWD_SIGNATURE, "ov3_attention_fwd_mma": _FWD_SIGNATURE}
 _BWD_HEAD = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROP_ARGS
              + _RADIUS_ARGS)
 _BWD_SIGNATURES = {
     "ov3_attention_dq": (_BWD_HEAD + [ctypes.c_void_p] * 2, ctypes.c_int),
     "ov3_attention_dkv": (_BWD_HEAD + [ctypes.c_void_p] * 3, ctypes.c_int),
+    "ov3_attention_dkv_mma": (_BWD_HEAD + [ctypes.c_void_p] * 3, ctypes.c_int),
 }
