@@ -7,26 +7,33 @@ Builds the CUDA kernels from `ov3det_torch/csrc/` (one nvcc per source, all
 at once), then:
   1. prints the card's name and power limit, the build time, each kernel's
      registers and shared memory (ptxas) and, from `cuobjdump -sass`, that the
-     wgmma kernels hold HGMMA and LDGSTS (cp.async) and no HMMA;
+     wgmma kernels (forward, dq, dk/dv, each with and without the radius)
+     hold HGMMA and LDGSTS (cp.async) and no HMMA;
   2. holds each kernel against its plain PyTorch version on the card at the
      shapes the main paths give it, and times kernel, plain version and,
      where one exists, a PyTorch call as a yardstick:
-       FPS 8 x 20000 -> 2048 and 8 x 2048 -> 128, indices equal;
+       FPS 8 x 20000 -> 2048 and 8 x 2048 -> 128, and a ragged 8 x 20001 ->
+       64: the indices of the cluster design equal the plain version's and
+       those of the first design (`_impl="first"`); both designs timed in
+       turns (the cluster design must not be the slower); the cluster size
+       and CTAs of each launch; the chain alone (the step's reductions,
+       exchange and wait on no points), a measurement of the design printed
+       beside the operations and bytes bound and never in its place;
        ball-group 8 x 20000, M = 2048, K = 64, C = 0 and C = 3, exact;
        attention BH = 32, N = 2048, D = 64 (the encoder of the training
        step): the dropout mask read back through the forward, dq and dk/dv
-       kernels equals the plain hash exactly; forward, dq and dk/dv in bf16,
-       with dropout 0.1 and without, within 2e-2 of the largest value of
-       the plain version in f32 (LSE within 1e-3); the f32 variants within
-       1e-4 of it.  The forward and dk/dv run their wgmma design at these
-       shapes; their first (mma.sync) design, reached through the wrappers'
-       `_impl="mma"`, must agree with it within the same tolerance and is
-       timed in turns beside it (the wgmma design must be the faster), and
-       is held against the plain version at N = 192, a shape it still
-       serves.  Each time stands beside the plain version's, SDPA's without
-       dropout and with the kernel's rate, and a bound: the largest of
-       bytes, tensor operations, one exponential a score and, with dropout,
-       the hash's integer operations;
+       kernels, in both designs, equals the plain hash exactly; forward, dq
+       and dk/dv in bf16, with dropout 0.1 and without, within 2e-2 of the
+       largest value of the plain version in f32 (LSE within 1e-3); the f32
+       variants within 1e-4 of it.  The three kernels run their wgmma
+       design at these shapes; their first (mma.sync) design, reached
+       through the wrappers' `_impl="mma"`, must agree with it within the
+       same tolerance and is timed in turns beside it (the wgmma design
+       must be the faster), and is held against the plain version at
+       N = 192, a shape it still serves.  Each time stands beside the plain
+       version's, SDPA's without dropout and with the kernel's rate, and a
+       bound: the largest of bytes, tensor operations, one exponential a
+       score and, with dropout, the hash's integer operations;
   3. serves 3 requests of 8 synthetic scenes x 20 000 points through
      `Detector` at the full width of `sunrgbd_quick()` (seeded random
      weights): each request must launch FPS twice, the ball-group once, the
@@ -47,16 +54,18 @@ at once), then:
      `EncoderConfig(kind="masked", dropout=0.3)` and the matcher and loss
      weights of reference scripts/scannet_masked_ep1080.sh), at full width
      and depth on 8 scenes x 40 000 points:
-       kernels: FPS 40000 -> 2048 -> 1024 -> 256, indices equal; the
+       kernels: FPS 40000 -> 2048 -> 1024 -> 256 and a ragged 40001 -> 64,
+       checked, timed and bounded as in 2; the
        ball-group at 40 000 points (C = 0) and at the interim SA's shapes
        (2048 tokens, 1024 centers, K = 32, C = 256), exact, and its feature
        gradient on the card against the CPU's; the attention kernels with
        the radius bias at the three (N, r^2) of the encoder's layers, with
        token coordinates from the FPS picks above: the radius mask read
-       back through the forward, dq and dk/dv kernels equals the plain
-       version's bit for bit, bf16 within 2e-2 and f32 within 1e-4 of the
-       plain version (dropout 0 and 0.3), the two designs of the forward
-       and dk/dv agreeing, each timed beside the first design, its plain
+       back through the forward, dq and dk/dv kernels, in both designs,
+       equals the plain version's bit for bit, bf16 within 2e-2 and f32
+       within 1e-4 of the plain version (dropout 0 and 0.3), the two designs
+       of the three kernels agreeing, each timed beside the first design
+       (which must not be the faster at any layer), its plain
        version and `scaled_dot_product_attention` with the boolean mask
        (without dropout and with 0.3); the share of 64 x 64 and 128 x 128
        (q, k) tiles with no in-radius pair is printed;
@@ -115,9 +124,10 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"(attn_(?:fwd|dq|dkv)_(?:bf16|f32|wgmma)|fps_kernel|pick_kernel|"
-                          r"fill_kernel)(?:ILi(\d+)E)?(?:ILb([01])E|Lb([01])E)?", m.group(1))
-            args = [a for a in (t.group(2), {"1": "radius"}.get(t.group(3) or t.group(4)))
+            t = re.search(r"(attn_(?:fwd|dq|dkv)_(?:bf16|f32|wgmma)|fps_kernel|fps_cluster_kernel|"
+                          r"pick_kernel|fill_kernel)(?:ILi(\d+)E)?(?:ILb([01])E|Lb([01])E)?", m.group(1))
+            flag = "cluster" if t and t.group(1) == "fps_cluster_kernel" else "radius"
+            args = [a for a in (t.group(2), {"1": flag}.get(t.group(3) or t.group(4)))
                     if a] if t else []
             kernel = (t.group(1) + (f"<{', '.join(args)}>" if args else "")) if t else m.group(1)
         elif "spill stores" in line and kernel:
@@ -132,8 +142,9 @@ def ptxas_summary(log: str) -> list:
 
 
 def sass_summary() -> list:
-    """What the wgmma attention kernels compile to, from `cuobjdump -sass` of
-    the two attention libraries: per kernel the count of warpgroup products
+    """What the wgmma attention kernels (the forward, dq and dk/dv, each with
+    and without the radius) compile to, from `cuobjdump -sass` of the two
+    attention libraries: per kernel the count of warpgroup products
     (HGMMA), of mma.sync products (HMMA) and of asynchronous 16-byte copies
     (LDGSTS).  A wgmma kernel must hold the first and the last and no HMMA."""
     import re
@@ -144,14 +155,14 @@ def sass_summary() -> list:
     if not os.path.exists(tool):
         return [f"SASS not inspected: no cuobjdump beside {_build.nvcc_path()}"]
     lines = []
-    for name in ("attention_fwd", "attention_bwd"):
+    for name, expected in (("attention_fwd", 2), ("attention_bwd", 4)):
         res = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                              capture_output=True, text=True, timeout=300, check=True)
         counts, kernel = {}, None
         for line in res.stdout.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                t = re.search(r"attn_(?:fwd|dkv)_wgmmaILb([01])E", m.group(1))
+                t = re.search(r"attn_(?:fwd|dq|dkv)_wgmmaILb([01])E", m.group(1))
                 kernel = (t.group(0).split("IL")[0] + ("<radius>" if t.group(1) == "1" else "")) if t else None
             elif kernel:
                 for op in ("HGMMA", "HMMA", "LDGSTS"):
@@ -161,7 +172,8 @@ def sass_summary() -> list:
             require(c["HGMMA"] > 0 and c["LDGSTS"] > 0 and c["HMMA"] == 0,
                     f"{kernel} must run on wgmma and cp.async alone: {c}")
             lines.append(f"{kernel}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA, {c['LDGSTS']} LDGSTS in its SASS")
-        require(len(counts) == 2, f"{name}: expected two wgmma kernels in the SASS, found {sorted(counts)}")
+        require(len(counts) == expected,
+                f"{name}: expected {expected} wgmma kernels in the SASS, found {sorted(counts)}")
     return lines
 
 
@@ -274,6 +286,65 @@ def expect(**counts) -> dict:
     return {n: counts.get(n, 0) for n in kernel_counters()}
 
 
+def check_fps(fps, calls: list, ragged, label: str) -> dict:
+    """FPS at the (cloud, samples) `calls` of one request: the indices of the
+    cluster design must equal the plain version's and the first design's (at
+    the ragged cloud too); both designs are timed in turns, the plain version
+    once, and the chain alone (the step's reductions, exchange and wait on no
+    points, at the call's cluster size and sample count).  Returns the sums
+    over the calls as the kernels line's keys: `bound_ms` and `bound_by` are
+    the bytes and f32 operations of these inputs at the card's peak rates;
+    `chain_floor_ms` is a measurement of this design's own step, kept beside
+    the bound and never in its place."""
+    tot = dict(ms=0.0, ms_previous_design=0.0, plain_ms=0.0, chain_floor_ms=0.0)
+    nbytes, ops, plans, shapes = 0, 0, [], []
+    for xyz, k in list(calls) + [ragged]:
+        N = xyz.shape[1]
+        want = fps.fps_plain(xyz, k)
+        require(torch.equal(fps.fps(xyz, k), want), f"fps {N}->{k} differs from plain")
+        require(torch.equal(fps.fps(xyz, k, _impl="first"), want),
+                f"fps {N}->{k}: the first design differs from plain")
+    for xyz, k in calls:
+        B, N, _ = xyz.shape
+        reps = 3 if N > 4096 else 10
+        plan = fps.plan(B, N)
+        ms, old = cuda_ms(lambda: fps.fps(xyz, k), reps), cuda_ms(lambda: fps.fps(xyz, k, _impl="first"), reps)
+        old = min(old, cuda_ms(lambda: fps.fps(xyz, k, _impl="first"), reps))
+        ms = min(ms, cuda_ms(lambda: fps.fps(xyz, k), reps))
+        chain = cuda_ms(lambda: fps.chain(B, k, plan["cluster"], xyz.device), reps)
+        plain = cuda_ms(lambda: fps.fps_plain(xyz, k), 1 if N > 20000 else 2)
+        require(ms <= old, f"fps {N}->{k}: the cluster design ({ms:.3f} ms) is slower than the "
+                           f"first ({old:.3f} ms)")
+        print(f"fps {B}x{N}->{k}: cluster of {plan['cluster']} ({plan['ctas']} CTAs of "
+              f"{plan['threads']} threads, {plan['clusters_at_once']} clusters fit at once): "
+              f"{ms:.3f} ms ({ms / (k - 1) * 1e3:.3f} us a step); first design {old:.3f} ms; the "
+              f"chain alone {chain:.3f} ms ({chain / (k - 1) * 1e3:.3f} us a step); plain {plain:.3f} ms")
+        for key, val in (("ms", ms), ("ms_previous_design", old), ("plain_ms", plain),
+                         ("chain_floor_ms", chain)):
+            tot[key] += val
+        nbytes += B * (N * 12 + k * 8)
+        ops += 10 * B * (k - 1) * N  # 3 sub, 3 mul, 2 add, min, compare per point-step
+        plans.append(dict(points=N, samples=k, **plan))
+        shapes.append(f"{N}->{k}")
+    b_ms, b_by = bound_ms(nbytes, ops, F32_PEAK)
+    work = f"one {label} request: {BATCH}x" + " + ".join(shapes)
+    print(f"fps ({label}): indices equal the plain version's and the first design's at "
+          f"{', '.join(shapes)} and at the ragged {ragged[0].shape[1]}->{ragged[1]}; cluster design "
+          f"{tot['ms']:.3f} ms, first design {tot['ms_previous_design']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms; bound {b_ms:.4f} ms ({b_by}), chain floor "
+          f"{tot['chain_floor_ms']:.3f} ms")
+    return dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, bound_term=b_by,
+                chain_floor_ms=tot["chain_floor_ms"], library_ms=None,
+                design="thread-block cluster per scene, st.async exchange",
+                ms_previous_design=tot["ms_previous_design"], launch_plans=plans, work=work)
+
+
+def grow_by_one(xyz: torch.Tensor) -> torch.Tensor:
+    """The cloud with one more point: a point count that no tile divides."""
+    return torch.cat([xyz, xyz[:, :1] + 0.5], dim=1).contiguous()
+
+
 def check_kernels(batch: dict, dev: torch.device) -> dict:
     """Phase 2: the point kernels against their plain versions, timed;
     returns their entries for one request's work on the serving path."""
@@ -285,20 +356,8 @@ def check_kernels(batch: dict, dev: torch.device) -> dict:
 
     # FPS: 20000 -> 2048 (pre-encoder), then 2048 -> 128 (query seeds)
     inds = fps.fps(xyz, 2048)
-    require(torch.equal(inds, fps.fps_plain(xyz, 2048)), "fps 20000->2048 differs from plain")
     pre_xyz = torch.gather(xyz, 1, inds[..., None].expand(-1, -1, 3)).contiguous()
-    q_inds = fps.fps(pre_xyz, 128)
-    require(torch.equal(q_inds, fps.fps_plain(pre_xyz, 128)), "fps 2048->128 differs from plain")
-    ms = cuda_ms(lambda: fps.fps(xyz, 2048), 5) + cuda_ms(lambda: fps.fps(pre_xyz, 128), 20)
-    plain = cuda_ms(lambda: fps.fps_plain(xyz, 2048), 2) + cuda_ms(lambda: fps.fps_plain(pre_xyz, 128), 3)
-    nbytes = B * N * 12 + B * 2048 * 8 + B * 2048 * 12 + B * 128 * 8
-    ops = 10 * B * (2047 * N + 127 * 2048)  # 3 sub, 3 mul, 2 add, min, compare per point-step
-    b_ms, b_by = bound_ms(nbytes, ops, F32_PEAK)
-    print(f"fps: indices equal (8x20000->2048, 8x2048->128); kernel {ms:.3f} ms, "
-          f"plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    entries["fps"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None,
-                          work="one request: 8x20000->2048 + 8x2048->128")
+    entries["fps"] = check_fps(fps, [(xyz, 2048), (pre_xyz, 128)], (grow_by_one(xyz), 64), "sunrgbd")
 
     # ball-group: 8 x 20000 points, 2048 centers, K = 64, r = 0.2; C = 0 and C = 3
     K, radius = 64, 0.2
@@ -327,9 +386,12 @@ def check_kernels(batch: dict, dev: torch.device) -> dict:
     return entries
 
 
-def reveal_masks(A, seed, rate: float, BH: int, N: int, D: int, dev, radius=None) -> dict:
+def reveal_masks(A, seed, rate: float, BH: int, N: int, D: int, dev, radius=None,
+                 impl=None) -> dict:
     """The mask as each bf16 kernel applies it, read back exactly: the
-    dropout mask, or with `radius` and no dropout the radius mask.
+    dropout mask, or with `radius` and no dropout the radius mask; `impl` is
+    the wrappers' `_impl` (None: the design the shape routes to, "mma": the
+    first design).
 
     With q = 0 every probability is 1/N (1/count of the in-radius keys with
     the radius), so a kernel's output is 0 exactly where it dropped or
@@ -349,11 +411,12 @@ def reveal_masks(A, seed, rate: float, BH: int, N: int, D: int, dev, radius=None
         cols = slice(t * D, (t + 1) * D)
         sel = torch.zeros(BH, N, D, **bf)
         sel[:, cols] = eye
-        out, _ = A.attention_fwd(zero, zero, sel, rate, seed, radius)
+        out, _ = A.attention_fwd(zero, zero, sel, rate, seed, radius, _impl=impl)
         seen["attention_fwd"][:, :, cols] = out != 0
-        dq = A.attention_dq(zero, sel, ones, ones, lse, no_delta, rate, seed, radius)
+        dq = A.attention_dq(zero, sel, ones, ones, lse, no_delta, rate, seed, radius, _impl=impl)
         seen["attention_dq"][:, :, cols] = dq != 0
-        _, dv = A.attention_dkv(zero, zero, zero, sel, lse, no_delta, rate, seed, radius)
+        _, dv = A.attention_dkv(zero, zero, zero, sel, lse, no_delta, rate, seed, radius,
+                                _impl=impl)
         seen["attention_dkv"][:, cols, :] = (dv != 0).transpose(1, 2)
     return seen
 
@@ -372,13 +435,15 @@ def check_attention(dev: torch.device) -> dict:
     seed = torch.tensor([20260101], dtype=torch.int32, device=dev)
 
     kept = A.drop_mask(seed, BH, N, N, rate) != 0
-    seen = reveal_masks(A, seed, rate, BH, N, D, dev)
-    for name, mask in seen.items():
-        flips = int((mask != kept).sum())
-        require(flips == 0, f"{name}: the dropout mask differs from the hash at {flips} positions")
-    print(f"attention dropout p={rate}: the masks of the forward, dq and dk/dv kernels equal "
-          f"the hash at all {kept.numel()} positions (kept share {kept.float().mean().item():.4f})")
-    del kept, seen
+    for impl in (None, "mma"):
+        for name, mask in reveal_masks(A, seed, rate, BH, N, D, dev, impl=impl).items():
+            flips = int((mask != kept).sum())
+            require(flips == 0, f"{name} (_impl={impl}): the dropout mask differs from the hash at "
+                                f"{flips} positions")
+    print(f"attention dropout p={rate}: the masks of the forward, dq and dk/dv kernels, in the wgmma "
+          f"and in the first design, equal the hash at all {kept.numel()} positions (kept share "
+          f"{kept.float().mean().item():.4f})")
+    del kept, mask
 
     def rel(got, want):  # max error over the largest magnitude of the plain version
         err = (got.float() - want).abs().max()
@@ -407,11 +472,12 @@ def check_attention(dev: torch.device) -> dict:
         e_dkv = max(rel(dk, rdk), rel(dv, rdv))
         errs["attention_dkv"] = max(errs["attention_dkv"], abs_err[0])
         require(e_dq <= 2e-2 and e_dkv <= 2e-2, f"attention backward bf16 p={p}: dq {e_dq}, dk/dv {e_dkv}")
-        # the first (mma.sync) design of the forward and dk/dv on the same inputs
+        # the first (mma.sync) design of the three kernels on the same inputs
         old_out, old_lse = A.attention_fwd(qb, kb, vb, p, seed, _impl="mma")
+        old_dq = A.attention_dq(qb, kb, vb, dob, lse, delta, p, seed, _impl="mma")
         old_dk, old_dv = A.attention_dkv(qb, kb, vb, dob, lse, delta, p, seed, _impl="mma")
         e_old = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
-                    for a, b in ((out, old_out), (dk, old_dk), (dv, old_dv)))
+                    for a, b in ((out, old_out), (dq, old_dq), (dk, old_dk), (dv, old_dv)))
         e_old_lse = (lse - old_lse).abs().max().item()
         require(e_old <= 2e-2 and e_old_lse <= 1e-3,
                 f"attention p={p}: the wgmma and mma.sync designs differ by {e_old}, lse {e_old_lse}")
@@ -438,7 +504,7 @@ def check_attention(dev: torch.device) -> dict:
     calls = {
         "attention_fwd": (lambda p, sd, impl=None: A.attention_fwd(qb, kb, vb, p, sd, _impl=impl),
                           lambda: A.attention_fwd_plain(qb, kb, vb, rate, seed)),
-        "attention_dq": (lambda p, sd: A.attention_dq(*bwd, p, sd),
+        "attention_dq": (lambda p, sd, impl=None: A.attention_dq(*bwd, p, sd, _impl=impl),
                          lambda: A.attention_dq_plain(*bwd, rate, seed)),
         "attention_dkv": (lambda p, sd, impl=None: A.attention_dkv(*bwd, p, sd, _impl=impl),
                           lambda: A.attention_dkv_plain(*bwd, rate, seed)),
@@ -467,21 +533,16 @@ def check_attention(dev: torch.device) -> dict:
           f"{HASH_OPS_PER_SCORE} of them a score for the dropout hash")
     entries = {}
     for name, (kernel, plain) in calls.items():
-        extra = {}
-        if name == "attention_dq":  # dq has the first design only
-            ms, nd_ms = cuda_ms(lambda: kernel(rate, seed), 20), cuda_ms(lambda: kernel(0.0, None), 20)
-        else:
-            ms, nd_ms, old_ms, old_nd = designs_in_turns(kernel, rate, seed, 20)
-            require(ms < old_ms and nd_ms < old_nd,
-                    f"{name}: the wgmma design ({ms:.3f} / {nd_ms:.3f} ms with / without dropout) is "
-                    f"not faster than the mma.sync design ({old_ms:.3f} / {old_nd:.3f} ms)")
-            extra = dict(design="wgmma, cp.async ring", ms_previous_design=old_ms,
-                         ms_previous_design_no_dropout=old_nd)
+        ms, nd_ms, old_ms, old_nd = designs_in_turns(kernel, rate, seed, 20)
+        require(ms < old_ms and nd_ms < old_nd,
+                f"{name}: the wgmma design ({ms:.3f} / {nd_ms:.3f} ms with / without dropout) is "
+                f"not faster than the mma.sync design ({old_ms:.3f} / {old_nd:.3f} ms)")
+        extra = dict(design="wgmma, cp.async ring", ms_previous_design=old_ms,
+                     ms_previous_design_no_dropout=old_nd)
         plain_ms = cuda_ms(plain, 3)
         args = (nbytes[name], flops[name] * BH * N * N * D, scores)
         bound, bound_nd = attention_bound(*args, dropout=True), attention_bound(*args, dropout=False)
-        was = (f"; mma.sync design {extra['ms_previous_design']:.3f} ms ({extra['ms_previous_design_no_dropout']:.3f})"
-               if extra else "")
+        was = f"; mma.sync design {old_ms:.3f} ms ({old_nd:.3f})"
         print(f"{name}: per call with dropout {rate}: kernel {ms:.3f} ms (without dropout "
               f"{nd_ms:.3f} ms){was}, plain {plain_ms:.3f} ms, library "
               f"{library_drop[name]:.3f} ms with dropout {rate} ({library[name]:.3f} ms without)"
@@ -498,9 +559,10 @@ def check_attention(dev: torch.device) -> dict:
 
 
 def first_design_check(A, dev: torch.device) -> None:
-    """The first (mma.sync) forward and dk/dv stay the route of every bf16
-    shape the wgmma design does not take: held against their plain versions
-    at N = 192 (a multiple of 64, not of 128), with dropout and the radius."""
+    """The first (mma.sync) forward, dq and dk/dv stay the route of every bf16
+    shape the wgmma design does not take, and no main path reaches them: held
+    against their plain versions at N = 192 (a multiple of 64, not of 128),
+    with dropout and the radius."""
     BH, N, D, rate = 8, 192, 64, 0.1
     g = torch.Generator().manual_seed(7)
     q, k, v, do = (torch.randn(BH, N, D, generator=g).to(dev).bfloat16() for _ in range(4))
@@ -513,14 +575,16 @@ def first_design_check(A, dev: torch.device) -> None:
         f32 = [t.float() for t in (q, k, v, do)]
         ref, ref_lse = A.attention_fwd_plain(*f32[:3], rate, seed, radius)
         delta = (do.float() * out.float()).sum(-1, keepdim=True)
-        pairs = [(out, ref)] + list(zip(A.attention_dkv(q, k, v, do, lse, delta, rate, seed, radius),
-                                        A.attention_dkv_plain(*f32, lse, delta, rate, seed, radius)))
+        pairs = [(out, ref), (A.attention_dq(q, k, v, do, lse, delta, rate, seed, radius),
+                              A.attention_dq_plain(*f32, lse, delta, rate, seed, radius))]
+        pairs += list(zip(A.attention_dkv(q, k, v, do, lse, delta, rate, seed, radius),
+                          A.attention_dkv_plain(*f32, lse, delta, rate, seed, radius)))
         err = max(((a.float() - b).abs().max() / b.abs().max()).item() for a, b in pairs)
         e_lse = (lse - ref_lse).abs().max().item()
         require(err <= 2e-2 and e_lse <= 1e-3,
                 f"first design at N=192, radius {radius is not None}: {err}, lse {e_lse}")
         worst = max(worst, err)
-    print(f"attention, first design (mma.sync) at BH=8, N=192: forward and dk/dv within "
+    print(f"attention, first design (mma.sync) at BH=8, N=192: forward, dq and dk/dv within "
           f"{worst:.2e} of the largest plain value, with dropout {rate}, with and without the radius")
 
 
@@ -536,21 +600,11 @@ def check_masked_points(batch: dict, dev: torch.device) -> tuple:
     xyz = torch.from_numpy(batch["point_clouds"]).to(dev)
     B, N, _ = xyz.shape
     gather = lambda p, i: torch.gather(p, 1, i[..., None].expand(-1, -1, 3)).contiguous()  # noqa: E731
-    chain, clouds = [(N, 2048), (2048, 1024), (1024, 256)], [xyz]
-    for n, k in chain:
-        inds = fps.fps(clouds[-1], k)
-        require(torch.equal(inds, fps.fps_plain(clouds[-1], k)), f"fps {n}->{k} differs from plain")
-        clouds.append(gather(clouds[-1], inds))
-    ms = sum(cuda_ms(lambda c=c, k=k: fps.fps(c, k), 3) for c, (_, k) in zip(clouds, chain))
-    plain = sum(cuda_ms(lambda c=c, k=k: fps.fps_plain(c, k), 1) for c, (_, k) in zip(clouds, chain))
-    nbytes = sum(B * (n * 12 + k * 8) for n, k in chain)
-    ops = 10 * B * sum((k - 1) * n for n, k in chain)
-    b_ms, b_by = bound_ms(nbytes, ops, F32_PEAK)
-    print(f"fps (masked ScanNet): indices equal (8x40000->2048->1024->256); kernel {ms:.3f} ms "
-          f"(40000->2048 alone {cuda_ms(lambda: fps.fps(xyz, 2048), 3):.3f} ms), plain "
-          f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    fps_extra = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     work="one masked request: 8x40000->2048->1024->256")
+    samples, clouds = (2048, 1024, 256), [xyz]
+    for k in samples:
+        clouds.append(gather(clouds[-1], fps.fps(clouds[-1], k)))
+    fps_extra = check_fps(fps, list(zip(clouds, samples)), (grow_by_one(xyz), 64), "scannet_masked")
+    del fps_extra["max_abs_err"]
 
     # pre-encoder 8 x 40000, M = 2048, K = 64, r = 0.2, C = 0; interim SA:
     # 2048 tokens, 1024 centers, K = 32, r = 0.4, C = 256
@@ -605,7 +659,7 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
     tot = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_ms_no_dropout=0.0, library_ms=0.0,
                    library_ms_dropout=0.0, ms_no_dropout=0.0, max_abs_err=0.0, bound_time={})
            for n in names}
-    for n in ("attention_fwd", "attention_dkv"):
+    for n in names:
         tot[n].update(ms_previous_design=0.0, ms_previous_design_no_dropout=0.0)
     empty_tiles = []
     for xyz, r in ((pre_xyz, 0.4 ** 2), (mid_xyz, 0.8 ** 2), (mid_xyz, 1.2 ** 2)):
@@ -620,10 +674,12 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
         empty_tiles.append(dict(N=N, r2=r2, in_radius_share=share, empty_64x64=empty[64],
                                 empty_128x128=empty[128]))
         want = inside.repeat_interleave(H, dim=0)
-        for name, mask in reveal_masks(A, None, 0.0, BH, N, D, dev, radius).items():
-            flips = int((mask != want).sum())
-            require(flips == 0, f"{name} radius N={N} r2={r2:.4f}: the mask differs at {flips} positions")
-        del want
+        for impl in (None, "mma"):
+            for name, mask in reveal_masks(A, None, 0.0, BH, N, D, dev, radius, impl).items():
+                flips = int((mask != want).sum())
+                require(flips == 0, f"{name} (_impl={impl}) radius N={N} r2={r2:.4f}: the mask "
+                                    f"differs at {flips} positions")
+        del want, mask
 
         g = torch.Generator().manual_seed(N)
         q, k, v, do = (torch.randn(BH, N, D, generator=g).to(dev) for _ in range(4))
@@ -646,11 +702,13 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
                     tot[n]["max_abs_err"] = max(tot[n]["max_abs_err"], err)
                     worst[n] = max(worst[n], err / b.abs().max().item())
             e_lse = (lse - ref_lse).abs().max().item()
-            # the first (mma.sync) design of the forward and dk/dv on the same inputs
+            # the first (mma.sync) design of the three kernels on the same inputs
             old_out, old_lse = A.attention_fwd(qb, kb, vb, p, seed, radius, _impl="mma")
-            olds = [old_out, *A.attention_dkv(qb, kb, vb, dob, lse, delta, p, seed, radius, _impl="mma")]
+            olds = [old_out, A.attention_dq(qb, kb, vb, dob, lse, delta, p, seed, radius, _impl="mma"),
+                    *A.attention_dkv(qb, kb, vb, dob, lse, delta, p, seed, radius, _impl="mma")]
             e_old = max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
-                        for a, b in zip(got["attention_fwd"] + got["attention_dkv"], olds))
+                        for a, b in zip(got["attention_fwd"] + got["attention_dq"]
+                                        + got["attention_dkv"], olds))
             require(e_old <= 2e-2 and (lse - old_lse).abs().max().item() <= 1e-3,
                     f"radius N={N} r2={r2:.4f} p={p}: the wgmma and mma.sync designs differ by {e_old}")
             out32, lse32 = A.attention_fwd(q, k, v, p, seed, radius)
@@ -679,7 +737,8 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
             "attention_fwd": (lambda p, sd, impl=None: A.attention_fwd(qb, kb, vb, p, sd, radius,
                                                                        _impl=impl),
                               lambda: A.attention_fwd_plain(qb, kb, vb, rate, seed, radius)),
-            "attention_dq": (lambda p, sd: A.attention_dq(*bwd, p, sd, radius),
+            "attention_dq": (lambda p, sd, impl=None: A.attention_dq(*bwd, p, sd, radius,
+                                                                      _impl=impl),
                              lambda: A.attention_dq_plain(*bwd, rate, seed, radius)),
             "attention_dkv": (lambda p, sd, impl=None: A.attention_dkv(*bwd, p, sd, radius,
                                                                        _impl=impl),
@@ -705,14 +764,13 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
                   "attention_dq": 5 * tensor + 2 * BH * N * 4,
                   "attention_dkv": 6 * tensor + 2 * BH * N * 4}
         for n, (kernel, plain) in calls.items():
-            was = ""
-            if n == "attention_dq":  # dq has the first design only
-                ms, nd_ms = cuda_ms(lambda: kernel(rate, seed), 10), cuda_ms(lambda: kernel(0.0, None), 10)
-            else:
-                ms, nd_ms, old_ms, old_nd = designs_in_turns(kernel, rate, seed, 10)
-                tot[n]["ms_previous_design"] += old_ms
-                tot[n]["ms_previous_design_no_dropout"] += old_nd
-                was = f"; mma.sync design {old_ms:.3f} ms ({old_nd:.3f})"
+            ms, nd_ms, old_ms, old_nd = designs_in_turns(kernel, rate, seed, 10)
+            require(ms <= old_ms and nd_ms <= old_nd,
+                    f"{n}_radius N={N} r2={r2:.4f}: the wgmma design ({ms:.3f} / {nd_ms:.3f} ms) is "
+                    f"slower than the mma.sync design ({old_ms:.3f} / {old_nd:.3f} ms)")
+            tot[n]["ms_previous_design"] += old_ms
+            tot[n]["ms_previous_design_no_dropout"] += old_nd
+            was = f"; mma.sync design {old_ms:.3f} ms ({old_nd:.3f})"
             plain_ms = cuda_ms(plain, 2)
             # what this data needs: the products, exponentials and hashes of
             # the in-radius pairs, and the distance test of every (b, q, k)
@@ -738,13 +796,7 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
         e = tot[n]
         bt = e.pop("bound_time")
         term = max(bt, key=bt.get)
-        if "ms_previous_design" in e:
-            require(e["ms"] <= e["ms_previous_design"]
-                    and e["ms_no_dropout"] <= e["ms_previous_design_no_dropout"],
-                    f"{n}_radius: the wgmma design ({e['ms']:.3f} / {e['ms_no_dropout']:.3f} ms) is "
-                    f"slower than the mma.sync design ({e['ms_previous_design']:.3f} / "
-                    f"{e['ms_previous_design_no_dropout']:.3f} ms)")
-            e["design"] = "wgmma, cp.async ring"
+        e["design"] = "wgmma, cp.async ring"
         entries[f"{n}_radius"] = dict(
             e, bound_by="bytes" if term == "bytes" else "operations", bound_term=term,
             empty_tiles=empty_tiles,
@@ -842,7 +894,7 @@ def profile(title: str, fn) -> None:
               f"in {sum(e.count for e in kernels)} kernels (idle share "
               f"{1 - busy_us / wall_us:.3f})")
     own = [e for e in kernels if any(k in e.key for k in
-                                     ("fps_kernel", "pick_kernel", "fill_kernel", "attn_"))]
+                                     ("fps_kernel", "fps_cluster_kernel", "pick_kernel", "fill_kernel", "attn_"))]
     for name, group in (("kernels", kernels[:12]), ("the port's own kernels", own),
                         ("ops, by the device time of their kernels", ops[:12])):
         print(f" {name}:")
@@ -1062,8 +1114,22 @@ def main() -> int:
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached libraries'}")
     for name, log in sorted(logs.items()):
-        for line in ptxas_summary(log):
-            print(f"  {name}: {line}")
+        lines = ptxas_summary(log)
+        many = [line for line in lines if line.startswith("fps_cluster_kernel")]
+        for line in lines:
+            if line not in many:
+                print(f"  {name}: {line}")
+            require("_wgmma" not in line or ", 0 B spilled" in line, f"{line}: a wgmma kernel spills")
+        if many:  # one instantiation per count of points a thread, with and without a cluster
+            facts = [line.split(": ")[1].split(", ") for line in many]  # registers, spills, shared
+            regs = [int(f[0].split()[0]) for f in facts]
+            spilled = sum(int(f[1].split()[0]) for f in facts)
+            shared = max(int(f[2].split()[0]) for f in facts)
+            require(spilled == 0, f"fps_cluster_kernel spills {spilled} B: the chain must stay in "
+                                  "registers")
+            print(f"  {name}: fps_cluster_kernel: {len(many)} instantiations (0 to 32 points a "
+                  f"thread; one CTA or a cluster), {min(regs)} to {max(regs)} registers, {spilled} B "
+                  f"spilled in all, at most {shared} B static shared")
     for line in sass_summary():
         print(f"  {line}")
 

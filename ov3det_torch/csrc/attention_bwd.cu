@@ -24,38 +24,61 @@
 // recomputes the 1.3e8 exponentials (35 us at 16 a clock and SM) and, with
 // dropout, the hash (about 11 integer operations a score, ~90 us at 64 lanes
 // a clock and SM if nothing hides them).  Inputs and outputs are 34-42 MB
-// (~12 us at 3.35 TB/s).  The (N, N) blocks never leave the SM.
+// (~12 us at 3.35 TB/s).  The (N, N) blocks never leave the SM.  In practice
+// a warpgroup waits for each batch of m64n64k16 products, so the products
+// and the elementwise work between them add up instead of overlapping.
 //
-// Design of dk/dv (bf16, D = 64, NQ and NK multiples of 128:
-// `attn_dkv_wgmma`).  One CTA of two warpgroups per (bh, 128 keys), looping
-// over the query tiles (the TPU's grid of one program per bh would give 32
-// CTAs on 132 SMs); a warpgroup owns 64 keys.  No atomics: the sums run in
-// one order.
-//   * All four products by wgmma.mma_async m64n64k16 (attention_hopper.cuh).
-//     S^T = K Q^T and dP^T = V dO^T take the CTA's K and V tiles, resident in
-//     swizzled shared memory, as A and the loop's Q and dO tiles K-major as
-//     B.  dV += (e mask)^T dO and dK += ds^T Q take the left operand from the
-//     accumulators of the first two, packed to bf16, and the same dO and Q
-//     tiles read MN-major through the descriptor's transpose bit: one
+// Design for this card (bf16, D = 64, NQ and NK multiples of 128:
+// `attn_dq_wgmma` and `attn_dkv_wgmma`, one the transposition of the other).
+// A warpgroup owns 64 rows of the side that is summed into (queries for dq,
+// keys for dk/dv) and loops over tiles of 64 rows of the other side.  dk/dv
+// puts two warpgroups into a CTA (128 keys); dq one (64 queries), see below.
+// The TPU's grid of one program per bh would give 32 CTAs on 132 SMs; this
+// gives 512 and 1024.  No atomics: every sum runs in one order.
+//   * All products by wgmma.mma_async m64n64k16 (attention_hopper.cuh).  The
+//     first two take the CTA's own tiles, resident in swizzled shared memory,
+//     as A, and the loop's tiles K-major as B: S = Q K^T and dP = dO V^T in
+//     dq, S^T = K Q^T and dP^T = V dO^T in dk/dv.  The last take the left
+//     operand from the accumulators of the first two, packed to bf16 anew
+//     every tile, and a loop tile read MN-major through the descriptor's
+//     transpose bit: dQ += ds K with the K tile that S has just read K-major;
+//     dV += (e mask)^T dO and dK += ds^T Q with the dO and Q tiles.  One
 //     128-byte-swizzled tile serves both readings, and nothing is gathered 16
-//     bits at a time.
-//   * The Q and dO tiles of 64 queries go through a ring of 3 stages filled
-//     by cp.async (16 bytes a thread, the swizzle computed by hand), two
-//     tiles ahead of their use, with one __syncthreads a tile; K and V ride
-//     in the first group.  cp.async rather than TMA for the reasons given in
-//     attention_fwd.cu.  The tile's lse (times log2 e), delta and, with the
-//     radius, points are prefetched two tiles ahead into registers and
-//     written to double-buffered shared arrays one tile ahead.
+//     bits at a time.  The resident operands are read from shared memory and
+//     not held as A fragments in registers across the loop.
+//   * The loop's two tiles of 64 rows (K and V in dq, Q and dO in dk/dv) go
+//     through a ring of 3 stages filled by cp.async (16 bytes a thread, the
+//     swizzle computed by hand), two tiles ahead of their use, with one
+//     __syncthreads a tile; the resident tiles ride in the first group.
+//     cp.async rather than TMA for the reasons given in attention_fwd.cu.
+//   * Row statistics.  dq keeps lse (times log2 e), delta and, with the
+//     radius, the points of a thread's two query rows in registers for the
+//     whole kernel, and prefetches the K tile's points two tiles ahead into
+//     double-buffered shared memory, as the forward does.  dk/dv, whose loop
+//     walks the queries, prefetches the tile's lse, delta and points that way
+//     and keeps its two keys' points in registers.
 //   * e = 2^(s scale log2(e) - lse log2(e)) in one FMA and one ex2.approx;
 //     outside the radius e is selected to 0, which is what exp(-1e9 - lse)
-//     gives.  The hash's (seed, bh, key) term is formed once a thread and the
-//     query term advances by a constant a tile; the finaliser is unchanged.
-// One CTA of 256 threads an SM.  Measured times, beside those of the
-// mma.sync design below, are in PERF.md.
+//     gives.  The hash's term of the thread's own rows (seed, bh, query in
+//     dq; seed, bh, key in dk/dv) is formed once and the other term advances
+//     by a constant a tile; the finaliser is unchanged, so the mask is that
+//     of `drop_keep` bit for bit.
+//   * CTAs an SM.  Within a CTA the warpgroups meet at the tile's
+//     __syncthreads, so its products and its elementwise work take turns.
+//     dk/dv (four 32-register accumulators, 227-249 registers) runs one CTA
+//     of 256 threads an SM.  dq (three accumulators, 165 registers, 199 with
+//     the radius) is one warpgroup a CTA instead, 66 560 B of shared memory:
+//     three CTAs an SM (two with the radius) whose phases drift apart, so one
+//     CTA's products run beside another's exponentials.  That doubles the K
+//     and V tiles crossing L2 (537 MB a call at the main shape) and was still
+//     15-18 % faster on the card than two warpgroups a CTA.
+// Measured times, beside those of the mma.sync design below, are in PERF.md.
 //
-// Design (bf16 dq, and dk/dv at other shapes: the first design): as the first
+// Design (bf16 at other shapes, the first design, also the entries
+// `ov3_attention_dq_mma` and `ov3_attention_dkv_mma`): as the first
 // forward, mma.sync m16n8k16 on bf16 tiles in padded shared memory, 4 warps
-// of 16 rows each, synchronous tile loads.
+// of 16 rows each, synchronous tile loads with two __syncthreads a tile,
+// expf and the full hash a score.
 //   dq:  one CTA per (bh, 64-query tile).  Q and dO fragments stay in
 //        registers; the loop over 64-key tiles forms S = Q K^T and
 //        dP = dO V^T in registers, turns them into ds, and accumulates
@@ -412,6 +435,143 @@ attn_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
+// ------------------------------------------- bf16 dq, D = 64: wgmma design
+template <bool RADIUS>
+__global__ void __launch_bounds__(hopper::kDqThreads, RADIUS ? 2 : 3)
+attn_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta, int NQ, int NK,
+              float scale, Dropout drop, Radius rad, __nv_bfloat16* __restrict__ dq) {
+  using namespace hopper;
+  constexpr int D = kHeadDim;
+  extern __shared__ unsigned char ring_raw[];
+  __shared__ float4 Kp[RADIUS ? 2 : 1][RADIUS ? kLoopRows : 1];  // two K tiles' points
+  const uint32_t Qs = (smem_u32(ring_raw) + 1023u) & ~1023u;     // the CTA's 64 query rows
+  const uint32_t Os = Qs + kLoopTileBytes;                       // and their dO
+  const uint32_t ring = Os + kLoopTileBytes;                     // stage s: K tile, V tile
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's rows of the CTA: r0, r0 + 8
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kDqRows;
+  const int ntiles = NK / kLoopRows;
+  const size_t qoff = (static_cast<size_t>(bh) * NQ + q0) * D;
+  const __nv_bfloat16* kg = k + static_cast<size_t>(bh) * NK * D;
+  const __nv_bfloat16* vg = v + static_cast<size_t>(bh) * NK * D;
+  const int b = RADIUS ? bh / rad.heads : 0;
+  const float* kpts = RADIUS ? rad.kxyz + static_cast<size_t>(b) * NK * 3 : nullptr;
+
+  auto fetch = [&](int t) {  // tile t into its stage; one group a call, empty past the end
+    if (t < ntiles) {
+      const uint32_t stage = ring + (t % kStages) * kStageBytes;
+      const size_t off = static_cast<size_t>(t) * kLoopRows * D;
+      load_tile_async<kLoopRows, kDqThreads>(stage, kg + off, tid);
+      load_tile_async<kLoopRows, kDqThreads>(stage + kLoopTileBytes, vg + off, tid);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<kDqRows, kDqThreads>(Qs, q + qoff, tid);  // in the group of tile 0
+  load_tile_async<kDqRows, kDqThreads>(Os, dout + qoff, tid);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+
+  // the statistics and points of this thread's two rows stay in registers
+  const size_t row0 = static_cast<size_t>(bh) * NQ + q0 + r0;
+  const float lse0 = lse[row0] * kLog2e, lse1 = lse[row0 + 8] * kLog2e;
+  const float dl0 = delta[row0], dl1 = delta[row0 + 8];
+  float4 qp0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), qp1 = qp0;
+  float px = 0.0f, py = 0.0f, pz = 0.0f;  // thread tid < 64: point tid of the tile after next
+  if (RADIUS) {
+    qp0 = load_point(rad.qxyz, static_cast<size_t>(b) * NQ + q0 + r0);
+    qp1 = load_point(rad.qxyz, static_cast<size_t>(b) * NQ + q0 + r0 + 8);
+    if (tid < kLoopRows) {
+      Kp[0][tid] = load_point(kpts, tid);
+      if (ntiles > 1) {
+        const float* p = kpts + 3 * (kLoopRows + tid);
+        px = p[0], py = p[1], pz = p[2];
+      }
+    }
+  }
+  const float c = scale * kLog2e;
+  uint32_t hrow0 = 0u, hrow1 = 0u, hcol = 0u;
+  if (drop.active) {
+    const uint32_t base = drop_base(*drop.seed, bh);
+    hrow0 = base + static_cast<uint32_t>(q0 + r0) * kHashRow;
+    hrow1 = hrow0 + 8u * kHashRow;
+    hcol = static_cast<uint32_t>(t4 * 2) * kHashCol;
+  }
+  const uint64_t q_desc = tile_desc(Qs), do_desc = tile_desc(Os);
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile kt have landed
+    fence_proxy_async();
+    __syncthreads();               // everyone's have; tile kt - 1 is consumed
+    fetch(kt + kStages - 1);       // into the stage of tile kt - 1
+    if (RADIUS && tid < kLoopRows) {
+      if (kt + 1 < ntiles) Kp[(kt + 1) & 1][tid] = make_point(px, py, pz);
+      if (kt + 2 < ntiles) {
+        const float* p = kpts + 3 * ((kt + 2) * kLoopRows + tid);
+        px = p[0], py = p[1], pz = p[2];
+      }
+    }
+    const uint32_t stage = ring + (kt % kStages) * kStageBytes;
+    const uint64_t k_desc = tile_desc(stage), v_desc = tile_desc(stage + kLoopTileBytes);
+
+    float s[8][4], dp[8][4];  // rows = queries, columns = keys
+    wgmma_fence();
+    tile_times_tile_t(s, q_desc, k_desc);
+    tile_times_tile_t(dp, do_desc, v_desc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float4 kp0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), kp1 = kp0;  // this thread's two keys
+      if (RADIUS) {
+        kp0 = Kp[kt & 1][n * 8 + t4 * 2];
+        kp1 = Kp[kt & 1][n * 8 + t4 * 2 + 1];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = i & 1;
+        const bool hi = i >> 1;
+        float e = ex2(fmaf(s[n][i], c, -(hi ? lse1 : lse0)));
+        if (RADIUS) e = inside_radius(hi ? qp1 : qp0, j ? kp1 : kp0, rad.r2) ? e : 0.0f;
+        float m = 1.0f;
+        if (drop.active)
+          m = drop_scale((hi ? hrow1 : hrow0) + hcol + static_cast<uint32_t>(n * 8 + j) * kHashCol,
+                         drop.threshold, drop.keep_scale);
+        s[n][i] = e * (dp[n][i] * m - (hi ? dl1 : dl0)) * scale;  // ds
+      }
+    }
+    if (drop.active) hcol += static_cast<uint32_t>(kLoopRows) * kHashCol;
+
+    uint32_t dsa[4][4];
+    pack_frags(dsa, s);
+    fence_regs(dsa);
+    fence_regs(acc);
+    wgmma_fence();
+    frags_times_tile(acc, dsa, k_desc);  // dq += ds K: the same K tile, read MN-major
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(dq + row0 * D + col) = pack_bf16(acc[j][0], acc[j][1]);
+    *reinterpret_cast<uint32_t*>(dq + (row0 + 8) * D + col) = pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
+
 // ------------------------------------------------------------------ f32
 constexpr int BF = 64;   // rows (threads) per CTA of the f32 kernels
 constexpr int TF = 16;   // rows of the other side per shared tile
@@ -599,6 +759,22 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
+template <bool RADIUS>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, int BH, int NQ, int NK,
+                            float scale, Dropout drop, Radius rad, void* dq, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_dq_wgmma<RADIUS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hopper::kDqSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  attn_dq_wgmma<RADIUS><<<dim3(NQ / hopper::kDqRows, BH), hopper::kDqThreads,
+                          hopper::kDqSmemBytes, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse,
+      delta, NQ, NK, scale, drop, rad, static_cast<__nv_bfloat16*>(dq));
+  return cudaGetLastError();
+}
+
 // The dq launch for head width D, with or without the radius bias.
 template <int D>
 cudaError_t dq_for(const void* q, const void* k, const void* v, const void* dout,
@@ -627,27 +803,57 @@ bool bad_shape(int BH, int NQ, int NK, int dropout, const int* seed, const float
          (qxyz && (kxyz == nullptr || heads <= 0 || BH % heads != 0));
 }
 
-}  // namespace
-
-// q, dout (BH, NQ, D), k, v (BH, NK, D), contiguous, all bf16 (is_bf16 = 1)
-// or all f32; lse and delta (BH, NQ) f32.  dq (BH, NQ, D) in the input type.
-// NQ and NK multiples of 64; D one of 16, 32, 64.  Dropout and radius
-// parameters as for ov3_attention_fwd.  Returns a cudaError_t.
-extern "C" int ov3_attention_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const float* lse, const float* delta,
-                                int BH, int NQ, int NK, int D, int is_bf16, float scale,
-                                int dropout, const int* seed, float keep_scale,
-                                unsigned int threshold, const float* qxyz, const float* kxyz,
-                                float r2, int heads, void* dq, cudaStream_t stream) {
+// dq for any shape the kernels take; `by_shape` sends what the wgmma design
+// takes (hopper::takes) to it, 0 keeps everything on the first design.
+cudaError_t dq_any(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, int BH, int NQ, int NK, int D,
+                   int is_bf16, float scale, int dropout, const int* seed, float keep_scale,
+                   unsigned int threshold, const float* qxyz, const float* kxyz, float r2,
+                   int heads, void* dq, cudaStream_t stream, bool by_shape) {
   if (bad_shape(BH, NQ, NK, dropout, seed, qxyz, kxyz, heads)) return cudaErrorInvalidValue;
   const Dropout drop{seed, keep_scale, threshold, dropout};
   const Radius rad{qxyz, kxyz, r2, heads};
+  if (by_shape && hopper::takes(NQ, NK, D, is_bf16))
+    return qxyz ? launch_dq_wgmma<true>(q, k, v, dout, lse, delta, BH, NQ, NK, scale, drop, rad,
+                                        dq, stream)
+                : launch_dq_wgmma<false>(q, k, v, dout, lse, delta, BH, NQ, NK, scale, drop,
+                                         rad, dq, stream);
   switch (D) {
     case 16: return dq_for<16>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dq, stream);
     case 32: return dq_for<32>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dq, stream);
     case 64: return dq_for<64>(q, k, v, dout, lse, delta, BH, NQ, NK, is_bf16, scale, drop, rad, dq, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// q, dout (BH, NQ, D), k, v (BH, NK, D), contiguous, all bf16 (is_bf16 = 1)
+// or all f32; lse and delta (BH, NQ) f32.  dq (BH, NQ, D) in the input type.
+// NQ and NK multiples of 64; D one of 16, 32, 64.  Dropout and radius
+// parameters as for ov3_attention_fwd.  bf16 with D = 64 and NQ, NK multiples
+// of 128 runs the wgmma design, every other shape the first one: the route
+// depends on the shape alone.  Returns a cudaError_t.
+extern "C" int ov3_attention_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse, const float* delta,
+                                int BH, int NQ, int NK, int D, int is_bf16, float scale,
+                                int dropout, const int* seed, float keep_scale,
+                                unsigned int threshold, const float* qxyz, const float* kxyz,
+                                float r2, int heads, void* dq, cudaStream_t stream) {
+  return dq_any(q, k, v, dout, lse, delta, BH, NQ, NK, D, is_bf16, scale, dropout, seed,
+                keep_scale, threshold, qxyz, kxyz, r2, heads, dq, stream, true);
+}
+
+// The same on the first design (mma.sync or f32) whatever the shape.
+extern "C" int ov3_attention_dq_mma(const void* q, const void* k, const void* v,
+                                    const void* dout, const float* lse, const float* delta,
+                                    int BH, int NQ, int NK, int D, int is_bf16, float scale,
+                                    int dropout, const int* seed, float keep_scale,
+                                    unsigned int threshold, const float* qxyz,
+                                    const float* kxyz, float r2, int heads, void* dq,
+                                    cudaStream_t stream) {
+  return dq_any(q, k, v, dout, lse, delta, BH, NQ, NK, D, is_bf16, scale, dropout, seed,
+                keep_scale, threshold, qxyz, kxyz, r2, heads, dq, stream, false);
 }
 
 namespace {

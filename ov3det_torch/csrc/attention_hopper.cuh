@@ -1,4 +1,4 @@
-// Pieces of the Hopper designs of the attention forward and dk/dv kernels
+// Pieces of the Hopper designs of the attention forward, dq and dk/dv kernels
 // (attention_fwd.cu, attention_bwd.cu): 128-byte-swizzled shared tiles filled
 // by cp.async, wgmma.mma_async (sm_90a) with its shared-memory descriptors
 // and fences, base-2 exponentials and the hoisted dropout hash.
@@ -23,7 +23,7 @@ namespace ov3 {
 namespace hopper {
 
 constexpr int kHeadDim = 64;       // the only head width of these kernels
-constexpr int kCtaRows = 128;      // rows a CTA owns: two warpgroups of 64
+constexpr int kCtaRows = 128;      // rows a CTA of the forward and dk/dv owns: two warpgroups of 64
 constexpr int kLoopRows = 64;      // rows of the other side per ring stage
 constexpr int kCtaThreads = 256;   // two warpgroups, both consumers and loaders
 constexpr int kStages = 3;         // depth of the cp.async ring
@@ -33,6 +33,8 @@ constexpr int kCtaTileBytes = kCtaRows * 128;
 constexpr int kAlignSlack = 1024;  // dynamic shared memory is aligned by hand
 constexpr int kFwdSmemBytes = kAlignSlack + kCtaTileBytes + kStages * kStageBytes;
 constexpr int kDkvSmemBytes = kAlignSlack + 2 * kCtaTileBytes + kStages * kStageBytes;
+constexpr int kDqRows = 64, kDqThreads = 128;  // dq: one warpgroup a CTA, several CTAs an SM
+constexpr int kDqSmemBytes = kAlignSlack + 2 * kLoopTileBytes + kStages * kStageBytes;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;

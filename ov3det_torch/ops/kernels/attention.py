@@ -33,13 +33,12 @@ Each wrapper launches its kernel for CUDA tensors and counts the launch in
 `.launches`, or in `.radius_launches` for the variant with the radius bias;
 CPU tensors take the plain version, and a CUDA tensor never does.
 
-The forward and dk/dv have two designs in their sources, and the shape
-alone picks one (`_route`): bf16 with D = 64 and NQ, NK multiples of 128
-runs the Hopper design (wgmma.mma_async on swizzled tiles from a cp.async
-ring), every other shape the first design (mma.sync for bf16, plain FMA
-for f32).  The two wrappers take a private `_impl="mma"` that keeps a CUDA
-call on the first design, so that the two can be timed and compared on
-one card; dq has the first design only.
+Each kernel has two designs in its source, and the shape alone picks one
+(`_route`): bf16 with D = 64 and NQ, NK multiples of 128 runs the Hopper
+design (wgmma.mma_async on swizzled tiles from a cp.async ring), every
+other shape the first design (mma.sync for bf16, plain FMA for f32).  The
+wrappers take a private `_impl="mma"` that keeps a CUDA call on the first
+design, so that the two can be timed and compared on one card.
 """
 from __future__ import annotations
 
@@ -220,7 +219,7 @@ def _check(name: str, q, k, v, extra=()) -> bool:
 
 
 def _route(dtype: torch.dtype, D: int, NQ: int, NK: int) -> str:
-    """The design the forward and dk/dv launch functions pick for a shape,
+    """The design the launch functions of the three kernels pick for a shape,
     as `hopper::takes` of `csrc/attention_hopper.cuh` decides it: "wgmma"
     or "mma" (the first design, f32 included)."""
     hopper = (dtype == torch.bfloat16 and D == _HOPPER_D and NQ % _HOPPER_TILE == 0
@@ -305,9 +304,12 @@ def attention_fwd(q, k, v, dropout_rate: float = 0.0, seed=None, radius=None, _i
     return out, lse
 
 
-def attention_dq(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None, radius=None):
+def attention_dq(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None, radius=None,
+                 _impl=None):
     """dq of the fused attention (BH, NQ, D), in q's dtype."""
-    if not _check("attention_dq", q, k, v, (do,)):
+    on_cuda = _check("attention_dq", q, k, v, (do,))
+    entry = _entry("attention_dq", _impl, on_cuda)
+    if not on_cuda:
         return attention_dq_plain(q, k, v, do, lse, delta, dropout_rate, seed, radius)
     _row_stats_ok("attention_dq", q, lse, delta)
     BH, NQ, D = q.shape
@@ -317,7 +319,7 @@ def attention_dq(q, k, v, do, lse, delta, dropout_rate: float = 0.0, seed=None, 
     lib = _build.load("attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ov3_attention_dq(
+        status = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), BH, NQ, k.shape[1], D, int(q.dtype == torch.bfloat16), _scale(D),
             *drop, *rad, dq.data_ptr(), stream)
@@ -406,6 +408,7 @@ _BWD_HEAD = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DR
              + _RADIUS_ARGS)
 _BWD_SIGNATURES = {
     "ov3_attention_dq": (_BWD_HEAD + [ctypes.c_void_p] * 2, ctypes.c_int),
+    "ov3_attention_dq_mma": (_BWD_HEAD + [ctypes.c_void_p] * 2, ctypes.c_int),
     "ov3_attention_dkv": (_BWD_HEAD + [ctypes.c_void_p] * 3, ctypes.c_int),
     "ov3_attention_dkv_mma": (_BWD_HEAD + [ctypes.c_void_p] * 3, ctypes.c_int),
 }

@@ -3,11 +3,12 @@
 
     python3 scripts/attention_parts.py
 
-Times `attn_fwd_wgmma` (csrc/attention_fwd.cu) and `attn_dkv_wgmma`
-(csrc/attention_bwd.cu) at BH = 32, N = 2048, D = 64, bf16, without
-dropout or radius, as they are and with parts taken out: the tile loads
-after the first stages, the first products (S, or S^T and dP^T), the second
-products (P V, or dV and dK), the elementwise work between them.  A variant
+Times `attn_fwd_wgmma` (csrc/attention_fwd.cu), `attn_dkv_wgmma` and
+`attn_dq_wgmma` (csrc/attention_bwd.cu) at BH = 32, N = 2048, D = 64, bf16,
+without dropout or radius, as they are and with parts taken out: the tile
+loads after the first stages, the first products (S; S^T and dP^T; S and
+dP), the second products (P V; dV and dK; dQ), the elementwise work between
+them.  A variant
 computes nothing meaningful; its time says what the part that is left costs
 when it runs alone, and how much of it the whole kernel hides.
 
@@ -84,7 +85,7 @@ extern "C" int run(const void* q, const void* k, const void* v, const void*, con
 def dkv_source() -> str:
     text = (_build.CSRC_DIR / "attention_bwd.cu").read_text()
     k = between(text, "template <bool RADIUS>\n__global__ void __launch_bounds__(hopper::kCtaThreads, 1)",
-                "// ------------------------------------------------------------------ f32\n")
+                DQ_START)
     k = cut(k, *NO_LOAD)
     first = ("    wgmma_fence();\n    tile_times_tile_t(st, k_desc, q_desc);\n"
              "    tile_times_tile_t(dpt, v_desc, do_desc);\n    wgmma_commit();\n    wgmma_wait();\n"
@@ -111,6 +112,43 @@ extern "C" int run(const void* q, const void* k, const void* v, const void* dout
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
       NQ, NK, scale, Dropout{nullptr, 1.0f, 0u, 0}, Radius{nullptr, nullptr, 0.0f, 1},
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv));
+  return cudaGetLastError();
+}
+''')
+
+
+DQ_START = "// ------------------------------------------- bf16 dq, D = 64: wgmma design\n"
+
+
+def dq_source() -> str:
+    text = (_build.CSRC_DIR / "attention_bwd.cu").read_text()
+    k = between(text, DQ_START,
+                "// ------------------------------------------------------------------ f32\n")
+    k = cut(k, *NO_LOAD)
+    first = ("    wgmma_fence();\n    tile_times_tile_t(s, q_desc, k_desc);\n"
+             "    tile_times_tile_t(dp, do_desc, v_desc);\n    wgmma_commit();\n    wgmma_wait();\n"
+             "    fence_regs(s);\n    fence_regs(dp);\n")
+    k = cut(k, first, "#ifdef NO_FIRST\n    for (int n = 0; n < 8; ++n)\n      for (int i = 0; i < 4; ++i) {\n"
+            "        s[n][i] = 0.01f * (n + i + kt);\n        dp[n][i] = 0.02f * (n - i + kt);\n      }\n"
+            "#else\n" + first + "#endif\n")
+    second = ("    wgmma_fence();\n    frags_times_tile(acc, dsa, k_desc);  // dq += ds K: the same K tile, "
+              "read MN-major\n    wgmma_commit();\n    wgmma_wait();\n    fence_regs(acc);\n")
+    k = cut(k, second, "#ifdef NO_SECOND\n    for (int n = 0; n < 8; ++n)\n      for (int i = 0; i < 4; ++i) "
+            "acc[n][i] += __uint_as_float(dsa[n & 3][i]);\n#else\n" + second + "#endif\n")
+    loop = "#pragma unroll\n    for (int n = 0; n < 8; ++n) {\n      float4 kp0 = "
+    k = cut(k, loop, "#ifndef NO_ELEMENTWISE\n" + loop)
+    k = cut(k, "    uint32_t dsa[4][4];\n", "#endif\n    uint32_t dsa[4][4];\n")
+    return ('#include "attention_hopper.cuh"\n#include <cmath>\nusing namespace ov3;\n' + k + '''
+extern "C" int run(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                   const float* delta, int BH, int NQ, int NK, float scale, void* dq, void*) {
+  cudaFuncSetAttribute(attn_dq_wgmma<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       hopper::kDqSmemBytes);
+  attn_dq_wgmma<false><<<dim3(NQ / hopper::kDqRows, BH), hopper::kDqThreads,
+                         hopper::kDqSmemBytes>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      NQ, NK, scale, Dropout{nullptr, 1.0f, 0u, 0}, Radius{nullptr, nullptr, 0.0f, 1},
+      static_cast<__nv_bfloat16*>(dq));
   return cudaGetLastError();
 }
 ''')
@@ -148,7 +186,8 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True)
     print(f"card: {res.stdout.strip().splitlines()[0]}")
     jobs = {}
-    for kernel, source in (("attn_fwd_wgmma", forward_source()), ("attn_dkv_wgmma", dkv_source())):
+    for kernel, source in (("attn_fwd_wgmma", forward_source()), ("attn_dkv_wgmma", dkv_source()),
+                           ("attn_dq_wgmma", dq_source())):
         src = OUT_DIR / f"{kernel}.cu"
         src.write_text(source)
         for name, macros in VARIANTS.items():
@@ -163,6 +202,7 @@ def main() -> int:
     ref_out, lse = A.attention_fwd_plain(q, k, v)
     delta = (do.float() * ref_out.float()).sum(-1, keepdim=True)
     ref_dk, ref_dv = A.attention_dkv_plain(q, k, v, do, lse, delta)
+    ref_dq = A.attention_dq_plain(q, k, v, do, lse, delta)
     outs = [torch.empty_like(q), torch.empty_like(q)]
     lse_out = torch.empty_like(lse)
     rel = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()  # noqa: E731
@@ -187,8 +227,9 @@ def main() -> int:
         run()
         torch.cuda.synchronize()
         if name == "whole":
-            err = (rel(outs[0], ref_out) if kernel == "attn_fwd_wgmma"
-                   else max(rel(outs[0], ref_dk), rel(outs[1], ref_dv)))
+            err = {"attn_fwd_wgmma": lambda: rel(outs[0], ref_out),
+                   "attn_dq_wgmma": lambda: rel(outs[0], ref_dq),
+                   "attn_dkv_wgmma": lambda: max(rel(outs[0], ref_dk), rel(outs[1], ref_dv))}[kernel]()
             if err > 2e-2:
                 raise AssertionError(f"{kernel} differs from the plain version by {err}")
         ms = min(cuda_ms(run, REPS) for _ in range(3))

@@ -1,6 +1,7 @@
-"""What the Hopper (wgmma) designs of the attention forward and dk/dv rely
-on, checked on the CPU: the route by shape, the base-2 online softmax, the
-hoisted form of the dropout hash and the swizzled tile layout.  The kernels
+"""What the Hopper (wgmma) designs of the attention forward, dq and dk/dv
+rely on, checked on the CPU: the route by shape, the base-2 online softmax,
+the hoisted form of the dropout hash, the swizzled tile layout and dq's
+arithmetic from the saved LSE.  The kernels
 themselves run only on the card, where chip_smoke.py holds them against
 their plain versions and against the first (mma.sync) design.
 
@@ -8,7 +9,11 @@ Tolerances.  The base-2 softmax against `attention_fwd_plain`, both f32:
 1e-6 of the largest value (the two differ only in where f32 rounds: one
 multiply by scale * log2(e) against a multiply by scale, exp2 against exp).
 The hash and the layout are exact.  bf16 against the Pallas kernels in
-interpret mode: 2e-2 absolute, as `test_torch_ops.py`.
+interpret mode: 2e-2 absolute, as `test_torch_ops.py`; the emulation of the
+wgmma dq against `attention_dq_plain` and against the Pallas `_dq_kernel`:
+2e-2 of the largest value (ds is rounded to bf16 in all three; the
+emulation differs in exp2 of a fused multiply-add against exp, and in
+summing tile by tile).
 """
 import math
 import re
@@ -24,7 +29,7 @@ from ov3det.ops.pallas.attention_kernel import fused_attention
 from ov3det_torch.ops.kernels import attention
 
 CSRC = Path(attention.__file__).resolve().parents[2] / "csrc"
-TILE = 64  # keys (forward) or queries (dk/dv) per loop tile of the wgmma kernels
+TILE = 64  # keys (forward, dq) or queries (dk/dv) per loop tile of the wgmma kernels
 HASH_ROW, HASH_COL = np.uint32(0xC2B2AE35), np.uint32(0x27D4EB2F)
 
 
@@ -58,14 +63,16 @@ def test_route_mirrors_the_launch_functions_rule():
     assert int(consts["kLoopRows"]) == TILE
     assert ("return is_bf16 && D == kHeadDim && NQ % kCtaRows == 0 && NK % kCtaRows == 0;"
             in header)
-    for source, entry in (("attention_fwd.cu", "ov3_attention_fwd"),
-                          ("attention_bwd.cu", "ov3_attention_dkv")):
+    for source, entries in (("attention_fwd.cu", ("ov3_attention_fwd",)),
+                            ("attention_bwd.cu", ("ov3_attention_dq", "ov3_attention_dkv"))):
         text = (CSRC / source).read_text()
-        assert "by_shape && hopper::takes(NQ, NK, D, is_bf16)" in text
-        assert f'extern "C" int {entry}(' in text and f'extern "C" int {entry}_mma(' in text
+        # one rule per kernel, and both entry points of each
+        assert text.count("by_shape && hopper::takes(NQ, NK, D, is_bf16)") == len(entries)
+        for entry in entries:
+            assert f'extern "C" int {entry}(' in text and f'extern "C" int {entry}_mma(' in text
 
 
-@pytest.mark.parametrize("name", ["attention_fwd", "attention_dkv"])
+@pytest.mark.parametrize("name", ["attention_fwd", "attention_dq", "attention_dkv"])
 @pytest.mark.parametrize("impl", ["mma", "wgmma"])
 def test_impl_is_refused_on_cpu_tensors(name, impl):
     g = torch.Generator().manual_seed(0)
@@ -147,12 +154,13 @@ def _finalise(h):
 def _hoisted_mask(seed, BH, NQ, NK, threshold, kernel):
     """The (BH, NQ, NK) keep mask as the wgmma kernels form the hash, in
     wrapping uint32 arithmetic: the term of a thread's own rows (queries in
-    the forward, keys in dk/dv) once, the other term starting at the
+    the forward and dq, keys in dk/dv) once, the other term starting at the
     thread's column pair 2 * t4 and advanced by 64 * its constant a tile,
     plus a compile-time constant (8 n + j) * its constant."""
     keep = np.zeros((BH, NQ, NK), bool)
-    own_c, loop_c = (HASH_ROW, HASH_COL) if kernel == "fwd" else (HASH_COL, HASH_ROW)
-    n_own, n_loop = (NQ, NK) if kernel == "fwd" else (NK, NQ)
+    rows_own = kernel in ("fwd", "dq")  # their loop walks the keys in tiles of 64
+    own_c, loop_c = (HASH_ROW, HASH_COL) if rows_own else (HASH_COL, HASH_ROW)
+    n_own, n_loop = (NQ, NK) if rows_own else (NK, NQ)
     with np.errstate(over="ignore"):
         for bh in range(BH):
             base = np.uint32(seed & 0xFFFFFFFF) * np.uint32(0x9E3779B9) + np.uint32(bh) * np.uint32(0x85EBCA6B)
@@ -164,7 +172,7 @@ def _hoisted_mask(seed, BH, NQ, NK, threshold, kernel):
                         for j in range(2):
                             other = tile * TILE + 8 * n + 2 * t4 + j
                             h = _finalise(own + (moving + np.uint32(8 * n + j) * loop_c))
-                            if kernel == "fwd":
+                            if rows_own:
                                 keep[bh, :, other] = h >= np.uint32(threshold)
                             else:
                                 keep[bh, other, :] = h >= np.uint32(threshold)
@@ -172,7 +180,7 @@ def _hoisted_mask(seed, BH, NQ, NK, threshold, kernel):
     return keep
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("seed", [0, 7, -5, 2 ** 31 - 1, -2 ** 31])
 def test_hoisted_hash_equals_drop_mask_exactly(seed, kernel):
     BH, NQ, NK, rate = 3, 128, 192, 0.1
@@ -233,3 +241,71 @@ def test_plain_versions_match_pallas_at_a_shape_the_wgmma_design_takes():
     np.testing.assert_allclose(back(out), np.asarray(want.astype(jnp.float32)), rtol=0, atol=2e-2)
     for t, w in zip((tq, tk, tv), want_grads):
         np.testing.assert_allclose(back(t.grad), np.asarray(w.astype(jnp.float32)), rtol=0, atol=2e-2)
+
+
+# ------------------------------------------------ the wgmma dq's arithmetic
+def _dq_emulation(q, k, v, do, lse, delta, rate=0.0, seed=None, radius=None):
+    """The wgmma dq's arithmetic in plain f32 PyTorch: tiles of 64 keys, the
+    probabilities as exp2 of one multiply-add from the saved LSE times
+    log2(e), the radius as a select to 0, the mask from the hash, ds rounded
+    to bf16 before ds k, the sum over the tiles in f32 in their order."""
+    BH, NQ, D = q.shape
+    scale = np.float32(attention._scale(D))
+    c = float(scale * np.float32(1.4426950408889634))
+    lse2 = lse * float(np.float32(1.4426950408889634))
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    mask = None if rate == 0.0 else attention.drop_mask(seed, BH, NQ, k.shape[1], rate)
+    acc = torch.zeros(BH, NQ, D)
+    for kt in range(0, k.shape[1], TILE):
+        cols = slice(kt, kt + TILE)
+        s = torch.matmul(qf, kf[:, cols].transpose(1, 2))
+        dp = torch.matmul(dof, vf[:, cols].transpose(1, 2))
+        e = torch.exp2(s * c - lse2)
+        if radius is not None:
+            q_xyz, k_xyz, r2 = radius
+            inside = attention.radius_mask(q_xyz, k_xyz[:, cols], r2)
+            e = torch.where(inside.repeat_interleave(BH // q_xyz.shape[0], dim=0), e,
+                            torch.tensor(0.0))
+        if mask is not None:
+            dp = dp * mask[:, :, cols]
+        ds = e * (dp - delta) * float(scale)
+        acc += torch.matmul(ds.bfloat16().float(), kf[:, cols])
+    return acc.to(q.dtype)
+
+
+@pytest.mark.parametrize("with_radius", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_dq_emulation_matches_plain_and_pallas(rate, with_radius):
+    rng = np.random.default_rng(31)
+    B, N, H, D, seed = 1, 256, 2, 64, 5
+    q, k, v, g = (rng.normal(size=(B, N, H, D)).astype(np.float32) for _ in range(4))
+    assert attention._route(torch.bfloat16, D, N, N) == "wgmma"
+    xyz = rng.uniform(0.0, 1.5, size=(B, N, 3)).astype(np.float32)
+    r2 = 0.5 ** 2
+    extra = dict(q_xyz=jnp.asarray(xyz), k_xyz=jnp.asarray(xyz), radius_sq=r2) if with_radius else {}
+
+    def fn(q, k, v):
+        return fused_attention(q, k, v, dropout_rate=rate, dropout_seed=seed, interpret=True,
+                               **extra)
+
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    pallas_dq = np.asarray(vjp(jnp.asarray(g, jnp.bfloat16))[0].astype(jnp.float32))
+    pallas_dq = pallas_dq.transpose(0, 2, 1, 3).reshape(B * H, N, D)
+
+    def heads(a):  # (B, N, H, D) -> (B*H, N, D)
+        t = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3).reshape(B * H, N, D)))
+        return t.bfloat16()
+
+    tq, tk, tv, do = (heads(a) for a in (q, k, v, g))
+    tseed = torch.tensor([seed], dtype=torch.int32)
+    radius = (torch.from_numpy(xyz), torch.from_numpy(xyz), r2) if with_radius else None
+    if with_radius:
+        share = attention.radius_mask(*radius).float().mean().item()
+        assert 0.05 < share < 0.6  # the radius cuts most pairs and keeps some
+    out, lse = attention.attention_fwd_plain(tq, tk, tv, rate, tseed, radius)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    got = _dq_emulation(tq, tk, tv, do, lse, delta, rate, tseed, radius).float()
+    want = attention.attention_dq_plain(tq, tk, tv, do, lse, delta, rate, tseed, radius).float()
+    assert not got.isnan().any()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-2
+    assert (np.abs(got.numpy() - pallas_dq).max() / np.abs(pallas_dq).max()) <= 2e-2
