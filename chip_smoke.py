@@ -8,7 +8,9 @@ at once), then:
   1. prints the card's name and power limit, the build time, each kernel's
      registers and shared memory (ptxas) and, from `cuobjdump -sass`, that the
      wgmma kernels (forward, dq, dk/dv, each with and without the radius)
-     hold HGMMA and LDGSTS (cp.async) and no HMMA;
+     hold HGMMA and LDGSTS (cp.async) and no HMMA, and that the tile
+     ball-group kernels the route launches (the forward at both tiles of
+     centers, the pick pass) hold no FFMA;
   2. holds each kernel against its plain PyTorch version on the card at the
      shapes the main paths give it, and times kernel, plain version and,
      where one exists, a PyTorch call as a yardstick:
@@ -19,7 +21,13 @@ at once), then:
        and CTAs of each launch; the chain alone (the step's reductions,
        exchange and wait on no points), a measurement of the design printed
        beside the operations and bytes bound and never in its place;
-       ball-group 8 x 20000, M = 2048, K = 64, C = 0 and C = 3, exact;
+       ball-group 8 x 20000, M = 2048, K = 64, C = 0 and C = 3, and at a
+       ragged N (20 001) and a ragged M (2047): the tile design's output
+       equals the plain version's and the first design's bit for bit on two
+       launches, both designs timed in turns (replays of a CUDA graph of
+       the calls, so that the host's launch rate does not enter the kernel
+       time), with the distance tests the data needs and the bound beside
+       them;
        attention BH = 32, N = 2048, D = 64 (the encoder of the training
        step): the dropout mask read back through the forward, dq and dk/dv
        kernels, in both designs, equals the plain hash exactly; forward, dq
@@ -57,8 +65,13 @@ at once), then:
        kernels: FPS 40000 -> 2048 -> 1024 -> 256 and a ragged 40001 -> 64,
        checked, timed and bounded as in 2; the
        ball-group at 40 000 points (C = 0) and at the interim SA's shapes
-       (2048 tokens, 1024 centers, K = 32, C = 256), exact, and its feature
-       gradient on the card against the CPU's; the attention kernels with
+       (2048 tokens, 1024 centers, K = 32, C = 256), as in 2; the pick pass
+       of its feature gradient (`slot_sources`) equal to its plain version at
+       every position on two launches, and on a scene where the direct and
+       the expanded distances split at r^2 (it must give the expanded pick,
+       the forward the direct one); the feature gradient on the card against
+       the CPU's, timed with the plain pick pass and with the kernel; the
+       attention kernels with
        the radius bias at the three (N, r^2) of the encoder's layers, with
        token coordinates from the FPS picks above: the radius mask read
        back through the forward, dq and dk/dv kernels, in both designs,
@@ -72,7 +85,8 @@ at once), then:
        serving: 3 requests, each launching FPS 3 times, the ball-group
        twice, the radius forward 3 times and no backward kernel;
        training: one warm-up and 3 timed steps, each launching FPS 3 times,
-       the ball-group twice and each radius kernel 3 times, with the stage
+       the ball-group twice, its pick pass once and each radius kernel 3
+       times, with the stage
        split, peak memory and one profiled step; then one f32 step with
        every dropout at 0 on one scene, card against CPU, as in 6;
   8. prints the kernels line (launches summed over the serving and training
@@ -123,7 +137,10 @@ def ptxas_summary(log: str) -> list:
     lines, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
+        tile = re.search(r"ball_group_tileILi([01])ELi(\d+)E", m.group(1)) if m else None
+        if tile:
+            kernel = f"ball_group_tile<{('fill', 'sources')[int(tile.group(1))]}, {tile.group(2)}>"
+        elif m:
             t = re.search(r"(attn_(?:fwd|dq|dkv)_(?:bf16|f32|wgmma)|fps_kernel|fps_cluster_kernel|"
                           r"pick_kernel|fill_kernel)(?:ILi(\d+)E)?(?:ILb([01])E|Lb([01])E)?", m.group(1))
             flag = "cluster" if t and t.group(1) == "fps_cluster_kernel" else "radius"
@@ -146,7 +163,10 @@ def sass_summary() -> list:
     and without the radius) compile to, from `cuobjdump -sass` of the two
     attention libraries: per kernel the count of warpgroup products
     (HGMMA), of mma.sync products (HMMA) and of asynchronous 16-byte copies
-    (LDGSTS).  A wgmma kernel must hold the first and the last and no HMMA."""
+    (LDGSTS).  A wgmma kernel must hold the first and the last and no HMMA.
+    And the tile ball-group's kernels the route launches (two tiles of
+    centers of the forward, one of the pick pass) must hold no FFMA: each
+    distance is rounded operation by operation."""
     import re
 
     from ov3det_torch.ops.kernels import _build
@@ -174,6 +194,26 @@ def sass_summary() -> list:
             lines.append(f"{kernel}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA, {c['LDGSTS']} LDGSTS in its SASS")
         require(len(counts) == expected,
                 f"{name}: expected {expected} wgmma kernels in the SASS, found {sorted(counts)}")
+    # the tile ball-group: no fused multiply-add may round a distance
+    res = subprocess.run([tool, "-sass", str(_build.library_path("ball_group"))],
+                         capture_output=True, text=True, timeout=300, check=True)
+    ffma, kernel = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            t = re.search(r"ball_group_tileILi([01])ELi(\d+)E", m.group(1))
+            kernel = (f"ball_group_tile<{('fill', 'sources')[int(t.group(1))]}, {t.group(2)}>"
+                      if t else None)
+            if kernel:
+                ffma[kernel] = 0
+        elif kernel and re.search(r"\bFFMA\b", line):
+            ffma[kernel] += 1
+    modes = sorted(k.split("<")[1].split(",")[0] for k in ffma)
+    require(modes == ["fill", "fill", "sources"],
+            f"ball_group: expected the forward at two tiles and the pick pass in the SASS, found "
+            f"{sorted(ffma)}")
+    require(not any(ffma.values()), f"ball_group tile kernels hold FFMA: {ffma}")
+    lines.append(f"{', '.join(sorted(ffma))}: 0 FFMA in their SASS")
     return lines
 
 
@@ -186,6 +226,29 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of one call: `reps` calls captured in a CUDA graph
+    (after one call outside it), the graph replayed once, then timed by CUDA
+    events around one replay, so that the host's cost of each call (the
+    wrapper's checks, allocation and launch) does not enter the time of a
+    kernel shorter than it.  The launches a capture records count once, at
+    capture, in the wrappers' counts."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -251,7 +314,8 @@ def kernel_counters() -> dict:
     `.radius_launches`."""
     from ov3det_torch.ops.kernels import attention, ball_group, fps
 
-    counters = {"fps": (fps.fps, "launches"), "ball_group": (ball_group.ball_group, "launches")}
+    counters = {"fps": (fps.fps, "launches"), "ball_group": (ball_group.ball_group, "launches"),
+                "slot_sources": (ball_group.slot_sources, "launches")}
     for name in ("attention_fwd", "attention_dq", "attention_dkv"):
         counters[name] = (getattr(attention, name), "launches")
         counters[f"{name}_radius"] = (getattr(attention, name), "radius_launches")
@@ -273,6 +337,7 @@ def kernel_sources() -> dict:
 
     return {"fps": (fps.SOURCE, fps.REPLACES),
             "ball_group": (ball_group.SOURCE, ball_group.REPLACES),
+            "slot_sources": (ball_group.SOURCE, ball_group.SOURCES_REPLACES),
             "attention_fwd": (attention.SOURCE, attention.REPLACES),
             "attention_dq": (attention.BWD_SOURCE, attention.DQ_REPLACES),
             "attention_dkv": (attention.BWD_SOURCE, attention.DKV_REPLACES),
@@ -348,7 +413,7 @@ def grow_by_one(xyz: torch.Tensor) -> torch.Tensor:
 def check_kernels(batch: dict, dev: torch.device) -> dict:
     """Phase 2: the point kernels against their plain versions, timed;
     returns their entries for one request's work on the serving path."""
-    from ov3det_torch.ops.kernels import ball_group, fps
+    from ov3det_torch.ops.kernels import fps
 
     xyz = torch.from_numpy(batch["point_clouds"]).to(dev)
     B, N, _ = xyz.shape
@@ -359,31 +424,69 @@ def check_kernels(batch: dict, dev: torch.device) -> dict:
     pre_xyz = torch.gather(xyz, 1, inds[..., None].expand(-1, -1, 3)).contiguous()
     entries["fps"] = check_fps(fps, [(xyz, 2048), (pre_xyz, 128)], (grow_by_one(xyz), 64), "sunrgbd")
 
-    # ball-group: 8 x 20000 points, 2048 centers, K = 64, r = 0.2; C = 0 and C = 3
+    # ball-group: 8 x 20000 points, 2048 centers, K = 64, r = 0.2; C = 0 and C = 3,
+    # then a ragged N (20 001 points) and a ragged M (2047 centers)
     K, radius = 64, 0.2
-    out = ball_group.ball_group(xyz, None, pre_xyz, radius, K)
-    err = (out - ball_group.ball_group_plain(xyz, None, pre_xyz, radius, K)).abs().max().item()
-    require(err == 0.0, f"ball_group C=0 differs from plain by {err}")
     feats = torch.randn(B, N, 3, generator=torch.Generator().manual_seed(0)).to(dev)
-    out3 = ball_group.ball_group(xyz, feats, pre_xyz, radius, K)
-    err3 = (out3 - ball_group.ball_group_plain(xyz, feats, pre_xyz, radius, K)).abs().max().item()
-    require(err3 == 0.0, f"ball_group C=3 differs from plain by {err3}")
-    ms = cuda_ms(lambda: ball_group.ball_group(xyz, None, pre_xyz, radius, K), 10)
-    plain = cuda_ms(lambda: ball_group.ball_group_plain(xyz, None, pre_xyz, radius, K), 3)
-    pick, has = ball_group.bucket_picks(xyz, pre_xyz, radius, K)
-    Nb = -(-N // K)
-    bucket_len = torch.clamp(N - torch.arange(K, device=dev) * Nb, 0, Nb)
-    scanned = torch.where(has, pick - torch.arange(K, device=dev) * Nb + 1, bucket_len)
-    ops = 9 * scanned.sum().item()  # 3 sub, 3 mul, 2 add, compare per point tested
-    nbytes = B * N * 12 + B * 2048 * 12 + out.numel() * 4
-    b_ms, b_by = bound_ms(nbytes, ops, F32_PEAK)
-    print(f"ball_group: exact (C=0 and C=3); {int(scanned.sum().item())} distance tests "
-          f"with early exit; kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    entries["ball_group"] = dict(max_abs_err=max(err, err3), ms=ms, plain_ms=plain,
-                                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    main = check_ball_group(xyz, None, pre_xyz, radius, K, "sunrgbd C=0", 10)
+    c3 = check_ball_group(xyz, feats, pre_xyz, radius, K, "sunrgbd C=3", 10)
+    grown = grow_by_one(xyz)
+    ragged_n = check_ball_group(grown, torch.cat([feats, feats[:, :1]], 1).contiguous(), pre_xyz,
+                                radius, K, "ragged N=20001 C=3", 3)
+    ragged_m = check_ball_group(xyz, None, pre_xyz[:, :2047].contiguous(), radius, K,
+                                "ragged M=2047 C=0", 3)
+    entries["ball_group"] = dict(main, max_abs_err=0.0, library_ms=None,
+                                 design="tile: a CTA a (scene, tile of centers), buckets staged by "
+                                        "cp.async, picks in shared memory, one launch",
+                                 shapes={"c3": c3, "ragged_n": ragged_n, "ragged_m": ragged_m},
                                  work="one request: 8x20000, M=2048, K=64, C=0")
-
     return entries
+
+
+def distance_tests(pick, has, N: int, K: int) -> int:
+    """Distance tests the early exit leaves: each bucket is scanned up to its
+    first hit, or whole (its length within N) when it holds none."""
+    Nb = -(-N // K)
+    starts = torch.arange(K, device=pick.device) * Nb
+    bucket_len = torch.clamp(N - starts, 0, Nb)
+    return int(torch.where(has, pick - starts + 1, bucket_len).sum().item())
+
+
+def check_ball_group(xyz, feats, centers, radius: float, K: int, label: str, reps: int) -> dict:
+    """The forward at one shape: the tile design's output equals the plain
+    version's and the first design's bit for bit, on two launches; the two
+    designs timed in turns (tile, first, first, tile; the smaller of each
+    pair; each a CUDA graph of `reps` calls: `graph_ms`), the plain version
+    once.  The bound: the bytes (points, centers
+    and features read once, the output written once) or the distance tests
+    this data needs with the early exit (9 f32 operations each), the larger."""
+    from ov3det_torch.ops.kernels import ball_group as BG
+
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    C = 0 if feats is None else feats.shape[-1]
+    want = BG.ball_group_plain(xyz, feats, centers, radius, K)
+    for launch in range(2):
+        got = BG.ball_group(xyz, feats, centers, radius, K)
+        require(torch.equal(got, want), f"ball_group {label}, launch {launch}: the tile design "
+                                        f"differs from plain by {(got - want).abs().max().item()}")
+    first = BG.ball_group(xyz, feats, centers, radius, K, _impl="first")
+    require(torch.equal(first, want), f"ball_group {label}: the first design differs from plain")
+    ms = graph_ms(lambda: BG.ball_group(xyz, feats, centers, radius, K), reps)
+    old = graph_ms(lambda: BG.ball_group(xyz, feats, centers, radius, K, _impl="first"), reps)
+    old = min(old, graph_ms(lambda: BG.ball_group(xyz, feats, centers, radius, K, _impl="first"), reps))
+    ms = min(ms, graph_ms(lambda: BG.ball_group(xyz, feats, centers, radius, K), reps))
+    plain = cuda_ms(lambda: BG.ball_group_plain(xyz, feats, centers, radius, K), 1)
+    tests = distance_tests(*BG.bucket_picks(xyz, centers, radius, K), N, K)
+    nbytes = (xyz.numel() + centers.numel() + (0 if feats is None else feats.numel())
+              + want.numel()) * 4
+    b_ms, b_by = bound_ms(nbytes, 9 * tests, F32_PEAK)
+    print(f"ball_group {label} ({B}x{N}, M={M}, K={K}, C={C}): tile design equals plain and the "
+          f"first design on two launches; "
+          f"{tests} distance tests with early exit; tile {ms:.4f} ms, first design {old:.4f} ms, "
+          f"plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}; output {want.numel() * 4 / 1e6:.1f} MB)")
+    return dict(ms=ms, ms_previous_design=old, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                distance_tests=tests)
 
 
 def reveal_masks(A, seed, rate: float, BH: int, N: int, D: int, dev, radius=None,
@@ -590,11 +693,11 @@ def first_design_check(A, dev: torch.device) -> None:
 
 def check_masked_points(batch: dict, dev: torch.device) -> tuple:
     """Phase 7, point kernels of the masked ScanNet config: FPS and the
-    ball-group at its shapes against their plain versions, timed, and the
-    ball-group's feature gradient (plain PyTorch, the port of an XLA
-    backward) on the card against the CPU.  Returns (extras for the fps and
-    ball_group entries, the token coordinates at 2048 and 1024 tokens)."""
-    from ov3det_torch.ops.kernels import ball_group as BG
+    ball-group at its shapes against their plain versions and first designs,
+    timed, and the pick pass of the ball-group's feature gradient with the
+    gradient itself on the card against the CPU.  Returns (extras for the
+    fps and ball_group entries and the slot_sources entry, the token
+    coordinates at 2048 and 1024 tokens)."""
     from ov3det_torch.ops.kernels import fps
 
     xyz = torch.from_numpy(batch["point_clouds"]).to(dev)
@@ -609,39 +712,87 @@ def check_masked_points(batch: dict, dev: torch.device) -> tuple:
     # pre-encoder 8 x 40000, M = 2048, K = 64, r = 0.2, C = 0; interim SA:
     # 2048 tokens, 1024 centers, K = 32, r = 0.4, C = 256
     pre_xyz, mid_xyz = clouds[1], clouds[2]
-    out = BG.ball_group(xyz, None, pre_xyz, 0.2, 64)
-    err0 = (out - BG.ball_group_plain(xyz, None, pre_xyz, 0.2, 64)).abs().max().item()
     feats = torch.randn(B, 2048, 256, generator=torch.Generator().manual_seed(2)).to(dev)
-    out = BG.ball_group(pre_xyz, feats, mid_xyz, 0.4, 32)
-    err = (out - BG.ball_group_plain(pre_xyz, feats, mid_xyz, 0.4, 32)).abs().max().item()
-    require(err0 == 0.0 and err == 0.0, f"ball_group (masked ScanNet) differs: {err0}, {err}")
-    ms_pre = cuda_ms(lambda: BG.ball_group(xyz, None, pre_xyz, 0.2, 64), 5)
-    ms = cuda_ms(lambda: BG.ball_group(pre_xyz, feats, mid_xyz, 0.4, 32), 5)
-    plain = cuda_ms(lambda: BG.ball_group_plain(pre_xyz, feats, mid_xyz, 0.4, 32), 2)
-    pick, has = BG.bucket_picks(pre_xyz, mid_xyz, 0.4, 32)
-    scanned = torch.where(has, pick - torch.arange(32, device=dev) * 64 + 1, 64).sum().item()
-    nbytes = pre_xyz.numel() * 4 + feats.numel() * 4 + mid_xyz.numel() * 4 + out.numel() * 4
-    b_ms, b_by = bound_ms(nbytes, 9 * scanned, F32_PEAK)
-    print(f"ball_group (masked ScanNet): exact at 8x40000 M=2048 K=64 C=0 ({ms_pre:.3f} ms) and "
-          f"at the interim 8x2048 M=1024 K=32 C=256: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}; output {out.numel() * 4 / 1e6:.1f} MB)")
+    pre = check_ball_group(xyz, None, pre_xyz, 0.2, 64, "masked pre-encoder C=0", 5)
+    mid = check_ball_group(pre_xyz, feats, mid_xyz, 0.4, 32, "masked interim C=256", 5)
+    bg_extra = dict(mid, library_ms=None, pre_encoder=pre,
+                    work="one interim SA call: 8x2048, M=1024, K=32, C=256")
+    return {"fps": fps_extra, "ball_group": bg_extra,
+            "slot_sources": check_slot_sources(pre_xyz, mid_xyz, dev)}, pre_xyz, mid_xyz
 
-    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(dev)
-    grad = BG.feature_grad(pre_xyz, mid_xyz, 0.4, 32, g, 256)
-    want = BG.feature_grad(pre_xyz.cpu(), mid_xyz.cpu(), 0.4, 32, g.cpu(), 256)
-    g_err = (grad.cpu() - want).abs().max().item() / want.abs().max().item()
+
+def check_slot_sources(pre_xyz, mid_xyz, dev: torch.device) -> dict:
+    """The feature gradient's pick pass (`ball_group_tile<sources>`) at the
+    interim SA's shape: equal to the plain version at every position on two
+    launches, and on a scene where the direct and the expanded distances
+    split at r^2 (the expanded pick must win); the kernel timed as
+    replays of a CUDA graph (`graph_ms`); then the feature gradient on the
+    card against the CPU's, timed with the plain pick pass ("before") and
+    with the kernel ("after").  Returns the kernels line's entry."""
+    from ov3det_torch.ops.kernels import ball_group as BG
+
+    B, N, _ = pre_xyz.shape
+    M, K, radius, C = mid_xyz.shape[1], 32, 0.4, 256
+    want = BG.slot_sources_plain(pre_xyz, mid_xyz, radius, K)
+    for launch in range(2):
+        got = BG.slot_sources(pre_xyz, mid_xyz, radius, K)
+        require(torch.equal(got, want), f"slot_sources, launch {launch}: differs from the plain "
+                                        f"version at {int((got != want).sum())} positions")
+    # the boundary scene: center (10, 0, 0), a point just outside r by the
+    # direct distance and inside by the expanded one, first in bucket 0
+    c0, r = np.float32(10.0), 0.2
+    r2 = np.float32(r * r)
+    p = np.nextafter(np.float32(c0 + np.float32(r)), np.float32(0))
+    expanded = lambda p: np.maximum((c0 * c0 + p * p) - np.float32(2) * (c0 * p), 0)  # noqa: E731
+    while not ((p - c0) * (p - c0) >= r2 and expanded(p) < r2):
+        p = np.nextafter(p, np.float32(20))
+    edge = np.zeros((1, 4, 3), np.float32)
+    edge[0, :, 0] = [30.0, p, c0 - np.float32(0.1), 40.0]
+    e_xyz = torch.from_numpy(edge).to(dev)
+    e_c = torch.tensor([[[10.0, 0.0, 0.0]]], device=dev)
+    e_feats = torch.arange(8, dtype=torch.float32, device=dev).view(1, 4, 2)
+    e_src = BG.slot_sources(e_xyz, e_c, r, 1)
+    e_out = BG.ball_group(e_xyz, e_feats, e_c, r, 1)
+    require(e_src.item() == 1 and torch.equal(e_src, BG.slot_sources_plain(e_xyz, e_c, r, 1)),
+            f"slot_sources at the r^2 boundary: {e_src.item()}, the expanded pick is 1")
+    require(e_out[0, 0, 0, 3:].tolist() == [4.0, 5.0], "ball_group at the r^2 boundary must take "
+                                                        "the direct pick, point 2")
+
+    ms = graph_ms(lambda: BG.slot_sources(pre_xyz, mid_xyz, radius, K), 10)
+    plain = cuda_ms(lambda: BG.slot_sources_plain(pre_xyz, mid_xyz, radius, K), 2)
+    ms = min(ms, graph_ms(lambda: BG.slot_sources(pre_xyz, mid_xyz, radius, K), 10))
+    tests = distance_tests(*BG.bucket_picks_expanded(pre_xyz, mid_xyz, radius, K), N, K)
+    # 10 f32 operations a test: c.x five, then add, multiply by 2, subtract,
+    # clamp, compare; |x|^2 five once a point and |c|^2 five once a center
+    b_ms, b_by = bound_ms((pre_xyz.numel() + mid_xyz.numel()) * 4 + want.numel() * 4,
+                          10 * tests + 5 * B * (N + M), F32_PEAK)
+
+    g = torch.randn(B, K, M, 3 + C, generator=torch.Generator().manual_seed(3)).to(dev)
+    grad = BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C)
+    cpu = BG.feature_grad(pre_xyz.cpu(), mid_xyz.cpu(), radius, K, g.cpu(), C)
+    g_err = (grad.cpu() - cpu).abs().max().item() / cpu.abs().max().item()
     # the card's index_add_ sums with atomics, in another order than the CPU
     require(g_err <= 1e-5, f"ball_group feature gradient: card vs CPU {g_err} relative")
-    g_ms = cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, 0.4, 32, g, 256), 5)
-    # its bound: the grouped gradient read once, the feature gradient written once
-    g_bound = (g.numel() + B * 2048 * 256) * 4 / HBM_BYTES_PER_S * 1e3
-    print(f"ball_group feature gradient (plain PyTorch on both devices, as XLA in JAX): card vs "
-          f"CPU within {g_err:.2e} of the largest value; {g_ms:.3f} ms on the card, bound "
-          f"{g_bound:.4f} ms (bytes)")
-    bg_extra = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    ms_pre_encoder=ms_pre, feature_grad_ms=g_ms, feature_grad_bound_ms=g_bound,
-                    work="one interim SA call: 8x2048, M=1024, K=32, C=256")
-    return {"fps": fps_extra, "ball_group": bg_extra}, pre_xyz, mid_xyz
+    before = cuda_ms(lambda: BG.feature_grad_plain(pre_xyz, mid_xyz, radius, K, g, C), 3)
+    after = cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10)
+    before = min(before, cuda_ms(lambda: BG.feature_grad_plain(pre_xyz, mid_xyz, radius, K, g, C), 3))
+    after = min(after, cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10))
+    # its bound: the grouped gradient's features read once, the feature gradient written once
+    g_bound = (B * K * M * C + B * N * C) * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"slot_sources ({B}x{N}, M={M}, K={K}): equals the plain version at all {want.numel()} "
+          f"positions on two launches, and gives the expanded pick at the r^2 boundary (the forward "
+          f"the direct one); {tests} distance tests with early exit; kernel {ms:.4f} ms, plain "
+          f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"ball_group feature gradient (C=256): card vs CPU within {g_err:.2e} of the largest "
+          f"value; with the pick kernel {after:.3f} ms, with the plain pick pass {before:.3f} ms, "
+          f"bound {g_bound:.4f} ms (bytes)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, distance_tests=tests, feature_grad_ms=after,
+                feature_grad_plain_ms=before, feature_grad_bound_ms=g_bound,
+                feature_grad_rel_err=g_err,
+                design="ball_group_tile<sources>: the forward's tile design with the expanded "
+                       "distance, (B, K, M) int32 out",
+                work="one masked training step's backward: 8x2048, M=1024, K=32")
 
 
 def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
@@ -894,7 +1045,8 @@ def profile(title: str, fn) -> None:
               f"in {sum(e.count for e in kernels)} kernels (idle share "
               f"{1 - busy_us / wall_us:.3f})")
     own = [e for e in kernels if any(k in e.key for k in
-                                     ("fps_kernel", "fps_cluster_kernel", "pick_kernel", "fill_kernel", "attn_"))]
+                                     ("fps_kernel", "fps_cluster_kernel", "pick_kernel", "fill_kernel",
+                                      "ball_group_tile", "attn_"))]
     for name, group in (("kernels", kernels[:12]), ("the port's own kernels", own),
                         ("ops, by the device time of their kernels", ops[:12])):
         print(f" {name}:")
@@ -1146,14 +1298,17 @@ def main() -> int:
     m_batches = synthetic_batches(masked, REQUESTS, 300)
     extras, pre_xyz, mid_xyz = check_masked_points(m_batches[0], dev)
     for name, extra in extras.items():
-        entries[name]["scannet_masked"] = extra
+        if name in entries:
+            entries[name]["scannet_masked"] = extra
+        else:
+            entries[name] = extra
     entries.update(check_radius_attention(pre_xyz, mid_xyz, dev))
     del pre_xyz, mid_xyz
     m_served = serve(masked, m_batches, expect(fps=3, ball_group=2, attention_fwd_radius=3),
                      "scannet_masked", dev)
     m_trained = train(masked, MASKED_TRAIN_STEPS,
-                      expect(fps=3, ball_group=2, attention_fwd_radius=3, attention_dq_radius=3,
-                             attention_dkv_radius=3), "scannet_masked", 400, dev)
+                      expect(fps=3, ball_group=2, slot_sources=1, attention_fwd_radius=3,
+                             attention_dq_radius=3, attention_dkv_radius=3), "scannet_masked", 400, dev)
     train_card_vs_cpu(masked, "scannet_masked", 400)
 
     kernels = []

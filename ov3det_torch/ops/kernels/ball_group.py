@@ -1,7 +1,7 @@
-"""Bucketed ball query + grouping: the CUDA kernel's wrapper and its plain
-version.
+"""Bucketed ball query + grouping, and the pick pass of its feature
+gradient: the CUDA kernels' wrappers and their plain versions.
 
-The kernel (`ov3det_torch/csrc/ball_group.cu`) replaces the Pallas TPU
+The kernels (`ov3det_torch/csrc/ball_group.cu`) replace the Pallas TPU
 kernel `_kernel` (`ov3det/ops/pallas/ball_group_kernel.py:45`).  The point
 axis is split into K contiguous buckets of Nb = ceil(N / K); slot k takes
 bucket k's first point with d2 < r^2 (direct subtraction), empty slots copy
@@ -9,21 +9,31 @@ the first non-empty bucket's pick, an empty ball falls back to the center.
 Output (B, K, M, 3 + C): relative xyz over the radius and the raw
 features, neighbour-major.
 
+The source holds two designs of the forward.  `ball_group` calls the
+source's route, which launches the tile design (`ball_group_tile<fill>`:
+one CTA for each scene and tile of centers, the buckets staged in shared
+memory, picks and fill in one launch) for K <= MAX_SLOTS and the first
+design (one warp a (center, bucket), then one thread a center) above it;
+the private `_impl="first"` keeps a CUDA call on the first design, the
+yardstick the on-card check times beside the tile design.
+
 `BallGroup` is the custom VJP of `ball_group_pallas`
 (`ball_group_kernel.py:174-241`): the forward is the kernel (or its plain
 version); the backward, `feature_grad`, is the port of `_bwd`
-(`:207-238`), a scatter-add of the output's feature cotangent onto the
-picked points.  In JAX that backward is XLA, not Pallas, so plain PyTorch on
-both devices is its faithful port, not a fallback.  It recomputes the picks
-as `bucket_picks` of the JAX package does (`ov3det/ops/pointcloud.py:
-222-244`), with the expanded, clamped distance of `_pairwise_d2`
-(`:156-165`) and not the forward's direct subtraction, so at the r^2
-boundary the gradient can land on a point the forward did not pick, as it
-does in JAX.  xyz and the centers get no gradient.
+(`:207-238`): the pick pass `slot_sources` (`ball_group_tile<sources>` on
+the card) and a scatter-add of the output's feature cotangent onto the
+picked points with `index_add_`, the library scatter that XLA's
+`.at[].add` is in JAX.  It recomputes the picks as `bucket_picks` of the
+JAX package does (`ov3det/ops/pointcloud.py:222-244`), with the expanded,
+clamped distance of `_pairwise_d2` (`:156-165`) and not the forward's
+direct subtraction, so at the r^2 boundary the gradient can land on a point
+the forward did not pick, as it does in JAX.  xyz and the centers get no
+gradient.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,6 +42,9 @@ from ov3det_torch.ops.kernels import _build
 
 SOURCE = "ov3det_torch/csrc/ball_group.cu"
 REPLACES = "ov3det/ops/pallas/ball_group_kernel.py:45"
+# the pick pass replaces the recomputation of the picks in the custom VJP
+# `_bwd` (XLA in JAX, not Pallas)
+SOURCES_REPLACES = "ov3det/ops/pallas/ball_group_kernel.py:207"
 
 
 def _f32(x: float) -> float:
@@ -115,21 +128,45 @@ def _slot_sources(pick, has):
     return torch.where(has, pick, torch.gather(pick, -1, first_bucket)), has.any(-1, keepdim=True)
 
 
+def slot_sources_plain(xyz, centers, radius: float, nsample: int) -> torch.Tensor:
+    """Plain PyTorch pick pass of the feature gradient, the same function as
+    the kernel's: (B, K, M) int32, each slot's effective source point (the
+    TPU's `eff_pick` of `_bwd`, `ball_group_kernel.py:225-231`, as a global
+    index) from the expanded-distance picks, -1 throughout an empty ball."""
+    src, any_hit = _slot_sources(*bucket_picks_expanded(xyz, centers, radius, nsample))
+    return torch.where(any_hit, src, -1).transpose(1, 2).to(torch.int32).contiguous()
+
+
+def _scatter(src: torch.Tensor, grad_out: torch.Tensor, N: int, num_channels: int) -> torch.Tensor:
+    """Sum the feature cotangent grad_out[..., 3:] (B, K, M, 3 + C) onto the
+    points `src` (B, K, M) names, in the cotangent's own order (no
+    transpose, no copy); the rows of empty balls (-1) go to a spare row past
+    the last point, which is dropped."""
+    B = src.shape[0]
+    rows = src.long() + (torch.arange(B, device=src.device) * N)[:, None, None]
+    rows = torch.where(src >= 0, rows, B * N).reshape(-1)
+    out = torch.zeros(B * N + 1, num_channels, dtype=torch.float32, device=src.device)
+    out.index_add_(0, rows, grad_out[..., 3:].float().reshape(-1, num_channels))
+    return out[:B * N].view(B, N, num_channels)
+
+
 def feature_grad(xyz, centers, radius: float, nsample: int, grad_out: torch.Tensor,
                  num_channels: int) -> torch.Tensor:
     """The feature cotangent of the ball-group, `_bwd` of
     `ball_group_kernel.py:207-238`: (B, N, C) from the output's cotangent
-    grad_out (B, K, M, 3 + C).  An empty slot takes the first non-empty
-    bucket's pick; an empty ball passes no gradient; the rest is summed
-    onto the picked points with `index_add_`."""
-    B, N, _ = xyz.shape
-    src, any_hit = _slot_sources(*bucket_picks_expanded(xyz, centers, radius, nsample))
-    g = grad_out[..., 3:].float().transpose(1, 2)  # (B, K, M, C) -> (B, M, K, C)
-    g = torch.where(any_hit[..., None], g, torch.zeros_like(g))
-    flat = (src + torch.arange(B, device=xyz.device)[:, None, None] * N).reshape(-1)
-    out = torch.zeros(B * N, num_channels, dtype=torch.float32, device=xyz.device)
-    out.index_add_(0, flat, g.reshape(-1, num_channels))
-    return out.view(B, N, num_channels)
+    grad_out (B, K, M, 3 + C).  The picks come from :func:`slot_sources` (the
+    kernel for CUDA tensors); an empty slot takes the first non-empty
+    bucket's pick; an empty ball passes no gradient; the rest is summed onto
+    the picked points with `index_add_` (XLA's scatter-add in JAX)."""
+    return _scatter(slot_sources(xyz, centers, radius, nsample), grad_out, xyz.shape[1],
+                    num_channels)
+
+
+def feature_grad_plain(xyz, centers, radius: float, nsample: int, grad_out: torch.Tensor,
+                       num_channels: int) -> torch.Tensor:
+    """:func:`feature_grad` with the plain pick pass on any device."""
+    return _scatter(slot_sources_plain(xyz, centers, radius, nsample), grad_out, xyz.shape[1],
+                    num_channels)
 
 
 class BallGroup(torch.autograd.Function):
@@ -177,57 +214,111 @@ def ball_group_plain(xyz, features, centers, radius: float, nsample: int) -> tor
     return torch.cat([rel, g_feat], dim=-1)
 
 
-def ball_group(xyz, features, centers, radius: float, nsample: int) -> torch.Tensor:
-    """Fused bucketed ball query + group -> (B, K, M, 3 + C) f32.
+# `kMaxK` of csrc/ball_group.cu: the tile design keeps K x TM picks in shared
+# memory and takes at most this many slots; the source takes a larger K to
+# the first design, which needs a global pick scratch
+MAX_SLOTS = 256
 
-    Launches the CUDA kernel for CUDA tensors; CPU tensors take
-    :func:`ball_group_plain`.
-    """
+
+def _on_cuda(xyz, features, centers, radius: float, nsample: int, what: str) -> bool:
+    """Validate the operands; True when they lie on a CUDA device (a kernel
+    runs), False on the CPU (the plain version runs)."""
     tensors = [xyz, centers] + ([] if features is None else [features])
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or centers.dim() != 3 or centers.shape[-1] != 3:
-        raise ValueError("ball_group expects xyz (B, N, 3) and centers (B, M, 3)")
+        raise ValueError(f"{what} expects xyz (B, N, 3) and centers (B, M, 3)")
     if centers.shape[0] != xyz.shape[0]:
         raise ValueError("xyz and centers differ in batch size")
     if features is not None and (features.dim() != 3 or features.shape[:2] != xyz.shape[:2]):
         raise ValueError("features must be (B, N, C) beside xyz (B, N, 3)")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("ball_group expects float32 tensors")
+        raise TypeError(f"{what} expects float32 tensors")
     if nsample < 1 or radius <= 0:
-        raise ValueError("ball_group needs nsample >= 1 and radius > 0")
+        raise ValueError(f"{what} needs nsample >= 1 and radius > 0")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
-        raise ValueError(f"ball_group tensors lie on several devices: {devices}")
+        raise ValueError(f"{what} tensors lie on several devices: {devices}")
     device = xyz.device
     if device.type == "cpu":
-        return ball_group_plain(xyz, features, centers, radius, nsample)
+        return False
     if device.type != "cuda":
-        raise ValueError(f"ball_group runs on cuda or cpu tensors, got {device}")
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {device}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ball_group expects contiguous tensors")
+        raise ValueError(f"{what} expects contiguous tensors")
+    return True
+
+
+def _launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry(*args, stream)` of csrc/ball_group.cu on
+    the current stream of `device`; tensors among `args` pass as pointers.
+    Raises if the launch fails."""
+    lib = _build.load("ball_group", _SIGNATURES)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(*ptrs, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, status, entry)
+
+
+def ball_group(xyz, features, centers, radius: float, nsample: int,
+               _impl: Optional[str] = None) -> torch.Tensor:
+    """Fused bucketed ball query + group -> (B, K, M, 3 + C) f32.
+
+    Launches the CUDA kernel for CUDA tensors, the design the source's
+    route gives the shape: the tile design (`ball_group_tile`), or the first
+    design for K > MAX_SLOTS; CPU tensors take :func:`ball_group_plain`.  The private `_impl =
+    "first"` keeps a CUDA call on the first design, for timing and
+    comparison on one card.  Every launch counts in `ball_group.launches`.
+    """
+    on_cuda = _on_cuda(xyz, features, centers, radius, nsample, "ball_group")
+    if _impl not in (None, "first"):
+        raise ValueError(f"ball_group: _impl is None (the route) or 'first', got {_impl!r}")
+    if not on_cuda:
+        if _impl is not None:
+            raise ValueError("ball_group: _impl chooses between CUDA kernels; these tensors lie on "
+                             "the CPU")
+        return ball_group_plain(xyz, features, centers, radius, nsample)
     B, N, _ = xyz.shape
     M = centers.shape[1]
     C = 0 if features is None else features.shape[-1]
-    pick = torch.empty((B, nsample, M), dtype=torch.int32, device=device)
-    out = torch.empty((B, nsample, M, 3 + C), dtype=torch.float32, device=device)
-    lib = _build.load("ball_group", _SIGNATURES)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ov3_ball_group(
-            xyz.data_ptr(), None if features is None else features.data_ptr(),
-            centers.data_ptr(), B, N, M, nsample, C, _f32(radius * radius), _f32(1.0 / radius),
-            pick.data_ptr(), out.data_ptr(), stream)
-    _build.check(lib, status, "ball_group")
+    r2, inv_r = _f32(radius * radius), _f32(1.0 / radius)
+    out = torch.empty((B, nsample, M, 3 + C), dtype=torch.float32, device=xyz.device)
+    # the first design's picks go through a global scratch
+    pick = (torch.empty((B, nsample, M), dtype=torch.int32, device=xyz.device)
+            if _impl == "first" or nsample > MAX_SLOTS else None)
+    _launch("ov3_ball_group_first" if _impl == "first" else "ov3_ball_group", xyz.device, xyz,
+            features, centers, B, N, M, nsample, C, r2, inv_r, pick, out)
     ball_group.launches += 1
     return out
 
 
 ball_group.launches = 0
 
+
+def slot_sources(xyz, centers, radius: float, nsample: int) -> torch.Tensor:
+    """The feature gradient's pick pass -> (B, K, M) int32: each slot's
+    effective source point by the expanded distance, -1 throughout an empty
+    ball.
+
+    Launches `ball_group_tile<sources>` for CUDA tensors (counted in
+    `slot_sources.launches`); CPU tensors take :func:`slot_sources_plain`.
+    The source refuses K > MAX_SLOTS on the card, and the call raises.
+    """
+    if not _on_cuda(xyz, None, centers, radius, nsample, "slot_sources"):
+        return slot_sources_plain(xyz, centers, radius, nsample)
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    src = torch.empty((B, nsample, M), dtype=torch.int32, device=xyz.device)
+    _launch("ov3_ball_group_sources", xyz.device, xyz, centers, B, N, M, nsample,
+            _f32(radius * radius), src)
+    slot_sources.launches += 1
+    return src
+
+
+slot_sources.launches = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ov3_ball_group": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-           ctypes.c_void_p],
-        ctypes.c_int,
-    ),
+    "ov3_ball_group": ([_P] * 3 + [_I] * 5 + [_F, _F, _P, _P, _P], ctypes.c_int),
+    "ov3_ball_group_first": ([_P] * 3 + [_I] * 5 + [_F, _F, _P, _P, _P], ctypes.c_int),
+    "ov3_ball_group_sources": ([_P] * 2 + [_I] * 4 + [_F, _P, _P], ctypes.c_int),
 }
+
