@@ -89,18 +89,41 @@ at once), then:
        times, with the stage
        split, peak memory and one profiled step; then one f32 step with
        every dropout at 0 on one scene, card against CPU, as in 6;
-  8. prints the kernels line (launches summed over the serving and training
-     runs of both configs), the card line, and last
+  8. the training CLI: `ov3det_torch.main.main(argv)` in this process on a
+     fresh directory, `--dataset_name synthetic` at the full width of
+     `scannet_quick()` (3 x 256 vanilla encoder, 8 x 256 decoder, 256
+     queries, 18 classes, 1 angle bin, 8 scenes x 40 000 points, bf16) with
+     the matcher and loss flags of scripts/scannet_quick.sh: 2 epochs of 8
+     steps, an eval of the 16 test scenes (2 batches) after each and at the
+     end, with the loss; it must save `checkpoint`, `checkpoint_best` and a
+     `final_eval.txt` holding mAP0.25; a second call on the directory must
+     return at the final-eval guard; `--test_only` on `checkpoint_best` must
+     print the AP table of the epoch that saved it, digit for digit.  Every
+     training step must launch FPS twice, the ball-group once and each
+     attention kernel 3 times, every eval batch FPS twice, the ball-group
+     once and the attention forward 3 times (read around each call alone).
+     Printed: wall time per epoch, the host-clock iteration time (median and
+     spread), the loop's wait on the loader, each eval pass split into
+     forward, parse (NMS) and the host AP, checkpoint save and restore times
+     and sizes, and the peak device memory; then the host AP with the C++
+     rotated IoU and with the numpy one, in turns, on the `--test_only` pass
+     and on 16 scenes of detections near the GT boxes;
+  9. prints the kernels line (launches summed over the serving and training
+     runs of both configs and the CLI's run), the card line, and last
      {"ok": true, "device": {...}}.
-Launch counts are set to 0 just before each serving and training run, and
-read just after it.  The radius variants of the attention kernels count
+Launch counts are set to 0 just before each serving, training and CLI run,
+and read just after it.  The radius variants of the attention kernels count
 apart (`.radius_launches`) and have their own entries in the kernels line.
 Exits non-zero, printing no result, without CUDA or without the package
 beside this file.  Any failed check raises.
 """
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -1246,6 +1269,345 @@ def train_card_vs_cpu(base, label: str, seed: int) -> None:
           f"{m_cpu['grad_norm']:.5f} ({g_err:.2e})")
 
 
+CLI_ARGV = ["--dataset_name", "synthetic", "--device", "cuda", "--num_points", "40000",
+            "--batchsize_per_gpu", "8", "--compute_dtype", "bfloat16", "--max_epoch", "2",
+            "--eval_every_epoch", "1", "--eval_loss", "--log_every", "4", "--log_metrics_every", "8",
+            # scripts/scannet_quick.sh
+            "--nqueries", "256", "--matcher_giou_cost", "2", "--matcher_cls_cost", "1",
+            "--matcher_center_cost", "0", "--matcher_objectness_cost", "0",
+            "--loss_giou_weight", "1", "--loss_no_object_weight", "0.25",
+            "--save_separate_checkpoint_every_epoch", "-1"]
+
+
+def ap_table(lines: list, header: str) -> list:
+    """The AP table printed after the first line starting with `header`."""
+    i = next(i for i, line in enumerate(lines) if line.startswith(header))
+    table = []
+    for line in lines[i + 1:]:
+        if not (line.startswith(("mAP0.", "AR0.", "-----", "IOU Thresh"))
+                or " Average Precision: " in line or " Recall: " in line):
+            break
+        table.append(line)
+    return table
+
+
+class CliProbe:
+    """Spies on in-process runs of `ov3det_torch.main.main`, through the
+    names that module and the AP calculator look up: the launches of each
+    train step and eval batch, the loop's host times, the eval passes'
+    parts and the checkpoints' times and sizes.  `patched()` installs the
+    spies and takes them out again."""
+
+    def __init__(self):
+        self.steps, self.evals = [], []  # (host start, epoch), launch deltas
+        self.epochs, self.waits, self.eval_waits, self.starts = [], [], [], []
+        self.passes, self.current = [], None
+        self.saves, self.restores, self.train_ap_ms = [], [], []
+        self.last_pass = None  # the last eval pass's APCalculator
+
+    @staticmethod
+    def _delta(before: dict) -> dict:
+        after = read_counts()
+        return {n: after[n] - before[n] for n in after}
+
+    def _train_step(self, step):
+        def train_step(batch, generator, mark=None):
+            before, t = read_counts(), time.perf_counter()
+            out = step(batch, generator, mark)
+            self.steps.append((t, len(self.epochs) - 1, self._delta(before)))
+            return out
+        return train_step
+
+    def _eval_step(self, step):
+        def eval_step(batch):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            self.evals.append(self._delta(before))
+            if self.current is not None:
+                self.current["forward"] += ms
+            return out
+        return eval_step
+
+    def _timed(self, fn, part: str):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if self.current is not None:
+                self.current[part] += ms
+            return out
+        return timed
+
+    @contextlib.contextmanager
+    def patched(self):
+        from ov3det_torch import main as cli
+        from ov3det_torch.engine.checkpoint import CheckpointManager
+        from ov3det_torch.eval import ap_calculator
+
+        probe = self
+
+        class TimedLoader(cli.DataLoader):
+            def set_epoch(self, epoch):
+                probe.epochs.append(time.perf_counter())
+                super().set_epoch(epoch)
+
+            def __iter__(self):
+                t = time.perf_counter()
+                batches = super().__iter__()  # starts the worker processes the first time
+                probe.starts.append(("train" if self.shuffle else "test", (time.perf_counter() - t) * 1e3))
+                while True:
+                    t = time.perf_counter()
+                    try:
+                        batch = next(batches)
+                    except StopIteration:
+                        return
+                    (probe.waits if self.shuffle else probe.eval_waits).append(
+                        (time.perf_counter() - t) * 1e3)
+                    yield batch
+
+        def build_training(*args, **kwargs):
+            tr = originals["build_training"](*args, **kwargs)
+            return dataclasses.replace(tr, train_step=self._train_step(tr.train_step),
+                                       eval_step=self._eval_step(tr.eval_step))
+
+        def make_eval_step(*args, **kwargs):
+            return self._eval_step(originals["make_eval_step"](*args, **kwargs))
+
+        def evaluate(*args, **kwargs):
+            self.current = dict(forward=0.0, parse=0.0, ap=0.0, start=time.perf_counter())
+            try:
+                return originals["evaluate"](*args, **kwargs)
+            finally:
+                self.passes.append(self.current)  # its AP follows in compute_metrics
+                self.current = None
+
+        def compute_metrics(calc):
+            t = time.perf_counter()
+            out = originals["compute_metrics"](calc)
+            ms = (time.perf_counter() - t) * 1e3
+            if calc.exact_eval:  # an eval pass, not the train-time AP
+                self.last_pass = calc
+                self.passes[-1]["ap"] = ms
+                self.passes[-1]["end"] = time.perf_counter()
+            else:
+                self.train_ap_ms.append(ms)
+            return out
+
+        def save(mgr, model, optimizer, epoch, name="checkpoint", extra=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = originals["save"](mgr, model, optimizer, epoch, name, extra)
+            self.saves.append((name, (time.perf_counter() - t) * 1e3, os.path.getsize(path) / 1e6))
+            return path
+
+        def restore(mgr, model, optimizer=None, name="checkpoint"):
+            t = time.perf_counter()
+            out = originals["restore"](mgr, model, optimizer, name)
+            torch.cuda.synchronize()
+            if out[0] is not None:
+                self.restores.append((name, (time.perf_counter() - t) * 1e3,
+                                      os.path.getsize(mgr._path(name)) / 1e6))
+            return out
+
+        spies = [(cli, "DataLoader", TimedLoader), (cli, "build_training", build_training),
+                 (cli, "make_eval_step", make_eval_step), (cli, "evaluate", evaluate),
+                 (ap_calculator, "parse_predictions",
+                  self._timed(ap_calculator.parse_predictions, "parse")),
+                 (ap_calculator.APCalculator, "compute_metrics", compute_metrics),
+                 (CheckpointManager, "save", save), (CheckpointManager, "restore", restore)]
+        originals = {name: getattr(owner, name) for owner, name, _ in spies}
+        for owner, name, spy in spies:
+            setattr(owner, name, spy)
+        try:
+            yield
+        finally:
+            for owner, name, _ in spies:
+                setattr(owner, name, originals[name])
+
+
+def detections_near_gt(batch: dict, rng, Q: int) -> dict:
+    """Final-layer outputs (numpy) whose boxes are jittered copies of the
+    batch's GT boxes (1 angle bin, 18 classes): the detections of a trained
+    model, which random weights do not give."""
+    from ov3det_torch.geometry.boxes_np import corners_from_upright_depth_param_np
+
+    B = batch["gt_box_present"].shape[0]
+    src = rng.integers(0, batch["gt_box_present"].sum(1).min(), size=(B, Q))
+    take = lambda a: np.take_along_axis(a, src[..., None], 1)  # noqa: E731
+    centers = take(batch["gt_box_centers"]) + rng.normal(0, 0.06, (B, Q, 3))
+    sizes = take(batch["gt_box_sizes"]) * rng.uniform(0.8, 1.2, (B, Q, 3))
+    corners = corners_from_upright_depth_param_np(centers, sizes, np.zeros((B, Q)))
+    logits = rng.normal(size=(B, Q, 19)) * 2
+    cls = take(batch["gt_box_sem_cls_label"][..., None])[..., 0]
+    np.put_along_axis(logits, cls[..., None], 4.0, axis=-1)
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return {"box_corners": corners.astype(np.float32),
+            "sem_cls_prob": probs[..., :-1].astype(np.float32),
+            "objectness_prob": (1 - probs[..., -1]).astype(np.float32)}
+
+
+def host_ap_iou(card: str, tested, dev: torch.device) -> None:
+    """The eval's host AP (`compute_metrics`) with the rotated IoU of the C++
+    core against the numpy one, in turns, on the `--test_only` pass (random
+    weights: few detections) and on 16 scenes x 256 queries of detections
+    near the GT boxes; both IoUs must give the same metrics within 1e-6."""
+    from functools import partial
+
+    from ov3det_torch import native
+    from ov3det_torch.datasets.dataset_configs import ScannetDatasetConfig
+    from ov3det_torch.datasets.synthetic import make_batch
+    from ov3det_torch.eval import voc
+    from ov3det_torch.eval.ap_calculator import APCalculator
+    from ov3det_torch.geometry.iou_np import box3d_iou_batch_np
+
+    require(native.native_available(), "cli: the C++ rotated IoU did not build")
+    near = APCalculator(class2type_map=ScannetDatasetConfig().class2type)
+    rng = np.random.default_rng(500)
+    for _ in range(2):
+        batch = make_batch(rng, batch_size=8, num_points=SCANNET_POINTS, num_semcls=18,
+                           num_angle_bin=1)
+        out = detections_near_gt(batch, rng, 256)
+        near.step_meter({k: torch.from_numpy(v).to(dev) for k, v in out.items()}, batch)
+    try:
+        for label, calc in (("the --test_only pass", tested), ("detections near the GT", near)):
+            ms, metrics = {True: [], False: []}, {}
+            for _ in range(3):
+                for use_native in (True, False):
+                    voc.box3d_iou_batch_np = partial(box3d_iou_batch_np, allow_native=use_native)
+                    t = time.perf_counter()
+                    metrics[use_native] = calc.compute_metrics()
+                    ms[use_native].append((time.perf_counter() - t) * 1e3)
+            for t in metrics[False]:
+                for k, v in metrics[False][t].items():
+                    require(abs(float(metrics[True][t][k]) - float(v)) <= 1e-6,
+                            f"cli host AP: C++ and numpy IoU disagree on {t} {k}")
+            dets = sum(len(p[0]) for p in calc.pred_map_cls.values())
+            print(f"cli host AP ({label}: {calc.scan_cnt} scenes, {dets} detections, mAP0.25 "
+                  f"{metrics[False][0.25]['mAP']:.4f}): C++ IoU "
+                  f"{[round(x, 2) for x in ms[True]]} ms, numpy IoU "
+                  f"{[round(x, 2) for x in ms[False]]} ms, in turns ({card})")
+    finally:
+        voc.box3d_iou_batch_np = box3d_iou_batch_np
+
+
+def run_cli(probe: CliProbe, argv: list) -> tuple:
+    """`ov3det_torch.main.main(argv)` with the probe's spies and its standard
+    output captured; returns (its result, the printed lines)."""
+    from ov3det_torch import main as cli
+
+    out = io.StringIO()
+    with probe.patched(), contextlib.redirect_stdout(out):
+        result = cli.main(argv)
+    return result, out.getvalue().splitlines()
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 8: the training CLI at full `scannet_quick` width; returns the
+    launch counts of its three runs (train, guard, --test_only)."""
+    import tempfile
+
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    probe = CliProbe()
+    with tempfile.TemporaryDirectory(prefix="ov3det_cli_") as run:
+        argv = CLI_ARGV + ["--checkpoint_dir", run]
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, lines = run_cli(probe, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for line in lines:  # the log without the per-class rows of the AP tables
+            if not (" Average Precision: " in line or " Recall: " in line):
+                print(f"cli| {line}")
+        for name in ("checkpoint", "checkpoint_best", "final_eval.txt"):
+            require(os.path.isfile(os.path.join(run, name)), f"cli: no {name} in the run directory")
+        with open(os.path.join(run, "final_eval.txt")) as fh:
+            require("mAP0.25" in fh.read(), "cli: final_eval.txt holds no mAP0.25")
+        require(len(probe.steps) == 16, f"cli: {len(probe.steps)} training steps, expected 2 x 8")
+        require(all(d == train_step for _, _, d in probe.steps),
+                f"cli: a training step launched {[d for _, _, d in probe.steps if d != train_step][:1]}, "
+                f"expected {train_step}")
+        # 2 train-time AP batches, 2 evals during training and the final one, 2 batches each
+        require(len(probe.evals) == 2 + 3 * 2, f"cli: {len(probe.evals)} eval batches, expected 8")
+        require(all(d == eval_batch for d in probe.evals),
+                f"cli: an eval batch launched {[d for d in probe.evals if d != eval_batch][:1]}, "
+                f"expected {eval_batch}")
+
+        n_steps = len(probe.steps)
+        _, again = run_cli(probe, argv)
+        require(any(line.startswith("Found final eval file") for line in again),
+                f"cli: the second call did not stop at the guard: {again[-3:]}")
+        require(len(probe.steps) == n_steps, "cli: the second call trained")
+
+        best = os.path.join(run, "checkpoint_best")
+        metrics, tested = run_cli(probe, argv + ["--test_only", "--test_ckpt", best])
+        require(len(probe.evals) == 10 and all(d == eval_batch for d in probe.evals),
+                f"cli --test_only: eval batches launched {probe.evals[8:]}, expected 2 x {eval_batch}")
+        saved = [i for i, line in enumerate(lines) if line.startswith("saved new best checkpoint")]
+        require(bool(saved), "cli: no best checkpoint was saved")
+        best_epoch = max(int(line.split("[")[1].split("/")[0]) for line in lines[:saved[-1]]
+                         if line.startswith("Evaluate Epoch"))
+        want = ap_table(lines, f"Evaluate Epoch [{best_epoch}/")
+        got = ap_table(tested, "Test model")
+        require(tested[0] == f"Test model (epoch {best_epoch}); Metrics:", f"cli: {tested[0]}")
+        require(len(want) == 2 + 2 * (2 + 2 * 18) and got == want,
+                f"cli: --test_only printed {got[:2]}, the epoch-{best_epoch} eval {want[:2]}")
+        require(0.25 in metrics and math.isfinite(metrics[0.25]["mAP"]), "cli: no mAP at 0.25")
+        print(f"cli --test_only on checkpoint_best (epoch {best_epoch}): the AP table equals that "
+              f"epoch's, {len(got)} lines, {got[0]}")
+        host_ap_iou(card, probe.last_pass, torch.device("cuda"))
+    counts = read_counts()
+    gc.collect()
+    require(not multiprocessing.active_children(),
+            f"cli: loader workers outlived the runs: {multiprocessing.active_children()}")
+
+    def spread(xs):
+        return (f"median {np.median(xs):.2f}, min {min(xs):.2f}, max {max(xs):.2f} ms "
+                f"over {len(xs)}")
+
+    print(f"cli training run: {wall:.2f} s wall (model build, 2 epochs, 3 evals, checkpoints), "
+          f"peak device memory {peak / 2**30:.3f} GiB ({card})")
+    for e, start in enumerate(probe.epochs):
+        first = next(t for t, ep, _ in probe.steps if ep == e)
+        loop_end = probe.passes[e]["start"]
+        print(f"cli epoch {e}: {probe.passes[e]['end'] - start:.3f} s wall (set_epoch to the end "
+              f"of its eval), {loop_end - first:.3f} s from its first step to its eval (steps, "
+              f"train AP, checkpoint) ({card})")
+    iters = [(b[0] - a[0]) * 1e3 for a, b in zip(probe.steps, probe.steps[1:]) if a[1] == b[1]]
+    steady = [(b[0] - a[0]) * 1e3 for a, b in zip(probe.steps[1:], probe.steps[2:]) if a[1] == b[1]]
+    print(f"cli iteration time (host clock, step start to step start): {spread(iters)}; "
+          f"without the run's first step {spread(steady)}; each "
+          f"{[round(x, 1) for x in iters]} ({card})")
+    print(f"cli iter(loader), in call order (the first of each loader starts its 4 worker "
+          f"processes): {[(w, round(ms, 2)) for w, ms in probe.starts]} ({card})")
+    print(f"cli wait on next(loader) in the step loop: {spread(probe.waits)}; each "
+          f"{[round(x, 2) for x in probe.waits]}; in the eval passes {spread(probe.eval_waits)} "
+          f"({card})")
+    for i, p in enumerate(probe.passes):
+        total = (p["end"] - p["start"]) * 1e3
+        which = ["epoch 0", "epoch 1", "final", "--test_only"][i] if i < 4 else str(i)
+        print(f"cli eval pass ({which}, 16 scenes in 2 batches): {total:.2f} ms = forward "
+              f"{p['forward']:.2f} + parse (NMS) {p['parse']:.2f} + host AP {p['ap']:.2f} + the rest "
+              f"{total - p['forward'] - p['parse'] - p['ap']:.2f} ms ({card})")
+    print(f"cli train-time AP (exact_eval off) compute_metrics: "
+          f"{[round(x, 2) for x in probe.train_ap_ms]} ms ({card})")
+    for name, ms, mb in probe.saves:
+        print(f"cli checkpoint save {name}: {ms:.2f} ms, {mb:.2f} MB ({card})")
+    for name, ms, mb in probe.restores:
+        print(f"cli checkpoint restore {name}: {ms:.2f} ms, {mb:.2f} MB ({card})")
+    print(f"cli launches over the three calls: { {n: c for n, c in counts.items() if c} }")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1311,9 +1673,11 @@ def main() -> int:
                              attention_dq_radius=3, attention_dkv_radius=3), "scannet_masked", 400, dev)
     train_card_vs_cpu(masked, "scannet_masked", 400)
 
+    cli_counts = cli_phase(card)
+
     kernels = []
     for name, (source, replaces) in kernel_sources().items():
-        count = sum(c[name] for c in (served, trained, m_served, m_trained))
+        count = sum(c[name] for c in (served, trained, m_served, m_trained, cli_counts))
         require(count > 0, f"{name} was not launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **entries[name]})

@@ -12,13 +12,17 @@ The port always runs exact greedy FPS, as the TPU kernel does.
 Configurations outside the ported slices raise `NotImplementedError`: the
 `first_k` ball query, the 2D-alignment loss and the teacher.
 `TeacherConfig` has no copy: the teacher comes with the open-vocabulary
-slice.  The masked encoder (3DETR-m) is built from `scannet_quick()` with
+slice (ROADMAP Queue 1 item 5), and so do the image fields of `DataConfig`.
+The TPU transport's fields (`super_batch`, `quantize_points`, `yuv_images`,
+`image_bank`) and `num_devices` have no copy either: `ov3det_torch.main`
+refuses their flags.  The masked encoder (3DETR-m) is built from `scannet_quick()` with
 `dataclasses.replace`, as `scripts/scannet_masked_timing.py` builds it; there
 is no function of its own, in either package.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -142,25 +146,48 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The data fields the training step reads (`ov3det/config.py:137-188`);
-    paths, workers and the TPU transport's codecs are not copied."""
+    """Dataset selection and paths (`ov3det/config.py:137-171`, reference
+    main.py:107-176), without the image and TPU-transport fields."""
 
-    dataset_name: str = "scannet"
+    dataset_name: str = "scannet"  # "scannet" | "sunrgbd" | "synthetic"
+    root_dir: Optional[str] = None
+    meta_data_dir: Optional[str] = None
+    pseudo_label_dir: Optional[str] = None
+    feature_2d_dir: Optional[str] = None
     num_points: int = 40000
+    use_color: bool = False
+    use_pbox: bool = False
+    use_2d_feature: bool = False
+    num_workers: int = 4
     batch_size_per_device: int = 8
     max_num_obj: int = 64
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Top-level run config (reference main.py:178-196): the fields the
-    training step and its schedule read."""
+    """Top-level run config (`ov3det/config.py:191-218`, reference
+    main.py:178-196)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
     max_epoch: int = 720
+    eval_every_epoch: int = 10
+    seed: int = 0
+    checkpoint_dir: Optional[str] = None
+    log_every: int = 10
+    log_metrics_every: int = 20
+    save_separate_checkpoint_every_epoch: int = 100
+    # a torch.profiler trace of the first profile_steps training iterations,
+    # written under profile_dir
+    profile_dir: Optional[str] = None
+    profile_steps: int = 5
+    # torch.autograd.set_detect_anomaly for the run
+    debug_nans: bool = False
+    # compute the criterion during in-training evals and log Test_details/
+    # losses (reference engine.py:198-206, 226-229)
+    eval_loss: bool = False
 
 
 def scannet_quick() -> TrainConfig:

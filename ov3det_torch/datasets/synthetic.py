@@ -1,8 +1,10 @@
 """Synthetic scene generator in the training-batch schema.
 
-A numpy copy of `make_scene`/`make_batch` from
-`ov3det/datasets/synthetic.py:16-159`: the same draws in the same order, so
+A numpy copy of `make_scene`, `make_batch` and `SyntheticDataset` from
+`ov3det/datasets/synthetic.py:16-176`: the same draws in the same order, so
 one `np.random.Generator` state gives bit-identical scenes in both packages.
+`SyntheticOVDataset` (the image canvases) comes with the open-vocabulary
+slice.
 Scenes hold a floor slab plus points concentrated inside the GT boxes; the
 schema is that of the real SUN RGB-D / ScanNet loaders.
 """
@@ -146,3 +148,21 @@ def make_batch(
 ) -> dict:
     scenes = [make_scene(rng, scan_idx=i, **scene_kwargs) for i in range(batch_size)]
     return {k: np.stack([s[k] for s in scenes]) for k in scenes[0]}
+
+
+class SyntheticDataset:
+    """Synthetic scenes with the real datasets' interface; scene `idx` is
+    drawn from `default_rng(seed * 100003 + idx)`."""
+
+    def __init__(self, size: int = 64, seed: int = 0, **scene_kwargs):
+        self.size = size
+        self.seed = seed
+        self.scene_kwargs = scene_kwargs
+        self.scan_names = [f"synthetic{i:04d}" for i in range(size)]
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, idx: int) -> dict:
+        rng = np.random.default_rng(self.seed * 100003 + idx)
+        return make_scene(rng, scan_idx=idx, **self.scene_kwargs)

@@ -12,21 +12,32 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ov3det_torch.config import ModelConfig, TrainConfig
+from ov3det_torch.config import LossConfig, ModelConfig, TrainConfig
 from ov3det_torch.eval.parse import assemble_predictions, parse_predictions
+from ov3det_torch.losses.criterion import set_criterion
 from ov3det_torch.models.detr3d import Model3DETR, last_layer_outputs
 
 INPUT_KEYS = ("point_clouds", "point_cloud_dims_min", "point_cloud_dims_max")
 
 
-def make_eval_step(model: Model3DETR):
-    """Eval forward: batch dict of tensors -> the final decoder layer's
-    outputs (what evaluation consumes).  Puts the model in eval mode."""
+def make_eval_step(model: Model3DETR, loss_cfg: Optional[LossConfig] = None,
+                   num_angle_bin: int = 1, num_semcls: int = 18):
+    """Eval forward (`ov3det/engine/train.py:273-315`): batch dict of
+    tensors -> the final decoder layer's outputs (what evaluation consumes).
+    With `loss_cfg` it returns `(outputs, loss_dict)`, the criterion over
+    every decoder layer's outputs, as the reference's evaluate logs it
+    (engine.py:198-206); the batch then carries the GT of the training
+    schema.  Puts the model in eval mode."""
 
-    def eval_step(batch: dict) -> dict:
+    def eval_step(batch: dict):
         model.eval()
         with torch.inference_mode():
-            return last_layer_outputs(model({k: batch[k] for k in INPUT_KEYS}))
+            outputs = model({k: batch[k] for k in INPUT_KEYS})
+            if loss_cfg is None:
+                return last_layer_outputs(outputs)
+            _, loss_dict = set_criterion(outputs, batch, loss_cfg, num_angle_bin=num_angle_bin,
+                                         num_semcls=num_semcls)
+            return last_layer_outputs(outputs), loss_dict
 
     return eval_step
 

@@ -31,18 +31,22 @@ def points_in_box_counts(points: torch.Tensor, corners: torch.Tensor) -> torch.T
 
 
 def parse_predictions(box_corners, sem_cls_probs, objectness_probs, point_clouds,
-                      nms_iou: float = 0.25):
+                      nms_iou: float = 0.25, remove_empty_box: bool = True):
     """Device part of parse_predictions, default config: returns
-    (pred_mask (B, K) bool, pred_sem_cls (B, K) int64)."""
+    (pred_mask (B, K) bool, pred_sem_cls (B, K) int64).  `remove_empty_box`
+    False (the train-time AP's approximate eval) keeps every box for NMS."""
     B, K = objectness_probs.shape
     pred_sem_cls = torch.argmax(sem_cls_probs, dim=-1)
-    nonempty = points_in_box_counts(point_clouds[..., :3], box_corners) >= 5
-    # if every box is empty keep the highest-objectness one
-    # (reference utils/ap_calculator.py:82-83)
-    none_left = ~nonempty.any(dim=1, keepdim=True)
-    best = torch.argmax(objectness_probs, dim=1)
-    fallback = torch.nn.functional.one_hot(best, K).bool()
-    nonempty = torch.where(none_left, fallback, nonempty)
+    if remove_empty_box:
+        nonempty = points_in_box_counts(point_clouds[..., :3], box_corners) >= 5
+        # if every box is empty keep the highest-objectness one
+        # (reference utils/ap_calculator.py:82-83)
+        none_left = ~nonempty.any(dim=1, keepdim=True)
+        best = torch.argmax(objectness_probs, dim=1)
+        fallback = torch.nn.functional.one_hot(best, K).bool()
+        nonempty = torch.where(none_left, fallback, nonempty)
+    else:
+        nonempty = torch.ones_like(objectness_probs, dtype=torch.bool)
     aabb = torch.cat([box_corners.amin(dim=2), box_corners.amax(dim=2)], dim=-1)
     keep = nms_3d_class_aware(aabb, objectness_probs, pred_sem_cls, nms_iou, nonempty)
     return keep, pred_sem_cls
