@@ -108,15 +108,49 @@ at once), then:
      and sizes, and the peak device memory; then the host AP with the C++
      rotated IoU and with the numpy one, in turns, on the `--test_only` pass
      and on 16 scenes of detections near the GT boxes;
-  9. prints the kernels line (launches summed over the serving and training
-     runs of both configs and the CLI's run), the card line, and last
+  9. (after 10) prints the kernels line (launches summed over the serving
+     and training runs of both configs, the CLI's run and phase 10's OV
+     training and OV CLI runs), the card line, and last
      {"ok": true, "device": {...}}.
+ 10. the open-vocabulary step ("OV sunrgbd_quick": `sunrgbd_quick()` with
+     the 2D-alignment loss at weight 1, as bench.py:518-530 builds it, and
+     the frozen RegionCLIP RN50x4 teacher in int8 at its defaults, seeded
+     weights, 8 `SyntheticOVDataset` scenes x 20 000 points with 530 x 730
+     uint8 canvases, 1024 regions a step):
+       `QuantConv`'s int8 product at three trunk shapes (res4 block 3x3,
+       8 x 33 x 45 rows, 320 -> 320; res5 block 0 3x3 over a chunk, 82 944
+       rows, 640 -> 640; res5 1x1, 20 736 rows, 2560 -> 640): the int32
+       accumulators on the card equal the CPU's bit for bit; `_int_mm`
+       alone, the whole int8 conv (im2col + product) and cuDNN's bf16 conv
+       timed in turns beside their operations bounds;
+       the whole teacher on one canvas and 8 boxes, card against CPU from
+       the same weights: f32 within 1e-3 of the largest value; int8
+       (quantised and calibrated on the card) cosine >= 0.999 per region
+       and within INT8_CARD_VS_CPU of the largest value, beside the bf16
+       teacher's distance from the int8 one;
+       the teacher's forward alone on a batch, int8 against bf16, in turns;
+       training: `build_training(..., teacher=)` with the teacher of
+       `ov3det_torch.main.build_teacher`, one warm-up and 3 timed steps,
+       each launching FPS twice, the ball-group once and each attention
+       kernel 3 times, with a finite loss and loss_2dalignment > 0; the
+       stage split (forward, teacher, criterion, backward, optimiser), peak
+       memory, one profiled step (with the teacher range's device time and
+       kernels, and the host's waits for the card), the lines that make the
+       host wait in one step (CUDA's sync debug mode) and the bytes of one
+       batch crossing to the card;
+       the CLI: `main(argv)` with --use_image, --loss_2dalignment_weight 1
+       and the flags of scripts/sunrgbd_quick.sh at full width (8 x 20 000
+       points, bf16), one epoch of 8 steps and its evals: every step and
+       eval batch launching as above, and a checkpoint holding the detector
+       and its optimiser only, the keys, shapes and size of a point-only
+       run's.
 Launch counts are set to 0 just before each serving, training and CLI run,
 and read just after it.  The radius variants of the attention kernels count
 apart (`.radius_launches`) and have their own entries in the kernels line.
 Exits non-zero, printing no result, without CUDA or without the package
 beside this file.  Any failed check raises.
 """
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -128,6 +162,8 @@ import os
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -1036,10 +1072,34 @@ def stage_times(det, batch: dict, reps: int = 3) -> None:
     print(f"stages of one request (synchronised, median of {reps}): {parts}")
 
 
-def profile(title: str, fn) -> None:
+def range_kernels(prof, name: str):
+    """(device ms, kernel count) of the kernels launched inside the profiler
+    range `name` (a `record_function`), from the kernels the profiler ties
+    to each op of the range; None when the range holds none."""
+    found = [e for e in prof.events() if e.name == name]
+    if not found:
+        return None
+
+    def walk(e):
+        kernels = list(getattr(e, "kernels", []))
+        us, n = sum(k.duration for k in kernels), len(kernels)
+        for child in getattr(e, "cpu_children", []):
+            c_us, c_n = walk(child)
+            us, n = us + c_us, n + c_n
+        return us, n
+
+    us, n = map(sum, zip(*(walk(e) for e in found)))
+    return (us / 1e3, n) if n else None
+
+
+def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
     """Run `fn` once under torch.profiler; print the wall time, the device
     busy time (kernels only), the kernel count, the idle share and the top
-    kernels and ops by device time."""
+    kernels and ops by device time; for each profiler range named in
+    `ranges`, its kernels' device time, their share of the busy time and
+    their count; with `waits`, the host's calls that wait for the card
+    (stream and device synchronisations), each with its count and host
+    time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -1054,7 +1114,11 @@ def profile(title: str, fn) -> None:
     # kernels are the device events; a CPU op's self device time is that of
     # the kernels it launched, so the two groups are listed apart and only
     # the kernels are summed
-    rows = [e for e in prof.key_averages() if device_us(e) > 0]
+    # a profiler range (record_function) also leaves a device-side event
+    # spanning its kernels: not a kernel, and it would count them twice
+    ranges_seen = set(ranges) | {e.name for e in prof.events()
+                                 if getattr(e, "is_user_annotation", False)}
+    rows = [e for e in prof.key_averages() if device_us(e) > 0 and e.key not in ranges_seen]
     kernels = sorted((e for e in rows if e.device_type != torch.autograd.DeviceType.CPU),
                      key=device_us, reverse=True)
     ops = sorted((e for e in rows if e.device_type == torch.autograd.DeviceType.CPU),
@@ -1067,6 +1131,12 @@ def profile(title: str, fn) -> None:
         print(f"{title}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
               f"in {sum(e.count for e in kernels)} kernels (idle share "
               f"{1 - busy_us / wall_us:.3f})")
+        for name in ranges:
+            got = range_kernels(prof, name)
+            print(f" range {name!r}: " + ("device time not measured (no kernel tied to it)"
+                                          if got is None else
+                                          f"{got[0]:.2f} ms of device time in {got[1]} kernels, "
+                                          f"{got[0] * 1e3 / busy_us:.3f} of the busy time"))
     own = [e for e in kernels if any(k in e.key for k in
                                      ("fps_kernel", "fps_cluster_kernel", "pick_kernel", "fill_kernel",
                                       "ball_group_tile", "attn_"))]
@@ -1080,6 +1150,42 @@ def profile(title: str, fn) -> None:
     print(" ops, by host time (self, profiler on):")
     for e in host[:8]:
         print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    if waits:
+        got = {e.key: e for e in host if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize")}
+        print(" host waits for the card (profiler on): " + (", ".join(
+            f"{k} x{e.count}, {e.self_cpu_time_total / 1e3:.3f} ms" for k, e in sorted(got.items()))
+            or "none"))
+
+
+def sync_points(title: str, fn) -> None:
+    """Run `fn` once with CUDA's sync debug mode at "warn" and print each
+    line of Python that made the host wait for the card (a copy to the
+    host, a blocking copy from pageable host memory, `.item()`), with its
+    count."""
+    where = collections.Counter()
+    package = os.path.join(HERE, "ov3det_torch")
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        # the innermost line of the package on the stack, else the warning's own
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(package)]
+        f = ours[-1] if ours else None
+        where[f"{os.path.relpath(f.filename, HERE)}:{f.lineno}" if f else
+              f"{os.path.basename(filename)}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"{title}: {sum(where.values())} synchronising calls on the host"
+          + "".join(f"\n  x{n:<3d} {line}" for line, n in sorted(where.items())))
 
 
 def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) -> dict:
@@ -1159,15 +1265,19 @@ def synthetic_batches(cfg, n: int, seed: int) -> list:
             for i in range(n)]
 
 
-def train(cfg, steps: int, per_step: dict, label: str, seed: int, dev: torch.device) -> dict:
-    """Phases 5 and 7: training steps at full width on the card; returns the
-    launch counts of the timed steps."""
+def train(cfg, steps: int, per_step: dict, label: str, seed: int, dev: torch.device,
+          teacher=None, batches=None) -> dict:
+    """Phases 5, 7 and 10: training steps at full width on the card (with
+    the 2D teacher and numpy `batches` of its schema in phase 10); returns
+    the launch counts of the timed steps."""
     from ov3det_torch.engine.train import batch_to_device, build_training
 
-    training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+    training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0, teacher=teacher)
     step = training.train_step
     gen = torch.Generator(device=dev).manual_seed(0)
-    batches = [batch_to_device(b, dev) for b in synthetic_batches(cfg, steps + 1, seed)]
+    batches = [batch_to_device(b, dev)
+               for b in batches or synthetic_batches(cfg, steps + 1, seed)]
+    n_losses = 7 + (teacher is not None)  # loss_2dalignment beside the point losses
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1188,8 +1298,14 @@ def train(cfg, steps: int, per_step: dict, label: str, seed: int, dev: torch.dev
         require(delta == per_step, f"{label} train step {i}: launches {delta}, expected {per_step}")
         require(math.isfinite(loss) and math.isfinite(gnorm),
                 f"{label} train step {i}: loss {loss}, grad_norm {gnorm}")
-        require(len(metrics) == 8 * 7 + 2, f"{label} train step {i}: {len(metrics)} metrics")
-        print(f"{label} train step {i}: {ms:.2f} ms, loss {loss:.4f}, grad_norm {gnorm:.4f}, "
+        require(len(metrics) == cfg.model.decoder.num_layers * n_losses + 2,
+                f"{label} train step {i}: {len(metrics)} metrics")
+        if teacher is not None:
+            align = metrics["loss_2dalignment"].item()
+            require(math.isfinite(align) and align > 0,
+                    f"{label} train step {i}: loss_2dalignment {align}")
+        extra = "" if teacher is None else f", loss_2dalignment {align:.4f}"
+        print(f"{label} train step {i}: {ms:.2f} ms, loss {loss:.4f}{extra}, grad_norm {gnorm:.4f}, "
               f"lr {training.schedule(training.optimizer.count - 1):.3e}, launches "
               f"{ {n: c for n, c in delta.items() if c} }")
     counts = read_counts()
@@ -1220,7 +1336,11 @@ def train(cfg, steps: int, per_step: dict, label: str, seed: int, dev: torch.dev
     peak = torch.cuda.max_memory_allocated()
     print(f"peak device memory of a {label} train step: {peak / 2**30:.3f} GiB "
           f"({base / 2**30:.3f} GiB held before it: weights, Adam moments, batches)")
-    profile(f"profiled {label} train step", lambda: step(batches[2], gen))
+    profile(f"profiled {label} train step", lambda: step(batches[2], gen),
+            ranges=("teacher",) if teacher is not None else (), waits=teacher is not None)
+    if teacher is not None:
+        sync_points(f"one {label} train step under the sync debug mode",
+                    lambda: step(batches[3], gen))
     return counts
 
 
@@ -1608,6 +1728,287 @@ def cli_phase(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ phase 10: the OV step
+INT8_PEAK = 1979e12  # dense int8 tensor operations a second, H100 SXM data sheet
+# (label, rows as (images, H, W), C_in, C_out, kernel) of three trunk convs
+# of the RN50x4 teacher on 8 canvases of 530 x 730 and one chunk of 256 regions
+QUANT_SHAPES = (("res4 block 3x3", (8, 33, 45), 320, 320, 3),
+                ("res5 block 0 3x3, one chunk", (256, 18, 18), 640, 640, 3),
+                ("res5 1x1", (256, 9, 9), 2560, 640, 1))
+OV_STEPS = 3
+# the int8 teacher's features, card against CPU from the same quantised state,
+# over the largest value
+INT8_CARD_VS_CPU = 1e-3
+OV_CLI_ARGV = ["--dataset_name", "synthetic", "--device", "cuda", "--use_image",
+               "--loss_2dalignment_weight", "1", "--num_points", "20000", "--batchsize_per_gpu",
+               "8", "--compute_dtype", "bfloat16", "--max_epoch", "1",
+               # scripts/sunrgbd_quick.sh
+               "--nqueries", "128", "--base_lr", "7e-4", "--matcher_giou_cost", "3",
+               "--matcher_cls_cost", "1", "--matcher_center_cost", "5",
+               "--matcher_objectness_cost", "5", "--loss_giou_weight", "0",
+               "--loss_no_object_weight", "0.1", "--save_separate_checkpoint_every_epoch", "-1"]
+
+
+def check_quant_conv(card: str, dev: torch.device) -> None:
+    """The int8 product of `QuantConv` at three of the teacher's trunk
+    shapes: the int32 accumulators on the card equal the CPU's bit for bit;
+    then `torch._int_mm` alone, the whole int8 conv (im2col + product) and
+    cuDNN's bf16 conv of the same shape, timed in turns."""
+    from ov3det_torch.models.clip_resnet import im2col_int8, int8_conv
+
+    g = torch.Generator().manual_seed(10)
+    for label, (B, H, W), cin, cout, k in QUANT_SHAPES:
+        xq = torch.randint(-127, 128, (B, H, W, cin), generator=g, dtype=torch.int8)
+        kq = torch.randint(-127, 128, (cout, k * k * cin), generator=g, dtype=torch.int8)
+        want = int8_conv(xq, kq, k, k // 2)
+        xq_d, kq_d = xq.to(dev), kq.to(dev)
+        got = int8_conv(xq_d, kq_d, k, k // 2)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
+                f"QuantConv {label}: the int32 products differ between card and CPU")
+        a = im2col_int8(xq_d, k, k // 2)
+        x_bf = xq_d.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        w_bf = kq_d.view(cout, k, k, cin).permute(0, 3, 1, 2).to(torch.bfloat16)
+        w_bf = w_bf.contiguous(memory_format=torch.channels_last)
+        runs = {"int_mm": lambda: torch._int_mm(a, kq_d.t()),
+                "int8 conv (im2col + int_mm)": lambda: int8_conv(xq_d, kq_d, k, k // 2),
+                "cuDNN bf16 conv": lambda: torch.nn.functional.conv2d(x_bf, w_bf, padding=k // 2)}
+        ms = {n: [] for n in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for n in order:
+                ms[n].append(cuda_ms(runs[n], 10))
+        M, K = a.shape
+        ops = 2 * M * K * cout
+        best = {n: min(v) for n, v in ms.items()}
+        print(f"QuantConv {label}: {M} rows, K {K}, N {cout}: int32 equal to the CPU's; "
+              + ", ".join(f"{n} {best[n]:.3f} ms ({ops / best[n] / 1e9:.0f} TOPS)" for n in best)
+              + f"; bounds: int8 {ops / INT8_PEAK * 1e3:.3f} ms, bf16 {ops / BF16_PEAK * 1e3:.3f} "
+              f"ms (operations) ({card})")
+        del a, x_bf, w_bf, xq_d, kq_d, got
+
+
+def teacher_card_vs_cpu(state: dict, image: np.ndarray, boxes: np.ndarray,
+                        dev: torch.device) -> None:
+    """The full RN50x4 teacher on one canvas and 8 boxes, on the card and on
+    the CPU from the same weights: f32 features within 1e-3 of the largest
+    value; int8 (quantised and calibrated on the card, the same state on
+    both) cosine >= 0.999 per region and within INT8_CARD_VS_CPU of the
+    largest value, a limit that the int8 teacher's distance from a bf16 one
+    on the card (printed beside it) exceeds."""
+    from ov3det_torch.models.regionclip import RegionCLIPTeacher, quantize_teacher_params
+
+    img, bx = torch.from_numpy(image), torch.from_numpy(boxes)
+    feats = {}
+    for dtype in (None, "bfloat16", "int8"):
+        card = RegionCLIPTeacher(compute_dtype=dtype, device=dev)
+        if dtype is None:
+            s_card = {k: v.to(dev) for k, v in state.items()}
+        elif dtype == "bfloat16":
+            s_card = quantize_teacher_params({k: v.to(dev) for k, v in state.items()}, dtype)
+        else:
+            t0 = time.perf_counter()
+            s_card = quantize_teacher_params({k: v.to(dev) for k, v in state.items()}, "int8",
+                                             teacher=card, calib=(image.astype(np.float32), boxes))
+            torch.cuda.synchronize()
+            print(f"teacher int8 quantisation and calibration on the card: "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        card.load(s_card)
+        if dtype == "bfloat16":  # the card alone: the yardstick of the int8 limit
+            with torch.no_grad():
+                feats[dtype] = card(img.to(dev), bx.to(dev)).cpu()
+            del card, s_card
+            continue
+        cpu = RegionCLIPTeacher(compute_dtype=dtype, device="cpu").load(
+            {k: v.cpu() for k, v in s_card.items()})
+        with torch.no_grad():
+            got = card(img.to(dev), bx.to(dev)).cpu()
+            t0 = time.perf_counter()
+            want = cpu(img, bx)
+            cpu_s = time.perf_counter() - t0
+        require(got.shape == (1, 8, 640) and torch.isfinite(got).all(), "teacher: bad features")
+        feats[dtype] = got
+        if dtype is None:
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            require(err <= 1e-3, f"teacher f32: card vs CPU {err} of the largest value")
+            print(f"teacher f32, one canvas, 8 boxes: card vs CPU within {err:.2e} of the largest "
+                  f"value (the CPU forward {cpu_s:.1f} s)")
+        else:
+            cos = torch.nn.functional.cosine_similarity(got[0], want[0], dim=-1)
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            vs_bf16 = ((got - feats["bfloat16"]).abs().max() / got.abs().max()).item()
+            vs_f32 = torch.nn.functional.cosine_similarity(got[0], feats[None][0], dim=-1)
+            require(cos.min().item() >= 0.999, f"teacher int8: card vs CPU cosine {cos.tolist()}")
+            require(err <= INT8_CARD_VS_CPU,
+                    f"teacher int8: card vs CPU {err} of the largest value (bf16 is {vs_bf16})")
+            print(f"teacher int8, one canvas, 8 boxes: card vs CPU cosine >= "
+                  f"{cos.min().item():.7f}, within {err:.2e} of the largest value (limit "
+                  f"{INT8_CARD_VS_CPU:.0e}; the bf16 teacher on the card is {vs_bf16:.2e} from "
+                  f"the int8 one); int8 vs f32 on the card: cosine {vs_f32.min().item():.4f} to "
+                  f"{vs_f32.max().item():.4f} (random weights, noise canvas; not a gate) "
+                  f"(the CPU forward {cpu_s:.1f} s)")
+        del card, cpu, s_card
+
+
+def teacher_forward_times(teacher, state: dict, batch: dict, dev: torch.device) -> None:
+    """The teacher's forward alone on one OV batch (8 canvases, 128 boxes
+    each, 4 chunks of 256 regions): the int8 teacher the step runs against
+    a bf16 one from the same weights, timed in turns (int8, bf16, bf16,
+    int8)."""
+    from ov3det_torch.models.regionclip import (
+        RegionCLIPTeacher,
+        calibration_boxes,
+        quantize_teacher_params,
+    )
+
+    rng = np.random.default_rng(3)
+    boxes = torch.from_numpy(np.concatenate([calibration_boxes(rng, 530.0, 730.0, n=128)
+                                             for _ in range(BATCH)])).to(dev)
+    images = torch.from_numpy(batch["image"]).to(dev)
+    bf16 = RegionCLIPTeacher(compute_dtype="bfloat16", device=dev)
+    bf16.load(quantize_teacher_params({k: v.to(dev) for k, v in state.items()}, "bfloat16"))
+    ms = {"int8": [], "bfloat16": []}
+    with torch.no_grad():
+        for name in ("int8", "bfloat16", "bfloat16", "int8"):
+            t = teacher if name == "int8" else bf16
+            ms[name].append(cuda_ms(lambda: t(images, boxes), 2))
+        cos = torch.nn.functional.cosine_similarity(teacher(images, boxes), bf16(images, boxes),
+                                                    dim=-1)
+    print(f"teacher forward alone, 8 canvases x 128 boxes: int8 {min(ms['int8']):.2f} ms, bf16 "
+          f"{min(ms['bfloat16']):.2f} ms (CUDA events, in turns; each {ms}); int8 vs bf16 "
+          f"cosine >= {cos.min().item():.4f}")
+    del bf16
+
+
+def ov_config():
+    """"OV sunrgbd_quick": sunrgbd_quick() with the 2D-alignment loss at
+    weight 1, as bench.py:518-530 builds it."""
+    from ov3det_torch.config import sunrgbd_quick
+
+    base = sunrgbd_quick()
+    return dataclasses.replace(base, loss=dataclasses.replace(base.loss, alignment_2d_weight=1.0))
+
+
+def ov_batches(cfg, n: int, seed: int) -> list:
+    """n numpy batches of 8 `SyntheticOVDataset` scenes x 20 000 points
+    (530 x 730 uint8 canvases), the config's classes and angle bins."""
+    from ov3det_torch.datasets.loader import collate
+    from ov3det_torch.datasets.synthetic import SyntheticOVDataset
+
+    ds = SyntheticOVDataset(size=n * BATCH, seed=seed, num_points=cfg.data.num_points,
+                            num_semcls=cfg.model.num_semcls, num_angle_bin=cfg.model.num_angle_bin)
+    return [collate([ds[i * BATCH + j] for j in range(BATCH)]) for i in range(n)]
+
+
+def ov_cli(card: str, dev: torch.device) -> dict:
+    """`main(argv)` with --use_image at the full width of sunrgbd_quick: one
+    epoch of 8 steps and its evals; every step launches as a training step,
+    every eval batch as a request; the checkpoint holds the detector and its
+    optimiser only, the same keys, shapes and size as a point-only run's."""
+    import tempfile
+
+    from ov3det_torch import main as cli
+    from ov3det_torch.engine.checkpoint import CheckpointManager
+    from ov3det_torch.engine.train import build_training
+
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    probe = CliProbe()
+    with tempfile.TemporaryDirectory(prefix="ov3det_ov_cli_") as run:
+        argv = OV_CLI_ARGV + ["--checkpoint_dir", run]
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        training, lines = run_cli(probe, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for line in lines:
+            if not (" Average Precision: " in line or " Recall: " in line):
+                print(f"ov cli| {line}")
+        require(training.teacher is not None and training.teacher.compute_dtype == "int8",
+                "ov cli: no int8 teacher")
+        require(len(probe.steps) == 8, f"ov cli: {len(probe.steps)} training steps, expected 8")
+        require(all(d == train_step for _, _, d in probe.steps),
+                f"ov cli: a step launched {[d for _, _, d in probe.steps if d != train_step][:1]}")
+        require(bool(probe.evals) and all(d == eval_batch for d in probe.evals),
+                f"ov cli: an eval batch launched {[d for d in probe.evals if d != eval_batch][:1]}")
+        path = os.path.join(run, "checkpoint")
+        require(os.path.isfile(path) and os.path.isfile(os.path.join(run, "final_eval.txt")),
+                "ov cli: no checkpoint or final_eval.txt")
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        teacher_keys = set(training.teacher.state_dict())
+        require(not teacher_keys & set(payload["model"])
+                and set(payload["model"]) == set(training.model.state_dict()),
+                "ov cli: the checkpoint holds more than the detector")
+        cfg = cli.config_from_args(cli.make_args_parser().parse_args(argv))
+        point = build_training(dataclasses.replace(cfg, teacher=dataclasses.replace(
+            cfg.teacher, enabled=False)), 8, device=dev, seed=cfg.seed)
+        with tempfile.TemporaryDirectory(prefix="ov3det_point_ckpt_") as other:
+            ref = CheckpointManager(other).save(point.model, point.optimizer, 0)
+            ref_payload = torch.load(ref, map_location="cpu", weights_only=True)
+            ref_size, size = os.path.getsize(ref), os.path.getsize(path)
+        require({k: v.shape for k, v in payload["model"].items()}
+                == {k: v.shape for k, v in ref_payload["model"].items()}
+                and abs(size - ref_size) <= 0.001 * ref_size,
+                f"ov cli: checkpoint {size} B against a point-only run's {ref_size} B")
+    counts = read_counts()
+    iters = [(b[0] - a[0]) * 1e3 for a, b in zip(probe.steps, probe.steps[1:])]
+    print(f"ov cli run: {wall:.2f} s wall (teacher build and calibration, 8 steps, evals, "
+          f"checkpoints), iteration (host clock, step start to step start) median "
+          f"{np.median(iters):.2f} ms, {min(iters):.2f} to {max(iters):.2f}; peak device memory "
+          f"{peak / 2**30:.3f} GiB; checkpoint {size / 1e6:.2f} MB, a point-only run's "
+          f"{ref_size / 1e6:.2f} MB, no teacher tensor ({card})")
+    print(f"ov cli launches: { {n: c for n, c in counts.items() if c} }")
+    return counts
+
+
+def ov_phase(card: str, dev: torch.device) -> tuple:
+    """Phase 10: the open-vocabulary step; returns the launch counts of its
+    training run and of its CLI run."""
+    from ov3det_torch import main as cli
+    from ov3det_torch.models.regionclip import (
+        RegionCLIPTeacher,
+        calibration_boxes,
+        init_teacher_state,
+    )
+
+    t_phase = time.perf_counter()
+    check_quant_conv(card, dev)
+    cfg = ov_config()
+    batches = ov_batches(cfg, OV_STEPS + 1, 700)
+    first = {k: v[0] for k, v in batches[0].items()}
+    boxes = calibration_boxes(np.random.default_rng(0), float(first["image_height"]),
+                              float(first["image_width"]))
+    t0 = time.perf_counter()
+    state = init_teacher_state(RegionCLIPTeacher(device="cpu"), seed=0)
+    print(f"teacher: RN50x4 seeded f32 weights drawn in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(v.numel() for v in state.values()) / 1e6:.2f} M values")
+    teacher_card_vs_cpu(state, first["image"][None], boxes, dev)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    teacher = cli.build_teacher(cfg, first, dev)
+    torch.cuda.synchronize()
+    print(f"teacher build (seeded weights, int8 quantisation, calibration on the card): "
+          f"{time.perf_counter() - t0:.2f} s")
+    teacher_forward_times(teacher, state, batches[0], dev)
+    del state
+    nbytes = sum(v.nbytes for v in batches[0].values())
+    print(f"one OV batch crossing to the card: {nbytes / 1e6:.2f} MB, of which the uint8 "
+          f"canvases {batches[0]['image'].nbytes / 1e6:.2f} MB (int64 would make them "
+          f"{8 * batches[0]['image'].nbytes / 1e6:.2f} MB)")
+    trained = train(cfg, OV_STEPS, expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+                                          attention_dkv=3), "ov_sunrgbd", 700, dev,
+                    teacher=teacher, batches=batches)
+    del teacher, batches
+    gc.collect()
+    cli_counts = ov_cli(card, dev)
+    print(f"phase 10 (the open-vocabulary step): {time.perf_counter() - t_phase:.1f} s")
+    return trained, cli_counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1674,10 +2075,12 @@ def main() -> int:
     train_card_vs_cpu(masked, "scannet_masked", 400)
 
     cli_counts = cli_phase(card)
+    ov_trained, ov_cli_counts = ov_phase(card, dev)
 
     kernels = []
     for name, (source, replaces) in kernel_sources().items():
-        count = sum(c[name] for c in (served, trained, m_served, m_trained, cli_counts))
+        count = sum(c[name] for c in (served, trained, m_served, m_trained, cli_counts,
+                                      ov_trained, ov_cli_counts))
         require(count > 0, f"{name} was not launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **entries[name]})

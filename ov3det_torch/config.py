@@ -10,12 +10,13 @@ Two fields of the JAX `ModelConfig` have no counterpart: `fps_shards` and
 The port always runs exact greedy FPS, as the TPU kernel does.
 
 Configurations outside the ported slices raise `NotImplementedError`: the
-`first_k` ball query, the 2D-alignment loss and the teacher.
-`TeacherConfig` has no copy: the teacher comes with the open-vocabulary
-slice (ROADMAP Queue 1 item 5), and so do the image fields of `DataConfig`.
-The TPU transport's fields (`super_batch`, `quantize_points`, `yuv_images`,
-`image_bank`) and `num_devices` have no copy either: `ov3det_torch.main`
-refuses their flags.  The masked encoder (3DETR-m) is built from `scannet_quick()` with
+`first_k` ball query.  The open-vocabulary step is ported: `TeacherConfig`,
+`LossConfig.teacher_per_layer` and `DataConfig.use_image` are copies, and
+`use_image` feeds the teacher the synthetic canvases (the real datasets'
+image branches raise, ROADMAP Queue 1 item 9).  The TPU transport's fields
+(`super_batch`, `quantize_points`, `yuv_images`, `image_bank`) and
+`num_devices` have no copy: `ov3det_torch.main` refuses their flags (the
+device image bank is ROADMAP Queue 1 item 8).  The masked encoder (3DETR-m) is built from `scannet_quick()` with
 `dataclasses.replace`, as `scripts/scannet_masked_timing.py` builds it; there
 is no function of its own, in either package.
 """
@@ -106,8 +107,7 @@ class MatcherConfig:
 
 @dataclass(frozen=True)
 class LossConfig:
-    """Loss weights (reference main.py:95-105).  `teacher_per_layer` of the
-    JAX config belongs to the teacher and has no copy."""
+    """Loss weights (reference main.py:95-105)."""
 
     matcher: MatcherConfig = field(default_factory=MatcherConfig)
     giou_weight: float = 0.0
@@ -120,11 +120,12 @@ class LossConfig:
     alignment_2d_weight: float = 0.0
     giou_compute_dtype: str = "float32"  # "float32" | "bfloat16"
     matcher_giou: str = "rotated"  # "rotated" | "axis_aligned"
+    # run the frozen 2D teacher on every decoder layer's boxes (the
+    # reference's criterion.py:434-442, L times the teacher's cost) instead
+    # of once on the final layer's, shared by the aux losses
+    teacher_per_layer: bool = False
 
     def __post_init__(self):
-        if self.alignment_2d_weight > 0:
-            raise NotImplementedError(
-                "the 2D-alignment loss needs the teacher, which is not ported yet")
         if self.giou_compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown giou_compute_dtype {self.giou_compute_dtype!r}")
         if self.matcher_giou not in ("rotated", "axis_aligned"):
@@ -147,7 +148,7 @@ class OptimConfig:
 @dataclass(frozen=True)
 class DataConfig:
     """Dataset selection and paths (`ov3det/config.py:137-171`, reference
-    main.py:107-176), without the image and TPU-transport fields."""
+    main.py:107-176), without the TPU-transport fields."""
 
     dataset_name: str = "scannet"  # "scannet" | "sunrgbd" | "synthetic"
     root_dir: Optional[str] = None
@@ -158,9 +159,32 @@ class DataConfig:
     use_color: bool = False
     use_pbox: bool = False
     use_2d_feature: bool = False
+    # RGB canvases and calibration in each sample, for the 2D teacher
+    use_image: bool = False
     num_workers: int = 4
     batch_size_per_device: int = 8
     max_num_obj: int = 64
+
+
+@dataclass(frozen=True)
+class TeacherConfig:
+    """The frozen RegionCLIP 2D teacher (`ov3det/config.py:174-187`,
+    reference main.py:144-156).  compute_dtype "int8" (the default: W8A8
+    trunk convs with exact int32 products), "bfloat16" or "float32"; the
+    weights are quantised or cast once at load
+    (`models.regionclip.quantize_teacher_params`).  JAX's `image_size` has
+    no copy: nothing reads it, the canvases' size comes from the data."""
+
+    enabled: bool = False
+    checkpoint_path: Optional[str] = None
+    # the frozen CLIP text-embedding matrix of the detector's classifier
+    # (--clip_embed_path), read with or without the teacher
+    text_embed_path: Optional[str] = None
+    compute_dtype: str = "int8"
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("int8", "bfloat16", "float32"):
+            raise ValueError(f"unknown teacher compute_dtype {self.compute_dtype!r}")
 
 
 @dataclass(frozen=True)
@@ -172,6 +196,7 @@ class TrainConfig:
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    teacher: TeacherConfig = field(default_factory=TeacherConfig)
     max_epoch: int = 720
     eval_every_epoch: int = 10
     seed: int = 0

@@ -4,8 +4,10 @@ A copy of `ov3det/datasets/registry.py:17-89` (reference
 datasets/__init__.py:12-50): the train split augmented, test = val
 un-augmented, an "inference" view of the train split without augmentation,
 and the "synthetic" dataset (64 train / 16 test scenes, seeds 1 / 2 / 1).
-`use_image` raises in the real datasets' constructors; the synthetic
-scenes with image canvases come with the open-vocabulary slice.
+`use_image` picks `SyntheticOVDataset` (canvases and calibration) for
+"synthetic", as `ov3det/datasets/registry.py:72-77` does; the real
+datasets' constructors raise on it (their image branches are ROADMAP Queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from ov3det_torch.config import DataConfig
 from ov3det_torch.datasets.dataset_configs import ScannetDatasetConfig, SunrgbdDatasetConfig
 from ov3det_torch.datasets.scannet import ScannetDetectionDataset
 from ov3det_torch.datasets.sunrgbd import SunrgbdDetectionDataset
-from ov3det_torch.datasets.synthetic import SyntheticDataset
+from ov3det_torch.datasets.synthetic import SyntheticDataset, SyntheticOVDataset
 
 
 def build_dataset(cfg: DataConfig, splits=("train", "test")):
@@ -35,6 +37,7 @@ def build_dataset(cfg: DataConfig, splits=("train", "test")):
                 augment=augment,
                 use_pbox=cfg.use_pbox,
                 use_2d_feature=cfg.use_2d_feature,
+                use_image=cfg.use_image,
             )
     elif name == "scannet":
         dataset_config = ScannetDatasetConfig()
@@ -52,12 +55,14 @@ def build_dataset(cfg: DataConfig, splits=("train", "test")):
                 augment=augment,
                 use_pbox=cfg.use_pbox,
                 use_2d_feature=cfg.use_2d_feature,
+                use_image=cfg.use_image,
             )
     elif name == "synthetic":
         dataset_config = ScannetDatasetConfig()
+        cls = SyntheticOVDataset if cfg.use_image else SyntheticDataset
         for split, seed in (("train", 1), ("test", 2), ("inference", 1)):
             if split in splits:
-                datasets[split] = SyntheticDataset(
+                datasets[split] = cls(
                     size=64 if split == "train" else 16,
                     seed=seed,
                     num_points=cfg.num_points,

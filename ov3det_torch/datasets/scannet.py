@@ -8,9 +8,10 @@ the 18-class vocabulary, augments (two flips + small z rotation with AABB
 re-fitting), and emits the padded fixed-shape training dict.  Pure numpy:
 it runs in the loader's worker processes, which never touch CUDA.
 
-The multi-frame image branch (`frames_dir`, `max_frames`) comes with the
-open-vocabulary slice, ROADMAP Queue 1 item 5; `use_image=True` raises until
-then.
+The multi-frame image branch (`frames_dir`, `max_frames`,
+`ov3det/datasets/image_utils.py`) is not ported: it decodes JPEGs with PIL,
+which the card's machine lacks (ROADMAP Queue 1 item 9); `use_image=True`
+raises.  The open-vocabulary step runs on `SyntheticOVDataset`.
 """
 from __future__ import annotations
 

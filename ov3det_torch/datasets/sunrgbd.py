@@ -8,8 +8,10 @@ and emits the padded fixed-shape training dict.  Pure numpy: it runs in the
 loader's worker processes, which never touch CUDA.
 
 The image branch (the RGB canvas and calibration that feed the RegionCLIP
-teacher) comes with the open-vocabulary slice, ROADMAP Queue 1 item 5;
-`use_image=True` raises until then.
+teacher, `ov3det/datasets/sunrgbd.py:83-107`) is not ported: it decodes
+JPEGs with PIL, which the card's machine lacks (ROADMAP Queue 1 item 9);
+`use_image=True` raises.  The open-vocabulary step runs on
+`SyntheticOVDataset`, whose canvases need no decoder.
 """
 from __future__ import annotations
 
@@ -29,8 +31,8 @@ from ov3det_torch.datasets.augment import (
 from ov3det_torch.datasets.dataset_configs import SunrgbdDatasetConfig
 
 MEAN_COLOR_RGB = np.array([0.5, 0.5, 0.5])
-IMAGE_NOT_PORTED = ("use_image: the image branch comes with the open-vocabulary slice "
-                    "(ROADMAP Queue 1 item 5)")
+IMAGE_NOT_PORTED = ("use_image: the real datasets' image branches are not ported "
+                    "(ROADMAP Queue 1 item 9); --dataset_name synthetic has canvases")
 
 
 class SunrgbdDetectionDataset:

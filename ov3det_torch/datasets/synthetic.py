@@ -3,8 +3,8 @@
 A numpy copy of `make_scene`, `make_batch` and `SyntheticDataset` from
 `ov3det/datasets/synthetic.py:16-176`: the same draws in the same order, so
 one `np.random.Generator` state gives bit-identical scenes in both packages.
-`SyntheticOVDataset` (the image canvases) comes with the open-vocabulary
-slice.
+`SyntheticOVDataset` (`synthetic.py:179-214`) adds the open-vocabulary
+schema's 530 x 730 uint8 canvas and calibration, bit for bit.
 Scenes hold a floor slab plus points concentrated inside the GT boxes; the
 schema is that of the real SUN RGB-D / ScanNet loaders.
 """
@@ -166,3 +166,32 @@ class SyntheticDataset:
     def __getitem__(self, idx: int) -> dict:
         rng = np.random.default_rng(self.seed * 100003 + idx)
         return make_scene(rng, scan_idx=idx, **self.scene_kwargs)
+
+
+class SyntheticOVDataset(SyntheticDataset):
+    """Synthetic scenes plus the open-vocabulary batch schema's image fields
+    (reference datasets/sunrgbd.py:275-285): a fixed 530 x 730 uint8 canvas
+    drawn from its own `default_rng(seed * 7919 + idx)` (so the scene's
+    draws are those of `SyntheticDataset`), its height and width, and the
+    calibration matrices Rtilt and K."""
+
+    IMG_H, IMG_W = 530, 730  # the SUN RGB-D canvas (reference sunrgbd.py:47)
+
+    _RTILT = np.array([[0.999, 0.02, -0.04], [-0.02, 0.999, 0.01], [0.04, -0.01, 0.999]],
+                      np.float32)
+    _K = np.array([[529.5, 0, 365.0], [0, 529.5, 265.0], [0, 0, 1]], np.float32)
+
+    def get_image(self, idx: int) -> np.ndarray:
+        """The canvas of scene `idx`, uint8 (the teacher normalises it on
+        the device)."""
+        rng = np.random.default_rng(self.seed * 7919 + idx)
+        return rng.integers(0, 256, size=(self.IMG_H, self.IMG_W, 3), dtype=np.uint8)
+
+    def __getitem__(self, idx: int) -> dict:
+        d = super().__getitem__(idx)
+        d["image"] = self.get_image(idx)
+        d["image_height"] = np.int32(self.IMG_H)
+        d["image_width"] = np.int32(self.IMG_W)
+        d["calib_Rtilt"] = self._RTILT
+        d["calib_K"] = self._K
+        return d

@@ -15,9 +15,16 @@ RNG state is saved: the training loop seeds the dropout generator from
 (seed, iteration) each step.  Small scalars (`best_ap25`) ride in a
 `<name>.extra.json` sidecar, as in the JAX package.
 
-The JAX package strips the frozen teacher and the image bank from its
-state before saving (`_split_teacher`); the port has neither yet (they come
-with the open-vocabulary slice), so there is nothing to strip.
+The frozen 2D teacher is never saved, which is what the JAX package's
+`_split_teacher` (`ov3det/engine/checkpoint.py:19-36`) achieves by
+stripping it from its state: in the port the teacher is no part of the
+detector (`Training.teacher` sits beside it, its weights are buffers of its
+own module, not in the optimiser), so a checkpoint holds the detector and
+its optimiser alone, the same file as a point-only run's.  On resume the
+teacher is rebuilt from the RegionCLIP checkpoint it came from, or from its
+seed and a recalibration on the same canvas, which are deterministic
+(`ov3det_torch.main.build_teacher`).  The device image bank is not ported
+(ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 

@@ -38,6 +38,7 @@ from ov3det_torch.engine.infer import INPUT_KEYS, make_eval_step
 from ov3det_torch.engine.schedule import make_lr_schedule
 from ov3det_torch.losses.criterion import set_criterion
 from ov3det_torch.models.detr3d import Model3DETR
+from ov3det_torch.models.regionclip import RegionCLIPTeacher, make_teacher_fn
 
 
 class AdamW:
@@ -117,15 +118,16 @@ def build_optimizer(model: torch.nn.Module, cfg: OptimConfig,
 
 def batch_to_device(batch: dict, device, non_blocking: bool = False) -> dict:
     """A batch of the training schema (numpy arrays or CPU tensors) ->
-    tensors on `device` (floats f32, integers int64, flags as they are).
-    `non_blocking` lets the copy of a pinned batch overlap the work already
-    queued on the card."""
+    tensors on `device` (floats f32, integers int64; uint8 canvases and
+    flags as they are: the teacher normalises the canvases on the device,
+    so they cross at 1 byte a value).  `non_blocking` lets the copy of a
+    pinned batch overlap the work already queued on the card."""
     out = {}
     for k, v in batch.items():
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
         if t.is_floating_point():
             t = t.to(device, torch.float32, non_blocking=non_blocking)
-        elif t.dtype != torch.bool:
+        elif t.dtype not in (torch.bool, torch.uint8):
             t = t.to(device, torch.int64, non_blocking=non_blocking)
         else:
             t = t.to(device, non_blocking=non_blocking)
@@ -134,16 +136,22 @@ def batch_to_device(batch: dict, device, non_blocking: bool = False) -> dict:
 
 
 def make_train_step(model: Model3DETR, optimizer: AdamW, loss_cfg: LossConfig,
-                    num_angle_bin: int, num_semcls: int):
+                    num_angle_bin: int, num_semcls: int,
+                    teacher_fn: Optional[Callable[[dict, dict], torch.Tensor]] = None):
     """`train_step(batch, generator) -> metrics`: one step of
     `make_train_step` (`ov3det/engine/train.py:112-177`).
 
     batch: the training schema as tensors on the model's device;
     generator: a `torch.Generator` on that device for the dropout masks.
+    teacher_fn: `(batch, outputs) -> (B, Q, C) or (L, B, Q, C)` frozen
+    2D-teacher region features for the 2D-alignment loss
+    (`models.regionclip.make_teacher_fn`); it runs between the forward and
+    the criterion, inside a profiler range named "teacher".
     metrics: the criterion's loss dict plus `grad_norm`, the global norm
     of the raw gradients, all device tensors (nothing is synchronised).
-    `mark`, if given, is called with "forward", "criterion", "backward"
-    and "optimizer" as each phase has been issued (timing hooks).
+    `mark`, if given, is called with "forward", "teacher" (with a teacher),
+    "criterion", "backward" and "optimizer" as each phase has been issued
+    (timing hooks).
     """
 
     def train_step(batch: dict, generator: torch.Generator,
@@ -152,8 +160,13 @@ def make_train_step(model: Model3DETR, optimizer: AdamW, loss_cfg: LossConfig,
         model.train()
         outputs = model({k: batch[k] for k in INPUT_KEYS}, generator)
         mark("forward")
+        teacher_feats = None
+        if teacher_fn is not None:
+            with torch.profiler.record_function("teacher"):
+                teacher_feats = teacher_fn(batch, outputs)
+            mark("teacher")
         total, loss_dict = set_criterion(outputs, batch, loss_cfg, num_angle_bin=num_angle_bin,
-                                         num_semcls=num_semcls)
+                                         num_semcls=num_semcls, teacher_feats=teacher_feats)
         mark("criterion")
         optimizer.zero_grad()
         total.backward()
@@ -176,20 +189,30 @@ class Training:
     schedule: Callable[[int], float]
     train_step: Callable[..., dict]
     eval_step: Callable[[dict], dict | tuple]
+    teacher: Optional[RegionCLIPTeacher] = None
 
 
 def build_training(cfg: TrainConfig, iters_per_epoch: int, device=None, seed: int = 0,
-                   eval_loss: bool = False) -> Training:
+                   eval_loss: bool = False,
+                   teacher: Optional[RegionCLIPTeacher] = None) -> Training:
     """Schedule, optimiser, detector (seeded random weights) and the steps
     from a `TrainConfig` (`ov3det/engine/train.py:317-352`).  `device`
     defaults to CUDA and raises when no card is present.  With `eval_loss`
-    the eval step also returns the criterion's loss dict."""
+    the eval step also returns the criterion's loss dict.  `teacher`, a
+    loaded `RegionCLIPTeacher` on `device`, feeds the training step's
+    2D-alignment loss (`cfg.loss.teacher_per_layer` picks the hook's mode);
+    it stays frozen, in eval mode, outside the optimiser and outside the
+    model's state_dict (the eval step never runs it, as in JAX)."""
     device = resolve_device(device)
     schedule = make_lr_schedule(cfg.optim, cfg.max_epoch, iters_per_epoch)
     model = Model3DETR(cfg.model, device=device, seed=seed)
     optimizer = build_optimizer(model, cfg.optim, schedule)
+    teacher_fn = None
+    if teacher is not None:
+        teacher.eval()
+        teacher_fn = make_teacher_fn(teacher, per_layer=cfg.loss.teacher_per_layer)
     train_step = make_train_step(model, optimizer, cfg.loss, cfg.model.num_angle_bin,
-                                 cfg.model.num_semcls)
+                                 cfg.model.num_semcls, teacher_fn=teacher_fn)
     eval_step = make_eval_step(model, cfg.loss if eval_loss else None,
                                cfg.model.num_angle_bin, cfg.model.num_semcls)
-    return Training(model, optimizer, schedule, train_step, eval_step)
+    return Training(model, optimizer, schedule, train_step, eval_step, teacher)

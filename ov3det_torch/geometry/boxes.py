@@ -7,6 +7,7 @@ Every function works on arbitrary leading batch dims.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -16,6 +17,17 @@ import torch
 _CORNER_SIGNS_X = (1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0)
 _CORNER_SIGNS_Y = (1.0, 1.0, 1.0, 1.0, -1.0, -1.0, -1.0, -1.0)
 _CORNER_SIGNS_Z = (1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _corner_signs(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The three sign rows (3, 8) on `device`, copied there once: a copy
+    from the host on every call would make the host wait for the device.
+    Made outside inference mode, so that autograd may save it after a first
+    call from an inference."""
+    with torch.inference_mode(False):
+        return torch.tensor((_CORNER_SIGNS_X, _CORNER_SIGNS_Y, _CORNER_SIGNS_Z), dtype=dtype,
+                            device=device)
 
 
 def flip_axis_to_camera(xyz: torch.Tensor) -> torch.Tensor:
@@ -50,10 +62,10 @@ def box_corners_from_param(box_size, angle, center) -> torch.Tensor:
     Matches reference get_3d_box_batch (utils/box_util.py:355-381).
     """
     half = box_size * 0.5
-    signs = half.new_tensor
-    sx = half[..., 0:1] * signs(_CORNER_SIGNS_X)
-    sy = half[..., 2:3] * signs(_CORNER_SIGNS_Y)
-    sz = half[..., 1:2] * signs(_CORNER_SIGNS_Z)
+    signs = _corner_signs(half.device, half.dtype)
+    sx = half[..., 0:1] * signs[0]
+    sy = half[..., 2:3] * signs[1]
+    sz = half[..., 1:2] * signs[2]
     local = torch.stack([sx, sy, sz], dim=-1)  # (..., 8, 3)
     R = roty_batch(angle)  # (..., 3, 3), in angle's dtype
     dtype = torch.promote_types(local.dtype, R.dtype)

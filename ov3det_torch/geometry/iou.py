@@ -119,7 +119,8 @@ def rotated_bev_intersection_area(rect1, rect2):
 def bev_rect(corners):
     """Camera-frame corners (..., 8, 3) -> ccw BEV rectangle (..., 4, 2) in
     (x, z) (reference utils/box_util.py:549-554)."""
-    return corners[..., [3, 2, 1, 0], :][..., [0, 2]]
+    # slices, not index lists: a list is copied to the device on every call
+    return corners[..., :4, :].flip(-2)[..., 0::2]
 
 
 def enclosing_aabb_volume(corners1, corners2):

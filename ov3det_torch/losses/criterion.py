@@ -103,12 +103,13 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
     """The criterion over stacked layer outputs (L, B, Q, ...).
 
     targets: the padded GT dict of the batch schema, as tensors on the
-    outputs' device.  Returns (total, loss_dict): `<name>_<l>` for the aux
+    outputs' device.  teacher_feats: the frozen 2D teacher's region
+    features, (B, Q, C) shared by every layer or (L, B, Q, C), for the
+    2D-alignment loss (per layer, the sum over (B, Q) of 1 - cosine with
+    `visual_embeds`, in f32).  Returns (total, loss_dict): `<name>_<l>` for the aux
     layers and bare names for the last, each weighted (or as it is where the
     weight is 0), `loss_cardinality` (log only) and `loss`, the total.
     """
-    if teacher_feats is not None:
-        raise NotImplementedError("the 2D-alignment loss comes with the open-vocabulary slice")
     nactual = targets["gt_box_present"].sum(1).long()
     targets = dict(targets, nactual_gt=nactual)
     num_boxes = torch.clamp(nactual.sum().float(), min=1.0)
@@ -125,7 +126,7 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
     box_label = _take(targets["gt_box_sem_cls_label"].long(), inds)
     box_label = torch.where(matched > 0, box_label, torch.full_like(box_label, num_semcls))
     class_weights = torch.ones(num_semcls + 1, device=inds.device)
-    class_weights[-1] = cfg.no_object_weight
+    class_weights[-1:].fill_(cfg.no_object_weight)  # a fill, not a copy from the host
     losses["loss_sem_cls"] = _weighted_ce(outputs["sem_cls_logits"], box_label, class_weights)
 
     angle_cls_at = _take(targets["gt_angle_class_label"].long(), inds)
@@ -164,6 +165,14 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
         pred_obj = (torch.argmax(outputs["sem_cls_logits"], -1) != num_semcls).float().sum(-1)
         losses["loss_cardinality"] = (pred_obj - nactual[None].float()).abs().mean(-1)
 
+    if teacher_feats is not None:  # 2D-alignment distillation (criterion.py:132-141)
+        # all in f32; JAX keeps the norm of bf16 embeds in bf16, 2^-9 coarser
+        t = teacher_feats.float() if teacher_feats.dim() == 4 else teacher_feats.float()[None]
+        v = outputs["visual_embeds"].float()
+        cos = (v * t).sum(-1) / torch.clamp(
+            torch.linalg.vector_norm(v, dim=-1) * torch.linalg.vector_norm(t, dim=-1), min=1e-8)
+        losses["loss_2dalignment"] = (1.0 - cos).sum((1, 2))
+
     weights = {
         "loss_sem_cls": cfg.sem_cls_weight,
         "loss_angle_cls": cfg.angle_cls_weight,
@@ -171,6 +180,7 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
         "loss_center": cfg.center_weight,
         "loss_size": cfg.size_weight,
         "loss_giou": cfg.giou_weight,
+        "loss_2dalignment": cfg.alignment_2d_weight,
     }
     total = torch.zeros((), device=inds.device)
     loss_dict = {}

@@ -8,8 +8,13 @@ NaN-loss abort, with the same printed lines and `scalars.jsonl` keys.  One
 process on one device: `--device` (default `cuda`, which raises without a
 card; `cpu` on request).
 
-Flags the port cannot honour yet raise `NotImplementedError` naming the
-ROADMAP item that brings them; none is ignored.  The dropout masks of
+`--use_image` trains the open-vocabulary step: the frozen RegionCLIP
+RN50x4 teacher (`--teacher_compute_dtype`, int8 by default, calibrated on
+the first canvas of the test split; seeded random weights unless
+`--region_clip_ckpt_path` names a checkpoint) feeds the 2D-alignment loss
+(`--loss_2dalignment_weight`).  Flags the port cannot honour yet raise
+`NotImplementedError` naming the ROADMAP item that brings them; none is
+ignored.  The dropout masks of
 training step `i` come from a generator on the device seeded from
 `(seed, i)`, as the JAX package builds its key from `[seed, i]`, so a resume
 needs no RNG state.
@@ -35,6 +40,7 @@ from ov3det_torch.config import (
     MatcherConfig,
     ModelConfig,
     OptimConfig,
+    TeacherConfig,
     TrainConfig,
 )
 from ov3det_torch.datasets.loader import DataLoader, slice_valid, valid_count
@@ -46,10 +52,17 @@ from ov3det_torch.engine.runtime import PreemptionGuard, profile_steps
 from ov3det_torch.engine.train import batch_to_device, build_training
 from ov3det_torch.eval.ap_calculator import APCalculator
 from ov3det_torch.models.detr3d import Model3DETR
+from ov3det_torch.models.regionclip import (
+    RegionCLIPTeacher,
+    calibration_boxes,
+    convert_torch_checkpoint,
+    init_teacher_state,
+    quantize_teacher_params,
+)
 from ov3det_torch.utils.logger import Logger
 from ov3det_torch.utils.meters import SmoothedValue
 
-_OV_SLICE = "ROADMAP Queue 1 item 5 (the open-vocabulary slice)"
+_IMAGE_BANK = "ROADMAP Queue 1 item 8 (the device image bank and its yuv420 codec)"
 _DDP = "ROADMAP Queue 1 item 6 (multi-GPU)"
 _TRANSPORT = ("ROADMAP Queue 3 item 1 (the TPU transport's packed steps; their counterpart on "
               "the card is graph capture of the step, see PERF.md)")
@@ -59,10 +72,7 @@ REFUSED = (
     ("--ngpus", lambda a: a.ngpus > 1, _DDP),
     ("--coordinator_address", lambda a: a.coordinator_address is not None, _DDP),
     ("--num_processes", lambda a: a.num_processes is not None, _DDP),
-    ("--use_image", lambda a: a.use_image, _OV_SLICE),
-    ("--image_bank", lambda a: a.image_bank, _OV_SLICE),
-    ("--region_clip_ckpt_path", lambda a: a.region_clip_ckpt_path is not None, _OV_SLICE),
-    ("--loss_2dalignment_weight", lambda a: a.loss_2dalignment_weight > 0, _OV_SLICE),
+    ("--image_bank", lambda a: a.image_bank, _IMAGE_BANK),
     ("--super_batch", lambda a: a.super_batch > 1, _TRANSPORT),
     ("--quantize_points", lambda a: a.quantize_points, _TRANSPORT),
     ("--yuv_images", lambda a: a.yuv_images, _TRANSPORT),
@@ -116,7 +126,7 @@ def make_args_parser():
     p.add_argument("--loss_center_weight", default=5.0, type=float)
     p.add_argument("--loss_size_weight", default=1.0, type=float)
     p.add_argument("--loss_2dalignment_weight", default=0.0, type=float,
-                   help=f"> 0 is not ported yet: {_OV_SLICE}")
+                   help="weight of the 2D-alignment loss against the teacher (needs --use_image)")
     # Dataset (reference main.py:107-176)
     p.add_argument("--dataset_name", required=True, choices=["scannet", "sunrgbd", "synthetic"])
     p.add_argument("--dataset_root_dir", type=str, default=None)
@@ -130,24 +140,27 @@ def make_args_parser():
     p.add_argument("--yuv_images", default=False, action="store_true",
                    help=f"refused: {_TRANSPORT}")
     p.add_argument("--image_bank", default=False, action="store_true",
-                   help=f"not ported yet: {_OV_SLICE}")
+                   help=f"not ported yet: {_IMAGE_BANK}")
     p.add_argument("--num_points", default=None, type=int)
     p.add_argument("--pseudo_label_dir", type=str, default=None)
     p.add_argument("--clip_embed_path", type=str, default=None,
                    help="the frozen CLIP text-embedding matrix (.npy, or a torch file)")
     p.add_argument("--region_clip_ckpt_path", type=str, default=None,
-                   help=f"not ported yet: {_OV_SLICE}")
+                   help="RegionCLIP or CLIP checkpoint of the teacher (default: seeded random "
+                   "weights)")
     p.add_argument("--teacher_compute_dtype", type=str, default="int8",
                    choices=["int8", "bfloat16", "float32"],
-                   help="compute dtype of the frozen RegionCLIP tower (read with --use_image, "
-                   f"which is not ported yet: {_OV_SLICE})")
+                   help="compute dtype of the frozen RegionCLIP tower (int8: W8A8 trunk convs "
+                   "with exact int32 products, calibrated at load)")
     p.add_argument("--feature_2d_dir", type=str, default=None)
     p.add_argument("--use_pbox", default=False, action="store_true")
     p.add_argument("--use_2d_feature", default=False, action="store_true",
                    help="load per-point 2D features with the scenes; NOTE: no training path "
                    "consumes them (faithful to the reference, which also loads and drops them)")
     p.add_argument("--use_image", default=False, action="store_true",
-                   help=f"not ported yet: {_OV_SLICE}")
+                   help="train the open-vocabulary step: image canvases and the frozen 2D "
+                   "teacher (synthetic data only; the real datasets' image branches are "
+                   "ROADMAP Queue 1 item 9)")
     p.add_argument("--frames_dir", type=str, default=None,
                    help="ScanNet frames tree for --use_image")
     p.add_argument("--max_frames", default=64, type=int)
@@ -260,8 +273,15 @@ def config_from_args(args) -> TrainConfig:
             use_color=args.use_color,
             use_pbox=args.use_pbox,
             use_2d_feature=args.use_2d_feature,
+            use_image=args.use_image,
             num_workers=args.dataset_num_workers,
             batch_size_per_device=args.batchsize_per_gpu,
+        ),
+        teacher=TeacherConfig(
+            enabled=args.use_image,
+            checkpoint_path=args.region_clip_ckpt_path,
+            text_embed_path=args.clip_embed_path,
+            compute_dtype=args.teacher_compute_dtype,
         ),
         max_epoch=args.max_epoch,
         eval_every_epoch=args.eval_every_epoch,
@@ -291,6 +311,40 @@ def load_text_embed(model: Model3DETR, path) -> None:
         raise ValueError(f"{path}: shape {tuple(emb.shape)}, expected {tuple(model.text_embed.shape)}")
     with torch.no_grad():
         model.text_embed.copy_(emb.float())
+
+
+def build_teacher(cfg: TrainConfig, example: dict, device=None) -> RegionCLIPTeacher:
+    """The frozen RegionCLIP teacher of the 2D-alignment loss, loaded on
+    `device`: CUDA unless the caller passes "cpu", and raises when CUDA is
+    asked for and absent (`ov3det/main.py:293-341`, `build_teacher_fn`; the
+    port's step makes its hook from the teacher, `build_training(...,
+    teacher=)`).
+
+    Its weights: `cfg.teacher.checkpoint_path` converted, else seeded random
+    ones (seed 0).  In int8, the activation scales are calibrated on
+    `example`'s canvas (one sample of the schema: the first of the test
+    split) with eight `default_rng(0)` boxes inside its image, as JAX
+    calibrates on its example batch's first canvas; all of it is
+    deterministic, so a resumed run rebuilds the same teacher."""
+    device = resolve_device(device)
+    dtype = cfg.teacher.compute_dtype
+    teacher = RegionCLIPTeacher(embed_dim=cfg.model.clip_embed_dim,
+                                compute_dtype=None if dtype == "float32" else dtype,
+                                device=device)
+    if cfg.teacher.checkpoint_path:
+        state = convert_torch_checkpoint(cfg.teacher.checkpoint_path, teacher.hparams["layers"])
+    else:
+        print("WARNING: no --region_clip_ckpt_path; teacher runs with random "
+              "weights (distillation targets are meaningless)")
+        state = init_teacher_state(teacher, seed=0)
+    calib = None
+    if dtype == "int8":
+        image = np.asarray(example["image"], np.float32)[None]
+        boxes = calibration_boxes(np.random.default_rng(0), float(example["image_height"]),
+                                  float(example["image_width"]))
+        calib = (image, boxes)
+    state = {k: v.to(device) for k, v in state.items()}
+    return teacher.load(quantize_teacher_params(state, dtype, teacher=teacher, calib=calib))
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -328,7 +382,7 @@ def _host_scalars(metrics: dict) -> dict:
     return dict(zip(metrics, values))
 
 
-def do_train(cfg: TrainConfig, device=None, text_embed_path=None):
+def do_train(cfg: TrainConfig, device=None):
     device = resolve_device(device)
     pin = device.type == "cuda"
     datasets, dataset_config = build_dataset(cfg.data)
@@ -338,11 +392,12 @@ def do_train(cfg: TrainConfig, device=None, text_embed_path=None):
     test_loader = DataLoader(datasets["test"], batch_size=batch_size, shuffle=False,
                              drop_last=False, num_workers=cfg.data.num_workers, pin_memory=pin)
     iters_per_epoch = len(train_loader)
+    teacher = build_teacher(cfg, datasets["test"][0], device) if cfg.teacher.enabled else None
     training = build_training(cfg, iters_per_epoch, device=device, seed=cfg.seed,
-                              eval_loss=cfg.eval_loss)
+                              eval_loss=cfg.eval_loss, teacher=teacher)
     model, optimizer = training.model, training.optimizer
     train_step, eval_step, schedule = training.train_step, training.eval_step, training.schedule
-    load_text_embed(model, text_embed_path)
+    load_text_embed(model, cfg.teacher.text_embed_path)
 
     if not cfg.checkpoint_dir:
         raise ValueError("set --checkpoint_dir")
@@ -492,7 +547,7 @@ def main(argv=None):
     with torch.autograd.set_detect_anomaly(cfg.debug_nans):
         if args.test_only:
             return test_model(cfg, test_ckpt=args.test_ckpt, device=device)
-        return do_train(cfg, device, text_embed_path=args.clip_embed_path)
+        return do_train(cfg, device)
 
 
 if __name__ == "__main__":

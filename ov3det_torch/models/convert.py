@@ -13,6 +13,18 @@ are those `ov3det/models/convert_3detr.py:37-215` targets) onto the
       out kernel (H, hd, d)             -> out_proj.weight (d, H*hd)
   pos_embedding/gauss_B, frozen/text_embed as they are.
 
+`from_flax_teacher_variables` maps the JAX package's RegionCLIP teacher
+tree (`ov3det.models.regionclip`) onto the flat state of
+`ov3det_torch.models.regionclip.RegionCLIPTeacher`, for its f32 tree, the
+tree of `cast_teacher_params` (bf16 leaves) and that of
+`quantize_teacher_params` (`kernel_q`, `scale`, `a_scale`, `bias`, the
+folded BatchNorms gone):
+
+  conv kernel (kh, kw, in, out)    -> weight (out, in, kh, kw)
+  kernel_q (kh, kw, in, out) int8  -> kernel_q (out, kh * kw * in)
+  dense kernel (in, out), bias     -> weight (out, in), bias
+  BatchNorm, positional grid, scale, a_scale, bias: as they are.
+
 The masked encoder's tree needs nothing more: its interim set abstraction
 sits in the detector's scope (`interim_downsample/Dense_i`,
 `BatchNorm_i` -> `interim_downsample.layers.i`, `.norms.i`), its layers
@@ -107,3 +119,37 @@ def from_flax_variables(variables: dict) -> dict:
             sd.update(_mlp(name, p, stats.get(name, {})))
     sd["text_embed"] = variables["frozen"]["text_embed"]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _teacher_tensor(a) -> torch.Tensor:
+    """A numpy leaf of the teacher's tree as a tensor of its dtype (bf16
+    leaves, ml_dtypes' bfloat16, cross as their bits)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def from_flax_teacher_variables(variables: dict) -> dict:
+    """{"params": {"backbone", "roi_head"}} of the JAX teacher (numpy leaves)
+    -> the state `RegionCLIPTeacher.load` takes (CPU tensors)."""
+    out = {}
+
+    def walk(tree: dict, prefix: str) -> None:
+        for name, v in tree.items():
+            key = f"{prefix}.{name}" if prefix else name
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(v, key)
+                continue
+            t = _teacher_tensor(v)
+            if name == "kernel_q":  # (kh, kw, in, out) -> (out, kh kw in)
+                out[key] = t.reshape(-1, t.shape[-1]).t().contiguous()
+            elif name == "kernel" and t.dim() == 4:
+                out[f"{prefix}.weight"] = t.permute(3, 2, 0, 1).contiguous()
+            elif name == "kernel":
+                out[f"{prefix}.weight"] = t.t().contiguous()
+            else:
+                out[key] = t
+
+    walk(variables["params"], "")
+    return out

@@ -16,8 +16,9 @@ slice as a whole.
 - resume parity: 2 steps, save, restore into a fresh model and optimiser,
   and the third step's losses and parameters equal the uninterrupted run's
   bit for bit;
-- the flags of every run script exist in the port's parser, and each flag
-  the port refuses raises `NotImplementedError` naming its ROADMAP item.
+- the flags of every run script exist in the port's parser, each flag the
+  port refuses raises `NotImplementedError` naming its ROADMAP item, and
+  the open-vocabulary flags set the config as JAX's parser does.
 """
 import dataclasses
 import glob
@@ -292,10 +293,7 @@ def test_run_scripts_parse_with_the_ports_parser():
     (["--ngpus", "2"], "item 6"),
     (["--coordinator_address", "localhost:1234"], "item 6"),
     (["--num_processes", "2"], "item 6"),
-    (["--use_image"], "item 5"),
-    (["--image_bank"], "item 5"),
-    (["--region_clip_ckpt_path", "teacher.pth"], "item 5"),
-    (["--loss_2dalignment_weight", "0.5"], "item 5"),
+    (["--use_image", "--image_bank"], "item 8"),
     (["--super_batch", "2"], "Queue 3 item 1"),
     (["--quantize_points"], "Queue 3 item 1"),
     (["--yuv_images"], "Queue 3 item 1"),
@@ -304,6 +302,32 @@ def test_refused_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
         cli.main(TINY + ["--checkpoint_dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)  # refused before anything ran
+
+
+@pytest.mark.parametrize("flag,check", [
+    (["--use_image"], lambda c: c.teacher.enabled and c.data.use_image
+     and c.teacher.compute_dtype == "int8"),
+    (["--use_image", "--region_clip_ckpt_path", "teacher.pth", "--teacher_compute_dtype",
+      "bfloat16"], lambda c: c.teacher.checkpoint_path == "teacher.pth"
+     and c.teacher.compute_dtype == "bfloat16"),
+    (["--use_image", "--loss_2dalignment_weight", "0.5"],
+     lambda c: c.loss.alignment_2d_weight == 0.5 and not c.loss.teacher_per_layer),
+])
+def test_open_vocabulary_flags_are_accepted(flag, check):
+    """The open-vocabulary flags, refused until the OV step was ported, set
+    the config as the JAX package's `config_from_args` does (the tiny
+    `--use_image` run itself is in tests/test_torch_ov.py)."""
+    from ov3det.main import config_from_args as jax_config_from_args
+    from ov3det.main import make_args_parser as jax_args_parser
+
+    cfg = tiny_cfg(*flag)
+    assert check(cfg)
+    argv = [a for a in TINY if a not in ("--device", "cpu")] + flag
+    jcfg = jax_config_from_args(jax_args_parser().parse_args(argv))
+    for k in ("enabled", "checkpoint_path", "compute_dtype"):
+        assert getattr(cfg.teacher, k) == getattr(jcfg.teacher, k), k
+    assert cfg.data.use_image == jcfg.data.use_image
+    assert cfg.loss.alignment_2d_weight == jcfg.loss.alignment_2d_weight
 
 
 def test_cli_runs_on_the_card_unless_asked():

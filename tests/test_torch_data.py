@@ -123,9 +123,11 @@ def test_registry_matches_jax(scannet_tree):  # noqa: F811
 
 
 def test_use_image_raises(sunrgbd_tree, scannet_tree):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """The real datasets' image branches decode JPEGs with PIL, which the
+    card's machine lacks: they stay refused (ROADMAP Queue 1 item 9)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         _sunrgbd_pair(sunrgbd_tree, "val", num_points=1024, use_image=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ScannetDetectionDataset(ScannetDatasetConfig(), "val", use_image=True,
                                 root_dir=str(scannet_tree / "scannet_train_detection_data"),
                                 meta_data_dir=str(scannet_tree / "meta_data"))

@@ -65,11 +65,13 @@ def _same_train_config(tq, jq):
             assert dataclasses.asdict(getattr(t, f.name)) == dataclasses.asdict(getattr(j, f.name))
         else:
             assert getattr(t, f.name) == getattr(j, f.name), f.name
-    # the training part: loss, matcher, optimiser, the data fields, the run
-    jloss = dataclasses.asdict(jq.loss)
-    jloss.pop("teacher_per_layer")
-    assert dataclasses.asdict(tq.loss) == jloss
+    # the training part: loss, matcher, optimiser, the teacher, the data
+    # fields, the run
+    assert dataclasses.asdict(tq.loss) == dataclasses.asdict(jq.loss)
     assert dataclasses.asdict(tq.optim) == dataclasses.asdict(jq.optim)
+    # the teacher's fields but JAX's `image_size`, which nothing reads
+    for f in dataclasses.fields(tq.teacher):
+        assert getattr(tq.teacher, f.name) == getattr(jq.teacher, f.name), f.name
     for f in dataclasses.fields(tq.data):
         assert getattr(tq.data, f.name) == getattr(jq.data, f.name), f.name
     assert tq.max_epoch == jq.max_epoch

@@ -256,13 +256,49 @@ def test_set_criterion_matches_jax(case):
 
 
 def test_set_criterion_rejects_the_teacher():
+    """Once a refusal pin, now the 2D-alignment branch the open-vocabulary
+    step ported (the name kept): the teacher's features, shared (B, Q, C)
+    or per layer (L, B, Q, C), against `visual_embeds` in f32 and in bf16
+    (the bf16 detector's).  The port computes in f32.  With f32 embeds the
+    losses, the weighted total and the gradient into `visual_embeds` equal
+    JAX's within 1e-5 relative; with bf16 embeds JAX's `norm(v)` stays bf16
+    (rounded to 2^-9 relative), so the losses agree within 1e-3 relative
+    and the bf16 gradients within 1e-2 of the largest (a few bf16 ulps)."""
     batch = tp.make_batch(seed=5)
-    out = {k: _t(v) for k, v in _outputs(batch).items()}
-    with pytest.raises(NotImplementedError):
-        set_criterion(out, T.batch_to_device(batch, "cpu"), tc.sunrgbd_quick().loss, 12, 10,
-                      teacher_feats=torch.zeros(1))
-    with pytest.raises(NotImplementedError):
-        tc.LossConfig(alignment_2d_weight=1.0)
+    out = _outputs(batch)
+    rng = np.random.default_rng(11)
+    embeds = rng.normal(size=(3, 2, 24, 16)).astype(np.float32)
+    jloss = dataclasses.replace(jc.sunrgbd_quick().loss, alignment_2d_weight=0.5)
+    tloss = dataclasses.replace(tc.sunrgbd_quick().loss, alignment_2d_weight=0.5)
+    for dtype, rtol in (("float32", 1e-5), ("bfloat16", 1e-3)):
+        v0 = jnp.asarray(embeds, dtype)
+        for shape in ((2, 24, 16), (3, 2, 24, 16)):
+            feats = rng.normal(size=shape).astype(np.float32)
+
+            def jtotal(v):
+                o = dict({k: jnp.asarray(x) for k, x in out.items()}, visual_embeds=v)
+                return jax_criterion(o, {k: jnp.asarray(x) for k, x in batch.items()}, jloss,
+                                     num_angle_bin=12, num_semcls=10,
+                                     teacher_feats=jnp.asarray(feats))
+
+            (_, want), jgrad = jax.value_and_grad(jtotal, has_aux=True)(v0)
+            tout = {k: _t(v) for k, v in out.items()}
+            tout["visual_embeds"] = _t(np.asarray(v0, np.float32)).to(
+                getattr(torch, dtype)).requires_grad_()
+            total, got = set_criterion(tout, T.batch_to_device(batch, "cpu"), tloss, 12, 10,
+                                       teacher_feats=_t(feats))
+            assert set(got) == set(want) and "loss_2dalignment_1" in got
+            for k in ("loss_2dalignment", "loss_2dalignment_0", "loss_2dalignment_1", "loss"):
+                np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=rtol,
+                                           err_msg=f"{k}, {dtype}, {shape}")
+            assert got["loss_2dalignment"].item() > 0
+            total.backward()
+            jg = np.asarray(jgrad, np.float32)
+            np.testing.assert_allclose(
+                tout["visual_embeds"].grad.float().numpy(), jg,
+                **(dict(rtol=1e-5, atol=1e-7) if dtype == "float32"
+                   else dict(rtol=0, atol=1e-2 * np.abs(jg).max())))
+    tc.LossConfig(alignment_2d_weight=1.0)  # accepted
 
 
 # ------------------------------------------------------ schedule, optimiser
