@@ -108,9 +108,9 @@ at once), then:
      and sizes, and the peak device memory; then the host AP with the C++
      rotated IoU and with the numpy one, in turns, on the `--test_only` pass
      and on 16 scenes of detections near the GT boxes;
-  9. (after 10) prints the kernels line (launches summed over the serving
-     and training runs of both configs, the CLI's run and phase 10's OV
-     training and OV CLI runs), the card line, and last
+  9. (after 11) prints the kernels line (launches summed over the serving
+     and training runs of both configs, the CLI's run, phase 10's OV
+     training and OV CLI runs and phase 11's runs), the card line, and last
      {"ok": true, "device": {...}}.
  10. the open-vocabulary step ("OV sunrgbd_quick": `sunrgbd_quick()` with
      the 2D-alignment loss at weight 1, as bench.py:518-530 builds it, and
@@ -144,6 +144,30 @@ at once), then:
        eval batch launching as above, and a checkpoint holding the detector
        and its optimiser only, the keys, shapes and size of a point-only
        run's.
+ 11. the pseudo-label round at `scannet_quick()`'s width (the CLI's flags of
+     scripts/scannet_quick.sh, bf16, batch 8) on a ScanNet-layout tree that
+     `ov3det_torch.datasets.synthetic.write_scannet_tree` writes (16 train
+     and 8 val scans of 40 000 points, per-scan point labels): one epoch of
+     `ov3det_torch.main` to a checkpoint; `generate_pseudo_label.main` in
+     this process with `--conf_thresh 0 --obj_thresh 0` (exactly 16 x 256
+     finite rows, one file a scan; each of its 2 batches launching FPS
+     twice, the ball-group once and the attention forward 3 times), then
+     with `--label_dir` at the default thresholds (the boxes kept printed);
+     the first batch's formatter rows from the card and from the CPU, the
+     checkpoint at f32 (centres and sizes within 1e-3, score and objectness
+     within 1e-4, labels where the top-2 margin exceeds 1e-4); one epoch of
+     `--use_pbox` on the kept boxes (in nyu40 ids, `adjust_format_to_nyu40`),
+     every step and eval batch launching as in 8; `lift_scene_scannet` on one
+     scene of 4 frames whose 16-bit depth PNGs `write_png16` writes, with
+     PIL never imported; the CLIP text tower at RN50x4's width from seeded
+     weights on the 18 ScanNet classes x 15 templates (a stub vocabulary),
+     card against CPU within 1e-5 of the largest value on 30 prompts, timed;
+     a reference-layout 3DETR checkpoint at `scannet_quick()`'s width read by
+     `load_reference_checkpoint` into a `Detector` with
+     `ball_query_method="first_k"`: one request (FPS twice, no ball-group,
+     the attention forward 3 times), its time and peak memory, the first-K
+     indices card against CPU on one scene, and the first-K query and its
+     grouping timed beside the tile ball-group at 8 x 40 000, M 2048, K 64.
 Launch counts are set to 0 just before each serving, training and CLI run,
 and read just after it.  The radius variants of the attention kernels count
 apart (`.radius_launches`) and have their own entries in the kernels line.
@@ -1424,6 +1448,7 @@ class CliProbe:
         self.passes, self.current = [], None
         self.saves, self.restores, self.train_ap_ms = [], [], []
         self.last_pass = None  # the last eval pass's APCalculator
+        self.train_boxes = []  # each train batch's scans and GT boxes, as the loader gave them
 
     @staticmethod
     def _delta(before: dict) -> dict:
@@ -1489,6 +1514,9 @@ class CliProbe:
                         return
                     (probe.waits if self.shuffle else probe.eval_waits).append(
                         (time.perf_counter() - t) * 1e3)
+                    if self.shuffle:
+                        probe.train_boxes.append({k: np.asarray(batch[k]) for k in (
+                            "scan_idx", "gt_box_present", "gt_box_sem_cls_label")})
                     yield batch
 
         def build_training(*args, **kwargs):
@@ -2009,6 +2037,551 @@ def ov_phase(card: str, dev: torch.device) -> tuple:
 
 
 
+# ------------------------------------------------------------ phase 11: the pseudo-label round
+PSEUDO_TRAIN, PSEUDO_VAL = 16, 8  # scans of the ScanNet-layout tree (2 and 1 batches of 8)
+# the CLI at scannet_quick()'s width with the flags of scripts/scannet_quick.sh
+PSEUDO_ARGV = ["--dataset_name", "scannet", "--device", "cuda", "--batchsize_per_gpu", "8",
+               "--compute_dtype", "bfloat16", "--nqueries", "256", "--matcher_giou_cost", "2",
+               "--matcher_cls_cost", "1", "--matcher_center_cost", "0",
+               "--matcher_objectness_cost", "0", "--loss_giou_weight", "1",
+               "--loss_no_object_weight", "0.25", "--save_separate_checkpoint_every_epoch", "-1",
+               "--max_epoch", "1", "--log_every", "1"]
+LIFT_FRAMES, LIFT_HW = 4, (240, 320)  # frames of the lifted scene; ScanNet's depth maps, halved
+TEXT_CHECK_PROMPTS = 30  # prompts (2 classes x 15 templates) also run on the CPU
+
+
+def write_png16(path: str, image: np.ndarray) -> None:
+    """A 16-bit greyscale PNG of `image`, each scanline with the Up filter,
+    written with zlib (the port reads PNGs without PIL)."""
+    import struct
+    import zlib
+
+    H, W = image.shape
+    rows = np.ascontiguousarray(image.astype(">u2")).view(np.uint8).reshape(H, 2 * W)
+    up = rows.copy()
+    up[1:] = rows[1:] - rows[:-1]  # modulo 256
+    raw = np.concatenate([np.full((H, 1), 2, np.uint8), up], 1).tobytes()
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 16, 0, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+@contextlib.contextmanager
+def eval_spy(module, record: list):
+    """Wrap `module.make_eval_step`: each eval batch appends (host ms to its
+    sync, launch deltas) to `record`."""
+    make = module.make_eval_step
+
+    def make_eval_step(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def eval_step(batch):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            after = read_counts()
+            record.append(((time.perf_counter() - t) * 1e3, {n: after[n] - before[n] for n in after}))
+            return out
+        return eval_step
+
+    module.make_eval_step = make_eval_step
+    try:
+        yield
+    finally:
+        module.make_eval_step = make
+
+
+def pseudo_pass(argv: list, label: str) -> tuple:
+    """`generate_pseudo_label.main(argv)` in this process: (boxes written,
+    wall s, [(batch ms, launches)], the formatter's rows before the
+    thresholds)."""
+    from ov3det_torch import generate_pseudo_label as gpl
+
+    batches, rows, out = [], [], io.StringIO()
+    run_inference = gpl.run_inference
+
+    def keep_rows(cfg, args, device=None):
+        formatter = run_inference(cfg, args, device)
+        rows.append(np.concatenate(formatter.boxes))
+        return formatter
+
+    gpl.run_inference = keep_rows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with eval_spy(gpl, batches), contextlib.redirect_stdout(out):
+            n = gpl.main(argv)
+    finally:
+        gpl.run_inference = run_inference
+    wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        print(f"{label}| {line}")
+    return n, wall, batches, rows[0]
+
+
+def pseudo_thresholds(rows: np.ndarray, slots: int) -> tuple:
+    """(conf, obj): the median score, and the median objectness raised just
+    above the (slots + 1)-th largest objectness, among the rows at or over
+    that score, of each scan that has more: no scan keeps more rows than
+    the loader has GT slots."""
+    conf = np.median(rows[:, 7])
+    obj = np.median(rows[:, 8])
+    over = rows[rows[:, 7] >= conf]
+    for i in np.unique(over[:, 9]):
+        ranked = np.sort(over[over[:, 9] == i, 8])[::-1]
+        if len(ranked) > slots:
+            obj = max(obj, np.nextafter(ranked[slots], np.float32(np.inf)))
+    return float(conf), float(obj)
+
+
+def paint_labels(tree: dict, scan_names: list, boxes: np.ndarray, out: str) -> None:
+    """Label files for `--label_dir`: each scan's own point labels, over
+    which each of its `boxes` (formatter rows) paints the points inside it,
+    the scan's first box on top, alternately with the box's class and with
+    the next class, so that the filter has boxes to keep and boxes to drop."""
+    os.makedirs(out)
+    for i, scan in enumerate(scan_names):
+        labelled = np.load(os.path.join(tree["label_dir"], f"{scan}.npy"))
+        xyz, cls = labelled[:, :3], labelled[:, 3].copy()
+        mine = boxes[boxes[:, 9] == i]
+        for j in range(len(mine) - 1, -1, -1):
+            box = mine[j]
+            inside = np.all(np.abs(xyz - box[:3]) <= box[3:6] / 2, axis=-1)
+            cls[inside] = box[6] if j % 2 == 0 else (box[6] + 1) % 18
+        np.save(os.path.join(out, f"{scan}.npy"), np.concatenate([xyz, cls[:, None]], 1))
+
+
+def kept_reference(rows: np.ndarray, conf: float, obj: float, label_dir: str,
+                   scan_names: list) -> list:
+    """The boxes `--label_dir` keeps, scan by scan, by a direct count: score
+    and objectness at or over the thresholds, and the box's class the most
+    common one (ties to the lower) among the points inside it whose label
+    is a class (below 18)."""
+    kept = []
+    for i, scan in enumerate(scan_names):
+        labelled = np.load(os.path.join(label_dir, f"{scan}.npy"))
+        xyz, cls = labelled[:, :3], labelled[:, 3].astype(np.int64)
+        mine = rows[(rows[:, 9] == i) & (rows[:, 7] >= conf) & (rows[:, 8] >= obj)]
+        keep = []
+        for box in mine:
+            inside = (np.all((xyz >= box[:3] - box[3:6] / 2) & (xyz <= box[:3] + box[3:6] / 2),
+                             axis=-1) & (cls < 18))
+            keep.append(bool(inside.any())
+                        and np.bincount(cls[inside], minlength=18).argmax() == box[6])
+        kept.append(mine[np.array(keep, bool)])
+    return kept
+
+
+def pseudo_card_vs_cpu(cfg, ckpt: str, dataset, dev: torch.device) -> None:
+    """The first batch's formatter rows from the card and from the CPU, the
+    same checkpoint at f32 (TF32 off): centres and sizes within 1e-3, score
+    and objectness within 1e-4, the labels wherever the CPU's top-2 margin
+    exceeds 1e-4."""
+    from ov3det_torch.datasets.loader import collate
+    from ov3det_torch.engine.checkpoint import restore_eval_checkpoint
+    from ov3det_torch.engine.infer import make_eval_step
+    from ov3det_torch.engine.train import batch_to_device
+    from ov3det_torch.models.detr3d import Model3DETR
+    from ov3det_torch.tools.label_formatter import LabelFormatter
+
+    model_cfg = dataclasses.replace(cfg.model, compute_dtype="float32")
+    batch = collate([dataset[i] for i in range(BATCH)])
+    rows, probs, secs = {}, {}, {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = Model3DETR(model_cfg, device=device)
+        restore_eval_checkpoint(model, ckpt)
+        t0 = time.perf_counter()
+        out = make_eval_step(model)(batch_to_device(batch, device))
+        formatter = LabelFormatter(None, None, dataset.scan_names, model_cfg.num_semcls)
+        formatter.step(out, batch)
+        secs[name] = time.perf_counter() - t0
+        rows[name], probs[name] = formatter.boxes[0], out["sem_cls_prob"].float().cpu()
+        del model, out
+    card, cpu = rows["card"], rows["cpu"]
+    top2 = probs["cpu"].reshape(-1, probs["cpu"].shape[-1]).topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1] > 1e-4).numpy()
+    geo = np.abs(card[:, :6] - cpu[:, :6]).max()
+    prob = np.abs(card[:, 7:9] - cpu[:, 7:9]).max()
+    require(card.shape == cpu.shape == (BATCH * model_cfg.num_queries, 10), f"pseudo rows {card.shape}")
+    require(np.isfinite(card).all(), "pseudo card vs CPU: non-finite rows on the card")
+    require(geo <= 1e-3, f"pseudo card vs CPU: centres and sizes differ by {geo}")
+    require(prob <= 1e-4, f"pseudo card vs CPU: score or objectness differ by {prob}")
+    require(np.array_equal(card[decided, 6], cpu[decided, 6]),
+            "pseudo card vs CPU: a label differs where the top-2 margin exceeds 1e-4")
+    require(np.array_equal(card[:, 9], cpu[:, 9]), "pseudo card vs CPU: scan indices differ")
+    print(f"pseudo card vs CPU (f32 checkpoint, first batch, {len(card)} rows): centres and sizes "
+          f"within {geo:.2e}, score and objectness within {prob:.2e}, labels equal on "
+          f"{int(decided.sum())} rows with a top-2 margin above 1e-4 ({int((~decided).sum())} "
+          f"below it; {int((card[:, 6] != cpu[:, 6]).sum())} of all rows differ); the eval forward "
+          f"{secs['card']:.2f} s on the card, {secs['cpu']:.2f} s on the CPU")
+
+
+def lift_scene(tree: dict, scan: str, run: str) -> int:
+    """`lift_scene_scannet` on one scene seen from LIFT_FRAMES cameras: 2D
+    boxes around the projections of its labelled GT boxes' points, depth
+    PNGs from `write_png16`; returns the boxes lifted."""
+    from ov3det_torch.tools.lift_boxes import LiftConfig, lift_scene_scannet
+
+    H, W = LIFT_HW
+    frames = os.path.join(run, "frames", scan)
+    for sub in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(frames, sub))
+    b2d = os.path.join(run, "boxes2d", scan, "color")
+    os.makedirs(b2d)
+    f, cx, cy = 400.0, 320.0, 240.0  # 640 x 480 depth intrinsics, halved by the lifting
+    np.savetxt(os.path.join(frames, "intrinsic_depth.txt"),
+               np.array([[f, 0, cx, 0], [0, f, cy, 0], [0, 0, 1, 0], [0, 0, 0, 1]]))
+    labelled = np.load(os.path.join(tree["label_dir"], f"{scan}.npy"))
+    xyz, cls = labelled[:, :3], labelled[:, 3].astype(np.int64)
+    gt = np.load(os.path.join(tree["root_dir"], f"{scan}_bbox.npy"))
+    nyu = np.array([3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39])
+    rng = np.random.default_rng(1100)
+    for fid in range(LIFT_FRAMES):
+        # a camera 7 m back along -y looking at +y, image y down (world -z)
+        pose = np.array([[1.0, 0, 0, 0], [0, 0, 1, -7.0], [0, -1, 0, 1.0], [0, 0, 0, 1]])
+        pose[:3, 3] += rng.normal(0, 0.05, 3)
+        cam = (np.linalg.inv(pose) @ np.concatenate([xyz, np.ones((len(xyz), 1))], 1).T)[:3]
+        u = cam[0] * (f / 2) / cam[2] + cx / 2
+        v = cam[1] * (f / 2) / cam[2] + cy / 2
+        rows = []
+        for box in gt:
+            c = int(np.searchsorted(nyu, box[6]))
+            inside = (cls == c) & np.all(np.abs(xyz - box[:3]) <= box[3:6] / 2, axis=-1)
+            if inside.sum() < 10:
+                continue
+            x0, y0 = np.floor(u[inside].min()) - 2, np.floor(v[inside].min()) - 2
+            x1, y1 = np.ceil(u[inside].max()) + 2, np.ceil(v[inside].max()) + 2
+            if x0 > 0 and y0 > 0 and x1 < W and y1 < H:
+                rows.append([x0, y0, x1 - x0, y1 - y0, rng.uniform(0.5, 1.0), c])
+        np.save(os.path.join(b2d, f"{fid}.npy"), np.array(rows, np.float64).reshape(-1, 6))
+        open(os.path.join(frames, "color", f"{fid}.jpg"), "wb").close()
+        write_png16(os.path.join(frames, "depth", f"{fid}.png"),
+                    rng.integers(500, 5000, size=(H, W)).astype(np.uint16))
+        np.savetxt(os.path.join(frames, "pose", f"{fid}.txt"), pose)
+    t0 = time.perf_counter()
+    n = lift_scene_scannet(scan, detection_data_dir=tree["root_dir"] + "/",
+                           frames_dir=os.path.join(run, "frames"),
+                           label_path_fmt=os.path.join(tree["label_dir"], "{}.npy"),
+                           boxes2d_dir=os.path.join(run, "boxes2d"), out_dir=os.path.join(run, "lifted"),
+                           cfg=LiftConfig(use_gss=False, image_dims=LIFT_HW))
+    ms = (time.perf_counter() - t0) * 1e3
+    require("PIL" not in sys.modules, "lift: PIL was imported")
+    require(n > 0, "lift: no box lifted")
+    lifted = np.load(os.path.join(run, "lifted", f"{scan}_bbox.npy"))
+    require(lifted.shape == (n, 8) and np.isfinite(lifted).all(), f"lift: rows {lifted.shape}")
+    print(f"lift {scan}: {LIFT_FRAMES} frames of {H} x {W} (16-bit PNG depth read by "
+          f"ov3det_torch.utils.png), {len(gt)} GT boxes, {n} boxes lifted in {ms:.1f} ms (host); "
+          f"PIL not imported")
+    return n
+
+
+def text_tower(card: str, dev: torch.device) -> None:
+    """The CLIP text tower at RN50x4's width (640, 10 heads, 12 layers, 77
+    tokens, vocabulary 49 408), seeded weights, on the 18 ScanNet classes x
+    PROMPT_TEMPLATES with a stub vocabulary: the card against the CPU on the
+    first TEXT_CHECK_PROMPTS prompts within 1e-5 of the largest value (f32),
+    the forward of all 270 timed, the class embeddings unit rows."""
+    import gzip
+    import tempfile
+
+    from ov3det_torch.datasets.dataset_configs import ScannetDatasetConfig
+    from ov3det_torch.models.clip_text import (
+        CLIPTextEncoder,
+        SimpleBPETokenizer,
+        extract_class_embeddings,
+        tokenize_prompts,
+    )
+
+    names = [ScannetDatasetConfig().class2type[i] for i in range(18)]
+    with tempfile.TemporaryDirectory(prefix="ov3det_bpe_") as d:
+        path = os.path.join(d, "bpe.txt.gz")
+        with gzip.open(path, "wt", encoding="utf-8") as fh:  # a stub of CLIP's merges file
+            fh.write("#version: 0.2\nt h\nth e</w>\nc h\na i\nch ai\nchai r</w>\np h\no t\n"
+                     "ph ot\nphot o</w>\no f</w>\n")
+        prompts = tokenize_prompts(names, SimpleBPETokenizer(path))
+    flat = torch.from_numpy(prompts.reshape(-1, prompts.shape[-1]))
+    t0 = time.perf_counter()
+    on_card = CLIPTextEncoder(device=dev, seed=0)
+    build_s = time.perf_counter() - t0
+    on_cpu = CLIPTextEncoder(device="cpu", seed=0)
+    ids = flat.to(dev)
+    with torch.no_grad():
+        got = on_card(ids)
+        ms = cuda_ms(lambda: on_card(ids), 5)
+        t0 = time.perf_counter()
+        want = on_cpu(flat[:TEXT_CHECK_PROMPTS])
+        cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    err = ((got[:TEXT_CHECK_PROMPTS] - want).abs().max() / want.abs().max()).item()
+    require(got.shape == (len(flat), 640) and torch.isfinite(got).all(), "text tower: bad output")
+    require(err <= 1e-5, f"text tower: card vs CPU {err} of the largest value")
+    emb = extract_class_embeddings(on_card, prompts)
+    require(emb.shape == (18, 640) and np.allclose(np.linalg.norm(emb, axis=-1), 1, atol=1e-5),
+            "text tower: class embeddings are not unit rows")
+    params = sum(p.numel() for p in on_card.parameters())
+    print(f"text tower (RN50x4 width, {params / 1e6:.2f} M seeded weights, built in {build_s:.2f} s): "
+          f"{len(flat)} prompts x {flat.shape[1]} tokens in {ms:.2f} ms on the card (CUDA events, "
+          f"f32, TF32 off); card vs CPU within {err:.2e} of the largest value on "
+          f"{TEXT_CHECK_PROMPTS} prompts (the CPU {cpu_s:.2f} s); class embeddings {emb.shape} ({card})")
+    del on_card, on_cpu
+
+
+def reference_checkpoint(card: str, dev: torch.device) -> dict:
+    """A reference-layout 3DETR checkpoint at scannet_quick()'s width (the
+    port's seeded model written by `to_reference_state_dict`, saved as a
+    .pth) read by `load_reference_checkpoint` into a `Detector` with
+    `ball_query_method="first_k"`: one request's launches (FPS twice, no
+    ball-group, the attention forward 3 times), time and peak memory; the
+    first-K indices card against CPU on one scene; the first-K query and its
+    grouping beside the tile ball-group at 8 x 40 000, M 2048, K 64.
+    Returns the request's launch counts."""
+    import tempfile
+
+    from ov3det_torch.config import scannet_quick
+    from ov3det_torch.engine.infer import Detector
+    from ov3det_torch.models.convert_3detr import load_reference_checkpoint, to_reference_state_dict
+    from ov3det_torch.models.detr3d import Model3DETR
+    from ov3det_torch.ops.kernels.ball_group import ball_group
+    from ov3det_torch.ops.pointcloud import (
+        ball_query,
+        furthest_point_sample,
+        gather_points,
+        group_points,
+    )
+
+    quick = scannet_quick()
+    cfg = dataclasses.replace(quick.model, ball_query_method="first_k")
+    ref = to_reference_state_dict(Model3DETR(cfg, device="cpu", seed=5).state_dict())
+    with tempfile.TemporaryDirectory(prefix="ov3det_ref_") as d:
+        path = os.path.join(d, "checkpoint_best.pth")
+        torch.save({"model": {f"module.{k}": torch.from_numpy(v) for k, v in ref.items()},
+                    "epoch": 0}, path)
+        t0 = time.perf_counter()
+        state = load_reference_checkpoint(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        mb = os.path.getsize(path) / 1e6
+    det = Detector(cfg, state_dict=state, device=dev)
+    batches = synthetic_batches(quick, 2, 900)
+    det.detect(batches[0])  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dets = det.detect(batches[1])
+    request_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    require(counts == expect(fps=2, attention_fwd=3),
+            f"reference checkpoint request: launches {counts}, expected fps 2, attention_fwd 3")
+    require(len(dets) == BATCH and all(np.isfinite(c).all() and np.isfinite(s).all()
+                                       for _, c, s in dets), "reference checkpoint: bad detections")
+    # the same weights and request with the bucketed ball-group, the
+    # configuration's default: the yardstick of the first-K path's peak
+    bucketed = Detector(quick.model, state_dict=state, device=dev)
+    bucketed.detect(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bucketed.detect(batches[1])
+    bucketed_ms = (time.perf_counter() - t0) * 1e3
+    bucketed_peak = torch.cuda.max_memory_allocated()
+    del bucketed
+    print(f"reference checkpoint ({len(ref)} tensors, {mb:.2f} MB, read and converted in "
+          f"{load_ms:.1f} ms): first_k request of 8 x {SCANNET_POINTS} points {request_ms:.2f} ms, "
+          f"peak device memory {peak / 2**30:.3f} GiB (the same request with the bucketed "
+          f"ball-group: {bucketed_ms:.2f} ms, {bucketed_peak / 2**30:.3f} GiB), detections per "
+          f"scene {[len(c) for c, _, _ in dets]}, launches "
+          f"{ {n: c for n, c in counts.items() if c} } ({card})")
+
+    xyz = torch.from_numpy(batches[1]["point_clouds"][..., :3]).to(dev).contiguous()
+    centers = gather_points(xyz, furthest_point_sample(xyz, 2048)).contiguous()
+    radius, K = cfg.preenc_radius, cfg.preenc_nsample
+    got = ball_query(xyz[:1], centers[:1], radius, K).cpu()
+    want = ball_query(xyz[:1].cpu(), centers[:1].cpu(), radius, K)
+    require(torch.equal(got, want), "first_k: the card's indices differ from the CPU's")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    inds = ball_query(xyz, centers, radius, K)
+    torch.cuda.synchronize()
+    query_peak = torch.cuda.max_memory_allocated() - base
+    ms = {}
+    for name in ("first_k query", "first_k grouping", "tile ball-group", "tile ball-group",
+                 "first_k grouping", "first_k query"):
+        fn = {"first_k query": lambda: ball_query(xyz, centers, radius, K),
+              "first_k grouping": lambda: group_points(xyz, None, centers, inds, radius),
+              "tile ball-group": lambda: ball_group(xyz, None, centers, radius, K)}[name]
+        ms[name] = min(ms.get(name, math.inf), cuda_ms(fn, 5))
+    hits = (inds[..., 1:] != inds[..., :1]).sum(-1).float().mean().item() + 1
+    print(f"first_k at 8 x {SCANNET_POINTS}, M 2048, K {K}, r {radius}: indices equal card vs CPU "
+          f"on one scene; query {ms['first_k query']:.3f} ms (peak {query_peak / 2**20:.1f} MiB "
+          f"above its inputs) + grouping {ms['first_k grouping']:.3f} ms against the tile "
+          f"ball-group's {ms['tile ball-group']:.3f} ms (CUDA events, in turns; about {hits:.1f} "
+          f"distinct neighbours a ball) ({card})")
+    del det
+    return counts
+
+
+def pseudo_phase(card: str, dev: torch.device) -> dict:
+    """Phase 11: the pseudo-label round at scannet_quick()'s width on a
+    ScanNet-layout tree of synthetic scenes: train an epoch, label the train
+    split (all rows, then with the label filter at thresholds taken from
+    those rows), the rows card against CPU, retrain an epoch with --use_pbox
+    on the kept boxes, lift a scene, the text tower and a reference
+    checkpoint with the first-K ball query.  Returns the launch counts of
+    its training runs, label passes and first-K request."""
+    import shutil
+    import tempfile
+
+    from ov3det_torch.datasets.dataset_configs import ScannetDatasetConfig
+    from ov3det_torch.datasets.registry import build_dataset
+    from ov3det_torch.datasets.synthetic import write_scannet_tree
+    from ov3det_torch.generate_pseudo_label import make_pseudo_label_parser
+    from ov3det_torch.main import config_from_args
+    from ov3det_torch.tools.format_tools import adjust_format_to_nyu40
+
+    t_phase = time.perf_counter()
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="ov3det_pseudo_") as run:
+        t0 = time.perf_counter()
+        tree = write_scannet_tree(os.path.join(run, "scannet"), PSEUDO_TRAIN, PSEUDO_VAL,
+                                  SCANNET_POINTS, seed=11)
+        print(f"pseudo tree: {PSEUDO_TRAIN} train + {PSEUDO_VAL} val scans of {SCANNET_POINTS} "
+              f"points written in {time.perf_counter() - t0:.2f} s")
+        data = ["--dataset_root_dir", tree["root_dir"], "--meta_data_dir", tree["meta_data_dir"]]
+        label_argv = PSEUDO_ARGV + data
+        cfg = config_from_args(make_pseudo_label_parser().parse_args(label_argv))
+        Q = cfg.model.num_queries
+        dataset = build_dataset(cfg.data, splits=("inference",))[0]["inference"]
+        scans = list(dataset.scan_names)
+
+        def train_run(extra: list, label: str) -> CliProbe:
+            probe = CliProbe()
+            reset_counts()
+            t0 = time.perf_counter()
+            _, lines = run_cli(probe, PSEUDO_ARGV + data + extra)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            for line in lines:
+                if not (" Average Precision: " in line or " Recall: " in line):
+                    print(f"{label}| {line}")
+            require(len(probe.steps) == PSEUDO_TRAIN // BATCH
+                    and all(d == train_step for _, _, d in probe.steps),
+                    f"{label}: steps launched {[d for _, _, d in probe.steps]}")
+            require(bool(probe.evals) and all(d == eval_batch for d in probe.evals),
+                    f"{label}: eval batches launched {probe.evals}")
+            total.update(counts)
+            print(f"{label}: {wall:.2f} s wall ({len(probe.steps)} steps, {len(probe.evals)} eval "
+                  f"batches, checkpoints), launches { {n: c for n, c in counts.items() if c} } "
+                  f"({card})")
+            return probe
+
+        ckpt_dir = os.path.join(run, "train")
+        train_run(["--checkpoint_dir", ckpt_dir], "pseudo train")
+        ckpt = os.path.join(ckpt_dir, "checkpoint")
+
+        label_argv += ["--test_ckpt", ckpt]
+        reset_counts()
+        n, wall, batches, all_rows = pseudo_pass(
+            label_argv + ["--out_dir", os.path.join(run, "all"), "--conf_thresh", "0",
+                          "--obj_thresh", "0"], "pseudo all")
+        counts = read_counts()
+        files = sorted(os.listdir(os.path.join(run, "all")))
+        rows = [np.load(os.path.join(run, "all", name)) for name in files]
+        require(n == PSEUDO_TRAIN * Q and sum(len(r) for r in rows) == n,
+                f"pseudo all: {n} rows written, expected {PSEUDO_TRAIN} x {Q}")
+        require(files == [f"{s}_bbox.npy" for s in scans] and scans == tree["train"],
+                f"pseudo all: files {files}")
+        require(all(r.shape == (Q, 7) and np.isfinite(r).all() for r in rows),
+                "pseudo all: a file holds non-finite or misshapen rows")
+        want = expect(fps=2 * 2, ball_group=2, attention_fwd=2 * 3)
+        require(counts == want and [d for _, d in batches] == [eval_batch, eval_batch],
+                f"pseudo all: launches {counts}, batches {[d for _, d in batches]}")
+        total.update(counts)
+        print(f"pseudo label pass (no filter): {n} rows in {len(files)} files, {wall:.2f} s wall "
+              f"(model build, checkpoint, loader, 2 batches, formatter), batches "
+              f"{[round(ms, 2) for ms, _ in batches]} ms (host clock to a sync), launches "
+              f"{ {k: c for k, c in counts.items() if c} } ({card})")
+
+        # the filtered pass: thresholds from the rows above, and label files
+        # on which some boxes agree with their scene and some do not
+        slots = ScannetDatasetConfig().max_num_obj
+        conf, obj = pseudo_thresholds(all_rows, slots)
+        passed = all_rows[(all_rows[:, 7] >= conf) & (all_rows[:, 8] >= obj)]
+        painted = os.path.join(run, "painted")
+        paint_labels(tree, scans, passed, painted)
+        reset_counts()
+        n_kept, wall, batches, kept_rows = pseudo_pass(
+            label_argv + ["--out_dir", os.path.join(run, "kept"), "--label_dir", painted,
+                          "--conf_thresh", repr(conf), "--obj_thresh", repr(obj)], "pseudo filtered")
+        counts = read_counts()
+        require(counts == want, f"pseudo filtered: launches {counts}")
+        total.update(counts)
+        want_kept = kept_reference(kept_rows, conf, obj, painted, scans)
+        kept = {s: np.load(os.path.join(run, "kept", f"{s}_bbox.npy")) for s in scans}
+        n_passed = int(((kept_rows[:, 7] >= conf) & (kept_rows[:, 8] >= obj)).sum())
+        require(0 < n_kept < n_passed, f"pseudo filtered: {n_kept} boxes kept of {n_passed} over "
+                                       "the thresholds: the filter must keep some and drop some")
+        require(n_kept == sum(len(k) for k in want_kept)
+                and all(len(kept[s]) == len(k) for s, k in zip(scans, want_kept)),
+                f"pseudo filtered: kept {[len(kept[s]) for s in scans]} a scan, a direct count "
+                f"gives {[len(k) for k in want_kept]}")
+        for s, k in zip(scans, want_kept):  # the formatter writes them grouped by class
+            order = np.argsort(k[:, 6], kind="stable")
+            require(np.array_equal(kept[s], k[order, :7]), f"pseudo filtered: {s}'s rows differ")
+        rerun = np.abs(kept_rows - all_rows).max()
+        print(f"pseudo label pass (--label_dir, conf {conf:.6g}, obj {obj:.6g}, the thresholds "
+              f"from the first pass's rows): {n_kept} boxes kept of the {n_passed} over them "
+              f"(most in a scan: {max(len(k) for k in want_kept)}), equal to a direct count, "
+              f"{wall:.2f} s wall, batches {[round(ms, 2) for ms, _ in batches]} ms; its rows "
+              f"within {rerun:.2e} of the first pass's ({card})")
+
+        pseudo_card_vs_cpu(cfg, ckpt, dataset, dev)
+
+        # the retraining round: the kept boxes in nyu40 ids (ScanNet's loader
+        # reads those); the val split reads --pseudo_label_dir too, and gets
+        # its GT boxes there, as a lifting over every scan would give it
+        pbox = os.path.join(run, "pbox")
+        adjust_format_to_nyu40(os.path.join(run, "kept"), pbox, scans)
+        for scan in tree["val"]:
+            shutil.copy(os.path.join(tree["root_dir"], f"{scan}_bbox.npy"), pbox)
+        probe = train_run(["--use_pbox", "--pseudo_label_dir", pbox, "--checkpoint_dir",
+                           os.path.join(run, "retrain")], "pseudo retrain")
+        carried = {}
+        for b in probe.train_boxes:
+            for i, present, sem in zip(b["scan_idx"], b["gt_box_present"], b["gt_box_sem_cls_label"]):
+                k, scan = int(present.sum()), scans[int(i)]
+                require(k == len(kept[scan])
+                        and np.array_equal(sem[:k], kept[scan][:, 6].astype(np.int64)),
+                        f"pseudo retrain: {scan} carries {k} GT boxes of classes {sem[:k].tolist()}, "
+                        f"its pseudo-label file {kept[scan][:, 6].tolist()}")
+                carried[scan] = k
+        require(sorted(carried) == scans and sum(carried.values()) == n_kept,
+                f"pseudo retrain: its batches carry {carried}, {n_kept} boxes kept")
+        print(f"pseudo retrain: its {len(probe.train_boxes)} batches carry the {n_kept} kept boxes "
+              f"as GT ({[carried[s] for s in scans]} a scan), each scan's count and classes those "
+              f"of its file in --pseudo_label_dir")
+        gc.collect()
+        require(not multiprocessing.active_children(),
+                f"pseudo: loader workers outlived the runs: {multiprocessing.active_children()}")
+
+        lift_scene(tree, tree["train"][0], run)
+    text_tower(card, dev)
+    total.update(reference_checkpoint(card, dev))
+    print(f"phase 11 (the pseudo-label round): {time.perf_counter() - t_phase:.1f} s")
+    return dict(total)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2076,11 +2649,12 @@ def main() -> int:
 
     cli_counts = cli_phase(card)
     ov_trained, ov_cli_counts = ov_phase(card, dev)
+    pseudo_counts = pseudo_phase(card, dev)
 
     kernels = []
     for name, (source, replaces) in kernel_sources().items():
-        count = sum(c[name] for c in (served, trained, m_served, m_trained, cli_counts,
-                                      ov_trained, ov_cli_counts))
+        count = sum(c.get(name, 0) for c in (served, trained, m_served, m_trained, cli_counts,
+                                             ov_trained, ov_cli_counts, pseudo_counts))
         require(count > 0, f"{name} was not launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **entries[name]})

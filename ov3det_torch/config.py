@@ -77,18 +77,15 @@ class ModelConfig:
     interim_nsample: int = 32
     interim_mlp: tuple[int, ...] = (256, 256, 256)
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
-    ball_query_method: str = "bucketed"  # only "bucketed" is ported
+    ball_query_method: str = "bucketed"  # "bucketed" | "first_k" (reference checkpoints)
 
     def __post_init__(self):
         if self.encoder.kind not in ("vanilla", "masked"):
             raise ValueError(f"unknown encoder kind {self.encoder.kind!r}")
         if self.encoder.kind == "masked" and len(self.encoder.masking_radius) != self.encoder.num_layers:
             raise ValueError("masking_radius needs one radius per encoder layer")
-        if self.ball_query_method != "bucketed":
-            raise NotImplementedError(
-                f"ball_query_method {self.ball_query_method!r} is not ported "
-                "yet; only the bucketed ball query is"
-            )
+        if self.ball_query_method not in ("bucketed", "first_k"):
+            raise ValueError(f"unknown ball_query_method {self.ball_query_method!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.pos_embed not in ("fourier", "sine"):

@@ -7,8 +7,14 @@ one `np.random.Generator` state gives bit-identical scenes in both packages.
 schema's 530 x 730 uint8 canvas and calibration, bit for bit.
 Scenes hold a floor slab plus points concentrated inside the GT boxes; the
 schema is that of the real SUN RGB-D / ScanNet loaders.
+
+`write_scannet_tree` writes such scenes as a ScanNet detection tree (the
+files `datasets/scannet.py` reads, and per-scan point labels for the
+pseudo-label filter), for runs of the CLIs without the real dataset.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -195,3 +201,51 @@ class SyntheticOVDataset(SyntheticDataset):
         d["calib_Rtilt"] = self._RTILT
         d["calib_K"] = self._K
         return d
+
+
+# ScanNet's 18 detection classes as nyu40 ids (`ScannetDatasetConfig.nyu40ids`)
+_NYU40IDS = np.array([3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39])
+
+
+def write_scannet_tree(root: str, num_train: int, num_val: int, num_points: int = 40000,
+                       seed: int = 0) -> dict:
+    """Write `num_train + num_val` `make_scene` scenes (18 classes, 1 angle
+    bin; scene i from `default_rng(seed * 100003 + i)`) as a ScanNet
+    detection tree under `root`:
+
+      scannet_train_detection_data/scene{i:04d}_00_vert.npy  (N, 6) xyz, rgb 0..255
+      scannet_train_detection_data/scene{i:04d}_00_bbox.npy  (K, 7) center, size, nyu40 id
+      meta_data/scannetv2_train.txt, scannetv2_val.txt       the first num_train, the rest
+      labels/scene{i:04d}_00.npy                             (N, 4) xyz, class 0..17 (18: none)
+
+    The label files are what `generate_pseudo_label --label_dir` reads: each
+    point carries the class of the first GT box holding it.  Returns the
+    three directories and the two splits' scan names."""
+    data, meta, labels = (os.path.join(root, d) for d in
+                          ("scannet_train_detection_data", "meta_data", "labels"))
+    for d in (data, meta, labels):
+        os.makedirs(d, exist_ok=True)
+    names = [f"scene{i:04d}_00" for i in range(num_train + num_val)]
+    for i, name in enumerate(names):
+        rng = np.random.default_rng(seed * 100003 + i)
+        s = make_scene(rng, num_points=num_points, num_semcls=18, num_angle_bin=1, scan_idx=i)
+        xyz = s["point_clouds"]
+        k = int(s["gt_box_present"].sum())
+        centers, sizes = s["gt_box_centers"][:k], s["gt_box_sizes"][:k]
+        cls = s["gt_box_sem_cls_label"][:k]
+        rgb = rng.integers(0, 256, size=(len(xyz), 3)).astype(np.float32)
+        np.save(os.path.join(data, f"{name}_vert.npy"), np.concatenate([xyz, rgb], 1))
+        np.save(os.path.join(data, f"{name}_bbox.npy"),
+                np.concatenate([centers, sizes, _NYU40IDS[cls][:, None]], 1).astype(np.float32))
+        point_cls = np.full(len(xyz), 18, np.int64)
+        for j in range(k - 1, -1, -1):  # the first box holding a point wins
+            inside = np.all(np.abs(xyz - centers[j]) <= sizes[j] / 2, axis=-1)
+            point_cls[inside] = cls[j]
+        np.save(os.path.join(labels, f"{name}.npy"),
+                np.concatenate([xyz, point_cls[:, None].astype(np.float32)], 1))
+    with open(os.path.join(meta, "scannetv2_train.txt"), "w") as fh:
+        fh.write("\n".join(names[:num_train]))
+    with open(os.path.join(meta, "scannetv2_val.txt"), "w") as fh:
+        fh.write("\n".join(names[num_train:]))
+    return {"root_dir": data, "meta_data_dir": meta, "label_dir": labels,
+            "train": names[:num_train], "val": names[num_train:]}

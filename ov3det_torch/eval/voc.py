@@ -24,12 +24,16 @@ def voc_ap(rec: np.ndarray, prec: np.ndarray) -> float:
     return float(np.sum((mrec[i + 1] - mrec[i]) * mpre[i + 1]))
 
 
-def eval_det_cls(pred, gt, ovthresh=0.25):
+def eval_det_cls(pred, gt, ovthresh=0.25, iou=None):
     """Greedy matching for one class (reference utils/eval_det.py:66-155).
 
     pred: {scan_id: (corners (m, 8, 3), scores (m,))};
     gt: {scan_id: corners (g, 8, 3)} (possibly empty arrays).
+    iou: (boxes (m, ...), gts (g, ...)) -> (m, g); None is the rotated
+    `box3d_iou_batch_np` of corner sets (`tools/evaluate_box.py` passes an
+    axis-aligned IoU of 6-vectors).
     """
+    iou = box3d_iou_batch_np if iou is None else iou
     class_recs = {}
     npos = 0
     for img_id in gt.keys():
@@ -59,9 +63,7 @@ def eval_det_cls(pred, gt, ovthresh=0.25):
     for img_id, (boxes, scores) in pred.items():
         gts = class_recs[img_id]["bbox"]
         if len(boxes) and len(gts):
-            iou_cache[img_id] = box3d_iou_batch_np(
-                np.asarray(boxes, np.float64), np.asarray(gts, np.float64)
-            )
+            iou_cache[img_id] = iou(np.asarray(boxes, np.float64), np.asarray(gts, np.float64))
 
     sorted_ind = np.argsort(-confidence) if len(confidence) else []
     nd = len(image_ids)

@@ -25,6 +25,17 @@ folded BatchNorms gone):
   dense kernel (in, out), bias     -> weight (out, in), bias
   BatchNorm, positional grid, scale, a_scale, bias: as they are.
 
+`from_flax_text_variables` maps the JAX package's CLIP text tower
+(`ov3det.models.clip_text.CLIPTextEncoder`) onto the torch-CLIP names of
+`ov3det_torch.models.clip_text.CLIPTextEncoder`:
+
+  attn_i query/key/value kernel (w, H, hd), bias (H, hd)
+                                   -> attn.in_proj_weight (3w, w), in_proj_bias
+  attn_i out kernel (H, hd, w)     -> attn.out_proj.weight (w, w), .bias
+  ln1_i / ln2_i / ln_final         -> ln_1 / ln_2 / ln_final .weight .bias
+  mlp_fc_i / mlp_proj_i            -> mlp.c_fc / mlp.c_proj .weight .bias
+  token_embedding, positional_embedding, text_projection: as they are.
+
 The masked encoder's tree needs nothing more: its interim set abstraction
 sits in the detector's scope (`interim_downsample/Dense_i`,
 `BatchNorm_i` -> `interim_downsample.layers.i`, `.norms.i`), its layers
@@ -117,7 +128,8 @@ def from_flax_variables(variables: dict) -> dict:
             sd["pos_embedding.gauss_B"] = p["gauss_B"]
         else:
             sd.update(_mlp(name, p, stats.get(name, {})))
-    sd["text_embed"] = variables["frozen"]["text_embed"]
+    if "text_embed" in variables.get("frozen", {}):  # a reference checkpoint may lack it
+        sd["text_embed"] = variables["frozen"]["text_embed"]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
@@ -153,3 +165,32 @@ def from_flax_teacher_variables(variables: dict) -> dict:
 
     walk(variables["params"], "")
     return out
+
+
+def from_flax_text_variables(variables: dict) -> dict:
+    """{"params": ...} of the JAX text tower (numpy leaves) -> the state
+    dict of the port's `CLIPTextEncoder` (f32 CPU tensors)."""
+    params = variables["params"]
+    sd = {"token_embedding.weight": params["token_embedding"],
+          "positional_embedding": params["positional_embedding"],
+          "text_projection": params["text_projection"],
+          "ln_final.weight": params["ln_final"]["scale"],
+          "ln_final.bias": params["ln_final"]["bias"]}
+    layers = sum(1 for name in params if name.startswith("attn_"))
+    for i in range(layers):
+        p = f"transformer.resblocks.{i}."
+        attn = params[f"attn_{i}"]
+        qkv = [np.asarray(attn[n]["kernel"]) for n in ("query", "key", "value")]
+        sd[p + "attn.in_proj_weight"] = np.concatenate([k.reshape(k.shape[0], -1).T for k in qkv])
+        sd[p + "attn.in_proj_bias"] = np.concatenate(
+            [np.asarray(attn[n]["bias"]).reshape(-1) for n in ("query", "key", "value")])
+        out = np.asarray(attn["out"]["kernel"])  # (H, hd, w)
+        sd[p + "attn.out_proj.weight"] = out.reshape(-1, out.shape[-1]).T
+        sd[p + "attn.out_proj.bias"] = attn["out"]["bias"]
+        for src, dst in ((f"ln1_{i}", "ln_1"), (f"ln2_{i}", "ln_2")):
+            sd[f"{p}{dst}.weight"] = params[src]["scale"]
+            sd[f"{p}{dst}.bias"] = params[src]["bias"]
+        for src, dst in ((f"mlp_fc_{i}", "mlp.c_fc"), (f"mlp_proj_{i}", "mlp.c_proj")):
+            sd[f"{p}{dst}.weight"] = np.asarray(params[src]["kernel"]).T
+            sd[f"{p}{dst}.bias"] = params[src]["bias"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}

@@ -94,6 +94,7 @@ class Model3DETR(nn.Module):
             npoint=cfg.preenc_npoints, radius=cfg.preenc_radius,
             nsample=cfg.preenc_nsample, in_channels=3 if cfg.use_color else 0,
             mlp_dims=tuple(cfg.preenc_mlp[:-1]) + (enc.dim,), compute_dtype=dtype,
+            ball_query_method=cfg.ball_query_method,
         )
         if enc.kind == "masked":
             # registered here, not under `encoder`: the flax tree has it in
@@ -102,6 +103,7 @@ class Model3DETR(nn.Module):
                 npoint=cfg.preenc_npoints // 2, radius=cfg.interim_radius,
                 nsample=cfg.interim_nsample, in_channels=enc.dim,
                 mlp_dims=tuple(cfg.interim_mlp[:-1]) + (enc.dim,), compute_dtype=dtype,
+                ball_query_method=cfg.ball_query_method,
             )
             self.encoder = MaskedTransformerEncoder(
                 enc.num_layers, enc.dim, enc.masking_radius, enc.num_heads, enc.ffn_dim,

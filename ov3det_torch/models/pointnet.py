@@ -10,6 +10,10 @@ The features do get one (the ball-group's backward, `BallGroup`): the
 masked encoder's interim set abstraction groups the encoder's 256-channel
 token features and trains through them.  The pre-encoder groups the raw
 input colour, or nothing.
+
+`ball_query_method="first_k"` (reference 3DETR checkpoints) takes
+`ball_query` + `group_points` instead (`pointnet.py:68-73` of the JAX
+package): the (B, M, K, 3 + C) layout, pooled over axis 2.
 """
 from __future__ import annotations
 
@@ -19,13 +23,21 @@ import torch
 from torch import nn
 
 from ov3det_torch.models.mlp import BatchNorm, Dense
-from ov3det_torch.ops.pointcloud import ball_group, furthest_point_sample, gather_points
+from ov3det_torch.ops.pointcloud import (
+    ball_group,
+    ball_query,
+    furthest_point_sample,
+    gather_points,
+    group_points,
+)
 
 
 class PointnetSAModule(nn.Module):
     def __init__(self, npoint: int, radius: float, nsample: int, in_channels: int,
-                 mlp_dims: Sequence[int], compute_dtype: Optional[torch.dtype] = None):
+                 mlp_dims: Sequence[int], compute_dtype: Optional[torch.dtype] = None,
+                 ball_query_method: str = "bucketed"):
         super().__init__()
+        self.ball_query_method = ball_query_method
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
@@ -41,7 +53,13 @@ class PointnetSAModule(nn.Module):
         new_features (B, npoint, mlp_dims[-1]), fps_inds (B, npoint))."""
         inds = furthest_point_sample(xyz, self.npoint)
         new_xyz = gather_points(xyz, inds)
-        h = ball_group(xyz, features, new_xyz, self.radius, self.nsample)  # (B, K, M, 3 + C)
+        if self.ball_query_method == "bucketed":
+            h = ball_group(xyz, features, new_xyz, self.radius, self.nsample)  # (B, K, M, 3 + C)
+            k_axis = 1
+        else:
+            inds_k = ball_query(xyz, new_xyz, self.radius, self.nsample)
+            h = group_points(xyz, features, new_xyz, inds_k, self.radius)  # (B, M, K, 3 + C)
+            k_axis = 2
         for layer, norm in zip(self.layers, self.norms):
             h = torch.relu(norm(layer(h)))
-        return new_xyz, h.amax(dim=1), inds
+        return new_xyz, h.amax(dim=k_axis), inds

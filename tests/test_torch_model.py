@@ -78,8 +78,12 @@ def _same_train_config(tq, jq):
 
 
 def test_config_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tc.ModelConfig(ball_query_method="first_k")
+    # the first-K ball query of reference checkpoints is ported: accepted, as
+    # JAX's field; an unknown method is refused
+    first_k = tc.ModelConfig(ball_query_method="first_k")
+    assert first_k.ball_query_method == jc.ModelConfig(ball_query_method="first_k").ball_query_method
+    with pytest.raises(ValueError):
+        tc.ModelConfig(ball_query_method="knn")
     # the masked encoder is ported: accepted, with the reference's radii
     masked = tc.ModelConfig(encoder=tc.EncoderConfig(kind="masked", dropout=0.3))
     assert dataclasses.asdict(masked.encoder) == dataclasses.asdict(
