@@ -108,10 +108,10 @@ at once), then:
      and sizes, and the peak device memory; then the host AP with the C++
      rotated IoU and with the numpy one, in turns, on the `--test_only` pass
      and on 16 scenes of detections near the GT boxes;
-  9. (after 11) prints the kernels line (launches summed over the serving
+  9. (after 12) prints the kernels line (launches summed over the serving
      and training runs of both configs, the CLI's run, phase 10's OV
-     training and OV CLI runs and phase 11's runs), the card line, and last
-     {"ok": true, "device": {...}}.
+     training and OV CLI runs, phase 11's runs and phase 12's), the card
+     line, and last {"ok": true, "device": {...}}.
  10. the open-vocabulary step ("OV sunrgbd_quick": `sunrgbd_quick()` with
      the 2D-alignment loss at weight 1, as bench.py:518-530 builds it, and
      the frozen RegionCLIP RN50x4 teacher in int8 at its defaults, seeded
@@ -168,6 +168,30 @@ at once), then:
      the attention forward 3 times), its time and peak memory, the first-K
      indices card against CPU on one scene, and the first-K query and its
      grouping timed beside the tile ball-group at 8 x 40 000, M 2048, K 64.
+ 12. data parallelism and the image bank.  The machine has one card, so two
+     ranks share cuda:0 over gloo (NCCL refuses two ranks on one device):
+       the steps: two processes this script spawns, each 8 of the 16 scenes
+       of a global batch at `sunrgbd_quick()`'s full width; in f32 with TF32
+       off and every dropout at 0, two steps against one rank of the 16
+       scenes on the card (every loss within 1e-4 relative, the parameters
+       within 1e-4, the BatchNorm statistics within 1e-5 relative; the ranks
+       equal bit for bit); then 3 bf16 steps at the config's dropout a rank,
+       each launching FPS twice, the ball-group once and each attention
+       kernel 3 times, timed, and one step split into its stages with each
+       all-reduce timed (the gradient's, BatchNorm's and the criterion's);
+       a one-rank NCCL group: its all-reduce leaves the gradients bit for
+       bit, and the step equals the step with no group as far as two steps
+       with no group equal each other;
+       the CLI in two ranks (the group joined before `main`) at
+       `scannet_quick()`'s width, one epoch of 4 global steps and its eval:
+       rank 0 alone prints and writes, one set of files, one AP table, the
+       launches of every step and eval batch, and its final AP equal to a
+       one-rank `--test_only` of the checkpoint within 1e-3;
+       `--use_image --image_bank`, the OV CLI for one epoch as in 10: the
+       bank's bytes on the card and the loop's wait on the loader beside
+       phase 10's unbanked epoch; the bank's rows the encode of the scenes'
+       canvases, the card's decode equal to the host's (uint8), and a banked
+       step's losses within 1e-6 of a step given the host's canvases.
 Launch counts are set to 0 just before each serving, training and CLI run,
 and read just after it.  The radius variants of the attention kernels count
 apart (`.radius_launches`) and have their own entries in the kernels line.
@@ -1368,17 +1392,22 @@ def train(cfg, steps: int, per_step: dict, label: str, seed: int, dev: torch.dev
     return counts
 
 
+def f32_no_dropout(cfg):
+    """`cfg` with its detector in f32 and every dropout at 0."""
+    model = dataclasses.replace(
+        cfg.model, compute_dtype="float32", mlp_dropout=0.0,
+        encoder=dataclasses.replace(cfg.model.encoder, dropout=0.0),
+        decoder=dataclasses.replace(cfg.model.decoder, dropout=0.0))
+    return dataclasses.replace(cfg, model=model)
+
+
 def train_card_vs_cpu(base, label: str, seed: int) -> None:
     """Phases 6 and 7: one f32 training step with every dropout at 0 on one
     scene at full width, on the card and on the CPU, from the same weights."""
     from ov3det_torch.engine.train import batch_to_device, build_training
     from ov3det_torch.losses.criterion import compute_assignments
 
-    model_cfg = dataclasses.replace(
-        base.model, compute_dtype="float32", mlp_dropout=0.0,
-        encoder=dataclasses.replace(base.model.encoder, dropout=0.0),
-        decoder=dataclasses.replace(base.model.decoder, dropout=0.0))
-    cfg = dataclasses.replace(base, model=model_cfg)
+    cfg = f32_no_dropout(base)
     scene = {k: v[:1] for k, v in synthetic_batches(cfg, 1, seed)[0].items()}
     res = {}
     for name in ("cuda", "cpu"):
@@ -1927,11 +1956,12 @@ def ov_batches(cfg, n: int, seed: int) -> list:
     return [collate([ds[i * BATCH + j] for j in range(BATCH)]) for i in range(n)]
 
 
-def ov_cli(card: str, dev: torch.device) -> dict:
+def ov_cli(card: str, dev: torch.device) -> tuple:
     """`main(argv)` with --use_image at the full width of sunrgbd_quick: one
     epoch of 8 steps and its evals; every step launches as a training step,
     every eval batch as a request; the checkpoint holds the detector and its
-    optimiser only, the same keys, shapes and size as a point-only run's."""
+    optimiser only, the same keys, shapes and size as a point-only run's.
+    Returns the launch counts and the loop's waits on the loader."""
     import tempfile
 
     from ov3det_torch import main as cli
@@ -1988,12 +2018,12 @@ def ov_cli(card: str, dev: torch.device) -> dict:
           f"{peak / 2**30:.3f} GiB; checkpoint {size / 1e6:.2f} MB, a point-only run's "
           f"{ref_size / 1e6:.2f} MB, no teacher tensor ({card})")
     print(f"ov cli launches: { {n: c for n, c in counts.items() if c} }")
-    return counts
+    return counts, probe.waits
 
 
 def ov_phase(card: str, dev: torch.device) -> tuple:
     """Phase 10: the open-vocabulary step; returns the launch counts of its
-    training run and of its CLI run."""
+    training run and of its CLI run, and the CLI's waits on the loader."""
     from ov3det_torch import main as cli
     from ov3det_torch.models.regionclip import (
         RegionCLIPTeacher,
@@ -2031,9 +2061,9 @@ def ov_phase(card: str, dev: torch.device) -> tuple:
                     teacher=teacher, batches=batches)
     del teacher, batches
     gc.collect()
-    cli_counts = ov_cli(card, dev)
+    cli_counts, waits = ov_cli(card, dev)
     print(f"phase 10 (the open-vocabulary step): {time.perf_counter() - t_phase:.1f} s")
-    return trained, cli_counts
+    return trained, cli_counts, waits
 
 
 
@@ -2581,6 +2611,469 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
     return dict(total)
 
 
+# ------------------------------------------------------------ phase 12: data parallel and the bank
+DDP_WORLD = 2  # ranks, both on cuda:0 over gloo: the machine has one card
+DDP_STEPS = 3  # bf16 steps a rank, after a warm-up
+DDP_TIMEOUT = 600  # seconds for a spawned group of ranks
+SHARED_CARD = ("two processes share one card, so these times say nothing about the scaling "
+               "of data parallelism")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(fn, args: tuple, label: str) -> None:
+    """fn(rank, *args) in DDP_WORLD spawned processes; a rank that fails, or
+    a group that outlives DDP_TIMEOUT, fails the phase (the others are
+    killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=DDP_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + DDP_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):  # raises when a rank failed, and ends the others
+            require(time.monotonic() < deadline, f"{label}: the ranks outlived {DDP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def join_gloo(rank: int, port: int) -> torch.device:
+    """A rank of the phase's group: gloo on cuda:0, TF32 off."""
+    sys.path.insert(0, HERE)
+    from ov3det_torch.parallel import init_data_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    init_data_group(rank, DDP_WORLD, f"tcp://localhost:{port}", dev, backend="gloo")
+    return dev
+
+
+def global_batches(cfg, n: int, seed: int) -> list:
+    """n seeded numpy batches of the global batch, DDP_WORLD x the config's."""
+    per = cfg.data.batch_size_per_device
+    return synthetic_batches(dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, batch_size_per_device=per * DDP_WORLD)), n, seed)
+
+
+def timed_collectives():
+    """A spy on torch.distributed.all_reduce: each call's elements and ms
+    (synchronised on both sides)."""
+    import torch.distributed as dist
+
+    calls, original = [], dist.all_reduce
+
+    def all_reduce(t, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(t, *args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((t.numel(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    return calls, original, all_reduce
+
+
+def grad_taker(model, stage: str, into: list):
+    """A `mark` hook that appends the model's gradients, by name, on the
+    host, when the step reaches `stage`."""
+    def mark(name):
+        if name == stage:
+            into.append({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                         if p.grad is not None})
+    return mark
+
+
+def worst_leaf_err(got: dict, want: dict) -> tuple:
+    """(the largest relative error of a gradient leaf, its name): |got -
+    want| over |want| (L2), or over 1e-3 of the whole gradient's norm for a
+    leaf smaller than that (a bias that BatchNorm cancels has a gradient of
+    rounding noise)."""
+    floor = 1e-3 * float(torch.cat([g.reshape(-1) for g in want.values()]).norm())
+    require(set(got) == set(want), f"ddp: gradient leaves {sorted(set(got) ^ set(want))[:3]}")
+    return max((float((got[n] - w).norm()) / max(float(w.norm()), floor), n)
+               for n, w in want.items())
+
+
+def ddp_steps_rank(rank: int, port: int, out: str) -> None:
+    """A rank of phase 12's steps: two f32 steps (dropout 0) and the bf16
+    steps at the config's dropout on its rows of the global batches; one
+    step with its collectives timed."""
+    import torch.distributed as dist
+
+    dev = join_gloo(rank, port)
+    try:
+        from ov3det_torch.config import sunrgbd_quick
+        from ov3det_torch.engine.train import batch_to_device, build_training
+        from ov3det_torch.parallel import shard_batch
+
+        res = {"f32": [], "grads": []}
+        cfg = f32_no_dropout(sunrgbd_quick())
+        training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for batch in global_batches(cfg, 2, 1200):
+            m = training.train_step(shard_batch(batch_to_device(batch, dev)), gen,
+                                    mark=grad_taker(training.model, "all_reduce", res["grads"]))
+            res["f32"].append({k: v.item() for k, v in m.items()})
+        res["state"] = {k: v.cpu() for k, v in training.model.state_dict().items()}
+        del training
+
+        cfg = sunrgbd_quick()
+        training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batches = [shard_batch(batch_to_device(b, dev))
+                   for b in global_batches(cfg, DDP_STEPS + 2, 1300)]
+        training.train_step(batches[0], gen)  # warm-up
+        reset_counts()
+        res["steps"] = []
+        for batch in batches[1:DDP_STEPS + 1]:
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = training.train_step(batch, gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = read_counts()
+            res["steps"].append((ms, {n: after[n] - before[n] for n in after}, m["loss"].item(),
+                                 m["grad_norm"].item()))
+        res["counts"] = read_counts()
+
+        # one more step, synchronised at each stage, its all-reduces timed
+        calls, original, spy = timed_collectives()
+        marks = []
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        dist.all_reduce = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            training.train_step(batches[-1], gen, mark=mark)
+        finally:
+            dist.all_reduce = original
+        times = [t for _, t in marks]
+        res["stages"] = {n: (t - p) * 1e3 for (n, t), p in zip(marks, [t0] + times[:-1])}
+        res["collectives"] = calls
+        torch.save(res, os.path.join(out, f"steps{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_cli_rank(rank: int, port: int, out: str, argv: list) -> None:
+    """A rank of phase 12's CLI: `main(argv)` in this process, inside the
+    group, under the probe's spies."""
+    import torch.distributed as dist
+
+    join_gloo(rank, port)
+    try:
+        probe = CliProbe()
+        reset_counts()
+        t0 = time.perf_counter()
+        _, lines = run_cli(probe, argv)
+        wall = time.perf_counter() - t0
+        torch.save({"lines": lines, "steps": [d for _, _, d in probe.steps], "evals": probe.evals,
+                    "waits": probe.waits, "saves": probe.saves, "wall": wall,
+                    "counts": read_counts()}, os.path.join(out, f"cli{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_steps(card: str, dev: torch.device) -> dict:
+    """Two ranks on the card against one rank of the global batch; returns
+    the launches of both ranks' timed steps."""
+    import tempfile
+
+    from ov3det_torch.config import sunrgbd_quick
+    from ov3det_torch.engine.train import batch_to_device, build_training
+
+    step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    cfg = f32_no_dropout(sunrgbd_quick())
+    training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    want_grads = []  # no group: the step's gradient is whole at the end of the backward
+    take = grad_taker(training.model, "backward", want_grads)
+    want = [{k: v.item() for k, v in training.train_step(batch_to_device(b, dev), gen,
+                                                         mark=take).items()}
+            for b in global_batches(cfg, 2, 1200)]
+    want_state = {k: v.cpu() for k, v in training.model.state_dict().items()}
+    del training
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="ov3det_ddp_") as out:
+        t0 = time.perf_counter()
+        spawn_ranks(ddp_steps_rank, (free_port(), out), "ddp steps")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"steps{r}.pt"), weights_only=False)
+                 for r in range(DDP_WORLD)]
+    print(f"ddp steps: {DDP_WORLD} ranks spawned on cuda:0 over gloo, {wall:.1f} s wall for both "
+          f"(start, f32 steps, bf16 steps) ({card})")
+
+    r0 = ranks[0]
+    require(all(r["f32"] == r0["f32"] for r in ranks), "ddp: the ranks report other metrics")
+    require(all(torch.equal(r["state"][k], v) for r in ranks[1:] for k, v in r0["state"].items()),
+            "ddp: the ranks hold other weights")
+    loss_err = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
+                   for g, w in zip(r0["f32"], want) for k in w if k.startswith("loss"))
+    gn_err = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                 for g, w in zip(r0["f32"], want))
+    param_err = max(float((r0["state"][k] - v).abs().max()) for k, v in want_state.items()
+                    if "running" not in k)
+    bn_err = max(float(((r0["state"][k] - v).abs() / v.abs().clamp(min=1)).max())
+                 for k, v in want_state.items() if "running" in k)
+    require(len(r0["grads"]) == len(want_grads) == 2, "ddp: the all-reduced gradient not seen")
+    grad_err, grad_leaf = max(worst_leaf_err(g, w) for g, w in zip(r0["grads"], want_grads))
+    print(f"ddp f32 (TF32 off, dropout 0), 2 ranks x 8 scenes against 1 rank x 16 on the card, "
+          f"two steps: losses within {loss_err:.2e} relative, grad_norm {gn_err:.2e}, the "
+          f"all-reduced gradient leaf by leaf {grad_err:.2e} (worst: {grad_leaf}; relative, L2), "
+          f"parameters {param_err:.2e}, BatchNorm statistics {bn_err:.2e} (relative, over "
+          f"max(1, |x|))")
+    require(loss_err <= 1e-4, f"ddp: a loss differs by {loss_err} relative")
+    require(gn_err <= 1e-4, f"ddp: grad_norm differs by {gn_err} relative")
+    # BatchNorm's f32 noise grows ~10x a layer down the backward: the first SA
+    # layer's weight reads ~1e-3; a reduction that averages is 0.5 off on every
+    # leaf, one that drops or doubles a rank that rank's share
+    require(grad_err <= 1e-2, f"ddp: the gradient's {grad_leaf} differs by {grad_err} relative")
+    require(param_err <= 1e-4, f"ddp: a parameter differs by {param_err}")
+    require(bn_err <= 1e-5, f"ddp: a BatchNorm statistic differs by {bn_err}")
+
+    counts = collections.Counter()
+    for r, res in enumerate(ranks):
+        for i, (ms, delta, loss, gnorm) in enumerate(res["steps"]):
+            require(delta == step, f"ddp rank {r} step {i}: launches {delta}, expected {step}")
+            require(math.isfinite(loss) and math.isfinite(gnorm), f"ddp rank {r} step {i}: {loss}")
+        counts.update(res["counts"])
+        print(f"ddp rank {r}: bf16 sunrgbd_quick steps at the config's dropout, 8 of the 16 "
+              f"scenes: {[round(s[0], 2) for s in res['steps']]} ms, loss "
+              f"{res['steps'][-1][2]:.4f}, launches a step { {n: c for n, c in step.items() if c} }"
+              f" ({SHARED_CARD}; {card})")
+        grad_n = max(n for n, _ in res["collectives"])  # the gradient's flat buffer
+        grads = [ms for n, ms in res["collectives"] if n == grad_n]
+        small = [ms for n, ms in res["collectives"] if n != grad_n]
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in res["stages"].items())
+        print(f"ddp rank {r}: one step synchronised at each stage: {parts} ms; its all-reduces: "
+              f"the gradient's {grad_n} f32 values in {len(grads)} call, {sum(grads):.2f} ms; "
+              f"{len(small)} small ones (BatchNorm's sums, the criterion's denominators and "
+              f"losses), {sum(small):.2f} ms in all, each synchronised ({SHARED_CARD}; {card})")
+    print(f"ddp launches, both ranks: { {n: c for n, c in counts.items() if c} }")
+    return dict(counts)
+
+
+def nccl_one_rank(card: str, dev: torch.device) -> None:
+    """A one-rank NCCL group: its all-reduce of the gradients leaves them
+    bit for bit, and the step equals the step with no group as far as two
+    steps with no group equal each other."""
+    import torch.distributed as dist
+
+    from ov3det_torch.config import sunrgbd_quick
+    from ov3det_torch.engine.train import batch_to_device, build_training
+    from ov3det_torch.parallel import data_group
+
+    cfg = f32_no_dropout(sunrgbd_quick())
+    batch = batch_to_device(synthetic_batches(cfg, 1, 1400)[0], dev)
+
+    def one_step(mark=None):
+        training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+        m = training.train_step(batch, torch.Generator(device=dev).manual_seed(0), mark=mark)
+        return ({k: v.item() for k, v in m.items()},
+                torch.cat([p.detach().reshape(-1) for p in training.model.parameters()]))
+
+    plain, again = one_step(), one_step()
+    floor = float((plain[1] - again[1]).abs().max())
+    grads, times = {}, {}
+
+    def mark(name):  # the interval from "backward" to "all_reduce" holds the all-reduce alone
+        if name == "all_reduce":
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter()
+        if name in ("backward", "all_reduce"):
+            grads[name] = torch.cat([p.grad.reshape(-1) for p in training_params
+                                     if p.grad is not None])
+        if name == "backward":
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter()
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        require(data_group().backend == "nccl" and data_group().world == 1, "nccl: no group")
+        dist.all_reduce(torch.zeros(1, device=dev))  # NCCL's communicator starts at its first use
+        training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+        training_params = training.optimizer.params
+        m = training.train_step(batch, torch.Generator(device=dev).manual_seed(0), mark=mark)
+        got = ({k: v.item() for k, v in m.items()},
+               torch.cat([p.detach().reshape(-1) for p in training.model.parameters()]))
+    finally:
+        dist.destroy_process_group()
+    require(torch.equal(grads["backward"], grads["all_reduce"]),
+            "nccl: the all-reduce over one rank changed the gradients")
+    diff = float((got[1] - plain[1]).abs().max())
+    require(diff <= floor, f"nccl: the step moved its parameters {diff} from the step with no "
+                           f"group; two steps with no group differ by {floor}")
+    require(got[0] == plain[0] or floor > 0, f"nccl: metrics {got[0]} against {plain[0]}")
+    print(f"nccl one-rank group: the all-reduce of {grads['backward'].numel()} gradient values "
+          f"left them bit for bit, {(times['all_reduce'] - times['backward']) * 1e3:.2f} ms; the "
+          f"step's parameters {diff:.1e} from the step with no group (two steps with no group: "
+          f"{floor:.1e}), metrics {'equal' if got[0] == plain[0] else 'within the floor'} ({card})")
+
+
+def ddp_cli(card: str) -> dict:
+    """The CLI in two ranks on cuda:0 (gloo; the group joined before
+    `main`): one epoch and its eval at scannet_quick's width; returns the
+    launches of both ranks."""
+    import pickle
+    import tempfile
+
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    with tempfile.TemporaryDirectory(prefix="ov3det_ddp_cli_") as out:
+        run = os.path.join(out, "run")
+        argv = CLI_ARGV + ["--max_epoch", "1", "--checkpoint_dir", run]
+        spawn_ranks(ddp_cli_rank, (free_port(), out, argv), "ddp cli")
+        ranks = [torch.load(os.path.join(out, f"cli{r}.pt"), weights_only=False)
+                 for r in range(DDP_WORLD)]
+        lines = ranks[0]["lines"]
+        for line in lines:
+            if not (" Average Precision: " in line or " Recall: " in line):
+                print(f"ddp cli| {line}")
+        require(not ranks[1]["lines"], f"ddp cli: rank 1 printed {ranks[1]['lines'][:2]}")
+        files = sorted(f for f in os.listdir(run) if not f.startswith("events.out"))
+        require(files == ["checkpoint", "checkpoint.extra.json", "checkpoint_best",
+                          "checkpoint_best.extra.json", "final_eval.pkl", "final_eval.txt",
+                          "scalars.jsonl"], f"ddp cli: the run wrote {files}")
+        require(sum(line.startswith("mAP0.25, mAP0.50: ") for line in lines) == 1
+                and lines.count("Evaluate Epoch [0/1]") == 1, "ddp cli: not one AP table")
+        counts = collections.Counter()
+        for r, res in enumerate(ranks):
+            require(len(res["steps"]) == 4 and all(d == train_step for d in res["steps"]),
+                    f"ddp cli rank {r}: steps launched {res['steps'][:1]}, expected 4 x {train_step}")
+            # the train-time AP batch, the epoch's eval and the final one: a batch each
+            require(len(res["evals"]) == 3 and all(d == eval_batch for d in res["evals"]),
+                    f"ddp cli rank {r}: eval batches {res['evals']}, expected 3 x {eval_batch}")
+            require(bool(res["saves"]) == (r == 0), f"ddp cli rank {r}: saves {res['saves']}")
+            counts.update(res["counts"])
+            print(f"ddp cli rank {r}: {res['wall']:.2f} s wall in main (model build, 4 steps of 8 "
+                  f"of the 16 scenes, 2 evals); wait on next(loader) "
+                  f"{[round(w, 2) for w in res['waits']]} ms ({SHARED_CARD}; {card})")
+        with open(os.path.join(run, "final_eval.pkl"), "rb") as fh:
+            two = pickle.load(fh)
+        probe = CliProbe()
+        reset_counts()
+        one, _ = run_cli(probe, CLI_ARGV + ["--test_only", "--test_ckpt",
+                                            os.path.join(run, "checkpoint"),
+                                            "--checkpoint_dir", run])
+        require(len(probe.evals) == 2 and all(d == eval_batch for d in probe.evals),
+                f"ddp cli: the one-rank eval launched {probe.evals}")
+        counts.update(read_counts())
+    worst = max(abs(float(one[t][k]) - float(v)) for t in two for k, v in two[t].items())
+    require(worst <= 1e-3, f"ddp cli: the 2-rank AP and the one-rank eval differ by {worst}")
+    print(f"ddp cli: the final eval of 2 ranks (8 scenes each) against a one-rank eval of the "
+          f"same checkpoint (2 batches of 8): every AP and recall within {worst:.1e}; mAP0.25 "
+          f"{two[0.25]['mAP']:.4f} ({card})")
+    print(f"ddp cli launches, both ranks and the one-rank eval: "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    return dict(counts)
+
+
+def bank_cli(card: str, dev: torch.device, unbanked_waits: list) -> dict:
+    """`--use_image --image_bank`: the OV CLI for one epoch, as `ov_cli`
+    runs it, then the bank's canvases and a banked step against the host's
+    decode."""
+    import tempfile
+
+    from ov3det_torch import main as cli
+    from ov3det_torch.datasets.image_bank import BankRefDataset, yuv420_decode_rows, yuv420_encode
+    from ov3det_torch.datasets.loader import collate
+    from ov3det_torch.datasets.registry import build_dataset
+    from ov3det_torch.engine.train import batch_to_device, build_training, decode_banked_images
+
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    probe = CliProbe()
+    with tempfile.TemporaryDirectory(prefix="ov3det_bank_cli_") as run:
+        argv = OV_CLI_ARGV + ["--image_bank", "--checkpoint_dir", run]
+        reset_counts()
+        t0 = time.perf_counter()
+        training, lines = run_cli(probe, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in lines:
+            if not (" Average Precision: " in line or " Recall: " in line):
+                print(f"bank cli| {line}")
+        require(len(probe.steps) == 8 and all(d == train_step for _, _, d in probe.steps),
+                f"bank cli: steps launched {[d for _, _, d in probe.steps][:1]}")
+        require(bool(probe.evals) and all(d == eval_batch for d in probe.evals),
+                f"bank cli: eval batches launched {probe.evals[:1]}")
+        payload = torch.load(os.path.join(run, "checkpoint"), map_location="cpu", weights_only=True)
+        bank, hw = training.image_bank
+        require(set(payload["model"]) == set(training.model.state_dict())
+                and not any(v.dtype == torch.uint8 for v in payload["model"].values()),
+                "bank cli: the checkpoint holds more than the detector")
+    counts = read_counts()
+    iters = [(b[0] - a[0]) * 1e3 for a, b in zip(probe.steps, probe.steps[1:])]
+    print(f"bank cli run: {wall:.2f} s wall; the bank: {bank.shape[0]} canvases of {hw[0]} x "
+          f"{hw[1]}, {bank.numel() / 1e6:.2f} MB of yuv420 on the card; iteration median "
+          f"{np.median(iters):.2f} ms ({card})")
+    print(f"wait on next(loader) in the step loop, banked: {[round(w, 2) for w in probe.waits]} "
+          f"ms; phase 10's unbanked OV epoch: {[round(w, 2) for w in unbanked_waits]} ms ({card})")
+
+    # the canvases the teacher gets: the device decode of the bank's rows,
+    # against the host's decode of the same rows and the encode of the scenes
+    cfg = cli.config_from_args(cli.make_args_parser().parse_args(argv))
+    datasets, _ = build_dataset(cfg.data, splits=("train",))
+    refs = BankRefDataset(datasets["train"])
+    items = list(range(BATCH))
+    host_rows = bank[:BATCH].cpu()
+    require(all(np.array_equal(host_rows[i].numpy(), yuv420_encode(datasets["train"].get_image(i)))
+                for i in items), "bank: a row is not the encode of its scene's canvas")
+    banked = batch_to_device(collate([refs[i] for i in items]), dev)
+    canvases = decode_banked_images(banked, (bank, hw))["image"]
+    decode_ms = cuda_ms(lambda: decode_banked_images(banked, (bank, hw)), 5)
+    host = yuv420_decode_rows(host_rows, (BATCH, *hw, 3))
+    require(canvases.dtype == torch.uint8 and torch.equal(canvases.cpu(), host),
+            "bank: the card's decode differs from the host's")
+    shipped = dict(banked, image=host.to(dev))
+    del shipped["image_ref"]
+    metrics = []
+    for batch, kw in ((banked, dict(image_bank=(bank, hw))), (shipped, {})):
+        tr = build_training(cfg, 8, device=dev, seed=cfg.seed, teacher=training.teacher, **kw)
+        m = tr.train_step(batch, torch.Generator(device=dev).manual_seed(0))
+        metrics.append({k: v.item() for k, v in m.items()})
+        del tr
+    worst = max(abs(metrics[0][k] - v) / max(abs(v), 1e-6) for k, v in metrics[1].items())
+    require(worst <= 1e-6, f"bank: the banked step's losses differ by {worst} relative")
+    print(f"bank: the card's decode of {BATCH} rows equals the host's, uint8 ({decode_ms:.3f} ms "
+          f"with the gather, CUDA events, mean of 5 after a warm-up); a banked OV step against one given those canvases: "
+          f"every loss within {worst:.1e} relative, loss_2dalignment "
+          f"{metrics[0]['loss_2dalignment']:.4f}; a banked batch crosses with {BATCH} x 4 B of "
+          f"image_ref in place of {host.numel() / 1e6:.2f} MB of canvases ({card})")
+    del training, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ddp_phase(card: str, dev: torch.device, unbanked_waits: list) -> list:
+    """Phase 12: data parallelism and the image bank; returns the launch
+    counts of its runs."""
+    t_phase = time.perf_counter()
+    steps = ddp_steps(card, dev)
+    nccl_one_rank(card, dev)
+    cli_counts = ddp_cli(card)
+    bank_counts = bank_cli(card, dev, unbanked_waits)
+    print(f"phase 12 (data parallelism and the image bank): {time.perf_counter() - t_phase:.1f} s")
+    return [steps, cli_counts, bank_counts]
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2648,13 +3141,15 @@ def main() -> int:
     train_card_vs_cpu(masked, "scannet_masked", 400)
 
     cli_counts = cli_phase(card)
-    ov_trained, ov_cli_counts = ov_phase(card, dev)
+    ov_trained, ov_cli_counts, ov_waits = ov_phase(card, dev)
     pseudo_counts = pseudo_phase(card, dev)
+    ddp_counts = ddp_phase(card, dev, ov_waits)
 
     kernels = []
     for name, (source, replaces) in kernel_sources().items():
         count = sum(c.get(name, 0) for c in (served, trained, m_served, m_trained, cli_counts,
-                                             ov_trained, ov_cli_counts, pseudo_counts))
+                                             ov_trained, ov_cli_counts, pseudo_counts,
+                                             *ddp_counts))
         require(count > 0, f"{name} was not launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **entries[name]})

@@ -13,12 +13,14 @@ Configurations outside the ported slices raise `NotImplementedError`: the
 `first_k` ball query.  The open-vocabulary step is ported: `TeacherConfig`,
 `LossConfig.teacher_per_layer` and `DataConfig.use_image` are copies, and
 `use_image` feeds the teacher the synthetic canvases (the real datasets'
-image branches raise, ROADMAP Queue 1 item 9).  The TPU transport's fields
-(`super_batch`, `quantize_points`, `yuv_images`, `image_bank`) and
-`num_devices` have no copy: `ov3det_torch.main` refuses their flags (the
-device image bank is ROADMAP Queue 1 item 8).  The masked encoder (3DETR-m) is built from `scannet_quick()` with
-`dataclasses.replace`, as `scripts/scannet_masked_timing.py` builds it; there
-is no function of its own, in either package.
+image branches raise, ROADMAP Queue 1 item 9).  `TrainConfig.num_devices`
+(`--ngpus`, the ranks of data parallelism) and `DataConfig.image_bank` (the
+device image bank) are copies too.  The TPU transport's other fields
+(`super_batch`, `quantize_points`, `yuv_images`) have no copy:
+`ov3det_torch.main` refuses their flags.  The masked encoder (3DETR-m) is
+built from `scannet_quick()` with `dataclasses.replace`, as
+`scripts/scannet_masked_timing.py` builds it; there is no function of its
+own, in either package.
 """
 from __future__ import annotations
 
@@ -145,7 +147,7 @@ class OptimConfig:
 @dataclass(frozen=True)
 class DataConfig:
     """Dataset selection and paths (`ov3det/config.py:137-171`, reference
-    main.py:107-176), without the TPU-transport fields."""
+    main.py:107-176), without the TPU-transport fields but `image_bank`."""
 
     dataset_name: str = "scannet"  # "scannet" | "sunrgbd" | "synthetic"
     root_dir: Optional[str] = None
@@ -161,6 +163,9 @@ class DataConfig:
     num_workers: int = 4
     batch_size_per_device: int = 8
     max_num_obj: int = 64
+    # every train scene's canvas encoded once (yuv420) into a bank on the
+    # device; batches carry an int32 image_ref (datasets/image_bank.py)
+    image_bank: bool = False
 
 
 @dataclass(frozen=True)
@@ -201,6 +206,8 @@ class TrainConfig:
     log_every: int = 10
     log_metrics_every: int = 20
     save_separate_checkpoint_every_epoch: int = 100
+    # data parallelism: the ranks (devices) of the run, 1 = one device
+    num_devices: int = 1
     # a torch.profiler trace of the first profile_steps training iterations,
     # written under profile_dir
     profile_dir: Optional[str] = None

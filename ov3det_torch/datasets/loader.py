@@ -9,7 +9,10 @@ visits `default_rng(seed * 1000003 + e).shuffle(arange(n))`; with
 repeating its last index, and `valid_mask` (float32, 1 for the real
 samples) marks the pad.  Batches are dicts of CPU tensors with the samples'
 dtypes, pinned when `pin_memory` is set, for `batch_to_device(...,
-non_blocking=True)` on the step side.
+non_blocking=True)` on the step side.  Under data parallelism each rank
+loads its rows `[r b, (r + 1) b)` of every global batch (`process_index` r,
+`process_count` W, b = batch_size / W; `ov3det/datasets/loader.py:570-614`),
+with `valid_mask` over the global positions.
 
 Worker processes run the numpy datasets only: torch's default start method
 forks them, possibly after CUDA is initialised in the parent, and a worker
@@ -52,10 +55,13 @@ class _EpochBatches(torch.utils.data.Sampler):
     JAX loader's order; reads `epoch` when an iteration starts, so that
     `DataLoader.set_epoch` takes effect at the next `iter()`."""
 
-    def __init__(self, n: int, batch_size: int, shuffle: bool, drop_last: bool, seed: int):
+    def __init__(self, n: int, batch_size: int, shuffle: bool, drop_last: bool, seed: int,
+                 process_index: int = 0, process_count: int = 1):
         self.n, self.batch_size, self.shuffle, self.seed = n, batch_size, shuffle, seed
         self.batches = n // batch_size if drop_last else -(-n // batch_size)
         self.epoch = 0
+        self.local = batch_size // process_count
+        self.rows = slice(process_index * self.local, (process_index + 1) * self.local)
 
     def __len__(self):
         return self.batches
@@ -68,7 +74,7 @@ class _EpochBatches(torch.utils.data.Sampler):
             idxs = order[b * self.batch_size:(b + 1) * self.batch_size].tolist()
             n_valid = len(idxs)
             idxs += [idxs[-1]] * (self.batch_size - n_valid)
-            yield [(i, j < n_valid) for j, i in enumerate(idxs)]
+            yield [(i, j < n_valid) for j, i in enumerate(idxs)][self.rows]
 
 
 class _Marked(torch.utils.data.Dataset):
@@ -108,15 +114,20 @@ class DataLoader:
     at the first `iter()` and kept for the loader's life, as the JAX loader
     keeps its pool; 0 builds the batches in the calling thread.  pin_memory:
     page-locked batches, for copies to the card that overlap the step (set
-    it when the step runs on CUDA).
+    it when the step runs on CUDA).  batch_size: the global batch;
+    process_index, process_count: this rank's rows of it, and the ranks.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = True,
-                 num_workers: int = 4, seed: int = 0, pin_memory: bool = False):
+                 num_workers: int = 4, seed: int = 0, pin_memory: bool = False,
+                 process_index: int = 0, process_count: int = 1):
+        if batch_size % process_count:
+            raise ValueError(f"batch {batch_size} does not split over {process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self._batches = _EpochBatches(len(dataset), batch_size, shuffle, drop_last, seed)
+        self._batches = _EpochBatches(len(dataset), batch_size, shuffle, drop_last, seed,
+                                      process_index, process_count)
         self._torch = torch.utils.data.DataLoader(
             _Marked(dataset), batch_sampler=self._batches, num_workers=num_workers,
             collate_fn=_Collate(with_valid_mask=not drop_last), pin_memory=pin_memory,

@@ -23,8 +23,13 @@ own module, not in the optimiser), so a checkpoint holds the detector and
 its optimiser alone, the same file as a point-only run's.  On resume the
 teacher is rebuilt from the RegionCLIP checkpoint it came from, or from its
 seed and a recalibration on the same canvas, which are deterministic
-(`ov3det_torch.main.build_teacher`).  The device image bank is not ported
-(ROADMAP Queue 1 item 8).
+(`ov3det_torch.main.build_teacher`).  The device image bank is detached the
+same way (`_DETACHED_FROZEN = ("teacher2d", "image_bank")` at
+`ov3det/engine/checkpoint.py:19`): it sits in `Training.image_bank`, beside
+the detector, and a resumed run encodes it again from the dataset.
+
+Under data parallelism rank 0 alone writes (`ov3det_torch.main.do_train`),
+and every rank restores the same file.
 """
 from __future__ import annotations
 

@@ -11,6 +11,15 @@ so the GIoU over all layer x batch x query x GT pairs runs without autograd
 when the GIoU loss weight is 0 (its value is then only logged);
 `center_dist` does carry gradient into `loss_center`.  The class
 probabilities arrive detached from the model.
+
+Under a data group (`ov3det_torch.parallel`) each rank holds its rows of
+the global batch, and the criterion makes its share of the JAX mesh step's
+global loss: the box count is the group's (`num_boxes_global`,
+`ov3det/losses/criterion.py:142-161`), the cross entropy divides by the
+group's sum of its weights and the cardinality by the global batch, so the
+ranks' losses add up to the global loss and their gradients add up to its
+gradient.  The loss dict it returns holds the global values, the same on
+every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 from ov3det_torch.config import LossConfig
 from ov3det_torch.geometry.iou import generalized_box3d_iou
 from ov3det_torch.ops.hungarian import auction_lap
+from ov3det_torch.parallel.mesh import data_group
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -34,14 +44,17 @@ def huber_loss(error: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
     return 0.5 * quadratic ** 2 + delta * linear
 
 
-def _weighted_ce(logits, labels, class_weights):
+def _weighted_ce(logits, labels, class_weights, weight_sum=None):
     """Per-layer weighted-mean cross entropy: logits (L, B, Q, C), labels
     (L, B, Q) -> (L,), divided by the sum of the per-sample weights as
-    torch's weighted 'mean' does (reference criterion.py:171-176)."""
+    torch's weighted 'mean' does (reference criterion.py:171-176), or by
+    `weight_sum` (L,), the group's."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     w = class_weights[labels]
-    return (nll * w).sum((1, 2)) / torch.clamp(w.sum((1, 2)), min=1e-8)
+    if weight_sum is None:
+        weight_sum = w.sum((1, 2))
+    return (nll * w).sum((1, 2)) / torch.clamp(weight_sum, min=1e-8)
 
 
 def _take(per_gt, inds):
@@ -106,13 +119,18 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
     outputs' device.  teacher_feats: the frozen 2D teacher's region
     features, (B, Q, C) shared by every layer or (L, B, Q, C), for the
     2D-alignment loss (per layer, the sum over (B, Q) of 1 - cosine with
-    `visual_embeds`, in f32).  Returns (total, loss_dict): `<name>_<l>` for the aux
-    layers and bare names for the last, each weighted (or as it is where the
-    weight is 0), `loss_cardinality` (log only) and `loss`, the total.
+    `visual_embeds`, in f32).  The losses divide by the box count of the
+    whole batch: this batch's, or the group's under a data group (JAX's
+    `num_boxes_global`).  Returns (total, loss_dict): `<name>_<l>` for the aux layers and bare
+    names for the last, each weighted (or as it is where the weight is 0),
+    `loss_cardinality` (log only) and `loss`, the total.  Under a data group
+    `total` is this rank's share of the global loss (what it back-propagates)
+    and `loss_dict` the global values, detached.
     """
     nactual = targets["gt_box_present"].sum(1).long()
     targets = dict(targets, nactual_gt=nactual)
-    num_boxes = torch.clamp(nactual.sum().float(), min=1.0)
+    group = data_group()
+    sharded = group is not None and group.sharded
 
     rotated = num_angle_bin > 1
     matcher_exact = (not rotated) or cfg.matcher_giou == "rotated"
@@ -127,7 +145,14 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
     box_label = torch.where(matched > 0, box_label, torch.full_like(box_label, num_semcls))
     class_weights = torch.ones(num_semcls + 1, device=inds.device)
     class_weights[-1:].fill_(cfg.no_object_weight)  # a fill, not a copy from the host
-    losses["loss_sem_cls"] = _weighted_ce(outputs["sem_cls_logits"], box_label, class_weights)
+    num_boxes_global, weight_sum = nactual.sum().float(), None
+    if sharded:  # the global box count and weight sums, in one all-reduce
+        sums = torch.cat([num_boxes_global[None], class_weights[box_label].sum((1, 2))])
+        torch.distributed.all_reduce(sums)
+        num_boxes_global, weight_sum = sums[0], sums[1:]
+    num_boxes = torch.clamp(num_boxes_global, min=1.0)
+    losses["loss_sem_cls"] = _weighted_ce(outputs["sem_cls_logits"], box_label, class_weights,
+                                          weight_sum)
 
     angle_cls_at = _take(targets["gt_angle_class_label"].long(), inds)
     logp = torch.log_softmax(outputs["angle_logits"], dim=-1)
@@ -163,7 +188,9 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
 
     with torch.no_grad():
         pred_obj = (torch.argmax(outputs["sem_cls_logits"], -1) != num_semcls).float().sum(-1)
-        losses["loss_cardinality"] = (pred_obj - nactual[None].float()).abs().mean(-1)
+        card = (pred_obj - nactual[None].float()).abs()
+        losses["loss_cardinality"] = (card.sum(-1) / (card.shape[-1] * group.world) if sharded
+                                      else card.mean(-1))
 
     if teacher_feats is not None:  # 2D-alignment distillation (criterion.py:132-141)
         # all in f32; JAX keeps the norm of bf16 embeds in bf16, 2^-9 coarser
@@ -192,4 +219,8 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
         if w > 0:
             total = total + w * per_layer.sum()
     loss_dict["loss"] = total
+    if sharded:  # the global values: the sum of the ranks' shares, in one all-reduce
+        shares = torch.stack([v.detach() for v in loss_dict.values()])
+        torch.distributed.all_reduce(shares)
+        loss_dict = dict(zip(loss_dict, shares.unbind()))
     return total, loss_dict

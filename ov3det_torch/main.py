@@ -4,9 +4,22 @@ Counterpart of `ov3det/main.py:50-717` (reference main.py:28-506,
 engine.py:47-302): the same argparse surface, cosine-warmup schedule,
 latest / best / periodic checkpoints, resume-on-restart, idempotent
 final_eval guard, approximate train-time AP and exact eval AP, and a
-NaN-loss abort, with the same printed lines and `scalars.jsonl` keys.  One
-process on one device: `--device` (default `cuda`, which raises without a
-card; `cpu` on request).
+NaN-loss abort, with the same printed lines and `scalars.jsonl` keys.
+`--device` (default `cuda`, which raises without a card; `cpu` on request).
+
+`--ngpus N` trains the global batch `--batchsize_per_gpu x N` over N ranks,
+one process a device (rank i on `cuda:i`, or N CPU processes over gloo with
+`--device cpu`), as the JAX package's mesh step trains it (`ov3det_torch
+.parallel`); `--coordinator_address host:port --num_processes M
+--process_id I` places N / M of them on each of M hosts, and torchrun's
+environment is honoured (`engine.runtime.plan_ranks`).  A process group the
+caller has initialised already is used as it is.  Each rank loads its rows
+of every global batch; rank 0 alone prints, logs and writes checkpoints;
+every rank resumes from the same file; an eval gathers the detections of
+every rank, in the global batch order, before the AP.  A rank that fails
+fails the run.  `--image_bank` (with `--use_image`) puts every train
+scene's canvas on the device once (`datasets.image_bank`); every rank holds
+the whole bank.
 
 `--use_image` trains the open-vocabulary step: the frozen RegionCLIP
 RN50x4 teacher (`--teacher_compute_dtype`, int8 by default, calibrated on
@@ -43,12 +56,18 @@ from ov3det_torch.config import (
     TeacherConfig,
     TrainConfig,
 )
+from ov3det_torch.datasets.image_bank import BankRefDataset, build_image_bank
 from ov3det_torch.datasets.loader import DataLoader, slice_valid, valid_count
 from ov3det_torch.datasets.registry import build_dataset
 from ov3det_torch.device import resolve_device
 from ov3det_torch.engine.checkpoint import CheckpointManager, restore_eval_checkpoint
 from ov3det_torch.engine.infer import make_eval_step
-from ov3det_torch.engine.runtime import PreemptionGuard, profile_steps
+from ov3det_torch.engine.runtime import (
+    PreemptionGuard,
+    init_multihost,
+    plan_ranks,
+    profile_steps,
+)
 from ov3det_torch.engine.train import batch_to_device, build_training
 from ov3det_torch.eval.ap_calculator import APCalculator
 from ov3det_torch.models.detr3d import Model3DETR
@@ -59,20 +78,15 @@ from ov3det_torch.models.regionclip import (
     init_teacher_state,
     quantize_teacher_params,
 )
+from ov3det_torch.parallel.mesh import data_group, gather_objects
 from ov3det_torch.utils.logger import Logger
 from ov3det_torch.utils.meters import SmoothedValue
 
-_IMAGE_BANK = "ROADMAP Queue 1 item 8 (the device image bank and its yuv420 codec)"
-_DDP = "ROADMAP Queue 1 item 6 (multi-GPU)"
 _TRANSPORT = ("ROADMAP Queue 3 item 1 (the TPU transport's packed steps; their counterpart on "
               "the card is graph capture of the step, see PERF.md)")
 
 # (flag, the test that it was given, the item that brings it)
 REFUSED = (
-    ("--ngpus", lambda a: a.ngpus > 1, _DDP),
-    ("--coordinator_address", lambda a: a.coordinator_address is not None, _DDP),
-    ("--num_processes", lambda a: a.num_processes is not None, _DDP),
-    ("--image_bank", lambda a: a.image_bank, _IMAGE_BANK),
     ("--super_batch", lambda a: a.super_batch > 1, _TRANSPORT),
     ("--quantize_points", lambda a: a.quantize_points, _TRANSPORT),
     ("--yuv_images", lambda a: a.yuv_images, _TRANSPORT),
@@ -140,7 +154,8 @@ def make_args_parser():
     p.add_argument("--yuv_images", default=False, action="store_true",
                    help=f"refused: {_TRANSPORT}")
     p.add_argument("--image_bank", default=False, action="store_true",
-                   help=f"not ported yet: {_IMAGE_BANK}")
+                   help="every train scene's canvas on the device once, as yuv420 (needs "
+                   "--use_image)")
     p.add_argument("--num_points", default=None, type=int)
     p.add_argument("--pseudo_label_dir", type=str, default=None)
     p.add_argument("--clip_embed_path", type=str, default=None,
@@ -175,7 +190,8 @@ def make_args_parser():
     p.add_argument("--log_every", default=10, type=int)
     p.add_argument("--log_metrics_every", default=20, type=int)
     p.add_argument("--save_separate_checkpoint_every_epoch", default=100, type=int)
-    p.add_argument("--ngpus", default=1, type=int, help=f"> 1 is not ported yet: {_DDP}")
+    p.add_argument("--ngpus", default=1, type=int,
+                   help="data-parallel ranks, one a device (CPU processes with --device cpu)")
     # Observability
     p.add_argument("--profile_dir", default=None, type=str,
                    help="write a torch.profiler trace (Chrome format) of the first "
@@ -188,9 +204,9 @@ def make_args_parser():
                    help="torch.autograd.set_detect_anomaly for the run (slows every step)")
     # Multi-host
     p.add_argument("--coordinator_address", default=None, type=str,
-                   help=f"not ported yet: {_DDP}")
-    p.add_argument("--num_processes", default=None, type=int, help=f"not ported yet: {_DDP}")
-    p.add_argument("--process_id", default=None, type=int)
+                   help="host:port of the multi-host rendezvous (process 0's host)")
+    p.add_argument("--num_processes", default=None, type=int, help="hosts of a multi-host run")
+    p.add_argument("--process_id", default=None, type=int, help="this host's index")
     # The port
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device of the run; cuda raises without a card")
@@ -206,6 +222,8 @@ def refuse_unported(args) -> None:
 
 def config_from_args(args) -> TrainConfig:
     refuse_unported(args)
+    if args.image_bank and not args.use_image:
+        raise ValueError("--image_bank needs --use_image (the bank feeds the 2D teacher)")
     num_semcls = {"scannet": 18, "sunrgbd": 20, "synthetic": 18}[args.dataset_name]
     num_angle_bin = {"scannet": 1, "sunrgbd": 12, "synthetic": 1}[args.dataset_name]
     num_points = args.num_points or {"scannet": 40000, "sunrgbd": 20000,
@@ -276,6 +294,7 @@ def config_from_args(args) -> TrainConfig:
             use_image=args.use_image,
             num_workers=args.dataset_num_workers,
             batch_size_per_device=args.batchsize_per_gpu,
+            image_bank=args.image_bank,
         ),
         teacher=TeacherConfig(
             enabled=args.use_image,
@@ -290,6 +309,7 @@ def config_from_args(args) -> TrainConfig:
         log_every=args.log_every,
         log_metrics_every=args.log_metrics_every,
         save_separate_checkpoint_every_epoch=args.save_separate_checkpoint_every_epoch,
+        num_devices=args.ngpus,
         profile_dir=args.profile_dir,
         profile_steps=args.profile_steps,
         debug_nans=args.debug_nans,
@@ -353,27 +373,49 @@ def step_seed(seed: int, step: int) -> int:
     return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
 
 
+def gather_ap(ap: APCalculator, counts: list) -> APCalculator:
+    """Under a data group, a calculator over the scans of every rank in the
+    global batch order (batch by batch, rank by rank), on every rank (rank 0
+    scores it); `ap` itself without one.  counts: the scans `ap` took from
+    each batch."""
+    parts = gather_objects((ap.pred_map_cls, ap.gt_map_cls, counts))
+    if len(parts) == 1:
+        return ap
+    merged = APCalculator(class2type_map=ap.class2type_map, exact_eval=ap.exact_eval)
+    taken = [0] * len(parts)
+    for j in range(len(counts)):
+        for r, (pred, gt, cnt) in enumerate(parts):
+            scans = range(taken[r], taken[r] + cnt[j])
+            merged.accumulate([pred[i] for i in scans], [gt[i] for i in scans])
+            taken[r] += cnt[j]
+    return merged
+
+
 def evaluate(eval_step, loader, dataset_config, device, logger=None, curr_iter=0):
     ap = APCalculator(class2type_map=dataset_config.class2type)
     loss_meter = SmoothedValue(10)
     last_loss_dict = None
+    counts = []
     for batch in loader:
         # partial final batch: the loader padded it to the full batch size
         # by repeating the last sample; strip the pad so each scan scores once
+        # (under a data group a rank's rows may all be pad)
         n = valid_count(batch)
         batch = batch_to_device(batch, device, non_blocking=True)
         outputs = eval_step(batch)
         if isinstance(outputs, tuple):  # --eval_loss: (outputs, loss_dict)
             outputs, last_loss_dict = outputs
             loss_meter.update(float(last_loss_dict["loss"]))
-        ap.step_meter(slice_valid(outputs, n), slice_valid(batch, n))
+        if n:
+            ap.step_meter(slice_valid(outputs, n), slice_valid(batch, n))
+        counts.append(n)
     if logger is not None and last_loss_dict is not None:
         # the reference logs the last batch's loss breakdown under
         # Test_details/ and the smoothed total under Test/ (engine.py:226-229)
         logger.log_scalars({k: float(v) for k, v in last_loss_dict.items()}, curr_iter,
                            prefix="Test_details/")
         logger.log_scalars({"loss": loss_meter.avg}, curr_iter, prefix="Test/")
-    return ap
+    return gather_ap(ap, counts)
 
 
 def _host_scalars(metrics: dict) -> dict:
@@ -382,19 +424,41 @@ def _host_scalars(metrics: dict) -> dict:
     return dict(zip(metrics, values))
 
 
+def _ranks() -> tuple:
+    """(rank, world) of the data group, (0, 1) without one."""
+    group = data_group()
+    return (group.rank, group.world) if group is not None else (0, 1)
+
+
+def _quiet(*args, **kwargs) -> None:
+    """`print` of a rank other than 0."""
+
+
 def do_train(cfg: TrainConfig, device=None):
     device = resolve_device(device)
     pin = device.type == "cuda"
+    rank, world = _ranks()
+    lead = rank == 0
+    say = print if lead else _quiet
     datasets, dataset_config = build_dataset(cfg.data)
-    batch_size = cfg.data.batch_size_per_device
+    image_bank = None
+    if cfg.data.image_bank:
+        # the canvases on the device once; train batches carry image_ref
+        image_bank = build_image_bank(datasets["train"], device)
+        datasets = {**datasets, "train": BankRefDataset(datasets["train"])}
+        say(f"image bank: {image_bank[0].shape[0]} canvases of {image_bank[1][0]} x "
+            f"{image_bank[1][1]} as yuv420, {image_bank[0].numel()} bytes on {device}")
+    batch_size = cfg.data.batch_size_per_device * world  # the global batch
+    loader_kw = dict(num_workers=cfg.data.num_workers, pin_memory=pin, process_index=rank,
+                     process_count=world)
     train_loader = DataLoader(datasets["train"], batch_size=batch_size, shuffle=True,
-                              num_workers=cfg.data.num_workers, seed=cfg.seed, pin_memory=pin)
+                              seed=cfg.seed, **loader_kw)
     test_loader = DataLoader(datasets["test"], batch_size=batch_size, shuffle=False,
-                             drop_last=False, num_workers=cfg.data.num_workers, pin_memory=pin)
+                             drop_last=False, **loader_kw)
     iters_per_epoch = len(train_loader)
     teacher = build_teacher(cfg, datasets["test"][0], device) if cfg.teacher.enabled else None
     training = build_training(cfg, iters_per_epoch, device=device, seed=cfg.seed,
-                              eval_loss=cfg.eval_loss, teacher=teacher)
+                              eval_loss=cfg.eval_loss, teacher=teacher, image_bank=image_bank)
     model, optimizer = training.model, training.optimizer
     train_step, eval_step, schedule = training.train_step, training.eval_step, training.schedule
     load_text_embed(model, cfg.teacher.text_embed_path)
@@ -408,16 +472,17 @@ def do_train(cfg: TrainConfig, device=None):
     # never lets a worse eval overwrite checkpoint_best
     best_ap25 = float((extra or {}).get("best_ap25", -1.0))
     if restored is not None:
-        print(f"resumed from epoch {loaded_epoch} (best AP25 {best_ap25:.4f})")
+        say(f"resumed from epoch {loaded_epoch} (best AP25 {best_ap25:.4f})")
     start_epoch = loaded_epoch + 1
 
     final_eval = os.path.join(cfg.checkpoint_dir, "final_eval.txt")
     final_eval_pkl = os.path.join(cfg.checkpoint_dir, "final_eval.pkl")
     if os.path.isfile(final_eval):
-        print(f"Found final eval file {final_eval}. Skipping training.")
+        say(f"Found final eval file {final_eval}. Skipping training.")
         return training
 
-    logger = Logger(cfg.checkpoint_dir)
+    # rank 0 alone logs and writes checkpoints
+    logger = Logger(cfg.checkpoint_dir if lead else None)
     guard = PreemptionGuard()
     generator = torch.Generator(device=device)
     best_metrics = {}
@@ -427,13 +492,15 @@ def do_train(cfg: TrainConfig, device=None):
             train_loader.set_epoch(epoch)
             time_meter, loss_meter = SmoothedValue(10), SmoothedValue(10)
             train_ap = APCalculator(class2type_map=dataset_config.class2type, exact_eval=False)
+            train_ap_counts = []
             with contextlib.ExitStack() as profiling:
                 for it, batch in enumerate(train_loader):
-                    if guard.should_stop:
+                    if guard.stop_requested():
                         # preemption: persist the latest state and exit cleanly
-                        ckpt.save_latest(model, optimizer, epoch - 1,
-                                         extra={"best_ap25": best_ap25})
-                        print("preemption signal received; checkpoint saved, exiting")
+                        if lead:
+                            ckpt.save_latest(model, optimizer, epoch - 1,
+                                             extra={"best_ap25": best_ap25})
+                        say("preemption signal received; checkpoint saved, exiting")
                         return training
                     t0 = time.time()
                     curr_iter = epoch * iters_per_epoch + it
@@ -445,23 +512,24 @@ def do_train(cfg: TrainConfig, device=None):
                     metrics = train_step(batch, generator)
                     if cfg.profile_dir and global_it == cfg.profile_steps:
                         profiling.close()
-                        print(f"profiler trace written to {cfg.profile_dir}")
+                        say(f"profiler trace written to {cfg.profile_dir}")
                     if curr_iter % cfg.log_metrics_every == 0:
                         outputs = eval_step(batch)
                         if isinstance(outputs, tuple):  # --eval_loss variant
                             outputs = outputs[0]
                         train_ap.step_meter(outputs, batch)
+                        train_ap_counts.append(int(batch["point_clouds"].shape[0]))
                     if curr_iter % cfg.log_every == 0:
                         scalars = _host_scalars(metrics)
                         loss = scalars["loss"]
                         if not math.isfinite(loss):
-                            print("Loss is not finite. Training stopped.")
+                            say("Loss is not finite. Training stopped.")
                             sys.exit(1)
                         loss_meter.update(loss)
                         time_meter.update(time.time() - t0)
                         lr = schedule(curr_iter)
                         eta = (max_iters - curr_iter) * time_meter.avg
-                        print(
+                        say(
                             f"Epoch [{epoch}/{cfg.max_epoch}]; Iter [{curr_iter}/{max_iters}]; "
                             f"Loss {loss_meter.avg:0.2f}; LR {lr:0.2e}; "
                             f"Iter time {time_meter.avg:0.2f}; ETA {eta:0.0f}s"
@@ -473,47 +541,54 @@ def do_train(cfg: TrainConfig, device=None):
                             prefix="Train/",
                         )
 
-            ckpt.save_latest(model, optimizer, epoch, extra={"best_ap25": best_ap25})
-            if (
-                epoch > 0
-                and cfg.save_separate_checkpoint_every_epoch > 0
-                and epoch % cfg.save_separate_checkpoint_every_epoch == 0
-            ):
-                ckpt.save_periodic(model, optimizer, epoch)
+            if lead:
+                ckpt.save_latest(model, optimizer, epoch, extra={"best_ap25": best_ap25})
+                if (
+                    epoch > 0
+                    and cfg.save_separate_checkpoint_every_epoch > 0
+                    and epoch % cfg.save_separate_checkpoint_every_epoch == 0
+                ):
+                    ckpt.save_periodic(model, optimizer, epoch)
 
-            metrics_all = train_ap.compute_metrics()
-            print(f"Epoch [{epoch}/{cfg.max_epoch}] train "
-                  + train_ap.metrics_to_str(metrics_all, per_class=False))
-            logger.log_scalars(train_ap.metrics_to_dict(metrics_all), epoch * iters_per_epoch,
-                               prefix="Train/")
+            # the APs: the ranks' detections gathered, scored by rank 0
+            train_ap = gather_ap(train_ap, train_ap_counts)
+            if lead:
+                metrics_all = train_ap.compute_metrics()
+                print(f"Epoch [{epoch}/{cfg.max_epoch}] train "
+                      + train_ap.metrics_to_str(metrics_all, per_class=False))
+                logger.log_scalars(train_ap.metrics_to_dict(metrics_all),
+                                   epoch * iters_per_epoch, prefix="Train/")
 
             if epoch % cfg.eval_every_epoch == 0 or epoch == cfg.max_epoch - 1:
                 ap = evaluate(eval_step, test_loader, dataset_config, device,
                               logger=logger, curr_iter=epoch * iters_per_epoch)
-                m = ap.compute_metrics()
-                ap25 = m[0.25]["mAP"]
-                print(f"Evaluate Epoch [{epoch}/{cfg.max_epoch}]")
-                print(ap.metrics_to_str(m, per_class=True))
-                logger.log_scalars(ap.metrics_to_dict(m), epoch * iters_per_epoch, prefix="Test/")
-                if ap25 > best_ap25:
-                    best_ap25 = ap25
-                    best_metrics = m
-                    ckpt.save_best(model, optimizer, epoch, extra={"best_ap25": best_ap25})
-                    # refresh the latest checkpoint's bookkeeping too: it was
-                    # written before this eval, and resume reads best_ap25 from it
-                    ckpt.write_extra({"best_ap25": best_ap25})
-                    print(f"saved new best checkpoint (AP25 {ap25:.4f})")
+                if lead:
+                    m = ap.compute_metrics()
+                    ap25 = m[0.25]["mAP"]
+                    print(f"Evaluate Epoch [{epoch}/{cfg.max_epoch}]")
+                    print(ap.metrics_to_str(m, per_class=True))
+                    logger.log_scalars(ap.metrics_to_dict(m), epoch * iters_per_epoch,
+                                       prefix="Test/")
+                    if ap25 > best_ap25:
+                        best_ap25 = ap25
+                        best_metrics = m
+                        ckpt.save_best(model, optimizer, epoch, extra={"best_ap25": best_ap25})
+                        # refresh the latest checkpoint's bookkeeping too: it was
+                        # written before this eval, and resume reads best_ap25 from it
+                        ckpt.write_extra({"best_ap25": best_ap25})
+                        print(f"saved new best checkpoint (AP25 {ap25:.4f})")
 
         # final eval
         ap = evaluate(eval_step, test_loader, dataset_config, device)
-        m = ap.compute_metrics()
-        with open(final_eval, "w") as fh:
-            fh.write("Training Finished.\nFinal Eval Numbers.\n")
-            fh.write(ap.metrics_to_str(m))
-            fh.write("\nBest Eval Numbers.\n")
-            fh.write(ap.metrics_to_str(best_metrics) if best_metrics else "n/a")
-        with open(final_eval_pkl, "wb") as fh:
-            pickle.dump(m, fh)
+        if lead:
+            m = ap.compute_metrics()
+            with open(final_eval, "w") as fh:
+                fh.write("Training Finished.\nFinal Eval Numbers.\n")
+                fh.write(ap.metrics_to_str(m))
+                fh.write("\nBest Eval Numbers.\n")
+                fh.write(ap.metrics_to_str(best_metrics) if best_metrics else "n/a")
+            with open(final_eval_pkl, "wb") as fh:
+                pickle.dump(m, fh)
     finally:
         logger.close()
         guard.restore()
@@ -522,25 +597,25 @@ def do_train(cfg: TrainConfig, device=None):
 
 def test_model(cfg: TrainConfig, test_ckpt: str | None = None, device=None):
     device = resolve_device(device)
+    rank, world = _ranks()
     datasets, dataset_config = build_dataset(cfg.data, splits=("test",))
-    test_loader = DataLoader(datasets["test"], batch_size=cfg.data.batch_size_per_device,
+    test_loader = DataLoader(datasets["test"], batch_size=cfg.data.batch_size_per_device * world,
                              shuffle=False, drop_last=False, num_workers=cfg.data.num_workers,
-                             pin_memory=device.type == "cuda")
+                             pin_memory=device.type == "cuda", process_index=rank,
+                             process_count=world)
     model = Model3DETR(cfg.model, device=device, seed=cfg.seed)
     epoch = restore_eval_checkpoint(model, test_ckpt, cfg.checkpoint_dir)
     ap = evaluate(make_eval_step(model), test_loader, dataset_config, device)
+    if rank != 0:  # rank 0 scores the gathered detections
+        return None
     m = ap.compute_metrics()
     print(f"Test model (epoch {epoch}); Metrics:")
     print(ap.metrics_to_str(m))
     return m
 
 
-def main(argv=None):
-    """Runs the CLI on `argv`; returns `test_model`'s metrics or
-    `do_train`'s `Training`."""
-    args = make_args_parser().parse_args(argv)
-    cfg = config_from_args(args)
-    device = resolve_device(args.device)
+def run(args, cfg: TrainConfig, device):
+    """`test_model` or `do_train` on `device`, in this process."""
     np.random.seed(cfg.seed)
     # --debug_nans: per-op NaN tracebacks (the reference's always-on
     # torch.autograd.set_detect_anomaly, as an opt-in)
@@ -548,6 +623,51 @@ def main(argv=None):
         if args.test_only:
             return test_model(cfg, test_ckpt=args.test_ckpt, device=device)
         return do_train(cfg, device)
+
+
+def run_rank(local_rank: int, argv, plan) -> None:
+    """One rank of a data-parallel run (a spawned process, or this one under
+    torchrun): join the group, run, leave it."""
+    import torch.distributed as dist
+
+    args = make_args_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank)
+    else:  # the host's cores shared among its ranks
+        torch.set_num_threads(max(1, torch.get_num_threads() // plan.local))
+    init_multihost(plan, local_rank, device)
+    try:
+        run(args, cfg, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None):
+    """Runs the CLI on `argv`; returns `test_model`'s metrics or
+    `do_train`'s `Training`, in this process.  `--ngpus` > 1 spawns a
+    process a rank of this host, waits for them and returns None (a rank
+    that fails raises here); a data group initialised by the caller runs in
+    this process."""
+    args = make_args_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    device = resolve_device(args.device)
+    if data_group() is not None:
+        return run(args, cfg, device)
+    plan = plan_ranks(args.ngpus, args.coordinator_address, args.num_processes, args.process_id)
+    if device.type == "cuda" and plan.local > torch.cuda.device_count():
+        raise ValueError(f"--ngpus {args.ngpus}: {plan.local} ranks on this host, "
+                         f"{torch.cuda.device_count()} CUDA devices visible")
+    if plan.world == 1:
+        return run(args, cfg, device)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if plan.init_method == "env://":  # torchrun started this rank
+        return run_rank(int(os.environ.get("LOCAL_RANK", 0)), argv, plan)
+    import torch.multiprocessing as mp
+
+    mp.start_processes(run_rank, args=(argv, plan), nprocs=plan.local, start_method="spawn")
+    return None
 
 
 if __name__ == "__main__":

@@ -123,9 +123,9 @@ class Model3DETR(nn.Module):
         self.decoder = TransformerDecoder(dec.num_layers, dec.dim, dec.num_heads,
                                           dec.ffn_dim, dec.dropout, dtype)
 
-        def head(out_dim):
+        def head(out_dim):  # on the decoder's (L, B, Q, C) stack
             return GenericMLP(dec.dim, [dec.dim, dec.dim], out_dim, norm="bn",
-                              dropout=cfg.mlp_dropout, compute_dtype=dtype)
+                              dropout=cfg.mlp_dropout, compute_dtype=dtype, batch_dim=1)
 
         self.visual_embed_head = head(cfg.clip_embed_dim)
         self.center_head = head(3)

@@ -12,6 +12,13 @@ BatchNorm normalises each channel over all leading axes, with flax's
 training-mode statistics (below).  Dropout follows flax `nn.Dropout`: per
 element, kept values divided by the keep probability in the input's dtype,
 with the mask drawn from an explicit `torch.Generator`.
+
+Under a data group (`ov3det_torch.parallel`) the two see the global batch,
+as under the JAX package's mesh: BatchNorm's training statistics are
+reduced over the ranks (`bn_axis_name`, `ov3det/models/mlp.py:38-51`), and
+a dropout mask is the rank's rows of one draw over the global batch from
+the generator every rank seeds alike, as JAX's partitionable threefry makes
+each device's mask a slice of one global draw.
 """
 from __future__ import annotations
 
@@ -22,18 +29,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ov3det_torch.parallel.mesh import all_reduce_sum, data_group
+
 _TRUNC_STD = 0.87962566103423978  # std of the unit normal truncated to [-2, 2]
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            batch_dim: int = 0) -> torch.Tensor:
     """flax `nn.Dropout` in training: each element kept with probability
-    1 - rate (uniform draw below it) and divided by it, else zeroed."""
+    1 - rate (uniform draw below it) and divided by it, else zeroed.  Under a
+    data group of world W the draw covers W times the rows of `batch_dim`
+    and this rank keeps its own: the masks of the ranks differ, and together
+    they are the mask of one rank holding the global batch."""
     if rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("training-mode dropout needs a torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    world, rank = (g.world, g.rank) if (g := data_group()) else (1, 0)
+    b = x.shape[batch_dim]
+    shape = list(x.shape)
+    shape[batch_dim] = b * world
+    keep = (torch.rand(shape, generator=generator, device=x.device) < keep_prob).narrow(
+        batch_dim, rank * b, b)
     return torch.where(keep, x / keep_prob, 0.0)
 
 
@@ -102,7 +120,10 @@ class BatchNorm(nn.Module):
     the input normalised with them (the gradient flows through both), and
     the running statistics updated in place to 0.9 old + 0.1 batch with the
     biased variance.  `torch.nn.functional.batch_norm` would keep the
-    unbiased variance instead.
+    unbiased variance instead, and so would `SyncBatchNorm`.  Under a data
+    group the count, sum x and sum x^2 of each channel are summed over the
+    ranks in one differentiable all-reduce, in f32, and every rank updates
+    its running statistics with the same global values.
     """
 
     def __init__(self, dim: int, eps: float = 1e-5):
@@ -126,8 +147,15 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            group = data_group()
+            if group is None or not group.sharded:
+                mean = x.mean(axes)
+                var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            else:
+                count = x.new_full((1,), x.numel() // x.shape[-1])
+                sums = all_reduce_sum(torch.cat([count, x.sum(axes), (x * x).sum(axes)]))
+                mean, mean2 = (sums[1:] / sums[0]).chunk(2)
+                var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
                 self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
@@ -142,11 +170,12 @@ class GenericMLP(nn.Module):
                  norm: Optional[str] = None, dropout: float = 0.0,
                  hidden_use_bias: bool = False, output_use_bias: bool = True,
                  output_use_activation: bool = False, output_use_norm: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, batch_dim: int = 0):
         super().__init__()
         if norm not in (None, "bn"):  # the detector's MLPs use no other
             raise ValueError(f"unknown norm {norm!r}")
         self.dropout = dropout
+        self.batch_dim = batch_dim  # the batch axis of the input, for dropout under a group
         self.output_use_activation = output_use_activation
         dims = [in_dim, *hidden_dims]
         self.layers = nn.ModuleList(
@@ -168,7 +197,7 @@ class GenericMLP(nn.Module):
                 x = self.norms[i](x)
             x = F.relu(x)
             if self.training:
-                x = dropout(x, self.dropout, generator)
+                x = dropout(x, self.dropout, generator, self.batch_dim)
         x = self.layers[-1](x)
         if len(self.norms) > n_hidden:
             x = self.norms[-1](x)

@@ -25,6 +25,13 @@ Training-mode dropout, as the JAX package has it:
     does not take it, so `nn.dot_product_attention` runs with its default
     `broadcast_dropout=True`.
 Every mask comes from the `torch.Generator` passed to `forward`.
+
+Under a data group (`ov3det_torch.parallel`), as under the JAX package's
+mesh: the kernel's seed is the draw, equal on every rank, plus the rank
+(`s + jax.lax.axis_index(DATA_AXIS)`, `ov3det/models/transformer.py:119-121`;
+the hash counts `b` within the rank's rows), the broadcast (NQ, NK) mask is
+one draw, equal on every rank, and the element-wise masks are the rank's
+rows of a global draw (`models/mlp.py` `dropout`).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from torch import nn
 
 from ov3det_torch.models.mlp import Dense, LayerNorm, dropout
 from ov3det_torch.ops.kernels.attention import fused_attention
+from ov3det_torch.parallel.mesh import data_group
 
 ACTIVATIONS = {  # the encoder's choices (EncoderConfig.activation)
     "relu": F.relu,
@@ -119,6 +127,7 @@ class MultiheadAttention(nn.Module):
                     raise ValueError("training-mode attention dropout needs a torch.Generator")
                 seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                      device=q.device, dtype=torch.int32)
+                seed = seed + (g.rank if (g := data_group()) else 0)
             out = fused_attention(heads(q, NQ), heads(k, NK), heads(v, NK), rate, seed, radius)
             out = out.view(B, H, NQ, D).transpose(1, 2)
         else:

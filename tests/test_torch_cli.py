@@ -17,8 +17,9 @@ slice as a whole.
   and the third step's losses and parameters equal the uninterrupted run's
   bit for bit;
 - the flags of every run script exist in the port's parser, each flag the
-  port refuses raises `NotImplementedError` naming its ROADMAP item, and
-  the open-vocabulary flags set the config as JAX's parser does.
+  port refuses raises `NotImplementedError` naming its ROADMAP item,
+  `--ngpus` beyond the visible cards raises, and the open-vocabulary flags
+  set the config as JAX's parser does.
 """
 import dataclasses
 import glob
@@ -290,10 +291,6 @@ def test_run_scripts_parse_with_the_ports_parser():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--ngpus", "2"], "item 6"),
-    (["--coordinator_address", "localhost:1234"], "item 6"),
-    (["--num_processes", "2"], "item 6"),
-    (["--use_image", "--image_bank"], "item 8"),
     (["--super_batch", "2"], "Queue 3 item 1"),
     (["--quantize_points"], "Queue 3 item 1"),
     (["--yuv_images"], "Queue 3 item 1"),
@@ -302,6 +299,22 @@ def test_refused_flags_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
         cli.main(TINY + ["--checkpoint_dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)  # refused before anything ran
+
+
+def test_more_ranks_than_cards_raise(tmp_path, monkeypatch):
+    """`--ngpus` beyond the visible CUDA devices raises before anything
+    runs: no oversubscription of a card.  Multi-host flags are checked as
+    JAX checks them (ngpus a positive multiple of the process count)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = [a for a in TINY if a not in ("--device", "cpu")] + ["--device", "cuda",
+                                                                "--checkpoint_dir", str(tmp_path)]
+    with pytest.raises(ValueError, match="--ngpus 2: 2 ranks on this host, 1 CUDA devices"):
+        cli.main(argv + ["--ngpus", "2"])
+    with pytest.raises(ValueError, match="positive multiple of the process count"):
+        cli.main(argv + ["--ngpus", "3", "--coordinator_address", "localhost:1", "--num_processes",
+                         "2", "--process_id", "0"])
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flag,check", [

@@ -45,7 +45,8 @@ def test_importing_every_module_leaves_jax_out():
                  "tools.label_formatter", "tools.projection_np", "tools.lift_boxes",
                  "tools.scannet_io", "tools.format_tools", "tools.evaluate_box",
                  "tools.seg_metrics", "tools.extract_class_features", "models.clip_text",
-                 "models.convert_3detr", "utils.png", "utils.visualize"):
+                 "models.convert_3detr", "utils.png", "utils.visualize", "parallel",
+                 "parallel.mesh", "datasets.image_bank"):
         assert f"ov3det_torch.{name}" in report["modules"]
     # importing the native IoU neither builds nor loads it: that waits for
     # the first IoU of an evaluation
