@@ -108,10 +108,10 @@ at once), then:
      and sizes, and the peak device memory; then the host AP with the C++
      rotated IoU and with the numpy one, in turns, on the `--test_only` pass
      and on 16 scenes of detections near the GT boxes;
-  9. (after 12) prints the kernels line (launches summed over the serving
+  9. (after 13) prints the kernels line (launches summed over the serving
      and training runs of both configs, the CLI's run, phase 10's OV
-     training and OV CLI runs, phase 11's runs and phase 12's), the card
-     line, and last {"ok": true, "device": {...}}.
+     training and OV CLI runs, phase 11's runs, phase 12's and phase 13's),
+     the card line, and last {"ok": true, "device": {...}}.
  10. the open-vocabulary step ("OV sunrgbd_quick": `sunrgbd_quick()` with
      the 2D-alignment loss at weight 1, as bench.py:518-530 builds it, and
      the frozen RegionCLIP RN50x4 teacher in int8 at its defaults, seeded
@@ -192,6 +192,21 @@ at once), then:
        phase 10's unbanked epoch; the bank's rows the encode of the scenes'
        canvases, the card's decode equal to the host's (uint8), and a banked
        step's losses within 1e-6 of a step given the host's canvases.
+ 13. the real datasets' images, with PIL never imported:
+       the JPEG decoder (`ov3det_torch/utils/jpeg.py`, built here by g++):
+       every fixture of `tests/data/jpeg/` decodes to the sha256 of PIL's
+       array in its manifest and resizes to that of JAX's
+       `resize_crop_image`, the progressive one raises; the host's decode
+       ms of a 730 x 530 canvas and of a 1296 x 968 frame;
+       the OV CLI as in 10, on a SUN RGB-D-layout tree of 64 train and 16
+       val `make_scene` scans of 50 000 points with calibration and JPEGs
+       cycled from the fixtures (`write_sunrgbd_tree`), with the gates of
+       10; the image branch's ms a batch beside the loader's wait;
+       the same with `--image_bank`: every row of the bank the yuv420
+       encode of its scan's canvas, the bank's bytes and build seconds;
+       `load_scene_frames` on a scene of 40 frames (the 1296 x 968
+       fixtures, 16-bit depth PNGs of `write_png16`, poses) at
+       max_frames 64: the shapes, the mask, ms a scene.
 Launch counts are set to 0 just before each serving, training and CLI run,
 and read just after it.  The radius variants of the attention kernels count
 apart (`.radius_launches`) and have their own entries in the kernels line.
@@ -202,6 +217,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import math
@@ -1956,9 +1972,10 @@ def ov_batches(cfg, n: int, seed: int) -> list:
     return [collate([ds[i * BATCH + j] for j in range(BATCH)]) for i in range(n)]
 
 
-def ov_cli(card: str, dev: torch.device) -> tuple:
-    """`main(argv)` with --use_image at the full width of sunrgbd_quick: one
-    epoch of 8 steps and its evals; every step launches as a training step,
+def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = "ov cli") -> tuple:
+    """`main(argv)` with --use_image at the full width of sunrgbd_quick (the
+    synthetic set unless `argv` names another): one epoch of 8 steps and its
+    evals; every step launches as a training step,
     every eval batch as a request; the checkpoint holds the detector and its
     optimiser only, the same keys, shapes and size as a point-only run's.
     Returns the launch counts and the loop's waits on the loader."""
@@ -1972,7 +1989,7 @@ def ov_cli(card: str, dev: torch.device) -> tuple:
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_ov_cli_") as run:
-        argv = OV_CLI_ARGV + ["--checkpoint_dir", run]
+        argv = argv + ["--checkpoint_dir", run]
         reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1983,22 +2000,22 @@ def ov_cli(card: str, dev: torch.device) -> tuple:
         peak = torch.cuda.max_memory_allocated()
         for line in lines:
             if not (" Average Precision: " in line or " Recall: " in line):
-                print(f"ov cli| {line}")
+                print(f"{label}| {line}")
         require(training.teacher is not None and training.teacher.compute_dtype == "int8",
-                "ov cli: no int8 teacher")
-        require(len(probe.steps) == 8, f"ov cli: {len(probe.steps)} training steps, expected 8")
+                f"{label}: no int8 teacher")
+        require(len(probe.steps) == 8, f"{label}: {len(probe.steps)} training steps, expected 8")
         require(all(d == train_step for _, _, d in probe.steps),
-                f"ov cli: a step launched {[d for _, _, d in probe.steps if d != train_step][:1]}")
+                f"{label}: a step launched {[d for _, _, d in probe.steps if d != train_step][:1]}")
         require(bool(probe.evals) and all(d == eval_batch for d in probe.evals),
-                f"ov cli: an eval batch launched {[d for d in probe.evals if d != eval_batch][:1]}")
+                f"{label}: an eval batch launched {[d for d in probe.evals if d != eval_batch][:1]}")
         path = os.path.join(run, "checkpoint")
         require(os.path.isfile(path) and os.path.isfile(os.path.join(run, "final_eval.txt")),
-                "ov cli: no checkpoint or final_eval.txt")
+                f"{label}: no checkpoint or final_eval.txt")
         payload = torch.load(path, map_location="cpu", weights_only=True)
         teacher_keys = set(training.teacher.state_dict())
         require(not teacher_keys & set(payload["model"])
                 and set(payload["model"]) == set(training.model.state_dict()),
-                "ov cli: the checkpoint holds more than the detector")
+                f"{label}: the checkpoint holds more than the detector")
         cfg = cli.config_from_args(cli.make_args_parser().parse_args(argv))
         point = build_training(dataclasses.replace(cfg, teacher=dataclasses.replace(
             cfg.teacher, enabled=False)), 8, device=dev, seed=cfg.seed)
@@ -2009,15 +2026,15 @@ def ov_cli(card: str, dev: torch.device) -> tuple:
         require({k: v.shape for k, v in payload["model"].items()}
                 == {k: v.shape for k, v in ref_payload["model"].items()}
                 and abs(size - ref_size) <= 0.001 * ref_size,
-                f"ov cli: checkpoint {size} B against a point-only run's {ref_size} B")
+                f"{label}: checkpoint {size} B against a point-only run's {ref_size} B")
     counts = read_counts()
     iters = [(b[0] - a[0]) * 1e3 for a, b in zip(probe.steps, probe.steps[1:])]
-    print(f"ov cli run: {wall:.2f} s wall (teacher build and calibration, 8 steps, evals, "
+    print(f"{label} run: {wall:.2f} s wall (teacher build and calibration, 8 steps, evals, "
           f"checkpoints), iteration (host clock, step start to step start) median "
           f"{np.median(iters):.2f} ms, {min(iters):.2f} to {max(iters):.2f}; peak device memory "
           f"{peak / 2**30:.3f} GiB; checkpoint {size / 1e6:.2f} MB, a point-only run's "
           f"{ref_size / 1e6:.2f} MB, no teacher tensor ({card})")
-    print(f"ov cli launches: { {n: c for n, c in counts.items() if c} }")
+    print(f"{label} launches: { {n: c for n, c in counts.items() if c} }")
     return counts, probe.waits
 
 
@@ -3075,6 +3092,230 @@ def ddp_phase(card: str, dev: torch.device, unbanked_waits: list) -> list:
 
 
 
+# ------------------------------------------------------------ phase 13: the real datasets' images
+JPEG_FIXTURES = os.path.join(HERE, "tests", "data", "jpeg")  # PIL wrote them; manifest.json
+# the SUN RGB-D-layout tree: 8 and 2 batches, the points of the dumps (sunrgbd_pc_bbox_50k)
+SUN_TRAIN, SUN_VAL, SUN_POINTS = 64, 16, 50000
+FRAMES_SCENE, FRAMES_MAX = 40, 64  # frames of the ScanNet scene, the dataset's max_frames
+DECODE_REPS = 10
+
+
+def sha256_of(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def median_ms(fn, reps: int = DECODE_REPS) -> float:
+    """Host-clock median of `reps` calls, after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def check_decoder(card: str) -> float:
+    """The JPEG decoder built here by g++; every committed fixture decodes
+    to the digest of PIL's array in the manifest, and resizes to the digest
+    of JAX's `resize_crop_image`; the progressive one raises.  Prints the
+    host's decode ms; returns the median ms of a 730 x 530 canvas."""
+    from ov3det_torch.datasets.image_utils import load_image, resize_crop_image
+    from ov3det_torch.native import library_path
+    from ov3det_torch.utils import jpeg
+
+    built = not library_path(jpeg.SOURCE).is_file()
+    t0 = time.perf_counter()
+    jpeg.ensure_built()
+    how = f"built by g++ in {time.perf_counter() - t0:.2f} s" if built else "loaded, built before"
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    dims = tuple(manifest["resize_dims"])
+    canvases, frames = [], []
+    for entry in manifest["files"]:
+        path = os.path.join(JPEG_FIXTURES, entry["file"])
+        if entry.get("raises"):
+            try:
+                jpeg.read_jpeg(path)
+            except ValueError as exc:
+                require("progressive" in str(exc), f"{entry['file']}: {exc}")
+            else:
+                raise AssertionError(f"{entry['file']}: a progressive file decoded")
+            continue
+        img = jpeg.read_jpeg(path)
+        require(list(img.shape) == entry["shape"] and sha256_of(img) == entry["sha256"],
+                f"{entry['file']}: the decode differs from PIL's (manifest)")
+        require(sha256_of(resize_crop_image(img, dims)) == entry["resized_sha256"],
+                f"{entry['file']}: the resize differs from PIL's (manifest)")
+        if (entry["width"], entry["height"]) == (730, 530):
+            canvases.append(median_ms(lambda: jpeg.read_jpeg(path)))
+        if (entry["width"], entry["height"]) == (1296, 968):
+            frames.append((path, os.path.getsize(path)))
+    require("PIL" not in sys.modules, "PIL was imported")
+    frame, nbytes = frames[0]
+    decode_ms = median_ms(lambda: jpeg.read_jpeg(frame))
+    frame_ms = median_ms(lambda: load_image(frame, dims))
+    ok = len(manifest["files"]) - 1
+    print(f"jpeg decoder: {how}; {ok} fixtures decode to PIL's digests "
+          f"(Pillow {manifest['pillow']}, libjpeg-turbo {manifest['libjpeg_turbo']}) and resize "
+          f"to JAX's, the progressive one raises, PIL not imported")
+    print(f"jpeg decode on the host (one thread, median of {DECODE_REPS}): a 730 x 530 canvas "
+          f"{np.median(canvases):.3f} ms (median over {len(canvases)} fixtures: "
+          f"{[round(c, 3) for c in canvases]}); a 1296 x 968 frame ({nbytes} B) {decode_ms:.3f} ms "
+          f"decoded, {frame_ms:.3f} ms with the resize to {dims[0]} x {dims[1]} and the "
+          f"normalisation ({card})")
+    return float(np.median(canvases))
+
+
+def write_sun_tree(root: str) -> dict:
+    """A SUN RGB-D-layout tree of `make_scene` scans, its JPEGs cycled from
+    the fixtures at SUN RGB-D's sensor sizes."""
+    from ov3det_torch.datasets.synthetic import write_sunrgbd_tree
+
+    images = sorted(os.path.join(JPEG_FIXTURES, f) for f in os.listdir(JPEG_FIXTURES)
+                    if f.startswith("sun_"))
+    t0 = time.perf_counter()
+    tree = write_sunrgbd_tree(root, SUN_TRAIN, SUN_VAL, images, num_points=SUN_POINTS, seed=13)
+    print(f"SUN RGB-D tree: {SUN_TRAIN} train + {SUN_VAL} val scans of {SUN_POINTS} points, "
+          f"{len(images)} JPEGs cycled, written in {time.perf_counter() - t0:.1f} s")
+    return tree
+
+
+def sun_argv(tree: dict) -> list:
+    """OV_CLI_ARGV on the SUN RGB-D tree in place of the synthetic set."""
+    argv = list(OV_CLI_ARGV)
+    argv[argv.index("synthetic")] = "sunrgbd"
+    return argv + ["--dataset_root_dir", tree["root_dir"], "--meta_data_dir", tree["meta_data_dir"]]
+
+
+def batch_decode_ms(argv: list) -> float:
+    """Host ms of the image branch of one batch (8 canvases and their
+    calibration), median of 3, in this process."""
+    from ov3det_torch import main as cli
+    from ov3det_torch.datasets.registry import build_dataset
+
+    cfg = cli.config_from_args(cli.make_args_parser().parse_args(argv))
+    ds = build_dataset(cfg.data, splits=("train",))[0]["train"]
+    return median_ms(lambda: [ds._load_image_calib(ds.scan_names[i]) for i in range(BATCH)], 3)
+
+
+def sun_bank_cli(card: str, dev: torch.device, argv: list, unbanked_waits: list) -> dict:
+    """The SUN RGB-D OV CLI with --image_bank for one epoch: the launches of
+    every step and eval batch, a checkpoint of the detector only; every row
+    of the bank equals the yuv420 encode of its scan's canvas."""
+    import tempfile
+
+    from ov3det_torch import main as cli
+    from ov3det_torch.datasets.image_bank import build_image_bank, yuv420_encode
+    from ov3det_torch.datasets.registry import build_dataset
+
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    probe = CliProbe()
+    with tempfile.TemporaryDirectory(prefix="ov3det_sun_bank_") as run:
+        reset_counts()
+        t0 = time.perf_counter()
+        training, lines = run_cli(probe, argv + ["--image_bank", "--checkpoint_dir", run])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in lines:
+            if not (" Average Precision: " in line or " Recall: " in line):
+                print(f"sun bank cli| {line}")
+        require(len(probe.steps) == 8 and all(d == train_step for _, _, d in probe.steps),
+                f"sun bank cli: steps launched {[d for _, _, d in probe.steps][:1]}")
+        require(bool(probe.evals) and all(d == eval_batch for d in probe.evals),
+                f"sun bank cli: eval batches launched {probe.evals[:1]}")
+        payload = torch.load(os.path.join(run, "checkpoint"), map_location="cpu", weights_only=True)
+        require(set(payload["model"]) == set(training.model.state_dict())
+                and not any(v.dtype == torch.uint8 for v in payload["model"].values()),
+                "sun bank cli: the checkpoint holds more than the detector")
+    counts = read_counts()
+    bank, hw = training.image_bank
+    del training
+    ds = build_dataset(cli.config_from_args(cli.make_args_parser().parse_args(argv)).data,
+                       splits=("train",))[0]["train"]
+    rows = bank.cpu().numpy()
+    require(rows.shape[0] == len(ds) == SUN_TRAIN
+            and all(np.array_equal(rows[i], yuv420_encode(ds.get_image(i))) for i in range(len(ds))),
+            "sun bank: a row is not the encode of its scan's canvas")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, _ = build_image_bank(ds, dev)  # serial, as the CLI and JAX build it
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(torch.equal(again, bank), "sun bank: a second build differs")
+    iters = [(b[0] - a[0]) * 1e3 for a, b in zip(probe.steps, probe.steps[1:])]
+    print(f"sun bank cli run: {wall:.2f} s wall; the bank: {bank.shape[0]} canvases of {hw[0]} x "
+          f"{hw[1]}, {bank.numel()} B of yuv420 on the card, built (decode, encode, copy; serial) "
+          f"in {build_s:.2f} s; every row the encode of its scan's canvas; iteration median "
+          f"{np.median(iters):.2f} ms, {min(iters):.2f} to {max(iters):.2f} ({card})")
+    print(f"wait on next(loader) in the step loop, banked: {[round(w, 2) for w in probe.waits]} ms; "
+          f"unbanked: {[round(w, 2) for w in unbanked_waits]} ms ({card})")
+    print(f"sun bank cli launches: { {n: c for n, c in counts.items() if c} }")
+    del bank, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def scannet_frames(card: str) -> None:
+    """`load_scene_frames` on a scene of 1296 x 968 colour frames (the two
+    fixtures in turn), 640 x 480 16-bit depth PNGs (`write_png16`) and poses,
+    at max_frames 64: shapes, the mask, and ms a scene."""
+    import shutil
+    import tempfile
+
+    from ov3det_torch.datasets.image_utils import load_scene_frames
+
+    frames = sorted(os.path.join(JPEG_FIXTURES, f) for f in os.listdir(JPEG_FIXTURES)
+                    if f.startswith("scannet_"))
+    rng = np.random.default_rng(17)
+    with tempfile.TemporaryDirectory(prefix="ov3det_frames_") as root:
+        scene = os.path.join(root, "scene0000_00")
+        for sub in ("color", "depth", "pose"):
+            os.makedirs(os.path.join(scene, sub))
+        for f in range(FRAMES_SCENE):
+            shutil.copyfile(frames[f % len(frames)], os.path.join(scene, "color", f"{f}.jpg"))
+            write_png16(os.path.join(scene, "depth", f"{f}.png"),
+                        rng.integers(0, 8000, (480, 640)).astype(np.uint16))
+            np.savetxt(os.path.join(scene, "pose", f"{f}.txt"), np.eye(4) + rng.normal(0, 0.01, (4, 4)))
+        out = load_scene_frames(root, "scene0000_00", max_frames=FRAMES_MAX)
+        ms = median_ms(lambda: load_scene_frames(root, "scene0000_00", max_frames=FRAMES_MAX), 3)
+    images, depths, poses, mask = out
+    require(images.shape == (FRAMES_MAX, 3, 256, 328) and depths.shape == (FRAMES_MAX, 32, 41)
+            and poses.shape == (FRAMES_MAX, 4, 4), f"frames: shapes {[a.shape for a in out]}")
+    require(mask.tolist() == [1.0] * FRAMES_SCENE + [0.0] * (FRAMES_MAX - FRAMES_SCENE)
+            and np.isfinite(images).all() and not images[FRAMES_SCENE:].any()
+            and np.array_equal(poses[-1], np.eye(4)), "frames: mask or padding")
+    require("PIL" not in sys.modules, "PIL was imported")
+    print(f"ScanNet frames: load_scene_frames of {FRAMES_SCENE} frames (1296 x 968 JPEG, 640 x 480 "
+          f"16-bit PNG, pose) at max_frames {FRAMES_MAX}: images {images.shape}, depths "
+          f"{depths.shape}, poses {poses.shape}, mask {int(mask.sum())} ones then "
+          f"{FRAMES_MAX - int(mask.sum())} zeros; {ms:.1f} ms a scene on the host, median of 3 "
+          f"({ms / FRAMES_SCENE:.2f} ms a frame) ({card})")
+
+
+def images_phase(card: str, dev: torch.device) -> list:
+    """Phase 13: the real datasets' images; returns the launch counts of its
+    two CLI runs."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    canvas_ms = check_decoder(card)
+    with tempfile.TemporaryDirectory(prefix="ov3det_sunrgbd_") as root:
+        argv = sun_argv(write_sun_tree(root))
+        counts, waits = ov_cli(card, dev, argv, "sun cli")
+        per_batch = batch_decode_ms(argv)
+        print(f"sun cli: the image branch of a batch ({BATCH} canvases and calibration) takes "
+              f"{per_batch:.2f} ms in one host thread ({BATCH} x {canvas_ms:.3f} ms of decode = "
+              f"{BATCH * canvas_ms:.2f}); the step loop's wait on next(loader): "
+              f"{[round(w, 2) for w in waits]} ms ({card})")
+        bank_counts = sun_bank_cli(card, dev, argv, waits)
+    scannet_frames(card)
+    print(f"phase 13 (the real datasets' images): {time.perf_counter() - t_phase:.1f} s")
+    return [counts, bank_counts]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3144,12 +3385,13 @@ def main() -> int:
     ov_trained, ov_cli_counts, ov_waits = ov_phase(card, dev)
     pseudo_counts = pseudo_phase(card, dev)
     ddp_counts = ddp_phase(card, dev, ov_waits)
+    image_counts = images_phase(card, dev)
 
     kernels = []
     for name, (source, replaces) in kernel_sources().items():
         count = sum(c.get(name, 0) for c in (served, trained, m_served, m_trained, cli_counts,
                                              ov_trained, ov_cli_counts, pseudo_counts,
-                                             *ddp_counts))
+                                             *ddp_counts, *image_counts))
         require(count > 0, f"{name} was not launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **entries[name]})

@@ -11,9 +11,9 @@ The port always runs exact greedy FPS, as the TPU kernel does.
 
 Configurations outside the ported slices raise `NotImplementedError`: the
 `first_k` ball query.  The open-vocabulary step is ported: `TeacherConfig`,
-`LossConfig.teacher_per_layer` and `DataConfig.use_image` are copies, and
-`use_image` feeds the teacher the synthetic canvases (the real datasets'
-image branches raise, ROADMAP Queue 1 item 9).  `TrainConfig.num_devices`
+`LossConfig.teacher_per_layer` and `DataConfig.use_image` are copies;
+`use_image` gives the teacher SUN RGB-D's or the synthetic set's canvases,
+and ScanNet's frames (`frames_dir`, `max_frames`).  `TrainConfig.num_devices`
 (`--ngpus`, the ranks of data parallelism) and `DataConfig.image_bank` (the
 device image bank) are copies too.  The TPU transport's other fields
 (`super_batch`, `quantize_points`, `yuv_images`) have no copy:
@@ -160,6 +160,10 @@ class DataConfig:
     use_2d_feature: bool = False
     # RGB canvases and calibration in each sample, for the 2D teacher
     use_image: bool = False
+    # ScanNet multi-frame image loading (reference datasets/scannet.py:276-285
+    # hardcodes SCANNET_FRAMES_ROOT; here the frames tree is a config path)
+    frames_dir: Optional[str] = None
+    max_frames: int = 64
     num_workers: int = 4
     batch_size_per_device: int = 8
     max_num_obj: int = 64

@@ -4,10 +4,9 @@ A copy of `ov3det/datasets/registry.py:17-89` (reference
 datasets/__init__.py:12-50): the train split augmented, test = val
 un-augmented, an "inference" view of the train split without augmentation,
 and the "synthetic" dataset (64 train / 16 test scenes, seeds 1 / 2 / 1).
-`use_image` picks `SyntheticOVDataset` (canvases and calibration) for
-"synthetic", as `ov3det/datasets/registry.py:72-77` does; the real
-datasets' constructors raise on it (their image branches are ROADMAP Queue 1
-item 9).
+`use_image` reaches every dataset: SUN RGB-D's canvases and calibration,
+ScanNet's frames (`frames_dir`, `max_frames`), and for "synthetic" it picks
+`SyntheticOVDataset`, as `ov3det/datasets/registry.py:72-77` does.
 """
 from __future__ import annotations
 
@@ -56,6 +55,8 @@ def build_dataset(cfg: DataConfig, splits=("train", "test")):
                 use_pbox=cfg.use_pbox,
                 use_2d_feature=cfg.use_2d_feature,
                 use_image=cfg.use_image,
+                frames_dir=cfg.frames_dir,
+                max_frames=cfg.max_frames,
             )
     elif name == "synthetic":
         dataset_config = ScannetDatasetConfig()

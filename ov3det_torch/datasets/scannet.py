@@ -8,10 +8,12 @@ the 18-class vocabulary, augments (two flips + small z rotation with AABB
 re-fitting), and emits the padded fixed-shape training dict.  Pure numpy:
 it runs in the loader's worker processes, which never touch CUDA.
 
-The multi-frame image branch (`frames_dir`, `max_frames`,
-`ov3det/datasets/image_utils.py`) is not ported: it decodes JPEGs with PIL,
-which the card's machine lacks (ROADMAP Queue 1 item 9); `use_image=True`
-raises.  The open-vocabulary step runs on `SyntheticOVDataset`.
+With `use_image` each sample also carries the scene's frames from
+`frames_dir` (`datasets/image_utils.load_scene_frames`, padded to
+`max_frames`): `images`, `depths`, `poses` and `frame_mask`, as
+`ov3det/datasets/scannet.py:149-180` gives them.  No training step reads
+them: the teacher takes a SUN RGB-D canvas (`image`), which ScanNet's batch
+lacks, in JAX as here.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import numpy as np
 
 from ov3det_torch.datasets.augment import random_sampling, rotz
 from ov3det_torch.datasets.dataset_configs import ScannetDatasetConfig
-from ov3det_torch.datasets.sunrgbd import IMAGE_NOT_PORTED
+from ov3det_torch.datasets.image_utils import load_scene_frames
+from ov3det_torch.utils import jpeg
 
 MEAN_COLOR_RGB = np.array([109.8, 97.2, 83.8])
 
@@ -40,13 +43,13 @@ class ScannetDetectionDataset:
         use_color: bool = False,
         use_height: bool = False,
         use_image: bool = False,
+        frames_dir: Optional[str] = None,
+        max_frames: int = 64,
         augment: bool = False,
         use_pbox: bool = False,
         use_2d_feature: bool = False,
         seed: int = 0,
     ):
-        if use_image:
-            raise NotImplementedError(IMAGE_NOT_PORTED)
         assert root_dir is not None, "pass data.root_dir (no hard-coded paths)"
         assert split_set in ("train", "val", "all")
         self.dataset_config = dataset_config
@@ -68,11 +71,16 @@ class ScannetDetectionDataset:
         self.num_points = num_points
         self.use_color = use_color
         self.use_height = use_height
+        self.use_image = use_image
+        self.frames_dir = frames_dir
+        self.max_frames = max_frames
         self.augment = augment
         self.use_pbox = use_pbox
         self.use_2d_feature = use_2d_feature
         self.max_num_obj = dataset_config.max_num_obj
         self.seed = seed
+        if use_image:  # build the decoder here, not in the loader's workers
+            jpeg.ensure_built()
 
     def __len__(self):
         return len(self.scan_names)
@@ -151,6 +159,11 @@ class ScannetDetectionDataset:
             self.dataset_config.nyu40id2class[int(x)] for x in instance_bboxes[:K, -1]
         ]
 
+        if self.use_image:
+            images, depths, poses, frame_mask = load_scene_frames(
+                self.frames_dir, scan_name, max_frames=self.max_frames
+            )
+
         ret = {
             "point_clouds": point_cloud.astype(np.float32),
             "gt_box_corners": box_corners.astype(np.float32),
@@ -169,4 +182,11 @@ class ScannetDetectionDataset:
         }
         if self.use_2d_feature:
             ret["feature_2d"] = feature_2d
+        if self.use_image:
+            # multi-frame views (reference scannet.py:276-285, :390-393),
+            # padded to a fixed frame count so batches stay fixed-shape
+            ret["images"] = images.astype(np.float32)
+            ret["depths"] = depths.astype(np.float32)
+            ret["poses"] = poses.astype(np.float32)
+            ret["frame_mask"] = frame_mask
         return ret

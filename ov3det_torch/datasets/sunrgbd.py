@@ -7,11 +7,10 @@ applies the open-vocabulary support-class filter during training, augments,
 and emits the padded fixed-shape training dict.  Pure numpy: it runs in the
 loader's worker processes, which never touch CUDA.
 
-The image branch (the RGB canvas and calibration that feed the RegionCLIP
-teacher, `ov3det/datasets/sunrgbd.py:83-107`) is not ported: it decodes
-JPEGs with PIL, which the card's machine lacks (ROADMAP Queue 1 item 9);
-`use_image=True` raises.  The open-vocabulary step runs on
-`SyntheticOVDataset`, whose canvases need no decoder.
+With `use_image` each sample also carries what the RegionCLIP teacher reads
+(`ov3det/datasets/sunrgbd.py:83-107, 175-180`): `<raw>/image/<scan>.jpg` on
+a 530 x 730 uint8 canvas (decoded by `utils/jpeg.py` to PIL's values), the
+image's height and width, and Rtilt and K from `<raw>/calib/<scan>.txt`.
 """
 from __future__ import annotations
 
@@ -29,10 +28,12 @@ from ov3det_torch.datasets.augment import (
     rotate_z,
 )
 from ov3det_torch.datasets.dataset_configs import SunrgbdDatasetConfig
+from ov3det_torch.utils import jpeg
 
 MEAN_COLOR_RGB = np.array([0.5, 0.5, 0.5])
-IMAGE_NOT_PORTED = ("use_image: the real datasets' image branches are not ported "
-                    "(ROADMAP Queue 1 item 9); --dataset_name synthetic has canvases")
+# fixed padded image canvas (reference packs images into a 1-D buffer of
+# 530*730*3, sunrgbd.py:47,284-285; a 2-D zero-padded canvas batches cleanly)
+MAX_IMG_H, MAX_IMG_W = 530, 730
 
 
 class SunrgbdDetectionDataset:
@@ -55,8 +56,6 @@ class SunrgbdDetectionDataset:
         use_2d_feature: bool = False,
         seed: int = 0,
     ):
-        if use_image:
-            raise NotImplementedError(IMAGE_NOT_PORTED)
         assert num_points <= 50000
         assert split_set in ("train", "val", "trainval")
         assert root_dir is not None, "pass data.root_dir (no hard-coded paths)"
@@ -71,6 +70,7 @@ class SunrgbdDetectionDataset:
         self.num_points = num_points
         self.augment = augment
         self.use_color = use_color
+        self.use_image = use_image
         self.use_height = use_height
         self.use_random_cuboid = use_random_cuboid
         self.random_cuboid_augmentor = RandomCuboid(
@@ -81,9 +81,33 @@ class SunrgbdDetectionDataset:
         self.use_pbox = use_pbox
         self.use_2d_feature = use_2d_feature
         self.seed = seed
+        if use_image:  # build the decoder here, not in the loader's workers
+            jpeg.ensure_built()
 
     def __len__(self):
         return len(self.scan_names)
+
+    def _load_image_calib(self, scan_name):
+        calib_file = os.path.join(self.raw_data_path, "calib", scan_name + ".txt")
+        with open(calib_file) as fh:
+            lines = fh.read().splitlines()
+        Rtilt = np.reshape(np.array([float(x) for x in lines[0].split(" ")]), (3, 3), "F")
+        K = np.reshape(np.array([float(x) for x in lines[1].split(" ")]), (3, 3), "F")
+        # RGB (the teacher tower normalizes with RGB statistics)
+        img = jpeg.read_jpeg(os.path.join(self.raw_data_path, "image", scan_name + ".jpg"))
+        h, w = img.shape[0], img.shape[1]
+        if img.ndim != 3 or h > MAX_IMG_H or w > MAX_IMG_W:
+            raise ValueError(f"scan {scan_name}: image of shape {img.shape} does not fit the "
+                             f"{MAX_IMG_H} x {MAX_IMG_W} x 3 canvas")
+        # uint8 canvas: the teacher normalizes (and so promotes) on the device
+        canvas = np.zeros((MAX_IMG_H, MAX_IMG_W, 3), np.uint8)
+        canvas[:h, :w] = img
+        return Rtilt, K, canvas, h, w
+
+    def get_image(self, idx: int) -> np.ndarray:
+        """Image-only path of the device image bank (datasets/image_bank.py):
+        the canvas, which augmentation never touches."""
+        return self._load_image_calib(self.scan_names[idx])[2]
 
     def __getitem__(self, idx: int) -> dict:
         rng = np.random.default_rng(
@@ -108,6 +132,11 @@ class SunrgbdDetectionDataset:
             feature_2d = np.load(
                 os.path.join(self.feature_2d_dir, scan_name) + ".npy"
             )
+        if self.use_image:
+            calib_Rtilt, calib_K, img_canvas, img_h, img_w = self._load_image_calib(
+                scan_name
+            )
+
         if not self.use_color:
             point_cloud = point_cloud[:, 0:3]
         else:
@@ -146,6 +175,12 @@ class SunrgbdDetectionDataset:
         )
         if self.use_2d_feature:
             ret["feature_2d"] = feature_2d
+        if self.use_image:
+            ret["image"] = img_canvas
+            ret["image_height"] = np.int64(img_h)
+            ret["image_width"] = np.int64(img_w)
+            ret["calib_Rtilt"] = calib_Rtilt.astype(np.float32)
+            ret["calib_K"] = calib_K.astype(np.float32)
         return ret
 
 

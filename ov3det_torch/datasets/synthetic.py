@@ -10,11 +10,13 @@ schema is that of the real SUN RGB-D / ScanNet loaders.
 
 `write_scannet_tree` writes such scenes as a ScanNet detection tree (the
 files `datasets/scannet.py` reads, and per-scan point labels for the
-pseudo-label filter), for runs of the CLIs without the real dataset.
+pseudo-label filter), and `write_sunrgbd_tree` as a SUN RGB-D tree with
+images and calibration, for runs of the CLIs without the real datasets.
 """
 from __future__ import annotations
 
 import os
+import shutil
 
 import numpy as np
 
@@ -249,3 +251,49 @@ def write_scannet_tree(root: str, num_train: int, num_val: int, num_points: int 
         fh.write("\n".join(names[num_train:]))
     return {"root_dir": data, "meta_data_dir": meta, "label_dir": labels,
             "train": names[:num_train], "val": names[num_train:]}
+
+
+# a SUN RGB-D-like camera: the depth frame upright, K of a 730 x 530 Kinect v2
+_SUNRGBD_RTILT = np.eye(3)
+_SUNRGBD_K = np.array([[529.5, 0.0, 365.0], [0.0, 529.5, 265.0], [0.0, 0.0, 1.0]])
+
+
+def write_sunrgbd_tree(root: str, num_train: int, num_val: int, images: list,
+                       num_points: int = 20000, seed: int = 0) -> dict:
+    """Write `num_train + num_val` `make_scene` scenes (20 classes, 12
+    angle bins; scene i from `default_rng(seed * 100003 + i)`) as a SUN
+    RGB-D tree under `root`, in the layout `datasets/sunrgbd.py` reads:
+
+      sunrgbd_pc_bbox_50k_v1_{train,val}/{i:06d}_pc.npz  pc (N, 6): xyz, rgb in [0, 1]
+      sunrgbd_pc_bbox_50k_v1_{train,val}/{i:06d}_bbox.npy (K, 8): center, half size,
+                                                           heading, class
+      sunrgbd_trainval/calib/{i:06d}.txt  Rtilt, then K, each 9 numbers column-major
+      sunrgbd_trainval/image/{i:06d}.jpg  a copy of images[i % len(images)]
+
+    Returns the `--dataset_root_dir` and `--meta_data_dir` of the tree and
+    the two splits' scan names."""
+    data = os.path.join(root, "sunrgbd_pc_bbox_50k_v1")
+    raw = os.path.join(root, "sunrgbd_trainval")
+    for d in (data + "_train", data + "_val", os.path.join(raw, "calib"),
+              os.path.join(raw, "image")):
+        os.makedirs(d, exist_ok=True)
+    names = [f"{i:06d}" for i in range(num_train + num_val)]
+    calib = " ".join(f"{v:.6f}" for v in _SUNRGBD_RTILT.flatten("F")) + "\n" + \
+        " ".join(f"{v:.6f}" for v in _SUNRGBD_K.flatten("F")) + "\n"
+    for i, name in enumerate(names):
+        rng = np.random.default_rng(seed * 100003 + i)
+        s = make_scene(rng, num_points=num_points, num_semcls=20, num_angle_bin=12, scan_idx=i)
+        k = int(s["gt_box_present"].sum())
+        rgb = rng.uniform(0, 1, size=(num_points, 3)).astype(np.float32)
+        split = data + ("_train" if i < num_train else "_val")
+        np.savez(os.path.join(split, f"{name}_pc.npz"),
+                 pc=np.concatenate([s["point_clouds"], rgb], 1))
+        boxes = np.concatenate([s["gt_box_centers"][:k], s["gt_box_sizes"][:k] / 2,
+                                s["gt_box_angles"][:k, None],
+                                s["gt_box_sem_cls_label"][:k, None]], 1)
+        np.save(os.path.join(split, f"{name}_bbox.npy"), boxes.astype(np.float32))
+        with open(os.path.join(raw, "calib", f"{name}.txt"), "w") as fh:
+            fh.write(calib)
+        shutil.copyfile(images[i % len(images)], os.path.join(raw, "image", f"{name}.jpg"))
+    return {"root_dir": data, "meta_data_dir": raw, "train": names[:num_train],
+            "val": names[num_train:]}

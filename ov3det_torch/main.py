@@ -174,8 +174,8 @@ def make_args_parser():
                    "consumes them (faithful to the reference, which also loads and drops them)")
     p.add_argument("--use_image", default=False, action="store_true",
                    help="train the open-vocabulary step: image canvases and the frozen 2D "
-                   "teacher (synthetic data only; the real datasets' image branches are "
-                   "ROADMAP Queue 1 item 9)")
+                   "teacher (SUN RGB-D or synthetic; ScanNet loads its frames from "
+                   "--frames_dir, which no teacher reads)")
     p.add_argument("--frames_dir", type=str, default=None,
                    help="ScanNet frames tree for --use_image")
     p.add_argument("--max_frames", default=64, type=int)
@@ -292,6 +292,8 @@ def config_from_args(args) -> TrainConfig:
             use_pbox=args.use_pbox,
             use_2d_feature=args.use_2d_feature,
             use_image=args.use_image,
+            frames_dir=args.frames_dir,
+            max_frames=args.max_frames,
             num_workers=args.dataset_num_workers,
             batch_size_per_device=args.batchsize_per_gpu,
             image_bank=args.image_bank,
@@ -346,6 +348,11 @@ def build_teacher(cfg: TrainConfig, example: dict, device=None) -> RegionCLIPTea
     split) with eight `default_rng(0)` boxes inside its image, as JAX
     calibrates on its example batch's first canvas; all of it is
     deterministic, so a resumed run rebuilds the same teacher."""
+    if "image" not in example:
+        raise ValueError(f"--use_image on {cfg.data.dataset_name}: its batch has no 'image' "
+                         "canvas, so it feeds no teacher (ScanNet's batch holds frames: "
+                         "images, depths, poses; the JAX package stops here too, "
+                         "ov3det/main.py:313)")
     device = resolve_device(device)
     dtype = cfg.teacher.compute_dtype
     teacher = RegionCLIPTeacher(embed_dim=cfg.model.clip_embed_dim,

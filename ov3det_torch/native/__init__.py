@@ -1,12 +1,13 @@
-"""Native (C++) host-side rotated 3D IoU, loaded with ctypes.
+"""Native (C++) host code, built with g++ at first use and loaded with ctypes.
 
-A copy of `ov3det/native/__init__.py` for the port.  `rotated_iou.cpp` is
-built with g++ at first use into `ov3det_torch/_build/`, under a name that
-carries a hash of the source and the flags, and never when this module is
-imported.  Without a compiler the evaluation uses the vectorized numpy IoU
-(`geometry/iou_np.py`), as the JAX package does.  This is a host helper of
-the VOC evaluation, not a device kernel.  The first call prints which of the
-two serves this process.
+Two sources live here: `rotated_iou.cpp`, the host-side rotated 3D IoU of
+the VOC evaluation (a copy of `ov3det/native/__init__.py` for the port), and
+`jpeg_decode.cpp`, the datasets' JPEG decoder (`ov3det_torch/utils/jpeg.py`).
+Each is built into `ov3det_torch/_build/` under a name that carries a hash
+of the source and the flags, never when a module is imported.  Without a
+compiler the evaluation uses the vectorized numpy IoU (`geometry/iou_np.py`),
+as the JAX package does; the first IoU call prints which of the two serves
+this process.  Neither is a device kernel.
 """
 from __future__ import annotations
 
@@ -29,25 +30,30 @@ _lock = threading.Lock()
 _state: dict = {}  # "lib": the loaded library or None once resolved
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librotated_iou-{digest}.so"
+def library_path(source: Path = SOURCE) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def _build(path: Path) -> Optional[str]:
-    """Compile into a temporary name, then rename: concurrent builds
-    (test workers) never load a half-written library.  Returns the reason
-    of a failure, or None."""
+def build_library(source: Path) -> tuple[Path, Optional[str]]:
+    """The built library of `source`: its path, and the reason of a failure
+    or None.  Compiles into a temporary name, then renames, so that
+    concurrent builds (test workers) never load a half-written library."""
+    path = library_path(source)
+    if path.is_file():
+        return path, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)
     try:
-        subprocess.run(["g++", *FLAGS, "-o", tmp, str(SOURCE)], check=True,
+        subprocess.run(["g++", *FLAGS, "-o", tmp, str(source)], check=True,
                        capture_output=True, timeout=120)
         os.replace(tmp, path)
-        return None
+        return path, None
+    except subprocess.CalledProcessError as exc:
+        return path, f"g++ failed: {exc.stderr.decode(errors='replace')[-2000:]}"
     except (OSError, subprocess.SubprocessError) as exc:
-        return f"{type(exc).__name__}: {exc}"
+        return path, f"{type(exc).__name__}: {exc}"
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -57,8 +63,7 @@ def _load():
     with _lock:
         if "lib" in _state:
             return _state["lib"]
-        path = library_path()
-        why = None if path.is_file() else _build(path)
+        path, why = build_library(SOURCE)
         lib = None
         if why is None:
             try:

@@ -122,17 +122,6 @@ def test_registry_matches_jax(scannet_tree):  # noqa: F811
     assert [(len(synth[s]), synth[s].seed) for s in splits] == [(64, 1), (16, 2), (16, 1)]
 
 
-def test_use_image_raises(sunrgbd_tree, scannet_tree):  # noqa: F811
-    """The real datasets' image branches decode JPEGs with PIL, which the
-    card's machine lacks: they stay refused (ROADMAP Queue 1 item 9)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _sunrgbd_pair(sunrgbd_tree, "val", num_points=1024, use_image=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ScannetDetectionDataset(ScannetDatasetConfig(), "val", use_image=True,
-                                root_dir=str(scannet_tree / "scannet_train_detection_data"),
-                                meta_data_dir=str(scannet_tree / "meta_data"))
-
-
 # ------------------------------------------------------------ augmentations
 def _state(seed):
     return np.random.default_rng(seed), np.random.default_rng(seed)

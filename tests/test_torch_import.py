@@ -19,7 +19,9 @@ for name in names:
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "ov3det", "triton", "PIL"))
 native = sys.modules["ov3det_torch.native"]
-print(json.dumps({"modules": names, "banned": banned, "native_loaded": bool(native._state)}))
+jpeg = sys.modules["ov3det_torch.utils.jpeg"]
+print(json.dumps({"modules": names, "banned": banned, "native_loaded": bool(native._state),
+                  "jpeg_loaded": bool(jpeg._state)}))
 """
 
 
@@ -46,16 +48,21 @@ def test_importing_every_module_leaves_jax_out():
                  "tools.scannet_io", "tools.format_tools", "tools.evaluate_box",
                  "tools.seg_metrics", "tools.extract_class_features", "models.clip_text",
                  "models.convert_3detr", "utils.png", "utils.visualize", "parallel",
-                 "parallel.mesh", "datasets.image_bank"):
+                 "parallel.mesh", "datasets.image_bank", "utils.jpeg",
+                 "datasets.image_utils"):
         assert f"ov3det_torch.{name}" in report["modules"]
-    # importing the native IoU neither builds nor loads it: that waits for
-    # the first IoU of an evaluation
-    assert report["native_loaded"] is False
+    # importing the native IoU or the JPEG decoder neither builds nor loads
+    # it: that waits for the first IoU of an evaluation, the first dataset
+    # with images
+    assert report["native_loaded"] is False and report["jpeg_loaded"] is False
 
 
 def test_no_source_names_the_jax_package():
+    """No line of the port or of chip_smoke.py imports JAX, flax, the JAX
+    package or PIL, at the top or inside a function (the import-time probe
+    above cannot see a lazy import)."""
     pattern = re.compile(r"^\s*(import jax|from jax|import flax|from flax|"
-                         r"from ov3det[ .]|import ov3det\b(?!_torch))", re.M)
+                         r"from ov3det[ .]|import ov3det\b(?!_torch)|import PIL|from PIL)", re.M)
     offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
                  if pattern.search(p.read_text())]
     smoke = REPO / "chip_smoke.py"
