@@ -108,10 +108,10 @@ at once), then:
      and sizes, and the peak device memory; then the host AP with the C++
      rotated IoU and with the numpy one, in turns, on the `--test_only` pass
      and on 16 scenes of detections near the GT boxes;
-  9. (after 13) prints the kernels line (launches summed over the serving
+  9. (after 14) prints the kernels line (launches summed over the serving
      and training runs of both configs, the CLI's run, phase 10's OV
-     training and OV CLI runs, phase 11's runs, phase 12's and phase 13's),
-     the card line, and last {"ok": true, "device": {...}}.
+     training and OV CLI runs, phase 11's runs, phase 12's, phase 13's and
+     phase 14's CLI runs), the card line, and last {"ok": true, "device": {...}}.
  10. the open-vocabulary step ("OV sunrgbd_quick": `sunrgbd_quick()` with
      the 2D-alignment loss at weight 1, as bench.py:518-530 builds it, and
      the frozen RegionCLIP RN50x4 teacher in int8 at its defaults, seeded
@@ -207,8 +207,33 @@ at once), then:
        `load_scene_frames` on a scene of 40 frames (the 1296 x 968
        fixtures, 16-bit depth PNGs of `write_png16`, poses) at
        max_frames 64: the shapes, the mask, ms a scene.
-Launch counts are set to 0 just before each serving, training and CLI run,
-and read just after it.  The radius variants of the attention kernels count
+ 14. the packed transfer and the graphed step (slice 12):
+       the auction kernel against its plain version: assignments equal on
+       the criterion's cost matrices of 3 eager `sunrgbd_quick` steps, on
+       seeded costs with ties, on near-duplicate rows that do not
+       converge (500 tight and 800 loose rounds) and on NaN and -inf
+       benefits (a value, a person, a row); its ms (replays of a
+       CUDA graph of calls) beside the plain loop's and the bound of step
+       0's work (the bidder x object pairs its rounds need);
+       `PackedStep` graphed against eager from one state and seeds at
+       `sunrgbd_quick`, masked and OV width: 3 steps bit for bit in every
+       loss, grad_norm, parameter, buffer and Adam moment; each graphed
+       step's launches exact; no host wait in a group's 4 replays (CUDA's
+       sync debug mode); 5 steps of each timed, one graphed step profiled,
+       the peak memory with the graph;
+       the bytes of a group of 4 SUN RGB-D OV batches with and without the
+       codecs; the OV CLI on phase 13's SUN RGB-D tree layout with
+       `--quantize_points --yuv_images --super_batch 4` (every item
+       launching 4 steps' kernels, every eval batch a request's), beside
+       phase 13's unflagged epoch; the synthetic OV CLI with the codecs at
+       `--super_batch 4` and 1: the logged losses and the final parameters
+       and Adam moments equal bit for bit.
+Every CLI run of phases 8 and 10-14 on one process replays the step's
+CUDA graph; a replay calls no wrapper, so the runs here use
+`counted_packed_step()`, a `PackedStep` that adds the kernels its capture
+recorded times its replays, less the capture's own count, to what
+`read_counts` reads.  Launch counts are set to 0 just
+before each serving, training and CLI run, and read just after it.  The radius variants of the attention kernels count
 apart (`.radius_launches`) and have their own entries in the kernels line.
 Exits non-zero, printing no result, without CUDA or without the package
 beside this file.  Any failed check raises.
@@ -216,6 +241,7 @@ beside this file.  Any failed check raises.
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import io
@@ -435,28 +461,77 @@ def kernel_counters() -> dict:
     """name -> (wrapper, attribute): each wrapper counts its kernel's launches
     in `.launches`, the attention wrappers those of the radius variant in
     `.radius_launches`."""
-    from ov3det_torch.ops.kernels import attention, ball_group, fps
+    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps
 
     counters = {"fps": (fps.fps, "launches"), "ball_group": (ball_group.ball_group, "launches"),
                 "slot_sources": (ball_group.slot_sources, "launches")}
     for name in ("attention_fwd", "attention_dq", "attention_dkv"):
         counters[name] = (getattr(attention, name), "launches")
         counters[f"{name}_radius"] = (getattr(attention, name), "radius_launches")
+    counters["auction"] = (auction.auction_phases, "launches")
     return counters
 
 
-def read_counts() -> dict:
+def wrapper_counts() -> dict:
+    """name -> the launches its wrapper has counted."""
     return {n: getattr(w, a) for n, (w, a) in kernel_counters().items()}
+
+
+REPLAYED: dict = {}  # name -> launches of CountedPackedStep replays less those its captures recorded
+
+
+@functools.lru_cache(maxsize=None)
+def counted_packed_step():
+    """`engine.train.PackedStep` with its CUDA-graph launches counted: a
+    capture calls the wrappers, which count each launch it records though
+    nothing runs, and a replay calls none.  Each capture takes what it
+    recorded off `REPLAYED` and each replay adds it, so that the wrappers'
+    counts plus `REPLAYED` are the launches that ran (`read_counts`)."""
+    from ov3det_torch.engine.train import PackedStep
+
+    class CountedPackedStep(PackedStep):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.recorded = {}  # metas -> name -> the launches one replay makes
+
+        def _record(self, graph, stream, static_row, metas):
+            before = wrapper_counts()
+            out = super()._record(graph, stream, static_row, metas)
+            after = wrapper_counts()
+            rec = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+            self.recorded[metas] = rec
+            for n, c in rec.items():
+                REPLAYED[n] = REPLAYED.get(n, 0) - c
+            return out
+
+        def _replay(self, rows, metas, first_iter):
+            fresh = metas not in self._graphs  # its first row is the eager warm-up
+            out = super()._replay(rows, metas, first_iter)
+            replays = rows.shape[0] - int(fresh)
+            for n, c in self.recorded[metas].items():
+                REPLAYED[n] = REPLAYED.get(n, 0) + replays * c
+            return out
+
+    return CountedPackedStep
+
+
+def read_counts() -> dict:
+    """The launches that ran: the wrappers' counts plus `REPLAYED`."""
+    counts = wrapper_counts()
+    for n, c in REPLAYED.items():
+        counts[n] += c
+    return counts
 
 
 def reset_counts() -> None:
     for w, a in kernel_counters().values():
         setattr(w, a, 0)
+    REPLAYED.clear()
 
 
 def kernel_sources() -> dict:
     """name -> (source in the repo, the TPU kernel it replaces)."""
-    from ov3det_torch.ops.kernels import attention, ball_group, fps
+    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps
 
     return {"fps": (fps.SOURCE, fps.REPLACES),
             "ball_group": (ball_group.SOURCE, ball_group.REPLACES),
@@ -466,7 +541,8 @@ def kernel_sources() -> dict:
             "attention_dkv": (attention.BWD_SOURCE, attention.DKV_REPLACES),
             "attention_fwd_radius": (attention.SOURCE, attention.FWD_RADIUS_REPLACES),
             "attention_dq_radius": (attention.BWD_SOURCE, attention.DQ_RADIUS_REPLACES),
-            "attention_dkv_radius": (attention.BWD_SOURCE, attention.DKV_RADIUS_REPLACES)}
+            "attention_dkv_radius": (attention.BWD_SOURCE, attention.DKV_RADIUS_REPLACES),
+            "auction": (auction.SOURCE, auction.REPLACES)}
 
 
 def expect(**counts) -> dict:
@@ -894,7 +970,7 @@ def check_slot_sources(pre_xyz, mid_xyz, dev: torch.device) -> dict:
     grad = BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C)
     cpu = BG.feature_grad(pre_xyz.cpu(), mid_xyz.cpu(), radius, K, g.cpu(), C)
     g_err = (grad.cpu() - cpu).abs().max().item() / cpu.abs().max().item()
-    # the card's index_add_ sums with atomics, in another order than the CPU
+    # the card's accumulating index_put_ sums each point's slots in their order, as the CPU does
     require(g_err <= 1e-5, f"ball_group feature gradient: card vs CPU {g_err} relative")
     before = cuda_ms(lambda: BG.feature_grad_plain(pre_xyz, mid_xyz, radius, K, g, C), 3)
     after = cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10)
@@ -1221,22 +1297,29 @@ def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
             or "none"))
 
 
-def sync_points(title: str, fn) -> None:
+def sync_points(title: str, fn) -> int:
     """Run `fn` once with CUDA's sync debug mode at "warn" and print each
     line of Python that made the host wait for the card (a copy to the
     host, a blocking copy from pageable host memory, `.item()`), with its
-    count."""
+    count; a wait with no line of the package on the stack is printed with
+    the innermost lines it has.  Returns the number of waits."""
     where = collections.Counter()
     package = os.path.join(HERE, "ov3det_torch")
 
     def note(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" not in str(message):
             return
-        # the innermost line of the package on the stack, else the warning's own
-        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(package)]
-        f = ours[-1] if ours else None
-        where[f"{os.path.relpath(f.filename, HERE)}:{f.lineno}" if f else
-              f"{os.path.basename(filename)}:{lineno}"] += 1
+        # the innermost line of the package on the stack, else the innermost three
+        stack = traceback.extract_stack()[:-1]
+        if any(f.name == "set_sync_debug_mode" for f in stack):
+            return  # the mode's own switch warns, which is no wait of `fn`
+        ours = [f for f in stack if f.filename.startswith(package)]
+        if ours:
+            where[f"{os.path.relpath(ours[-1].filename, HERE)}:{ours[-1].lineno}"] += 1
+        else:
+            where[" < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                             for f in reversed(stack[-3:]))
+                  + f" ({os.path.basename(filename)}:{lineno})"] += 1
 
     torch.cuda.synchronize()
     with warnings.catch_warnings():
@@ -1250,6 +1333,7 @@ def sync_points(title: str, fn) -> None:
     torch.cuda.synchronize()
     print(f"{title}: {sum(where.values())} synchronising calls on the host"
           + "".join(f"\n  x{n:<3d} {line}" for line, n in sorted(where.items())))
+    return sum(where.values())
 
 
 def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) -> dict:
@@ -1485,9 +1569,15 @@ class CliProbe:
     names that module and the AP calculator look up: the launches of each
     train step and eval batch, the loop's host times, the eval passes'
     parts and the checkpoints' times and sizes.  `patched()` installs the
-    spies and takes them out again."""
+    spies and takes them out again.  A packed item (one process) is one
+    entry of `steps` whatever batches it carries (`rows` holds how many);
+    its launches are those its graph replays made.  `record_boxes` keeps
+    each train batch's scans and GT boxes (a copy to the host a batch)."""
 
-    def __init__(self):
+    def __init__(self, record_boxes: bool = False):
+        self.record_boxes = record_boxes
+        self.rows = []  # train batches of each entry of `steps`
+        self.in_packed = False
         self.steps, self.evals = [], []  # (host start, epoch), launch deltas
         self.epochs, self.waits, self.eval_waits, self.starts = [], [], [], []
         self.passes, self.current = [], None
@@ -1501,12 +1591,31 @@ class CliProbe:
         return {n: after[n] - before[n] for n in after}
 
     def _train_step(self, step):
-        def train_step(batch, generator, mark=None):
+        def train_step(batch, generator, mark=None, staged=False):
+            if self.in_packed:  # the packed step's warm-up or capture
+                return step(batch, generator, mark, staged)
             before, t = read_counts(), time.perf_counter()
-            out = step(batch, generator, mark)
+            out = step(batch, generator, mark, staged)
             self.steps.append((t, len(self.epochs) - 1, self._delta(before)))
+            self.rows.append(1)
             return out
         return train_step
+
+    def _packed_step(self, cls):
+        probe = self
+
+        class Probed(cls):
+            def __call__(self, rows, metas, first_iter):
+                before, t = read_counts(), time.perf_counter()
+                probe.in_packed = True
+                try:
+                    out = super().__call__(rows, metas, first_iter)
+                finally:
+                    probe.in_packed = False
+                probe.steps.append((t, len(probe.epochs) - 1, probe._delta(before)))
+                probe.rows.append(int(rows.shape[0]) if rows.dim() == 2 else 1)
+                return out
+        return Probed
 
     def _eval_step(self, step):
         def eval_step(batch):
@@ -1559,9 +1668,16 @@ class CliProbe:
                         return
                     (probe.waits if self.shuffle else probe.eval_waits).append(
                         (time.perf_counter() - t) * 1e3)
-                    if self.shuffle:
-                        probe.train_boxes.append({k: np.asarray(batch[k]) for k in (
-                            "scan_idx", "gt_box_present", "gt_box_sem_cls_label")})
+                    if self.shuffle and probe.record_boxes:
+                        keys = ("scan_idx", "gt_box_present", "gt_box_sem_cls_label")
+                        if isinstance(batch, tuple):  # packed rows on the card
+                            from ov3det_torch.datasets.loader import unpack_batch
+
+                            for row in batch[0].cpu():
+                                one = unpack_batch(row, batch[1])
+                                probe.train_boxes.append({k: one[k].numpy() for k in keys})
+                        else:
+                            probe.train_boxes.append({k: np.asarray(batch[k]) for k in keys})
                     yield batch
 
         def build_training(*args, **kwargs):
@@ -1609,6 +1725,7 @@ class CliProbe:
             return out
 
         spies = [(cli, "DataLoader", TimedLoader), (cli, "build_training", build_training),
+                 (cli, "PackedStep", self._packed_step(counted_packed_step())),
                  (cli, "make_eval_step", make_eval_step), (cli, "evaluate", evaluate),
                  (ap_calculator, "parse_predictions",
                   self._timed(ap_calculator.parse_predictions, "parse")),
@@ -1705,8 +1822,9 @@ def cli_phase(card: str) -> dict:
     launch counts of its three runs (train, guard, --test_only)."""
     import tempfile
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
+    test_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_cli_") as run:
         argv = CLI_ARGV + ["--checkpoint_dir", run]
@@ -1743,8 +1861,8 @@ def cli_phase(card: str) -> dict:
 
         best = os.path.join(run, "checkpoint_best")
         metrics, tested = run_cli(probe, argv + ["--test_only", "--test_ckpt", best])
-        require(len(probe.evals) == 10 and all(d == eval_batch for d in probe.evals),
-                f"cli --test_only: eval batches launched {probe.evals[8:]}, expected 2 x {eval_batch}")
+        require(len(probe.evals) == 10 and all(d == test_batch for d in probe.evals[8:]),
+                f"cli --test_only: eval batches launched {probe.evals[8:]}, expected 2 x {test_batch}")
         saved = [i for i, line in enumerate(lines) if line.startswith("saved new best checkpoint")]
         require(bool(saved), "cli: no best checkpoint was saved")
         best_epoch = max(int(line.split("[")[1].split("/")[0]) for line in lines[:saved[-1]]
@@ -1972,6 +2090,9 @@ def ov_batches(cfg, n: int, seed: int) -> list:
     return [collate([ds[i * BATCH + j] for j in range(BATCH)]) for i in range(n)]
 
 
+CLI_RUNS = {}  # label -> wall, iteration times, loader waits and peak memory of an OV CLI run
+
+
 def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = "ov cli") -> tuple:
     """`main(argv)` with --use_image at the full width of sunrgbd_quick (the
     synthetic set unless `argv` names another): one epoch of 8 steps and its
@@ -1985,7 +2106,7 @@ def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = 
     from ov3det_torch.engine.checkpoint import CheckpointManager
     from ov3det_torch.engine.train import build_training
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_ov_cli_") as run:
@@ -2029,6 +2150,7 @@ def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = 
                 f"{label}: checkpoint {size} B against a point-only run's {ref_size} B")
     counts = read_counts()
     iters = [(b[0] - a[0]) * 1e3 for a, b in zip(probe.steps, probe.steps[1:])]
+    CLI_RUNS[label] = dict(wall=wall, iters=iters, waits=list(probe.waits), peak=peak)
     print(f"{label} run: {wall:.2f} s wall (teacher build and calibration, 8 steps, evals, "
           f"checkpoints), iteration (host clock, step start to step start) median "
           f"{np.median(iters):.2f} ms, {min(iters):.2f} to {max(iters):.2f}; peak device memory "
@@ -2074,7 +2196,7 @@ def ov_phase(card: str, dev: torch.device) -> tuple:
           f"canvases {batches[0]['image'].nbytes / 1e6:.2f} MB (int64 would make them "
           f"{8 * batches[0]['image'].nbytes / 1e6:.2f} MB)")
     trained = train(cfg, OV_STEPS, expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
-                                          attention_dkv=3), "ov_sunrgbd", 700, dev,
+                                          attention_dkv=3, auction=1), "ov_sunrgbd", 700, dev,
                     teacher=teacher, batches=batches)
     del teacher, batches
     gc.collect()
@@ -2495,7 +2617,7 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
     from ov3det_torch.tools.format_tools import adjust_format_to_nyu40
 
     t_phase = time.perf_counter()
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     total = collections.Counter()
     with tempfile.TemporaryDirectory(prefix="ov3det_pseudo_") as run:
@@ -2512,7 +2634,7 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
         scans = list(dataset.scan_names)
 
         def train_run(extra: list, label: str) -> CliProbe:
-            probe = CliProbe()
+            probe = CliProbe(record_boxes=True)
             reset_counts()
             t0 = time.perf_counter()
             _, lines = run_cli(probe, PSEUDO_ARGV + data + extra)
@@ -2812,7 +2934,7 @@ def ddp_steps(card: str, dev: torch.device) -> dict:
     from ov3det_torch.config import sunrgbd_quick
     from ov3det_torch.engine.train import batch_to_device, build_training
 
-    step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
     cfg = f32_no_dropout(sunrgbd_quick())
     training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2950,8 +3072,9 @@ def ddp_cli(card: str) -> dict:
     import pickle
     import tempfile
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
+    test_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     with tempfile.TemporaryDirectory(prefix="ov3det_ddp_cli_") as out:
         run = os.path.join(out, "run")
         argv = CLI_ARGV + ["--max_epoch", "1", "--checkpoint_dir", run]
@@ -2988,7 +3111,7 @@ def ddp_cli(card: str) -> dict:
         one, _ = run_cli(probe, CLI_ARGV + ["--test_only", "--test_ckpt",
                                             os.path.join(run, "checkpoint"),
                                             "--checkpoint_dir", run])
-        require(len(probe.evals) == 2 and all(d == eval_batch for d in probe.evals),
+        require(len(probe.evals) == 2 and all(d == test_batch for d in probe.evals),
                 f"ddp cli: the one-rank eval launched {probe.evals}")
         counts.update(read_counts())
     worst = max(abs(float(one[t][k]) - float(v)) for t in two for k, v in two[t].items())
@@ -3013,7 +3136,7 @@ def bank_cli(card: str, dev: torch.device, unbanked_waits: list) -> dict:
     from ov3det_torch.datasets.registry import build_dataset
     from ov3det_torch.engine.train import batch_to_device, build_training, decode_banked_images
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_bank_cli_") as run:
@@ -3209,7 +3332,7 @@ def sun_bank_cli(card: str, dev: torch.device, argv: list, unbanked_waits: list)
     from ov3det_torch.datasets.image_bank import build_image_bank, yuv420_encode
     from ov3det_torch.datasets.registry import build_dataset
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3)
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_sun_bank_") as run:
@@ -3316,6 +3439,297 @@ def images_phase(card: str, dev: torch.device) -> list:
     return [counts, bank_counts]
 
 
+# ------------------------------------------------------------ phase 14: the packed, graphed step
+GRAPH_STEPS, TIMED_STEPS = 3, 5  # steps held graph against eager; steps timed each way
+GROUP = 4  # --super_batch of the flagged CLI epoch
+
+
+def auction_work(benefit, live, eps_t, eps_l) -> tuple:
+    """(bidder x object pairs, object x person tests, rounds) that the
+    auction's rows need on these inputs: its rounds replayed with the plain
+    round, counting a row's round only while it has a bidder, and the loose
+    phase only for the rows the tight one left unconverged."""
+    from ov3det_torch.ops.kernels import auction
+
+    B, P, O = benefit.shape
+    pairs = tests = rounds = 0
+    todo = torch.ones(B, dtype=torch.bool, device=benefit.device)
+    for eps, cap in ((eps_t, 500), (eps_l, 800)):
+        p2o = torch.where(live, -1, -2).to(torch.int64)
+        o2p = torch.full((B, O), -1, dtype=torch.int64, device=benefit.device)
+        price = torch.zeros((B, O), dtype=torch.float32, device=benefit.device)
+        for _ in range(cap):
+            bidders = ((p2o == -1) & todo[:, None]).sum(1)
+            if not bool(bidders.any()):
+                break
+            n = int(bidders.sum())
+            active = int((bidders > 0).sum())
+            pairs, tests, rounds = pairs + n * O, tests + active * O * P, rounds + active
+            p2o, o2p, price = auction._round(benefit, p2o, o2p, price, eps[:, None])
+        todo = todo & (p2o == -1).any(1)
+        if not bool(todo.any()):
+            break
+    return pairs, tests, rounds
+
+
+def check_auction(card: str, dev: torch.device) -> dict:
+    """The auction kernel against its plain version: on the cost matrices
+    of 3 eager `sunrgbd_quick` steps (the criterion's own, caught at its
+    call), on seeded costs with ties, on near-duplicate rows that do not
+    converge and on NaN and infinite costs; assignments equal.  Kernel and plain version timed on the
+    steps' costs beside the bound."""
+    from ov3det_torch.config import sunrgbd_quick
+    from ov3det_torch.engine.train import batch_to_device, build_training
+    from ov3det_torch.losses import criterion
+    from ov3det_torch.ops.hungarian import auction_inputs
+    from ov3det_torch.ops.kernels import auction
+
+    cfg = sunrgbd_quick()
+    caught, real = [], criterion.auction_lap
+
+    def spy(cost, n_persons=None, **kw):
+        caught.append((cost.detach().clone(), n_persons.clone()))
+        return real(cost, n_persons, **kw)
+
+    training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+    gen = torch.Generator(device=dev)
+    criterion.auction_lap = spy
+    try:
+        for i, b in enumerate(synthetic_batches(cfg, 3, 1400)):
+            gen.manual_seed(i)
+            training.train_step(batch_to_device(b, dev), gen)
+    finally:
+        criterion.auction_lap = real
+    del training
+    rng = np.random.default_rng(14)
+    R, P, O = caught[0][0].shape
+    seeded = [("ties", torch.from_numpy(rng.integers(0, 3, (R, P, O)).astype(np.float32)),
+               rng.integers(0, P + 1, R)),
+              ("near-duplicate rows", torch.from_numpy(
+                  (np.repeat(rng.normal(size=(R, 1, O)), P, 1)
+                   + 1e-7 * rng.normal(size=(R, P, O))).astype(np.float32)), np.full(R, P))]
+    for name, bad in (("NaN costs", np.nan), ("-inf benefits", np.inf)):
+        # a diverged step's: one value, one person, a whole row
+        cost = rng.normal(size=(R, P, O)).astype(np.float32)
+        cost[0, 5, 7], cost[1, 2], cost[3] = bad, bad, bad
+        seeded.append((name, torch.from_numpy(cost), np.full(R, P)))
+    cases = [(f"step {i}", c, n) for i, (c, n) in enumerate(caught)]
+    cases += [(name, c.to(dev), torch.from_numpy(n).to(dev)) for name, c, n in seeded]
+    timed = None
+    for name, cost, n in cases:
+        benefit, live, span = auction_inputs(cost, n)
+        args = (benefit, live, span * 2e-4, span * 5e-3)
+        got = auction.auction_phases(*args)
+        want = auction.auction_phases_plain(*args, 500, 800)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"auction {name}: the kernel's assignments differ from the plain version's")
+        print(f"auction {name} ({tuple(cost.shape)}): assignments equal the plain version's")
+        if timed is None:
+            timed = args
+    ms = min(graph_ms(lambda: auction.auction_phases(*timed), 20) for _ in range(2))
+    plain = cuda_ms(lambda: auction.auction_phases_plain(*timed, 500, 800), 3)
+    pairs, tests, rounds = auction_work(*timed)
+    # each (bidder, object): two subtractions, two comparisons; each (object, person): two
+    ops = 4 * pairs + 2 * tests
+    nbytes = R * P * O * 4 + R * P + 2 * R * 4 + R * (P + O) * 8
+    b_ms, b_by = bound_ms(nbytes, ops, F32_PEAK)
+    print(f"auction kernel on step 0's costs, {R} x {P} x {O}: {ms:.4f} ms a call (CUDA-graph "
+          f"replays); the plain version {plain:.3f} ms (its host checks included); {rounds} "
+          f"row-rounds, {pairs} bidder x object pairs; bound {b_ms:.5f} ms ({b_by}) ({card})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                bound_term=b_by, library_ms=None, design="one CTA a row, rounds on the device",
+                work=f"one sunrgbd_quick step: {R} x {P} x {O}")
+
+
+def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
+                   per_step: dict, teacher=None) -> dict:
+    """`PackedStep` graphed and eager from one state and seeds on the same
+    packed rows: GRAPH_STEPS steps equal bit for bit in every metric and
+    every parameter and buffer; the graphed steps launch `per_step` each
+    (replays counted); no host wait inside a replay; then TIMED_STEPS more
+    of each timed on the host clock and one graphed step profiled.  Returns
+    the launch counts of the graphed steps."""
+    from ov3det_torch.datasets.loader import pack_batch
+    from ov3det_torch.engine.train import build_training
+
+    packed = [pack_batch(b) for b in batches]
+    metas = packed[0][1]
+    require(all(m == metas for _, m in packed), f"{label}: the batches' layouts differ")
+    rows = torch.from_numpy(np.stack([buf for buf, _ in packed])).to(dev)
+    n = rows.shape[0]
+    res, times = {}, {}
+    for graph in (True, False):
+        training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0, teacher=teacher)
+        step = counted_packed_step()(training, 0, dev, graph=graph)
+        torch.cuda.synchronize()
+        if graph:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        got = []
+        reset_counts()
+        for i in range(GRAPH_STEPS):
+            before = read_counts()
+            metrics, _ = step(rows[i % n], metas, i)
+            after = read_counts()
+            if graph:
+                delta = {k: after[k] - before[k] for k in after}
+                require(delta == per_step, f"{label} graphed step {i}: launches {delta}, "
+                                           f"expected {per_step}")
+            got.append({k: v.clone() for k, v in metrics.items()})
+        counts = read_counts()
+        state = {k: v.clone() for k, v in training.model.state_dict().items()}
+        state.update({f"mu{j}": t.clone() for j, t in enumerate(training.optimizer.mu)})
+        res[graph] = (got, state)
+        if graph:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            group = rows.repeat(-(-GROUP // n), 1)[:GROUP]
+            waits = sync_points(f"{label}: {GROUP} graph replays of a group under the sync debug "
+                                "mode", lambda: step(group, metas, GRAPH_STEPS))
+            require(waits == 0, f"{label}: {waits} host waits inside the replay loop")
+            profile(f"profiled graphed {label} step", lambda: step(rows[0], metas, 99))
+        ms = []
+        for i in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(rows[i % n], metas, 100 + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[graph] = ms
+        del training, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    (g_m, g_s), (e_m, e_s) = res[True], res[False]
+    for i, (a, b) in enumerate(zip(g_m, e_m)):
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        require(not bad, f"{label} step {i}: graphed and eager differ in {bad[:4]}")
+    bad = [k for k in g_s if not torch.equal(g_s[k], e_s[k])]
+    require(not bad, f"{label}: graphed and eager state differs in {bad[:4]}")
+    print(f"{label}: {GRAPH_STEPS} graphed steps equal the eager ones bit for bit (losses, "
+          f"grad_norm, {len(g_s)} parameters, buffers and Adam moments); step time (host clock "
+          f"to a sync, {TIMED_STEPS} steps) graphed median {np.median(times[True]):.2f} ms "
+          f"({min(times[True]):.2f} to {max(times[True]):.2f}), eager median "
+          f"{np.median(times[False]):.2f} ms ({min(times[False]):.2f} to {max(times[False]):.2f}); "
+          f"peak device memory with the graph {peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB "
+          f"before its first step) ({card})")
+    return counts
+
+
+def flagged_cli(card: str, argv: list, group: int, label: str) -> tuple:
+    """The OV CLI for one epoch with the codecs and `--super_batch group`:
+    every item launches `group` training steps' kernels (replays counted),
+    every eval batch a request's.  Returns (launch counts, per-step
+    Train_details of scalars.jsonl, the checkpoint's payload, iteration
+    times a batch, loader waits, wall)."""
+    import tempfile
+
+    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+                        auction=1)
+    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    probe = CliProbe()
+    with tempfile.TemporaryDirectory(prefix="ov3det_flagged_") as run:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, lines = run_cli(probe, argv + ["--super_batch", str(group), "--checkpoint_dir", run])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in lines:
+            if not (" Average Precision: " in line or " Recall: " in line):
+                print(f"{label}| {line}")
+        require(probe.rows == [group] * (8 // group),
+                f"{label}: items of {probe.rows} batches, expected {8 // group} x {group}")
+        want = {k: group * v for k, v in train_step.items()}
+        require(all(d == want for _, _, d in probe.steps),
+                f"{label}: an item launched {[d for _, _, d in probe.steps if d != want][:1]}")
+        require(bool(probe.evals) and all(d == eval_batch for d in probe.evals),
+                f"{label}: an eval batch launched {[d for d in probe.evals if d != eval_batch][:1]}")
+        scalars = {}
+        with open(os.path.join(run, "scalars.jsonl")) as fh:
+            for line in fh:
+                row = json.loads(line)
+                got = {k: v for k, v in row.items() if k.startswith("Train_details/")}
+                if got:
+                    scalars[row["step"]] = got
+        payload = torch.load(os.path.join(run, "checkpoint"), map_location="cpu", weights_only=True)
+    counts = read_counts()
+    # host ms from each item's start to the next's, a batch (the first holds the capture)
+    iters = [(b[0] - a[0]) * 1e3 / g for (a, b), g in zip(zip(probe.steps, probe.steps[1:]),
+                                                          probe.rows)]
+    return counts, scalars, payload, iters, list(probe.waits), wall
+
+
+def packed_phase(card: str, dev: torch.device) -> tuple:
+    """Phase 14: the packed transfer, the graphed step and the auction;
+    returns the auction's kernels-line entry and the launch counts of the
+    flagged CLI runs."""
+    import tempfile
+
+    from ov3det_torch import main as cli
+    from ov3det_torch.config import sunrgbd_quick
+    from ov3det_torch.datasets.loader import batch_metas
+
+    t_phase = time.perf_counter()
+    entry = check_auction(card, dev)
+    step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
+    sun, masked, ov = sunrgbd_quick(), scannet_masked(), ov_config()
+    graph_vs_eager(card, dev, "sunrgbd", sun, synthetic_batches(sun, GRAPH_STEPS, 1500), step)
+    graph_vs_eager(card, dev, "scannet_masked", masked,
+                   synthetic_batches(masked, GRAPH_STEPS, 1600),
+                   expect(fps=3, ball_group=2, slot_sources=1, attention_fwd_radius=3,
+                          attention_dq_radius=3, attention_dkv_radius=3, auction=1))
+    batches = ov_batches(ov, GRAPH_STEPS, 1700)
+    teacher = cli.build_teacher(ov, {k: v[0] for k, v in batches[0].items()}, dev)
+    graph_vs_eager(card, dev, "ov_sunrgbd", ov, batches, step, teacher=teacher)
+    del teacher, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    flags = ["--quantize_points", "--yuv_images", "--log_every", "1"]
+    with tempfile.TemporaryDirectory(prefix="ov3det_sunrgbd_packed_") as root:
+        argv = sun_argv(write_sun_tree(root)) + flags
+        sample = cli.build_dataset(cli.config_from_args(cli.make_args_parser().parse_args(argv))
+                                   .data, splits=("train",))[0]["train"][0]
+        for codecs in ((), ("point_clouds", "image")):
+            _, nbytes = batch_metas(sample, BATCH, False, codecs)
+            print(f"a group of {GROUP} SUN RGB-D OV batches (8 scenes x 20 000 points, 530 x 730 "
+                  f"canvases) in one copy: {GROUP * nbytes} B "
+                  f"{'with q16 points and yuv420 canvases' if codecs else 'without the codecs'}")
+        sun_counts, _, _, sun_it, sun_w, sun_wall = flagged_cli(card, argv, GROUP, "sun flagged cli")
+    base = CLI_RUNS.get("sun cli")
+    print(f"sun flagged cli (--quantize_points --yuv_images --super_batch {GROUP}, --log_every 1): "
+          f"wall {sun_wall:.2f} s; host ms a batch from an item's start to the next's (the first "
+          f"item warms up and captures) {[round(x, 2) for x in sun_it]}; loader waits a group "
+          f"{[round(w, 2) for w in sun_w]} ms ({card})")
+    if base:
+        print(f"phase 13's unflagged sun cli epoch: wall {base['wall']:.2f} s, iteration median "
+              f"{np.median(base['iters']):.2f} ms ({min(base['iters']):.2f} to "
+              f"{max(base['iters']):.2f}), loader waits {[round(w, 2) for w in base['waits']]} ms "
+              f"({card})")
+    # SUN RGB-D's train split augments from fresh entropy, so the grouped and
+    # ungrouped runs are compared on the seeded synthetic OV set
+    argv = OV_CLI_ARGV + flags
+    grouped = flagged_cli(card, argv, GROUP, f"ov flagged cli G={GROUP}")
+    single = flagged_cli(card, argv, 1, "ov flagged cli G=1")
+    (g_counts, g_sc, g_pay, g_it, _, g_wall), (s_counts, s_sc, s_pay, s_it, _, s_wall) = \
+        grouped, single
+    require(sorted(g_sc) == [GROUP - 1, 2 * GROUP - 1] and all(g_sc[k] == s_sc[k] for k in g_sc),
+            f"ov flagged cli: the grouped run logged {sorted(g_sc)}, or its losses differ from "
+            "the ungrouped run's")
+    bad = [k for k in g_pay["model"] if not torch.equal(g_pay["model"][k], s_pay["model"][k])]
+    bad += [f"{name}{j}" for name in ("mu", "nu") for j, (a, b) in
+            enumerate(zip(g_pay["optimizer"][name], s_pay["optimizer"][name])) if not torch.equal(a, b)]
+    require(not bad and g_pay["optimizer"]["count"] == s_pay["optimizer"]["count"] == 8,
+            f"ov flagged cli: the grouped and ungrouped checkpoints differ in {bad[:4]}")
+    print(f"ov flagged cli (synthetic OV set, --quantize_points --yuv_images): --super_batch "
+          f"{GROUP} equals --super_batch 1 bit for bit (the losses of steps {sorted(g_sc)}, every "
+          f"parameter and Adam moment after the epoch); wall {g_wall:.2f} s and {s_wall:.2f} s; "
+          f"iteration a batch G={GROUP} {[round(x, 2) for x in g_it]} ms, G=1 median "
+          f"{np.median(s_it):.2f} ms ({min(s_it):.2f} to {max(s_it):.2f}) ({card})")
+    print(f"phase 14 (the packed transfer, the graphed step, the auction): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return entry, [sun_counts, g_counts, s_counts]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3362,7 +3776,7 @@ def main() -> int:
     served = serve(sun, batches, expect(fps=2, ball_group=1, attention_fwd=3), "sunrgbd", dev)
     card_vs_cpu(batches[0])
     trained = train(sun, TRAIN_STEPS, expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
-                                             attention_dkv=3), "sunrgbd", 200, dev)
+                                             attention_dkv=3, auction=1), "sunrgbd", 200, dev)
     train_card_vs_cpu(sun, "sunrgbd", 200)
 
     m_batches = synthetic_batches(masked, REQUESTS, 300)
@@ -3378,7 +3792,8 @@ def main() -> int:
                      "scannet_masked", dev)
     m_trained = train(masked, MASKED_TRAIN_STEPS,
                       expect(fps=3, ball_group=2, slot_sources=1, attention_fwd_radius=3,
-                             attention_dq_radius=3, attention_dkv_radius=3), "scannet_masked", 400, dev)
+                             attention_dq_radius=3, attention_dkv_radius=3, auction=1),
+                      "scannet_masked", 400, dev)
     train_card_vs_cpu(masked, "scannet_masked", 400)
 
     cli_counts = cli_phase(card)
@@ -3386,12 +3801,13 @@ def main() -> int:
     pseudo_counts = pseudo_phase(card, dev)
     ddp_counts = ddp_phase(card, dev, ov_waits)
     image_counts = images_phase(card, dev)
+    entries["auction"], packed_counts = packed_phase(card, dev)
 
     kernels = []
     for name, (source, replaces) in kernel_sources().items():
         count = sum(c.get(name, 0) for c in (served, trained, m_served, m_trained, cli_counts,
                                              ov_trained, ov_cli_counts, pseudo_counts,
-                                             *ddp_counts, *image_counts))
+                                             *ddp_counts, *image_counts, *packed_counts))
         require(count > 0, f"{name} was not launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **entries[name]})

@@ -14,10 +14,9 @@ Configurations outside the ported slices raise `NotImplementedError`: the
 `LossConfig.teacher_per_layer` and `DataConfig.use_image` are copies;
 `use_image` gives the teacher SUN RGB-D's or the synthetic set's canvases,
 and ScanNet's frames (`frames_dir`, `max_frames`).  `TrainConfig.num_devices`
-(`--ngpus`, the ranks of data parallelism) and `DataConfig.image_bank` (the
-device image bank) are copies too.  The TPU transport's other fields
-(`super_batch`, `quantize_points`, `yuv_images`) have no copy:
-`ov3det_torch.main` refuses their flags.  The masked encoder (3DETR-m) is
+(`--ngpus`, the ranks of data parallelism), `DataConfig.image_bank` (the
+device image bank) and the packed transfer's `DataConfig.super_batch`,
+`quantize_points` and `yuv_images` are copies too.  The masked encoder (3DETR-m) is
 built from `scannet_quick()` with `dataclasses.replace`, as
 `scripts/scannet_masked_timing.py` builds it; there is no function of its
 own, in either package.
@@ -147,7 +146,7 @@ class OptimConfig:
 @dataclass(frozen=True)
 class DataConfig:
     """Dataset selection and paths (`ov3det/config.py:137-171`, reference
-    main.py:107-176), without the TPU-transport fields but `image_bank`."""
+    main.py:107-176)."""
 
     dataset_name: str = "scannet"  # "scannet" | "sunrgbd" | "synthetic"
     root_dir: Optional[str] = None
@@ -170,6 +169,13 @@ class DataConfig:
     # every train scene's canvas encoded once (yuv420) into a bank on the
     # device; batches carry an int32 image_ref (datasets/image_bank.py)
     image_bank: bool = False
+    # G batches a host-to-device copy on the single-device packed path; the
+    # step replays once a batch (datasets/loader.py, engine/train.py)
+    super_batch: int = 1
+    # point clouds as per-sample-scaled uint16 on the packed path (q16)
+    quantize_points: bool = False
+    # uint8 RGB canvases as 4:2:0 YUV on the packed path (yuv420)
+    yuv_images: bool = False
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """The device image bank: every scene's canvas on the card, once.
 
-Counterpart of `ov3det/datasets/image_bank.py:33-89` and the yuv420 codec
-of `ov3det/datasets/loader.py:131-168, 346-367`, copied so that the port
-imports nothing of the JAX package.  The only reader of the canvases is the
+Counterpart of `ov3det/datasets/image_bank.py:33-89`; the yuv420 codec is
+the packed transfer's (`ov3det_torch.datasets.loader`, copied from
+`ov3det/datasets/loader.py:131-168, 346-367`).  The only reader of the canvases is the
 frozen 2D teacher, and a canvas never changes: `build_image_bank` encodes
 each scene's canvas once into a yuv420 row (1.5 bytes a pixel: Y, then U and
 V averaged over 2 x 2 pixels) and puts the (N_scenes, row_bytes) uint8 bank
@@ -21,56 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ov3det_torch.datasets.loader import yuv420_decode_rows, yuv420_encode, yuv_sample_bytes
 
-def yuv_sample_bytes(sample_shape) -> int:
-    """Bytes of one sample's yuv420 row: (..., H, W, 3) with even H and W."""
-    h, w = sample_shape[-3], sample_shape[-2]
-    frames = int(np.prod(sample_shape[:-3], dtype=np.int64)) if len(sample_shape) > 3 else 1
-    return frames * (h * w + 2 * (h // 2) * (w // 2))
-
-
-# full-range BT.601 (JPEG) scaled by 256, as f32 rows of one product
-_YUV_M = np.array([[77, 150, 29], [-43, -85, 128], [128, -107, -21]], np.float32).T
-
-
-def yuv420_encode(img: np.ndarray) -> np.ndarray:
-    """(..., H, W, 3) uint8 RGB -> one uint8 row [Y | U / 2x2 | V / 2x2]."""
-    a = np.asarray(img)
-    h, w = a.shape[-3], a.shape[-2]
-    yuv = np.floor(
-        (a.reshape(-1, 3).astype(np.float32) @ _YUV_M + 128.0) * (1.0 / 256.0)
-    ).reshape(-1, h, w, 3)
-    y, u, v = yuv[..., 0], yuv[..., 1] + 128.0, yuv[..., 2] + 128.0
-
-    def sub(c):  # 2 x 2 box average, rounded half up; sums below 2^24
-        c4 = c.reshape(-1, h // 2, 2, w // 2, 2)
-        return np.floor((c4.sum(axis=(2, 4)) + 2.0) * 0.25)
-
-    parts = [np.clip(y, 0, 255).astype(np.uint8).reshape(-1),
-             np.clip(sub(u), 0, 255).astype(np.uint8).reshape(-1),
-             np.clip(sub(v), 0, 255).astype(np.uint8).reshape(-1)]
-    return np.concatenate(parts)
-
-
-def yuv420_decode_rows(rows: torch.Tensor, shape) -> torch.Tensor:
-    """yuv420 rows (B, row_bytes) uint8, laid out per sample as [Y | U | V]
-    over its frames, -> uint8 RGB of `shape` (B, ..., H, W, 3), on the rows'
-    device: nearest 2 x 2 chroma upsampling and the inverse JPEG matrix in
-    f32, rounded half to even and clamped."""
-    B = shape[0]
-    h, w = shape[-3], shape[-2]
-    F = int(np.prod(shape[:-3], dtype=np.int64)) // B  # frames a sample
-    ny, nc = h * w, (h // 2) * (w // 2)
-    y = rows[:, :F * ny].reshape(-1, h, w).float()
-
-    def chroma(part):
-        c = part.reshape(-1, h // 2, w // 2).repeat_interleave(2, 1).repeat_interleave(2, 2)
-        return c.float() - 128.0
-
-    u = chroma(rows[:, F * ny:F * (ny + nc)])
-    v = chroma(rows[:, F * (ny + nc):])
-    rgb = torch.stack([y + 1.402 * v, y - 0.344136 * u - 0.714136 * v, y + 1.772 * u], -1)
-    return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8).reshape(shape)
+__all__ = ["BankRefDataset", "build_image_bank", "yuv420_decode_rows", "yuv420_encode",
+           "yuv_sample_bytes"]
 
 
 def build_image_bank(dataset, device, key: str = "image") -> tuple:

@@ -25,12 +25,24 @@ the whole bank.
 RN50x4 teacher (`--teacher_compute_dtype`, int8 by default, calibrated on
 the first canvas of the test split; seeded random weights unless
 `--region_clip_ckpt_path` names a checkpoint) feeds the 2D-alignment loss
-(`--loss_2dalignment_weight`).  Flags the port cannot honour yet raise
-`NotImplementedError` naming the ROADMAP item that brings them; none is
-ignored.  The dropout masks of
-training step `i` come from a generator on the device seeded from
-`(seed, i)`, as the JAX package builds its key from `[seed, i]`, so a resume
-needs no RNG state.
+(`--loss_2dalignment_weight`).  The dropout masks of training step `i`
+come from a generator on the device seeded from `(seed, i)`, as the JAX
+package builds its key from `[seed, i]`, so a resume needs no RNG state.
+
+On one process the train loader ships each batch packed (JAX's default
+transfer on one device, `ov3det/main.py:395-436`): one uint8 row in JAX's
+layout, `--quantize_points` (q16 point clouds) and `--yuv_images` (yuv420
+canvases) as its codecs, `--super_batch G` batches a copy to the device,
+and `engine.train.PackedStep` runs the step, on a card one CUDA-graph
+replay a batch (`--debug_nans` runs it eagerly).  A group's steps are
+seeded as the ungrouped loop seeds their iterations, so `--super_batch G`
+trains bit for bit as G = 1 and a resume stays exact (JAX folds the row
+into its group's key instead; the two packages' dropout streams differ
+anyway).  Iteration bookkeeping, logs and the train-time AP refer to a
+group's last batch, as in JAX (`ov3det/main.py:484-600`).  Under `--ngpus`
+the train loader keeps the tree transfer and the three flags have no
+effect, as in JAX; evals and the pseudo-label round always take the tree
+transfer.
 """
 from __future__ import annotations
 
@@ -68,7 +80,7 @@ from ov3det_torch.engine.runtime import (
     plan_ranks,
     profile_steps,
 )
-from ov3det_torch.engine.train import batch_to_device, build_training
+from ov3det_torch.engine.train import PackedStep, batch_to_device, build_training, step_seed
 from ov3det_torch.eval.ap_calculator import APCalculator
 from ov3det_torch.models.detr3d import Model3DETR
 from ov3det_torch.models.regionclip import (
@@ -81,17 +93,6 @@ from ov3det_torch.models.regionclip import (
 from ov3det_torch.parallel.mesh import data_group, gather_objects
 from ov3det_torch.utils.logger import Logger
 from ov3det_torch.utils.meters import SmoothedValue
-
-_TRANSPORT = ("ROADMAP Queue 3 item 1 (the TPU transport's packed steps; their counterpart on "
-              "the card is graph capture of the step, see PERF.md)")
-
-# (flag, the test that it was given, the item that brings it)
-REFUSED = (
-    ("--super_batch", lambda a: a.super_batch > 1, _TRANSPORT),
-    ("--quantize_points", lambda a: a.quantize_points, _TRANSPORT),
-    ("--yuv_images", lambda a: a.yuv_images, _TRANSPORT),
-)
-
 
 def make_args_parser():
     p = argparse.ArgumentParser("Open-vocabulary 3D detection (PyTorch port)")
@@ -148,11 +149,12 @@ def make_args_parser():
     p.add_argument("--dataset_num_workers", default=4, type=int,
                    help="worker processes of the data loader (0: none)")
     p.add_argument("--batchsize_per_gpu", default=8, type=int)
-    p.add_argument("--super_batch", default=1, type=int, help=f"> 1 is refused: {_TRANSPORT}")
+    p.add_argument("--super_batch", default=1, type=int,
+                   help="train batches a host-to-device copy (one process)")
     p.add_argument("--quantize_points", default=False, action="store_true",
-                   help=f"refused: {_TRANSPORT}")
+                   help="ship point clouds as per-sample-scaled uint16 (one process)")
     p.add_argument("--yuv_images", default=False, action="store_true",
-                   help=f"refused: {_TRANSPORT}")
+                   help="ship canvases as 4:2:0 YUV (one process)")
     p.add_argument("--image_bank", default=False, action="store_true",
                    help="every train scene's canvas on the device once, as yuv420 (needs "
                    "--use_image)")
@@ -213,15 +215,9 @@ def make_args_parser():
     return p
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for the first flag the port cannot honour."""
-    for flag, given, item in REFUSED:
-        if given(args):
-            raise NotImplementedError(f"{flag} is not ported: {item}")
-
-
 def config_from_args(args) -> TrainConfig:
-    refuse_unported(args)
+    if args.super_batch < 1:
+        raise ValueError(f"--super_batch {args.super_batch}: at least 1")
     if args.image_bank and not args.use_image:
         raise ValueError("--image_bank needs --use_image (the bank feeds the 2D teacher)")
     num_semcls = {"scannet": 18, "sunrgbd": 20, "synthetic": 18}[args.dataset_name]
@@ -297,6 +293,9 @@ def config_from_args(args) -> TrainConfig:
             num_workers=args.dataset_num_workers,
             batch_size_per_device=args.batchsize_per_gpu,
             image_bank=args.image_bank,
+            super_batch=args.super_batch,
+            quantize_points=args.quantize_points,
+            yuv_images=args.yuv_images,
         ),
         teacher=TeacherConfig(
             enabled=args.use_image,
@@ -374,12 +373,6 @@ def build_teacher(cfg: TrainConfig, example: dict, device=None) -> RegionCLIPTea
     return teacher.load(quantize_teacher_params(state, dtype, teacher=teacher, calib=calib))
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The dropout generator's seed of training step `step`: the JAX
-    package's key `[seed, step]` as one 64-bit integer."""
-    return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
-
-
 def gather_ap(ap: APCalculator, counts: list) -> APCalculator:
     """Under a data group, a calculator over the scans of every rank in the
     global batch order (batch by batch, rank by rank), on every rank (rank 0
@@ -425,6 +418,12 @@ def evaluate(eval_step, loader, dataset_config, device, logger=None, curr_iter=0
     return gather_ap(ap, counts)
 
 
+def crossed(curr_iter: int, g: int, every: int) -> bool:
+    """Whether the item of `g` batches ending at `curr_iter` holds a
+    multiple of `every` (`curr_iter % every == 0` when g is 1)."""
+    return curr_iter // every > (curr_iter - g) // every
+
+
 def _host_scalars(metrics: dict) -> dict:
     """Device scalars -> floats, in one device-to-host copy."""
     values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()]).tolist()
@@ -458,8 +457,16 @@ def do_train(cfg: TrainConfig, device=None):
     batch_size = cfg.data.batch_size_per_device * world  # the global batch
     loader_kw = dict(num_workers=cfg.data.num_workers, pin_memory=pin, process_index=rank,
                      process_count=world)
-    train_loader = DataLoader(datasets["train"], batch_size=batch_size, shuffle=True,
-                              seed=cfg.seed, **loader_kw)
+    # one process: the packed transfer and its codecs (JAX's main.py:395-436)
+    packed = world == 1
+    quantize = (("point_clouds",) if cfg.data.quantize_points else ()) + (
+        ("image",) if cfg.data.yuv_images else ())
+    train_loader = DataLoader(
+        datasets["train"], batch_size=batch_size, shuffle=True, seed=cfg.seed,
+        **(dict(transfer="packed", super_batch=cfg.data.super_batch, quantize=quantize,
+                encode_cache=("image",) if cfg.data.yuv_images else (), device=device)
+           if packed else {}),
+        **loader_kw)
     test_loader = DataLoader(datasets["test"], batch_size=batch_size, shuffle=False,
                              drop_last=False, **loader_kw)
     iters_per_epoch = len(train_loader)
@@ -469,6 +476,10 @@ def do_train(cfg: TrainConfig, device=None):
     model, optimizer = training.model, training.optimizer
     train_step, eval_step, schedule = training.train_step, training.eval_step, training.schedule
     load_text_embed(model, cfg.teacher.text_embed_path)
+    # captured at its first call, after the restore below (in-place copies)
+    packed_step = (PackedStep(training, cfg.seed, device,
+                              graph=device.type == "cuda" and not cfg.debug_nans)
+                   if packed else None)
 
     if not cfg.checkpoint_dir:
         raise ValueError("set --checkpoint_dir")
@@ -494,14 +505,16 @@ def do_train(cfg: TrainConfig, device=None):
     generator = torch.Generator(device=device)
     best_metrics = {}
     max_iters = cfg.max_epoch * iters_per_epoch
+    profiled = profile_done = False
     try:
         for epoch in range(start_epoch, cfg.max_epoch):
             train_loader.set_epoch(epoch)
             time_meter, loss_meter = SmoothedValue(10), SmoothedValue(10)
             train_ap = APCalculator(class2type_map=dataset_config.class2type, exact_eval=False)
             train_ap_counts = []
+            it = 0  # batch index within the epoch (a packed item may carry G batches)
             with contextlib.ExitStack() as profiling:
-                for it, batch in enumerate(train_loader):
+                for item in train_loader:
                     if guard.stop_requested():
                         # preemption: persist the latest state and exit cleanly
                         if lead:
@@ -510,30 +523,37 @@ def do_train(cfg: TrainConfig, device=None):
                         say("preemption signal received; checkpoint saved, exiting")
                         return training
                     t0 = time.time()
-                    curr_iter = epoch * iters_per_epoch + it
+                    g = item[0].shape[0] if packed else 1
+                    # the bookkeeping refers to the LAST batch the item carries
+                    curr_iter = epoch * iters_per_epoch + it + g - 1
                     global_it = curr_iter - start_epoch * iters_per_epoch
-                    if cfg.profile_dir and global_it == 1:  # skip the first, warm-up step
+                    if cfg.profile_dir and not profiled and global_it >= 1:  # skip the warm-up
                         profiling.enter_context(profile_steps(cfg.profile_dir))
-                    batch = batch_to_device(batch, device, non_blocking=True)
-                    generator.manual_seed(step_seed(cfg.seed, curr_iter))
-                    metrics = train_step(batch, generator)
-                    if cfg.profile_dir and global_it == cfg.profile_steps:
+                        profiled = True
+                    if packed:
+                        metrics, batch = packed_step(item[0], item[1], curr_iter - g + 1)
+                    else:
+                        batch = batch_to_device(item, device, non_blocking=True)
+                        generator.manual_seed(step_seed(cfg.seed, curr_iter))
+                        metrics = train_step(batch, generator)
+                    if profiled and not profile_done and global_it >= cfg.profile_steps:
                         profiling.close()
+                        profile_done = True
                         say(f"profiler trace written to {cfg.profile_dir}")
-                    if curr_iter % cfg.log_metrics_every == 0:
-                        outputs = eval_step(batch)
+                    if crossed(curr_iter, g, cfg.log_metrics_every):
+                        outputs = eval_step(batch)  # the item's last batch
                         if isinstance(outputs, tuple):  # --eval_loss variant
                             outputs = outputs[0]
                         train_ap.step_meter(outputs, batch)
                         train_ap_counts.append(int(batch["point_clouds"].shape[0]))
-                    if curr_iter % cfg.log_every == 0:
+                    if crossed(curr_iter, g, cfg.log_every):
                         scalars = _host_scalars(metrics)
                         loss = scalars["loss"]
                         if not math.isfinite(loss):
                             say("Loss is not finite. Training stopped.")
                             sys.exit(1)
                         loss_meter.update(loss)
-                        time_meter.update(time.time() - t0)
+                        time_meter.update((time.time() - t0) / g)
                         lr = schedule(curr_iter)
                         eta = (max_iters - curr_iter) * time_meter.avg
                         say(
@@ -547,6 +567,7 @@ def do_train(cfg: TrainConfig, device=None):
                             curr_iter,
                             prefix="Train/",
                         )
+                    it += g
 
             if lead:
                 ckpt.save_latest(model, optimizer, epoch, extra={"best_ap25": best_ap25})

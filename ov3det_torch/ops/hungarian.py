@@ -8,71 +8,40 @@ per epsilon.  Two-tier epsilon: a tight phase (2e-4 of the benefit range,
 at most `tight_iters` rounds), then, for rows that did not converge, a loose
 phase (5e-3 of the range, at most `loose_iters` rounds), then a rank-
 matching fallback for anything still unassigned.  Padded persons (index >=
-n_persons) never bid.
+n_persons) never bid.  Ties go to the first maximum (`torch.argmax`, as
+`jnp.argmax`).
 
-The JAX package runs each phase as one `lax.while_loop` that tests for an
-unassigned person every round.  Here the rounds run in blocks of
-`_CHECK_EVERY` with one host sync per block: once no person is unassigned a
-round changes nothing, so the extra rounds of the last block leave the
-result as the JAX loop would, and the round cap is kept exactly.  The loose
-phase runs only when a row of the tight phase did not converge; rows are
-independent, and its result is taken only for those rows, as in JAX.
-Ties go to the first maximum (`torch.argmax`, as `jnp.argmax`).
+The phases are `ops.kernels.auction.auction_phases`: on the card one CUDA
+kernel whose rounds loop on the device (JAX's `lax.while_loop`), so that
+nothing here waits on the host and the training step can be captured in a
+CUDA graph; on the CPU the plain version, whose rounds run in blocks with
+one host check a block.  The range, the fallback and the outputs are torch
+ops with no host wait.
 """
 from __future__ import annotations
 
 import torch
 
-_NEG = -1e18
-_CHECK_EVERY = 8  # auction rounds between host syncs on convergence
+from ov3det_torch.ops.kernels.auction import auction_phases
 
 
-def _round(benefit, person2obj, obj2person, price, eps):
-    """One Jacobi round of the forward auction (hungarian.py:55-96)."""
-    B, P, O = benefit.shape
-    unassigned = person2obj == -1
-    values = benefit - price[:, None, :]
-    best_obj = torch.argmax(values, dim=-1)
-    w1 = values.amax(-1)
-    w2 = values.scatter(-1, best_obj[..., None], _NEG).amax(-1)
-    bid = torch.gather(price, 1, best_obj) + w1 - w2 + eps
-
-    obj_ids = torch.arange(O, device=benefit.device)
-    bids_mat = torch.where(unassigned[:, :, None] & (best_obj[:, :, None] == obj_ids),
-                           bid[:, :, None], torch.full_like(benefit, _NEG))
-    win_val = bids_mat.amax(1)
-    win_person = torch.argmax(bids_mat, dim=1)
-    contested = win_val > _NEG / 2
-    price = torch.where(contested, win_val, price)
-
-    p_idx = torch.arange(P, device=benefit.device)[None, :]
-    held = torch.clamp(person2obj, min=0)
-    held_contested = torch.gather(contested, 1, held)
-    held_winner = torch.gather(win_person, 1, held)
-    evicted = (person2obj >= 0) & held_contested & (held_winner != p_idx)
-    won = unassigned & torch.gather(contested, 1, best_obj) & (
-        torch.gather(win_person, 1, best_obj) == p_idx)
-
-    person2obj = torch.where(won, best_obj,
-                             torch.where(evicted, torch.full_like(person2obj, -1), person2obj))
-    obj2person = torch.where(contested, win_person, obj2person)
-    return person2obj, obj2person, price
-
-
-def _auction_phase(benefit, person_live, eps, max_iters: int):
-    """One forward auction from zero prices: benefit (B, P, O), person_live
-    (B, P), eps (B, 1) -> person2obj (B, P; -1 unassigned), obj2person
-    (B, O; -1 free), int64."""
-    B, P, O = benefit.shape
-    person2obj = torch.where(person_live, -1, -2).to(torch.int64)  # -2: never bids
-    obj2person = torch.full((B, O), -1, dtype=torch.int64, device=benefit.device)
-    price = torch.zeros((B, O), dtype=torch.float32, device=benefit.device)
-    done = 0
-    while done < max_iters and bool((person2obj == -1).any()):
-        for _ in range(min(_CHECK_EVERY, max_iters - done)):
-            person2obj, obj2person, price = _round(benefit, person2obj, obj2person, price, eps)
-        done += min(_CHECK_EVERY, max_iters - done)
-    return person2obj, obj2person
+def auction_inputs(cost: torch.Tensor, n_persons=None) -> tuple:
+    """(benefit (B, P, O) f32, person_live (B, P) bool, span (B,) f32) of
+    `auction_lap`: the phases' eps are 2e-4 and 5e-3 of `span`, the range
+    of the live persons' benefits that are not NaN (JAX's `nanmax - nanmin`:
+    1 where a row has none or the range is NaN, infinities clipped to the
+    largest f32, at least 1e-3)."""
+    B, P, O = cost.shape
+    dev = cost.device
+    benefit = -cost.float()
+    if n_persons is None:
+        n_persons = torch.full((B,), P, dtype=torch.int64, device=dev)
+    person_live = torch.arange(P, device=dev)[None, :] < n_persons[:, None]
+    seen = person_live[:, :, None] & ~benefit.isnan()
+    span = (torch.where(seen, benefit, float("-inf")).amax((1, 2))
+            - torch.where(seen, benefit, float("inf")).amin((1, 2)))
+    span = torch.where(seen.any((1, 2)), span, torch.full_like(span, float("nan")))
+    return benefit, person_live, torch.clamp(torch.nan_to_num(span, nan=1.0), min=1e-3)
 
 
 def auction_lap(cost: torch.Tensor, n_persons=None, tight_iters: int = 500,
@@ -86,23 +55,9 @@ def auction_lap(cost: torch.Tensor, n_persons=None, tight_iters: int = 500,
     """
     B, P, O = cost.shape
     dev = cost.device
-    benefit = -cost.float()
-    if n_persons is None:
-        n_persons = torch.full((B,), P, dtype=torch.int64, device=dev)
-    person_live = torch.arange(P, device=dev)[None, :] < n_persons[:, None]
-
-    live = person_live[:, :, None].expand_as(benefit)
-    span = (torch.where(live, benefit, float("-inf")).amax((1, 2))
-            - torch.where(live, benefit, float("inf")).amin((1, 2)))
-    span = torch.where(person_live.any(1), span, torch.ones_like(span))
-    span = torch.clamp(span, min=1e-3)[:, None]
-
-    person2obj, obj2person = _auction_phase(benefit, person_live, span * 2e-4, tight_iters)
-    tight_ok = ~(person2obj == -1).any(1, keepdim=True)
-    if not bool(tight_ok.all()):
-        p2o_l, o2p_l = _auction_phase(benefit, person_live, span * 5e-3, loose_iters)
-        person2obj = torch.where(tight_ok, person2obj, p2o_l)
-        obj2person = torch.where(tight_ok, obj2person, o2p_l)
+    benefit, person_live, span = auction_inputs(cost, n_persons)
+    person2obj, obj2person = auction_phases(benefit, person_live, span * 2e-4, span * 5e-3,
+                                            tight_iters, loose_iters)
 
     # rank-match any person still unassigned onto the free objects
     leftover = person2obj == -1

@@ -22,7 +22,8 @@ yardstick the on-card check times beside the tile design.
 version); the backward, `feature_grad`, is the port of `_bwd`
 (`:207-238`): the pick pass `slot_sources` (`ball_group_tile<sources>` on
 the card) and a scatter-add of the output's feature cotangent onto the
-picked points with `index_add_`, the library scatter that XLA's
+picked points with an accumulating `index_put_` (each point's slots summed
+in their order, the same bits every run), the library scatter that XLA's
 `.at[].add` is in JAX.  It recomputes the picks as `bucket_picks` of the
 JAX package does (`ov3det/ops/pointcloud.py:222-244`), with the expanded,
 clamped distance of `_pairwise_d2` (`:156-165`) and not the forward's
@@ -146,7 +147,10 @@ def _scatter(src: torch.Tensor, grad_out: torch.Tensor, N: int, num_channels: in
     rows = src.long() + (torch.arange(B, device=src.device) * N)[:, None, None]
     rows = torch.where(src >= 0, rows, B * N).reshape(-1)
     out = torch.zeros(B * N + 1, num_channels, dtype=torch.float32, device=src.device)
-    out.index_add_(0, rows, grad_out[..., 3:].float().reshape(-1, num_channels))
+    # an accumulating index_put_ sums each point's slots in their order (a
+    # stable sort on CUDA), so the gradient is the same bits every run;
+    # index_add_'s atomics order them as the card schedules them
+    out.index_put_((rows,), grad_out[..., 3:].float().reshape(-1, num_channels), accumulate=True)
     return out[:B * N].view(B, N, num_channels)
 
 
@@ -157,7 +161,8 @@ def feature_grad(xyz, centers, radius: float, nsample: int, grad_out: torch.Tens
     grad_out (B, K, M, 3 + C).  The picks come from :func:`slot_sources` (the
     kernel for CUDA tensors); an empty slot takes the first non-empty
     bucket's pick; an empty ball passes no gradient; the rest is summed onto
-    the picked points with `index_add_` (XLA's scatter-add in JAX)."""
+    the picked points with an accumulating `index_put_` (XLA's scatter-add
+    in JAX)."""
     return _scatter(slot_sources(xyz, centers, radius, nsample), grad_out, xyz.shape[1],
                     num_channels)
 

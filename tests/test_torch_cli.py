@@ -16,10 +16,13 @@ slice as a whole.
 - resume parity: 2 steps, save, restore into a fresh model and optimiser,
   and the third step's losses and parameters equal the uninterrupted run's
   bit for bit;
-- the flags of every run script exist in the port's parser, each flag the
-  port refuses raises `NotImplementedError` naming its ROADMAP item,
-  `--ngpus` beyond the visible cards raises, and the open-vocabulary flags
-  set the config as JAX's parser does.
+- the packed transfer's flags: `--super_batch 2` trains bit for bit as
+  G = 1, `--quantize_points` trains on q16 point clouds within 1e-3 of the
+  float32 run's first losses, `--yuv_images` on a SUN RGB-D-layout tree bit
+  for bit as `--image_bank`;
+- the flags of every run script exist in the port's parser, `--ngpus`
+  beyond the visible cards raises, and the open-vocabulary flags set the
+  config as JAX's parser does.
 """
 import dataclasses
 import glob
@@ -33,10 +36,12 @@ import torch
 
 from ov3det_torch import main as cli
 from ov3det_torch.datasets.loader import DataLoader
-from ov3det_torch.datasets.synthetic import SyntheticDataset, make_batch
+from ov3det_torch.datasets.synthetic import SyntheticDataset, make_batch, write_sunrgbd_tree
 from ov3det_torch.engine.checkpoint import CheckpointManager, restore_eval_checkpoint
 from ov3det_torch.engine.train import batch_to_device, build_training
 from tests import torch_parity as tp
+from tests.test_torch_images import FIXTURES, TINY_SUN
+from tests.test_torch_ov import tiny_teacher  # noqa: F401  (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -290,15 +295,86 @@ def test_run_scripts_parse_with_the_ports_parser():
     assert "--device" in known
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--super_batch", "2"], "Queue 3 item 1"),
-    (["--quantize_points"], "Queue 3 item 1"),
-    (["--yuv_images"], "Queue 3 item 1"),
-])
-def test_refused_flags_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP .*{item}"):
-        cli.main(TINY + ["--checkpoint_dir", str(tmp_path)] + flag)
-    assert not os.listdir(tmp_path)  # refused before anything ran
+def _logged(run: str) -> dict:
+    """step -> the Train_details scalars logged at it."""
+    out = {}
+    with open(os.path.join(run, "scalars.jsonl")) as fh:
+        for line in fh:
+            row = json.loads(line)
+            got = {k: v for k, v in row.items() if k.startswith("Train_details/")}
+            if got:
+                out[row["step"]] = got
+    return out
+
+
+def _same_state(a: str, b: str) -> None:
+    pa = torch.load(os.path.join(a, "checkpoint"), weights_only=True)
+    pb = torch.load(os.path.join(b, "checkpoint"), weights_only=True)
+    for k, v in pa["model"].items():
+        assert torch.equal(pb["model"][k], v), k
+    assert pa["optimizer"]["count"] == pb["optimizer"]["count"]
+    for name in ("mu", "nu"):
+        assert all(torch.equal(x, y) for x, y in zip(pa["optimizer"][name], pb["optimizer"][name]))
+
+
+@pytest.mark.parametrize("case", ["super_batch", "quantize_points", "yuv_images"])
+def test_packed_flags_train(tmp_path, case, monkeypatch, request, capsys):
+    """The packed transfer's flags train a tiny CLI run: `--super_batch 2`
+    bit for bit as G = 1 (the losses logged at each group's last step and
+    every parameter and Adam moment after 2 epochs); `--quantize_points`
+    ships q16 point clouds, whose first step's losses lie within 1e-3 of
+    the float32 run's (grad_norm is not held); `--yuv_images` on a SUN RGB-D-layout tree trains bit
+    for bit as `--image_bank`, which feeds the teacher the same 4:2:0 round
+    trip of the canvases."""
+    seen = []
+    real_call = cli.PackedStep.__call__
+
+    def spy(self, rows, metas, first_iter):
+        seen.append((int(rows.shape[0]), {k: tag for k, tag, _, _ in metas}))
+        return real_call(self, rows, metas, first_iter)
+
+    monkeypatch.setattr(cli.PackedStep, "__call__", spy)
+    if case == "super_batch":
+        runs = [str(tmp_path / f"g{g}") for g in (1, 2)]
+        for run, g in zip(runs, (1, 2)):
+            cli.main(TINY + ["--log_every", "1", "--super_batch", str(g), "--checkpoint_dir", run])
+        assert [n for n, _ in seen] == [1] * 32 + [2] * 16
+        one, two = _logged(runs[0]), _logged(runs[1])
+        assert sorted(two) == list(range(1, 32, 2))
+        assert all(two[k] == one[k] for k in two)
+        _same_state(*runs)
+    elif case == "quantize_points":
+        argv = TINY + ["--max_epoch", "1", "--log_every", "1"]
+        cli.main(argv + ["--checkpoint_dir", str(tmp_path / "f32")])
+        cli.main(argv + ["--quantize_points", "--checkpoint_dir", str(tmp_path / "q16")])
+        assert {tags["point_clouds"] for _, tags in seen} == {"<f4", "q16"}
+        f32, q16 = _logged(str(tmp_path / "f32"))[0], _logged(str(tmp_path / "q16"))[0]
+        # the losses; grad_norm moves by about 1 %: the gradient reaches the
+        # points, whose quantisation moves the FPS picks' neighbourhoods
+        for k, v in f32.items():
+            if k != "Train_details/grad_norm":
+                np.testing.assert_allclose(q16[k], v, rtol=1e-3, atol=1e-6, err_msg=k)
+    else:
+        request.getfixturevalue("tiny_teacher")
+        # the train split augments from fresh entropy (default_rng(None)), as
+        # the reference does; seed it so that both runs see the same batches
+        fresh = np.random.default_rng
+        monkeypatch.setattr(np.random, "default_rng",
+                            lambda seed=None: fresh(1234 if seed is None else seed))
+        images = sorted(os.path.join(FIXTURES, f) for f in os.listdir(FIXTURES)
+                        if f.startswith("sun_"))
+        tree = write_sunrgbd_tree(str(tmp_path / "data"), 8, 4, images, num_points=2048)
+        argv = TINY_SUN + ["--dataset_root_dir", tree["root_dir"],
+                           "--meta_data_dir", tree["meta_data_dir"]]
+        runs = [str(tmp_path / name) for name in ("yuv", "bank")]
+        cli.main(argv + ["--yuv_images", "--checkpoint_dir", runs[0]])
+        cli.main(argv + ["--image_bank", "--checkpoint_dir", runs[1]])
+        assert seen[0][1]["image"] == "yuv420" and "image_ref" in seen[-1][1]
+        yuv, bank = _logged(runs[0]), _logged(runs[1])
+        assert sorted(yuv) == sorted(bank) == [0, 1] and yuv == bank
+        assert yuv[0]["Train_details/loss_2dalignment"] > 0
+        _same_state(*runs)
+    assert "saved new best checkpoint" in capsys.readouterr().out
 
 
 def test_more_ranks_than_cards_raise(tmp_path, monkeypatch):

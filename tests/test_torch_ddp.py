@@ -34,15 +34,21 @@
   of files, written by rank 0, one AP table an eval, a resume that trains
   on from the checkpoint, and with every dropout at 0 the logged losses
   (steps 0, 5, 10, 15) within 1e-4 relative of `--ngpus 1` at the same
-  global batch.  The run takes 8 queries, not the 32 of the CLI tests:
+  global batch, each epoch from one state: the one-rank run's second epoch
+  resumes from the two ranks' first checkpoint.  The run takes 8 queries, not the 32 of the CLI tests:
   at random init the decoder's 32 queries of a scene nearly share their
   boxes, so the auction's costs hold near-ties, and the f32 noise between
   one rank and two (outputs within 1e-5) flips the assignment of 2
   proposals in the first batch, 2.1e-3 of the first step's loss and up to
   9.3e-3 later; local BatchNorm statistics move them by no more (4.4e-3,
   1.2e-2), so those limits could not tell the two apart.  With 8 queries
-  the two runs agree within 2.3e-5 at every logged step, and local
-  BatchNorm statistics are 2.8e-4 off in the first step and 1.3e-2 later.
+  the first steps agree within 2.1e-7, and local BatchNorm statistics are
+  2.8e-4 off in the first step and 1.3e-2 later.  Near-ties remain: at
+  step 7 grad_norm jumps to 2.3e-3 apart with equal losses (an assignment
+  flipped), and from there the losses of one run from initialisation
+  drift apart by up to 1.2e-4 by step 15, moved by the last bit of an
+  AdamW update; from one state at the epoch boundary they stay within
+  1.5e-5.
 - `main.evaluate` on two ranks, of detections near the GT boxes that
   score, with a padded tail whose rows on rank 1 are all padding: the
   gathered calculator holds the one-rank calculator's scans in its order,
@@ -53,6 +59,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -448,6 +455,12 @@ def test_cli_trains_on_two_cpu_ranks(tmp_path):
     assert sum(line.startswith("Epoch [0/1]; Iter [0/8]; ") for line in lines) == 1
     assert sorted(_losses(run2)) == [0, 5]  # one row a logged step: rank 0's
 
+    # the one-rank run's first epoch; its second resumes from the two ranks'
+    # first checkpoint, so that both epochs start from one state
+    cli.main(argv + ["--batchsize_per_gpu", "8", "--max_epoch", "1", "--checkpoint_dir", run1])
+    for name in ("checkpoint", "checkpoint.extra.json"):
+        shutil.copy(os.path.join(run2, name), os.path.join(run1, name))
+
     # resume: the second epoch from the first's checkpoint
     os.remove(os.path.join(run2, "final_eval.txt"))
     out = _cli(argv + ["--ngpus", "2", "--checkpoint_dir", run2])
@@ -455,6 +468,7 @@ def test_cli_trains_on_two_cpu_ranks(tmp_path):
     assert "Evaluate Epoch [1/2]" in out and os.path.isfile(os.path.join(run2, "final_eval.txt"))
     assert sorted(_losses(run2)) == [0, 5, 10, 15]
 
+    os.remove(os.path.join(run1, "final_eval.txt"))
     cli.main(argv + ["--batchsize_per_gpu", "8", "--checkpoint_dir", run1])
     one, two = _losses(run1), _losses(run2)
     assert sorted(one) == sorted(two)

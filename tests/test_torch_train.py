@@ -316,8 +316,11 @@ def test_lr_schedule_matches_jax(warm):
         assert st(0) == cfg_t.base_lr
 
 
+@pytest.mark.parametrize("staged", [False, True])
 @pytest.mark.parametrize("filter_biases_wd", [False, True])
-def test_adamw_matches_optax(filter_biases_wd):
+def test_adamw_matches_optax(filter_biases_wd, staged):
+    """`staged`: the steps staged as `PackedStep` stages a group, the
+    scalars of 3 updates in one copy, one row a step."""
     rng = np.random.default_rng(6)
     shapes = {"w": (5, 4), "b": (4,), "frozen_at_use": (3, 6)}
     params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
@@ -328,6 +331,7 @@ def test_adamw_matches_optax(filter_biases_wd):
     state = tx.init(jp)
     tparams = [torch.nn.Parameter(_t(params[k])) for k in shapes]
     opt = T.AdamW(tparams, cfg_t, T.make_lr_schedule(cfg_t, 2, 2))
+    table = opt.scalar_rows(3)
     for step, scale in enumerate((0.01, 5.0, 0.02)):  # below and above the clip
         grads = {k: (scale * rng.normal(size=s)).astype(np.float32) for k, s in shapes.items()}
         grads["frozen_at_use"][:] = 0.0  # stopped at use: zero in JAX, None here
@@ -335,13 +339,18 @@ def test_adamw_matches_optax(filter_biases_wd):
         jp = optax.apply_updates(jp, upd)
         for p, k in zip(tparams, shapes):
             p.grad = None if k == "frozen_at_use" else _t(grads[k])
-        g_norm = opt.step()
+        if staged:
+            opt.stage(table[step])
+            g_norm = opt.apply()
+        else:
+            g_norm = opt.step()
         np.testing.assert_allclose(float(g_norm), float(optax.global_norm(grads)), rtol=1e-6)
         for p, k in zip(tparams, shapes):
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]), rtol=0, atol=1e-6,
                                        err_msg=f"{k} after step {step}")
     # no gradient ever reached it: the decay alone moved it
     assert (tparams[2].detach().numpy() != params["frozen_at_use"]).all()
+    assert opt.count == 3
 
 
 # ------------------------------------------------------------ whole step
