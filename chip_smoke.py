@@ -44,8 +44,11 @@ at once), then:
        score and, with dropout, the hash's integer operations;
   3. serves 3 requests of 8 synthetic scenes x 20 000 points through
      `Detector` at the full width of `sunrgbd_quick()` (seeded random
-     weights): each request must launch FPS twice, the ball-group once, the
-     attention forward 3 times and no backward kernel;
+     weights), each request one CUDA-graph replay of the forward and the
+     parse: each must launch FPS twice, the ball-group once, the attention
+     forward 3 times, the NMS kernel once and no backward kernel; the same
+     requests eagerly from the same detector give the same detections bit
+     for bit (phase 15), both timed, and one graphed request is profiled;
   4. runs one scene at f32 on the card and on the CPU (plain versions) with
      the same weights: query indices equal, box corners within 1e-3;
   5. trains: `build_training(sunrgbd_quick(), ...)` on the card takes one
@@ -82,8 +85,9 @@ at once), then:
        version and `scaled_dot_product_attention` with the boolean mask
        (without dropout and with 0.3); the share of 64 x 64 and 128 x 128
        (q, k) tiles with no in-radius pair is printed;
-       serving: 3 requests, each launching FPS 3 times, the ball-group
-       twice, the radius forward 3 times and no backward kernel;
+       serving: 3 graphed requests, each launching FPS 3 times, the
+       ball-group twice, the radius forward 3 times, NMS once and no
+       backward kernel, equal to the eager ones bit for bit (phase 15);
        training: one warm-up and 3 timed steps, each launching FPS 3 times,
        the ball-group twice, its pick pass once and each radius kernel 3
        times, with the stage
@@ -108,7 +112,7 @@ at once), then:
      and sizes, and the peak device memory; then the host AP with the C++
      rotated IoU and with the numpy one, in turns, on the `--test_only` pass
      and on 16 scenes of detections near the GT boxes;
-  9. (after 14) prints the kernels line (launches summed over the serving
+  9. (after 15) prints the kernels line (launches summed over the serving
      and training runs of both configs, the CLI's run, phase 10's OV
      training and OV CLI runs, phase 11's runs, phase 12's, phase 13's and
      phase 14's CLI runs), the card line, and last {"ok": true, "device": {...}}.
@@ -228,11 +232,28 @@ at once), then:
        phase 13's unflagged epoch; the synthetic OV CLI with the codecs at
        `--super_batch 4` and 1: the logged losses and the final parameters
        and Adam moments equal bit for bit.
+ 15. the evaluation path (slice 13):
+       the NMS kernel against its plain version on the card: keep masks
+       equal bit for bit in every mode (3D class-aware, 3D, 2D on the
+       bird's-eye boxes, each also old-type) on the outputs of the last
+       `sunrgbd_quick` and masked request (K 128, 256) and on crafted
+       scenes at K 8, 256 and 1024 (exact score ties, NaN, -inf, -1e30
+       scores, IoU exactly at the threshold, a zero-volume box, a scene
+       with nothing valid); K 1025 refused; the kernel (graph replays),
+       the plain loop and the bound timed at the two requests' shapes;
+       every NMS mode x empty-box removal x proposal mode of
+       `get_ap_config_dict`: `APCalculator` on the card's parse against the
+       CPU's plain path on the same outputs, mAP and AR within 1e-6;
+       `make_packed_multi_step` at G = 4 and `sunrgbd_quick` width: one
+       replay of its graph equals 4 replays of `PackedStep`'s one-step
+       graph bit for bit (metrics, parameters, buffers, Adam moments).
 Every CLI run of phases 8 and 10-14 on one process replays the step's
-CUDA graph; a replay calls no wrapper, so the runs here use
-`counted_packed_step()`, a `PackedStep` that adds the kernels its capture
-recorded times its replays, less the capture's own count, to what
-`read_counts` reads.  Launch counts are set to 0 just
+CUDA graph, and on one process every eval batch and request replays an
+eval graph (`engine.infer.GraphedEval`); a replay calls no wrapper, so the
+runs here use `counted_packed_step()`, a `PackedStep` that adds the
+kernels its capture recorded times its replays, less the capture's own
+count, to what `read_counts` reads, and `count_eval_replays()` does the
+same for the eval graphs.  Launch counts are set to 0 just
 before each serving, training and CLI run, and read just after it.  The radius variants of the attention kernels count
 apart (`.radius_launches`) and have their own entries in the kernels line.
 Exits non-zero, printing no result, without CUDA or without the package
@@ -245,6 +266,7 @@ import functools
 import gc
 import hashlib
 import io
+import itertools
 import json
 import math
 import multiprocessing
@@ -461,14 +483,16 @@ def kernel_counters() -> dict:
     """name -> (wrapper, attribute): each wrapper counts its kernel's launches
     in `.launches`, the attention wrappers those of the radius variant in
     `.radius_launches`."""
-    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps
+    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms
 
+    count_eval_replays()
     counters = {"fps": (fps.fps, "launches"), "ball_group": (ball_group.ball_group, "launches"),
                 "slot_sources": (ball_group.slot_sources, "launches")}
     for name in ("attention_fwd", "attention_dq", "attention_dkv"):
         counters[name] = (getattr(attention, name), "launches")
         counters[f"{name}_radius"] = (getattr(attention, name), "radius_launches")
     counters["auction"] = (auction.auction_phases, "launches")
+    counters["nms"] = (nms.nms_keep, "launches")
     return counters
 
 
@@ -477,7 +501,38 @@ def wrapper_counts() -> dict:
     return {n: getattr(w, a) for n, (w, a) in kernel_counters().items()}
 
 
-REPLAYED: dict = {}  # name -> launches of CountedPackedStep replays less those its captures recorded
+REPLAYED: dict = {}  # name -> launches of graph replays less those their captures recorded
+
+
+@functools.lru_cache(maxsize=None)
+def count_eval_replays() -> None:
+    """Count the launches of `engine.infer.GraphedEval` replays (the graphed
+    eval step and request), as `counted_packed_step` does the training
+    step's: each capture takes what it recorded off `REPLAYED`, each replay
+    adds it.  Installed once, on the class, before any capture (every
+    `kernel_counters` call makes sure of it)."""
+    from ov3det_torch.engine.infer import GraphedEval
+
+    record, replay = GraphedEval._record, GraphedEval._replay
+
+    def counted_record(self, graph, stream, static_in):
+        before = wrapper_counts()
+        out = record(self, graph, stream, static_in)
+        after = wrapper_counts()
+        rec = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        # on the instance, by the graph's id: a reference to the graph here
+        # would keep its memory pool alive after the step is gone
+        self.__dict__.setdefault("recorded", {})[id(graph)] = rec
+        for n, c in rec.items():
+            REPLAYED[n] = REPLAYED.get(n, 0) - c
+        return out
+
+    def counted_replay(self, key):
+        replay(self, key)
+        for n, c in self.recorded[id(self._graphs[key][0])].items():
+            REPLAYED[n] = REPLAYED.get(n, 0) + c
+
+    GraphedEval._record, GraphedEval._replay = counted_record, counted_replay
 
 
 @functools.lru_cache(maxsize=None)
@@ -531,7 +586,7 @@ def reset_counts() -> None:
 
 def kernel_sources() -> dict:
     """name -> (source in the repo, the TPU kernel it replaces)."""
-    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps
+    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms
 
     return {"fps": (fps.SOURCE, fps.REPLACES),
             "ball_group": (ball_group.SOURCE, ball_group.REPLACES),
@@ -542,7 +597,8 @@ def kernel_sources() -> dict:
             "attention_fwd_radius": (attention.SOURCE, attention.FWD_RADIUS_REPLACES),
             "attention_dq_radius": (attention.BWD_SOURCE, attention.DQ_RADIUS_REPLACES),
             "attention_dkv_radius": (attention.BWD_SOURCE, attention.DKV_RADIUS_REPLACES),
-            "auction": (auction.SOURCE, auction.REPLACES)}
+            "auction": (auction.SOURCE, auction.REPLACES),
+            "nms": (nms.SOURCE, nms.REPLACES)}
 
 
 def expect(**counts) -> dict:
@@ -1279,7 +1335,7 @@ def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
                                           f"{got[0] * 1e3 / busy_us:.3f} of the busy time"))
     own = [e for e in kernels if any(k in e.key for k in
                                      ("fps_kernel", "fps_cluster_kernel", "pick_kernel", "fill_kernel",
-                                      "ball_group_tile", "attn_"))]
+                                      "ball_group_tile", "attn_", "auction_kernel", "nms_kernel"))]
     for name, group in (("kernels", kernels[:12]), ("the port's own kernels", own),
                         ("ops, by the device time of their kernels", ops[:12])):
         print(f" {name}:")
@@ -1336,20 +1392,26 @@ def sync_points(title: str, fn) -> int:
     return sum(where.values())
 
 
-def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) -> dict:
-    """Phases 3 and 7: the serving path at full width; returns the launch
-    counts of the requests."""
-    from ov3det_torch.engine.infer import Detector
+def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) -> tuple:
+    """Phases 3 and 7: the serving path at full width, each request one
+    CUDA-graph replay of the forward and the parse (`Detector.request`).
+    Then (phase 15) the same requests eagerly from the same detector: the
+    detections equal bit for bit, both timed.  Returns the launch counts of
+    the graphed requests and the NMS inputs of the last batch's outputs."""
+    from ov3det_torch.engine.infer import INPUT_KEYS, Detector
+    from ov3det_torch.eval.parse import points_in_box_counts
 
     det = Detector(cfg, device=dev, seed=0)
-    det.detect(batches[0])  # warm-up: cuBLAS handles, allocator
+    require(det.request.graph, f"{label}: the request is not graphed on the card")
+    det.detect(batches[0])  # warm-up and capture: cuBLAS handles, allocator
     reset_counts()
+    got, ms = [], {True: [], False: []}
     for r, batch in enumerate(batches):
         before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dets = det.detect(batch)
-        ms = (time.perf_counter() - t0) * 1e3
+        ms[True].append((time.perf_counter() - t0) * 1e3)
         after = read_counts()
         delta = {n: after[n] - before[n] for n in after}
         require(delta == per_request, f"{label} request {r}: launches {delta}, expected {per_request}")
@@ -1358,14 +1420,44 @@ def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) 
             require(corners.shape[1:] == (8, 3) and len(classes) == len(scores) == len(corners),
                     "detection arrays disagree in shape")
             require(np.isfinite(corners).all() and np.isfinite(scores).all(), "non-finite detections")
-        print(f"{label} request {r}: {ms:.2f} ms, detections per scene "
+        got.append(dets)
+        print(f"{label} request {r} (graphed): {ms[True][-1]:.2f} ms, detections per scene "
               f"{[len(c) for c, _, _ in dets]}, launches { {n: c for n, c in delta.items() if c} }")
     counts = read_counts()
+
+    # phase 15: the same requests eagerly, from the same detector
+    det.request.graph = False
+    for r, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = det.detect(batch)
+        ms[False].append((time.perf_counter() - t0) * 1e3)
+        for (gc, gb, gs), (ec, eb, es) in zip(got[r], dets):
+            require(np.array_equal(gc, ec) and np.array_equal(gb, eb) and np.array_equal(gs, es),
+                    f"{label} request {r}: graphed and eager detections differ")
+    det.request.graph = True
+    print(f"{label}: {len(batches)} graphed requests equal the eager ones bit for bit; request "
+          f"(host clock to the detections) graphed {[round(x, 2) for x in ms[True]]} ms, eager "
+          f"{[round(x, 2) for x in ms[False]]} ms")
     stage_times(det, batches[-1])
 
     # one more request under the profiler: device time by kernel and idle share
-    profile(f"profiled {label} request", lambda: det.detect(batches[-1]))
-    return counts
+    profile(f"profiled graphed {label} request", lambda: det.detect(batches[-1]))
+
+    # the NMS inputs of the last batch's outputs, for phase 15's kernel check
+    with torch.inference_mode():
+        inputs = {k: torch.as_tensor(batches[-1][k]).to(dev) for k in INPUT_KEYS}
+        out = det.eval_step(inputs)
+        corners = out["box_corners"]
+        mins, maxs = corners.amin(dim=2), corners.amax(dim=2)
+        nms_inputs = dict(
+            aabb=torch.cat([mins, maxs], -1).contiguous(),
+            bev=torch.cat([mins[..., 0:1], mins[..., 2:3], maxs[..., 0:1], maxs[..., 2:3]], -1),
+            scores=out["objectness_prob"].contiguous(),
+            classes=torch.argmax(out["sem_cls_prob"], dim=-1),
+            valid=points_in_box_counts(inputs["point_clouds"], corners) >= 5)
+    del det
+    return counts, nms_inputs
 
 
 def card_vs_cpu(batch: dict) -> None:
@@ -2547,8 +2639,9 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     request_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
-    require(counts == expect(fps=2, attention_fwd=3),
-            f"reference checkpoint request: launches {counts}, expected fps 2, attention_fwd 3")
+    require(counts == expect(fps=2, attention_fwd=3, nms=1),
+            f"reference checkpoint request: launches {counts}, expected fps 2, attention_fwd 3, "
+            "nms 1")
     require(len(dets) == BATCH and all(np.isfinite(c).all() and np.isfinite(s).all()
                                        for _, c, s in dets), "reference checkpoint: bad detections")
     # the same weights and request with the bucketed ball-group, the
@@ -3730,6 +3823,209 @@ def packed_phase(card: str, dev: torch.device) -> tuple:
     return entry, [sun_counts, g_counts, s_counts]
 
 
+NMS_THRESH = 0.25  # the eval's IoU of NMS (`get_ap_config_dict`)
+NMS_REPS = 50  # calls of a timing graph
+MULTI_G = 4  # steps of make_packed_multi_step's graph
+
+
+def nms_bound(B: int, K: int, D: int, classes: bool) -> tuple:
+    """The least time of one NMS call on the card: its inputs read once and
+    its keep mask written once at the memory rate, against its f32
+    operations at the f32 rate: a pair's overlap (D mins, D maxes, D
+    differences, D clamps, D - 1 products, the union's two additions, its
+    clamp, the division, the class product, the comparison: 5 D + 5) and
+    its rank comparison (3)."""
+    nbytes = B * K * (2 * D * 4 + 4 + (8 if classes else 0) + 1) + B * K
+    return bound_ms(nbytes, B * K * K * (5 * D + 5 + 3), F32_PEAK)
+
+
+def nms_scenes(seed: int, B: int, K: int, D: int) -> tuple:
+    """(boxes (B, K, 2D), scores, classes, valid) numpy scenes with the hard
+    cases of the greedy rule: boxes on a grid of 1/8, exact score ties, a
+    pair at exactly the threshold, a zero-volume box, NaN, -inf, -1e30 and
+    -6e29 scores, and a last scene with nothing valid."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 16, (B, K, D)) / 8.0
+    boxes = np.concatenate([lo, lo + rng.integers(1, 10, (B, K, D)) / 8.0], -1).astype(np.float32)
+    scores = (rng.integers(0, 12, (B, K)) / 16.0).astype(np.float32)
+    classes = rng.integers(0, 3, (B, K)).astype(np.int64)
+    valid = rng.random((B, K)) > 0.2
+    boxes[0, 0] = [0.0] * D + [1.0] * D
+    boxes[0, 1] = [0.0] * D + [1.0] * (D - 1) + [0.25]  # IoU 0.25 with box 0
+    scores[0, :2], classes[0, :2], valid[0, :2] = [0.9, 0.8], 0, True
+    boxes[0, 2, D:] = boxes[0, 2, :D]
+    scores[0, 3:7] = [np.nan, -np.inf, -1e30, -6e29]
+    scores[1, 1::4] = np.nan
+    valid[-1] = False
+    return boxes, scores, classes, valid
+
+
+def check_nms(card: str, dev: torch.device, outputs: dict) -> dict:
+    """Phase 15's kernel check: the NMS kernel's keep masks against its plain
+    version's on the card, bit for bit, in every mode (3D class-aware, 3D,
+    2D on the bird's-eye boxes, each also old-type) on the outputs of the
+    two configs' requests (`outputs`: label -> `serve`'s NMS inputs) and on
+    crafted scenes at K 8, 256 and 1024; a K above the kernel's limit
+    raises; the kernel (graph replays), the plain loop and the bound timed
+    at the two requests' shapes (3D class-aware).  Returns the kernels
+    line's keys (sunrgbd, with the masked request's under
+    "scannet_masked")."""
+    from ov3det_torch.ops.kernels.nms import MAX_K, nms_keep, nms_plain
+
+    def modes(case: dict):
+        for old in (False, True):
+            yield f"3d class-aware{' old-type' if old else ''}", case["aabb"], case["classes"], old
+            yield f"3d{' old-type' if old else ''}", case["aabb"], None, old
+            yield f"2d bev{' old-type' if old else ''}", case["bev"], None, old
+
+    cases = dict(outputs)
+    for K in (8, 256, MAX_K):
+        boxes6, scores, classes, valid = nms_scenes(K, 4, K, 3)
+        boxes4 = nms_scenes(K, 4, K, 2)[0]
+        cases[f"crafted K {K}"] = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+            aabb=boxes6, bev=boxes4, scores=scores, classes=classes, valid=valid).items()}
+    for label, case in cases.items():
+        kept = []
+        for mode, boxes, classes, old in modes(case):
+            got = nms_keep(boxes, case["scores"], NMS_THRESH, case["valid"], classes, old)
+            want = nms_plain(boxes, case["scores"], NMS_THRESH, case["valid"], classes, old)
+            require(torch.equal(got, want), f"nms {label} {mode}: the kernel's keep mask differs "
+                                            f"from the plain version's in {(got != want).sum()} boxes")
+            kept.append(f"{mode} {int(got.sum())}")
+        B, K = case["scores"].shape
+        print(f"nms {label} (B {B}, K {K}, {int(case['valid'].sum())} valid): keep masks equal "
+              f"the plain version's bit for bit; kept {', '.join(kept)}")
+    big = cases[f"crafted K {MAX_K}"]
+    try:
+        nms_keep(torch.cat([big["aabb"], big["aabb"][:, :1]], 1),
+                 torch.cat([big["scores"], big["scores"][:, :1]], 1), NMS_THRESH,
+                 torch.cat([big["valid"], big["valid"][:, :1]], 1))
+    except ValueError as e:
+        print(f"nms at K {MAX_K + 1}: refused ({e})")
+    else:
+        raise AssertionError(f"nms at K {MAX_K + 1} was not refused")
+
+    entries = {}
+    for label, case in outputs.items():
+        args = (case["aabb"], case["scores"], NMS_THRESH, case["valid"], case["classes"])
+        ms = graph_ms(lambda: nms_keep(*args), NMS_REPS)
+        plain = cuda_ms(lambda: nms_plain(*args), 3)
+        ms = min(ms, graph_ms(lambda: nms_keep(*args), NMS_REPS))
+        B, K = case["scores"].shape
+        b_ms, by = nms_bound(B, K, 3, True)
+        entries[label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                              library_ms=None)
+        print(f"nms {label} (B {B}, K {K}, 3d class-aware): kernel {ms:.4f} ms (graph replays of "
+              f"{NMS_REPS} calls), plain loop {plain:.3f} ms, bound {b_ms:.5f} ms ({by}); no "
+              f"library NMS ({card})")
+    return {**entries["sunrgbd"], "scannet_masked": entries["scannet_masked"]}
+
+
+def ap_configs_card_vs_cpu(card: str, dev: torch.device) -> None:
+    """Every NMS mode x the empty-box removal x the three proposal modes of
+    `get_ap_config_dict`: `APCalculator` on the card's parse and on the
+    CPU's plain path, on the same outputs (detections near the GT boxes of
+    8 ScanNet-width scenes, 256 queries, 18 classes): mAP and AR within
+    1e-6 at both IoU thresholds."""
+    from ov3det_torch.datasets.synthetic import make_batch
+    from ov3det_torch.eval.ap_calculator import APCalculator, get_ap_config_dict
+
+    rng = np.random.default_rng(1500)
+    batch = make_batch(rng, batch_size=BATCH, num_points=SCANNET_POINTS // 8, num_semcls=18,
+                       num_angle_bin=1)
+    out = detections_near_gt(batch, rng, 256)
+    t0, worst, n = time.perf_counter(), 0.0, 0
+    nms_modes = {"3d class-aware": dict(), "3d": dict(cls_nms=False),
+                 "2d bev": dict(use_3d_nms=False), "no nms": dict(no_nms=True)}
+    proposals = {"per class": dict(), "class prob": dict(per_class_proposal=False,
+                                                         use_cls_confidence_only=True),
+                 "objectness": dict(per_class_proposal=False)}
+    for (mode, nms_kw), empty, (prop, prop_kw) in itertools.product(
+            nms_modes.items(), (True, False), proposals.items()):
+        cfgd = get_ap_config_dict(remove_empty_box=empty, **nms_kw, **prop_kw)
+        metrics = {}
+        for where in ("card", "cpu"):
+            calc = APCalculator(ap_config_dict=cfgd)
+            on = dev if where == "card" else torch.device("cpu")
+            calc.step_meter({k: torch.from_numpy(v).to(on) for k, v in out.items()},
+                            {k: torch.from_numpy(v).to(on) for k, v in batch.items()})
+            metrics[where] = calc.compute_metrics()
+        for t, m in metrics["cpu"].items():
+            for key in ("mAP", "AR"):
+                err = abs(float(metrics["card"][t][key]) - float(m[key]))
+                require(err <= 1e-6, f"AP config {mode}, remove_empty_box {empty}, {prop}: {key} "
+                                     f"at {t} card {metrics['card'][t][key]} vs CPU {m[key]}")
+                worst = max(worst, err)
+        n += 1
+    print(f"AP settings: {n} combinations of get_ap_config_dict (NMS mode x empty-box removal x "
+          f"proposal mode), the card's parse against the CPU's plain path on the same outputs: "
+          f"mAP and AR at 0.25 and 0.5 within {worst:.1e} (gate 1e-6); "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+
+
+def multi_step_vs_single(card: str, dev: torch.device) -> None:
+    """`make_packed_multi_step` at G = MULTI_G at `sunrgbd_quick` width: its
+    graph of G steps, replayed once, against G replays of `PackedStep`'s
+    one-step graph from the same state and seeds: every step's metrics and
+    every parameter, buffer and Adam moment bit for bit; one replay of each
+    timed (host clock to a sync)."""
+    from ov3det_torch.config import sunrgbd_quick
+    from ov3det_torch.datasets.loader import pack_batch
+    from ov3det_torch.engine.train import PackedStep, build_training, make_packed_multi_step
+
+    cfg = sunrgbd_quick()
+    packed = [pack_batch(b) for b in synthetic_batches(cfg, 2 * MULTI_G, 1800)]
+    metas = packed[0][1]
+    rows = torch.from_numpy(np.stack([buf for buf, _ in packed])).to(dev)
+    one = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+    multi = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+    single_step, multi_step = PackedStep(one, 0, dev), make_packed_multi_step(multi, 0, dev)
+    # the first group: each warms up and captures
+    single_step(rows[:MULTI_G], metas, 0)
+    multi_step(rows[:MULTI_G], metas, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles = []
+    for g in range(MULTI_G):
+        m, _ = single_step(rows[MULTI_G + g], metas, MULTI_G + g)
+        singles.append({k: v.clone() for k, v in m.items()})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stacked, _ = multi_step(rows[MULTI_G:], metas, MULTI_G)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for g, m in enumerate(singles):
+        bad = [k for k in m if not torch.equal(stacked[k][g], m[k])]
+        require(not bad, f"multi-step: step {g} differs from the one-step replay in {bad[:4]}")
+    a, b = one.model.state_dict(), multi.model.state_dict()
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    bad += [f"{name}{j}" for name in ("mu", "nu") for j, (x, y) in
+            enumerate(zip(getattr(one.optimizer, name), getattr(multi.optimizer, name)))
+            if not torch.equal(x, y)]
+    require(not bad and one.optimizer.count == multi.optimizer.count == 2 * MULTI_G,
+            f"multi-step: the states differ in {bad[:4]}")
+    print(f"make_packed_multi_step (G {MULTI_G}, sunrgbd_quick): one replay equals {MULTI_G} "
+          f"one-step replays bit for bit (every loss and grad_norm, {len(a)} parameters and "
+          f"buffers, the Adam moments); {MULTI_G} one-step replays {(t1 - t0) * 1e3:.2f} ms, one "
+          f"{MULTI_G}-step replay {(t2 - t1) * 1e3:.2f} ms (host clock to a sync) ({card})")
+    del one, multi, single_step, multi_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def eval_phase(card: str, dev: torch.device, nms_inputs: dict) -> dict:
+    """Phase 15: the evaluation path (slice 13).  The graphed requests
+    against the eager ones ran in `serve` (phases 3 and 7); here the NMS
+    kernel, every AP setting card against CPU and the multi-step graph.
+    Returns the NMS kernel's kernels-line keys."""
+    t0 = time.perf_counter()
+    entry = check_nms(card, dev, nms_inputs)
+    ap_configs_card_vs_cpu(card, dev)
+    multi_step_vs_single(card, dev)
+    print(f"phase 15 (the evaluation path): {time.perf_counter() - t0:.1f} s")
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3773,7 +4069,8 @@ def main() -> int:
     sun, masked = sunrgbd_quick(), scannet_masked()
     batches = synthetic_batches(sun, REQUESTS, 100)
     entries = {**check_kernels(batches[0], dev), **check_attention(dev)}
-    served = serve(sun, batches, expect(fps=2, ball_group=1, attention_fwd=3), "sunrgbd", dev)
+    served, sun_nms = serve(sun, batches, expect(fps=2, ball_group=1, attention_fwd=3, nms=1),
+                            "sunrgbd", dev)
     card_vs_cpu(batches[0])
     trained = train(sun, TRAIN_STEPS, expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
                                              attention_dkv=3, auction=1), "sunrgbd", 200, dev)
@@ -3788,8 +4085,9 @@ def main() -> int:
             entries[name] = extra
     entries.update(check_radius_attention(pre_xyz, mid_xyz, dev))
     del pre_xyz, mid_xyz
-    m_served = serve(masked, m_batches, expect(fps=3, ball_group=2, attention_fwd_radius=3),
-                     "scannet_masked", dev)
+    m_served, masked_nms = serve(masked, m_batches,
+                                 expect(fps=3, ball_group=2, attention_fwd_radius=3, nms=1),
+                                 "scannet_masked", dev)
     m_trained = train(masked, MASKED_TRAIN_STEPS,
                       expect(fps=3, ball_group=2, slot_sources=1, attention_fwd_radius=3,
                              attention_dq_radius=3, attention_dkv_radius=3, auction=1),
@@ -3802,12 +4100,20 @@ def main() -> int:
     ddp_counts = ddp_phase(card, dev, ov_waits)
     image_counts = images_phase(card, dev)
     entries["auction"], packed_counts = packed_phase(card, dev)
+    entries["nms"] = eval_phase(card, dev, {"sunrgbd": sun_nms, "scannet_masked": masked_nms})
+    del sun_nms, masked_nms
 
+    runs = {"sunrgbd requests": served, "sunrgbd steps": trained, "masked requests": m_served,
+            "masked steps": m_trained, "cli": cli_counts, "ov steps": ov_trained,
+            "ov cli": ov_cli_counts, "pseudo": pseudo_counts,
+            **{f"ddp {i}": c for i, c in enumerate(ddp_counts)},
+            **{f"images {i}": c for i, c in enumerate(image_counts)},
+            **{f"packed {i}": c for i, c in enumerate(packed_counts)}}
+    print("launches by run: " + json.dumps({label: {n: c for n, c in counts.items() if c}
+                                            for label, counts in runs.items()}))
     kernels = []
     for name, (source, replaces) in kernel_sources().items():
-        count = sum(c.get(name, 0) for c in (served, trained, m_served, m_trained, cli_counts,
-                                             ov_trained, ov_cli_counts, pseudo_counts,
-                                             *ddp_counts, *image_counts, *packed_counts))
+        count = sum(c.get(name, 0) for c in runs.values())
         require(count > 0, f"{name} was not launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, **entries[name]})

@@ -50,6 +50,9 @@ device (`ops.kernels.auction`), the optimiser reads its learning rate and
 bias corrections from `AdamW.scalars`.  A capture that fails raises; there
 is no eager fallback on the card but the one asked for (`graph=False`,
 `--debug_nans`).  On the CPU the same function runs eagerly.
+`make_packed_multi_step` (`PackedMultiStep`, `ov3det/engine/train.py:200-232`)
+captures a group's G steps as one graph instead, each with its own
+generator and row of scalars; no CLI path takes it, as in JAX.
 """
 from __future__ import annotations
 
@@ -285,7 +288,8 @@ class Training:
 def build_training(cfg: TrainConfig, iters_per_epoch: int, device=None, seed: int = 0,
                    eval_loss: bool = False,
                    teacher: Optional[RegionCLIPTeacher] = None,
-                   image_bank: Optional[tuple] = None) -> Training:
+                   image_bank: Optional[tuple] = None,
+                   eval_graph: Optional[bool] = None) -> Training:
     """Schedule, optimiser, detector (seeded random weights) and the steps
     from a `TrainConfig` (`ov3det/engine/train.py:317-352`).  `device`
     defaults to CUDA and raises when no card is present.  With `eval_loss`
@@ -297,7 +301,9 @@ def build_training(cfg: TrainConfig, iters_per_epoch: int, device=None, seed: in
     `image_bank`, (bank, (H, W)) from `datasets.image_bank.build_image_bank`
     on `device`, feeds the teacher when the batches carry `image_ref`; like
     the teacher it is no part of the state.  Under a data group the model's
-    parameters and buffers are replicated from rank 0."""
+    parameters and buffers are replicated from rank 0.  `eval_graph` is
+    `make_eval_step`'s `graph` (None: a CUDA graph on a card outside a data
+    group)."""
     device = resolve_device(device)
     schedule = make_lr_schedule(cfg.optim, cfg.max_epoch, iters_per_epoch)
     model = Model3DETR(cfg.model, device=device, seed=seed)
@@ -313,7 +319,7 @@ def build_training(cfg: TrainConfig, iters_per_epoch: int, device=None, seed: in
                                  cfg.model.num_semcls, teacher_fn=teacher_fn,
                                  image_bank=image_bank)
     eval_step = make_eval_step(model, cfg.loss if eval_loss else None,
-                               cfg.model.num_angle_bin, cfg.model.num_semcls)
+                               cfg.model.num_angle_bin, cfg.model.num_semcls, graph=eval_graph)
     return Training(model, optimizer, schedule, train_step, eval_step, teacher, image_bank)
 
 
@@ -371,6 +377,13 @@ class PackedStep:
         self.generator.manual_seed(step_seed(self.seed, it))
         return self.train_step(batch, self.generator)
 
+    def _run_eagerly(self, rows: torch.Tensor, metas, first_iter: int) -> tuple:
+        """Every row eagerly: (the last row's metrics, its batch)."""
+        for g in range(rows.shape[0]):
+            batch = unpack_batch(rows[g], metas)
+            metrics = self._eager(batch, first_iter + g)
+        return metrics, batch
+
     def _capture(self, rows: torch.Tensor, metas, first_iter: int) -> tuple:
         """The warm-up step on rows[0] on a side stream, then the capture."""
         static_row = torch.empty(rows.shape[1], dtype=torch.uint8, device=self.device)
@@ -399,12 +412,9 @@ class PackedStep:
     def __call__(self, rows: torch.Tensor, metas, first_iter: int) -> tuple:
         if rows.dim() == 1:
             rows = rows[None]
-        G = rows.shape[0]
         self._check_bound()
         if not self.graph:
-            for g in range(G):
-                batch = unpack_batch(rows[g], metas)
-                metrics = self._eager(batch, first_iter + g)
+            metrics, batch = self._run_eagerly(rows, metas, first_iter)
         else:
             metrics, batch = self._replay(rows, metas, first_iter)
         if self._bound is None:  # held on the CPU too, so that its tests guard the card
@@ -427,3 +437,77 @@ class PackedStep:
             graph.replay()
         return static_metrics, static_batch
 
+
+
+class PackedMultiStep(PackedStep):
+    """`make_packed_multi_step` (`ov3det/engine/train.py:200-232`) on the
+    card: the G training steps of a (G, nbytes) group in **one** CUDA-graph
+    replay, where `PackedStep` replays one step's graph G times.  Sub-step g
+    runs at iteration `first_iter + g` with its own registered dropout
+    generator, seeded `step_seed(seed, first_iter + g)`, and its own row of
+    the AdamW scalars, so that one replay equals G replays of `PackedStep`
+    bit for bit.  Returns (metrics stacked (G,), the last row's batch).
+
+    The first group of a layout (`metas`) and size G is the warm-up: G eager
+    steps on a side stream, then the capture of G steps on a static
+    (G, nbytes) group.  JAX scans its step over the rows with
+    `fold_in(rng, g)` keys; the two packages' dropout streams differ anyway.
+    On the CPU (graph=False) the steps run eagerly, one after the other.
+    """
+
+    def _run_eagerly(self, rows: torch.Tensor, metas, first_iter: int) -> tuple:
+        ms = []
+        for g in range(rows.shape[0]):
+            batch = unpack_batch(rows[g], metas)
+            ms.append(self._eager(batch, first_iter + g))
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}, batch
+
+    def _replay(self, rows: torch.Tensor, metas, first_iter: int) -> tuple:
+        G = rows.shape[0]
+        if (metas, G) not in self._graphs:
+            return self._capture(rows, metas, first_iter)
+        graph, (static_rows, table, gens), static_batch, static_metrics = self._graphs[(metas, G)]
+        static_rows.copy_(rows)
+        table.copy_(self.optimizer.scalar_rows(G))
+        self.optimizer.count += G
+        for g, gen in enumerate(gens):
+            gen.manual_seed(step_seed(self.seed, first_iter + g))
+        graph.replay()
+        return static_metrics, static_batch
+
+    def _capture(self, rows: torch.Tensor, metas, first_iter: int) -> tuple:
+        """G eager steps on a side stream, then the capture of G steps."""
+        G = rows.shape[0]
+        static = (rows.clone(), torch.zeros((G, 3), dtype=torch.float32, device=self.device),
+                  [torch.Generator(device=self.device) for _ in range(G)])
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            metrics, batch = self._run_eagerly(static[0], metas, first_iter)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for gen in static[2]:
+            graph.register_generator_state(gen)
+        static_batch, static_metrics = self._record(graph, side, static, metas)
+        self._graphs[(metas, G)] = (graph, static, static_batch, static_metrics)
+        return metrics, batch
+
+    def _record(self, graph, stream, static: tuple, metas) -> tuple:
+        """Capture the G steps on the static (rows, scalars, generators) into
+        `graph`: (the last static batch, static metrics stacked (G,))."""
+        static_rows, table, gens = static
+        ms = []
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            for g, gen in enumerate(gens):
+                self.optimizer.scalars.copy_(table[g])
+                static_batch = unpack_batch(static_rows[g], metas)
+                ms.append(self.train_step(static_batch, gen, staged=True))
+            static_metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        return static_batch, static_metrics
+
+
+def make_packed_multi_step(training: Training, seed: int, device=None,
+                           graph: Optional[bool] = None) -> PackedMultiStep:
+    """G training steps of a packed group as one CUDA-graph replay
+    (`PackedMultiStep`); no CLI path takes it, as in JAX."""
+    return PackedMultiStep(training, seed, device, graph)

@@ -1,18 +1,20 @@
 """AP calculator: accumulate per-scan predictions and GT, compute mAP / AR.
 
 Counterpart of `ov3det/eval/ap_calculator.py:20-200` (reference
-utils/ap_calculator.py:272-450), with the same metric schema (per-class AP
+utils/ap_calculator.py:241-450), with the same metric schema (per-class AP
 and Recall, mAP and AR at each IoU threshold) and the same strings.
 `step_meter` runs `parse_predictions` (empty-box removal and NMS) on the
 outputs' device, copies its results and the outputs it needs to the host in
-one transfer, and assembles the per-class proposals there; the VOC matching
-(`eval/voc.py`) runs on the host.
+one transfer, and assembles the proposals there; the VOC matching
+(`eval/voc.py`) runs on the host, in `eval_processes` processes when that
+is above 0.
 
-Only the default VoteNet settings (reference utils/ap_calculator.py:241-269)
-are ported, as constants: class-aware 3D NMS at IoU 0.25 with per-class
-proposals, confidence threshold 0.05, AP at IoU 0.25 and 0.5.
-`exact_eval=False` (the train-time AP) turns off the empty-box removal, as in
-the JAX package.
+`get_ap_config_dict` holds the settings (VoteNet's by default: class-aware
+3D NMS at IoU 0.25, per-class proposals above confidence 0.05); AP is
+taken at IoU 0.25 and 0.5 (`AP_IOU_THRESH`) unless `ap_iou_thresh` says
+otherwise.  `exact_eval=False` (the train-time AP) turns off the empty-box
+removal of the default settings.  `use_old_type_nms` is kept and has no
+effect, as in the JAX package, whose parse never receives it.
 """
 from __future__ import annotations
 
@@ -26,6 +28,25 @@ from ov3det_torch.eval.parse import assemble_predictions, parse_predictions
 from ov3det_torch.eval.voc import eval_det
 
 AP_IOU_THRESH = (0.25, 0.5)
+
+
+def get_ap_config_dict(remove_empty_box=True, use_3d_nms=True, nms_iou=0.25,
+                       use_old_type_nms=False, cls_nms=True, per_class_proposal=True,
+                       use_cls_confidence_only=False, conf_thresh=0.05, no_nms=False,
+                       dataset_config=None) -> dict:
+    """VoteNet's mAP settings (reference utils/ap_calculator.py:241-269)."""
+    return {
+        "remove_empty_box": remove_empty_box,
+        "use_3d_nms": use_3d_nms,
+        "nms_iou": nms_iou,
+        "use_old_type_nms": use_old_type_nms,
+        "cls_nms": cls_nms,
+        "per_class_proposal": per_class_proposal,
+        "use_cls_confidence_only": use_cls_confidence_only,
+        "conf_thresh": conf_thresh,
+        "no_nms": no_nms,
+        "dataset_config": dataset_config,
+    }
 
 
 def _host(x) -> np.ndarray:
@@ -44,10 +65,17 @@ def _fetch(*tensors: torch.Tensor) -> list:
 
 
 class APCalculator:
-    def __init__(self, class2type_map: Optional[dict] = None, exact_eval: bool = True):
-        self.ap_iou_thresh = list(AP_IOU_THRESH)
+    def __init__(self, dataset_config=None, ap_iou_thresh=AP_IOU_THRESH,
+                 class2type_map: Optional[dict] = None, exact_eval: bool = True,
+                 ap_config_dict: Optional[dict] = None, eval_processes: int = 0):
+        self.ap_iou_thresh = list(ap_iou_thresh)
+        if ap_config_dict is None:
+            ap_config_dict = get_ap_config_dict(dataset_config=dataset_config,
+                                                remove_empty_box=exact_eval)
+        self.ap_config_dict = ap_config_dict
         self.class2type_map = class2type_map
         self.exact_eval = exact_eval
+        self.eval_processes = eval_processes
         self.reset()
 
     def make_gt_list(self, gt_box_corners, gt_box_sem_cls_labels, gt_box_present):
@@ -64,7 +92,9 @@ class APCalculator:
 
     def step_meter(self, outputs: dict, targets: dict):
         """outputs: final-layer model outputs (B, Q, ...) as tensors on one
-        device; targets: the batch (tensors on any device, or numpy)."""
+        device; targets: the batch (tensors on any device, or numpy).  What
+        it needs of both is on the host when it returns, so the outputs may
+        be a CUDA graph's static tensors, overwritten by the next replay."""
         self.step(
             predicted_box_corners=outputs["box_corners"],
             sem_cls_probs=outputs["sem_cls_prob"],
@@ -85,18 +115,28 @@ class APCalculator:
         gt_box_sem_cls_labels,
         gt_box_present,
     ):
+        cfgd = self.ap_config_dict
         dev = predicted_box_corners.device
         with torch.inference_mode():
-            pred_mask, _ = parse_predictions(
+            pred_mask, pred_sem_cls = parse_predictions(
                 predicted_box_corners,
                 sem_cls_probs,
                 objectness_probs,
                 torch.as_tensor(point_cloud).to(dev),
-                remove_empty_box=self.exact_eval,
+                nms_iou=cfgd["nms_iou"],
+                remove_empty_box=cfgd["remove_empty_box"],
+                use_3d_nms=cfgd["use_3d_nms"],
+                cls_nms=cfgd["cls_nms"],
+                no_nms=cfgd["no_nms"],
             )
-            corners_np, probs_np, obj_np, mask_np = _fetch(
-                predicted_box_corners, sem_cls_probs, objectness_probs, pred_mask)
-        batch_pred = assemble_predictions(corners_np, probs_np, obj_np, mask_np)
+            corners_np, probs_np, obj_np, mask_np, cls_np = _fetch(
+                predicted_box_corners, sem_cls_probs, objectness_probs, pred_mask, pred_sem_cls)
+        batch_pred = assemble_predictions(
+            corners_np, probs_np, obj_np, mask_np, cls_np,
+            conf_thresh=cfgd["conf_thresh"],
+            per_class_proposal=cfgd["per_class_proposal"],
+            use_cls_confidence_only=cfgd["use_cls_confidence_only"],
+        )
         batch_gt = self.make_gt_list(
             gt_box_corners, gt_box_sem_cls_labels, gt_box_present
         )
@@ -113,7 +153,8 @@ class APCalculator:
         overall = OrderedDict()
         for thresh in self.ap_iou_thresh:
             ret = OrderedDict()
-            rec, _, ap = eval_det(self.pred_map_cls, self.gt_map_cls, ovthresh=thresh)
+            rec, _, ap = eval_det(self.pred_map_cls, self.gt_map_cls, ovthresh=thresh,
+                                  processes=self.eval_processes)
             for key in sorted(ap.keys()):
                 # SUN RGB-D names only 17 of its 20 class ids (reference
                 # sunrgbd.py:60-78): fall back to the numeric id

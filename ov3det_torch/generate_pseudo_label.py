@@ -21,7 +21,7 @@ from ov3det_torch.device import resolve_device
 from ov3det_torch.engine.checkpoint import restore_eval_checkpoint
 from ov3det_torch.engine.infer import make_eval_step
 from ov3det_torch.engine.train import batch_to_device
-from ov3det_torch.main import config_from_args, make_args_parser
+from ov3det_torch.main import config_from_args, eval_graph_flag, make_args_parser
 from ov3det_torch.models.detr3d import Model3DETR
 from ov3det_torch.tools.label_formatter import LabelFormatter
 
@@ -50,7 +50,7 @@ def run_inference(cfg, args, device=None) -> LabelFormatter:
     model = Model3DETR(cfg.model, device=device, seed=cfg.seed)
     epoch = restore_eval_checkpoint(model, args.test_ckpt, cfg.checkpoint_dir)
     print(f"loaded checkpoint from epoch {epoch}")
-    eval_step = make_eval_step(model)
+    eval_step = make_eval_step(model, graph=eval_graph_flag(cfg))
 
     formatter = LabelFormatter(
         output_path=args.out_dir,
@@ -60,7 +60,8 @@ def run_inference(cfg, args, device=None) -> LabelFormatter:
     )
     for batch in loader:
         # strip the tail pad of the final partial batch: a duplicated pad
-        # sample would write its predictions twice into the same scan's rows
+        # sample would write its predictions twice into the same scan's rows;
+        # the formatter copies the outputs (a graph's, on a card) to the host
         n = valid_count(batch)
         outputs = eval_step(batch_to_device(batch, device, non_blocking=True))
         formatter.step(slice_valid(outputs, n), slice_valid(batch, n))

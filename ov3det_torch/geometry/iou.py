@@ -1,7 +1,8 @@
 """Generalized 3D IoU of box corner sets, rotated or axis-aligned, in torch.
 
-Counterpart of `ov3det/geometry/iou.py:137-369` (the training step's part):
-the rotated BEV intersection is the Green's-theorem form
+Counterpart of `ov3det/geometry/iou.py:137-420`: the training step's
+generalized IoU, and the eval helpers `axis_aligned_iou_3d` and
+`box3d_iou_corners`.  The rotated BEV intersection is the Green's-theorem form
 (`_rect_intersection_area_batched`): each rectangle's edges are clipped to
 the other rectangle by Liang-Barsky slabs and the shoelace sum of the
 surviving sub-segments telescopes into the intersection area.  No vertex
@@ -10,8 +11,10 @@ batch.  Conventions follow the reference: camera-frame corners (up is -Y),
 the BEV rectangle is corners [3, 2, 1, 0] projected to (x, z), counter-
 clockwise; height spans corner-0 y (top) to corner-4 y (bottom).
 
-The Sutherland-Hodgman clip and `box3d_iou_corners` belong to the eval/AP
-slice and are not here.
+`box3d_iou_corners` keeps JAX's Sutherland-Hodgman clip (`iou.py:35-131`,
+`_quad_intersection_area`): its strict inside test drops the vertices of
+coincident edges, so that two identical boxes give JAX's value and not 1,
+which the Green's-theorem form would give.
 """
 from __future__ import annotations
 
@@ -186,3 +189,94 @@ def generalized_box3d_iou(corners1, corners2, nums_k2=None, rotated_boxes: bool 
     if nums_k2 is not None:
         gious = gious * k2_mask[:, None, :]
     return gious.to(out_dtype)
+
+
+def axis_aligned_iou_3d(aabb1: torch.Tensor, aabb2: torch.Tensor) -> torch.Tensor:
+    """IoU between (..., K1, 6) and (..., K2, 6) [xmin, ymin, zmin, xmax, ymax,
+    zmax] boxes -> (..., K1, K2) (`ov3det/geometry/iou.py:395-403`)."""
+    mn1, mx1 = aabb1[..., :, None, 0:3], aabb1[..., :, None, 3:6]
+    mn2, mx2 = aabb2[..., None, :, 0:3], aabb2[..., None, :, 3:6]
+    inter = torch.clamp(torch.minimum(mx1, mx2) - torch.maximum(mn1, mn2), min=0.0)
+    inter_vol = inter[..., 0] * inter[..., 1] * inter[..., 2]
+    e1, e2 = mx1 - mn1, mx2 - mn2
+    v1 = e1[..., 0] * e1[..., 1] * e1[..., 2]
+    v2 = e2[..., 0] * e2[..., 1] * e2[..., 2]
+    return inter_vol / torch.clamp(v1 + v2 - inter_vol, min=_EPS)
+
+
+_MAX_VERTS = 8  # a convex quad clipped by a convex quad has at most 8 vertices
+
+
+def _clip_by_edge(poly, n, cp1, cp2):
+    """One Sutherland-Hodgman half-plane clip of P polygons (`iou.py:35-107`):
+    poly (P, V, 2) with the first n[p] slots live, cp1 / cp2 (P, 2) the ends
+    of each ccw clip edge, inside its left side (strictly).  The output slot
+    of each emitted vertex is its emission rank, compacted by a one-hot
+    contraction."""
+    P, V, _ = poly.shape
+    idx = torch.arange(V, device=poly.device)
+    valid = idx[None, :] < n[:, None]
+    prev = torch.roll(poly, 1, dims=1)
+    last_live = torch.where((idx[None, :, None] == (n[:, None, None] - 1)), poly,
+                            torch.zeros_like(poly)).sum(1)
+    s = torch.cat([last_live[:, None, :], prev[:, 1:, :]], dim=1)
+    e = poly
+
+    def side(p):
+        return (cp2[:, None, 0] - cp1[:, None, 0]) * (p[..., 1] - cp1[:, None, 1]) - (
+            cp2[:, None, 1] - cp1[:, None, 1]) * (p[..., 0] - cp1[:, None, 0])
+
+    inside_e, inside_s = side(e) > 0, side(s) > 0
+    dc = cp1 - cp2
+    dp = s - e
+    n1 = cp1[:, 0] * cp2[:, 1] - cp1[:, 1] * cp2[:, 0]
+    n2 = s[..., 0] * e[..., 1] - s[..., 1] * e[..., 0]
+    den = dc[:, None, 0] * dp[..., 1] - dc[:, None, 1] * dp[..., 0]
+    den = torch.where(den.abs() < _EPS, torch.full_like(den, _EPS), den)
+    inter = torch.stack([(n1[:, None] * dp[..., 0] - n2 * dc[:, None, 0]) / den,
+                         (n1[:, None] * dp[..., 1] - n2 * dc[:, None, 1]) / den], dim=-1)
+    emit_inter = valid & (inside_e != inside_s)
+    emit_e = valid & inside_e
+    cand = torch.stack([inter, e], dim=2).reshape(P, 2 * V, 2)
+    flags = torch.stack([emit_inter, emit_e], dim=2).reshape(P, 2 * V)
+    rank = torch.cumsum(flags.long(), dim=1) - 1
+    onehot = (rank[:, :, None] == idx[None, None, :]) & flags[:, :, None]
+    compacted = torch.einsum("pkv,pkc->pvc", onehot.to(poly.dtype), cand)
+    return compacted, torch.clamp(flags.sum(1), max=V)
+
+
+def _poly_area(poly, n):
+    """Shoelace area of the first n[p] vertices of each of P polygons."""
+    V = poly.shape[1]
+    idx = torch.arange(V, device=poly.device)
+    valid = idx[None, :] < n[:, None]
+    nxt = torch.roll(poly, -1, dims=1)
+    is_last = idx[None, :] == (n[:, None] - 1)
+    nxt = torch.where(is_last[:, :, None], poly[:, :1, :], nxt)
+    cross = poly[..., 0] * nxt[..., 1] - poly[..., 1] * nxt[..., 0]
+    return 0.5 * torch.where(valid, cross, torch.zeros_like(cross)).sum(1).abs()
+
+
+def quad_intersection_area(subject, clip):
+    """Intersection areas of P pairs of ccw convex quads, (P, 4, 2) x 2 ->
+    (P,), by Sutherland-Hodgman (`iou.py:110-121`)."""
+    P = subject.shape[0]
+    poly = torch.cat([subject, subject.new_zeros(P, _MAX_VERTS - 4, 2)], dim=1)
+    n = torch.full((P,), 4, dtype=torch.int64, device=subject.device)
+    for k in range(4):
+        poly, n = _clip_by_edge(poly, n, clip[:, (k - 1) % 4], clip[:, k])
+    return _poly_area(poly, n)
+
+
+def box3d_iou_corners(corners1: torch.Tensor, corners2: torch.Tensor) -> torch.Tensor:
+    """Exact rotated 3D IoU of two boxes of (8, 3) camera-frame corners, a
+    0-d tensor (`ov3det/geometry/iou.py:406-420`, reference
+    utils/box_util.py:116-141): the BEV intersection times the vertical
+    overlap, over the union."""
+    inter_area = quad_intersection_area(bev_rect(corners1)[None], bev_rect(corners2)[None])[0]
+    ymax = torch.minimum(corners1[0, 1], corners2[0, 1])
+    ymin = torch.maximum(corners1[4, 1], corners2[4, 1])
+    inter_vol = inter_area * torch.clamp(ymax - ymin, min=0.0)
+    v1 = box_volume_from_corners(corners1)
+    v2 = box_volume_from_corners(corners2)
+    return inter_vol / torch.clamp(v1 + v2 - inter_vol, min=_EPS)

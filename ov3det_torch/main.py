@@ -42,7 +42,8 @@ anyway).  Iteration bookkeeping, logs and the train-time AP refer to a
 group's last batch, as in JAX (`ov3det/main.py:484-600`).  Under `--ngpus`
 the train loader keeps the tree transfer and the three flags have no
 effect, as in JAX; evals and the pseudo-label round always take the tree
-transfer.
+transfer.  On a card the eval step is one CUDA-graph replay a batch as well
+(`engine.infer.GraphedEval`; eager under `--debug_nans` and `--ngpus`).
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ import os
 import pickle
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -90,7 +92,7 @@ from ov3det_torch.models.regionclip import (
     init_teacher_state,
     quantize_teacher_params,
 )
-from ov3det_torch.parallel.mesh import data_group, gather_objects
+from ov3det_torch.parallel.mesh import data_group, gather_objects, leave_data_group
 from ov3det_torch.utils.logger import Logger
 from ov3det_torch.utils.meters import SmoothedValue
 
@@ -381,7 +383,9 @@ def gather_ap(ap: APCalculator, counts: list) -> APCalculator:
     parts = gather_objects((ap.pred_map_cls, ap.gt_map_cls, counts))
     if len(parts) == 1:
         return ap
-    merged = APCalculator(class2type_map=ap.class2type_map, exact_eval=ap.exact_eval)
+    merged = APCalculator(ap_iou_thresh=ap.ap_iou_thresh, class2type_map=ap.class2type_map,
+                          exact_eval=ap.exact_eval, ap_config_dict=ap.ap_config_dict,
+                          eval_processes=ap.eval_processes)
     taken = [0] * len(parts)
     for j in range(len(counts)):
         for r, (pred, gt, cnt) in enumerate(parts):
@@ -391,8 +395,13 @@ def gather_ap(ap: APCalculator, counts: list) -> APCalculator:
     return merged
 
 
-def evaluate(eval_step, loader, dataset_config, device, logger=None, curr_iter=0):
-    ap = APCalculator(class2type_map=dataset_config.class2type)
+def evaluate(eval_step, loader, dataset_config, device, logger=None, curr_iter=0,
+             eval_processes: int = 0):
+    """The eval pass over `loader` (`ov3det/main.py:344-376`): the AP
+    calculator of its detections (gathered over a data group), the loss
+    logged with `--eval_loss`.  `eval_processes` > 0 scores the classes in
+    a process pool."""
+    ap = APCalculator(class2type_map=dataset_config.class2type, eval_processes=eval_processes)
     loss_meter = SmoothedValue(10)
     last_loss_dict = None
     counts = []
@@ -428,6 +437,12 @@ def _host_scalars(metrics: dict) -> dict:
     """Device scalars -> floats, in one device-to-host copy."""
     values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()]).tolist()
     return dict(zip(metrics, values))
+
+
+def eval_graph_flag(cfg: TrainConfig) -> Optional[bool]:
+    """The eval step's `graph`: False under `--debug_nans` (eager, for its
+    per-op tracebacks), else None (a CUDA graph on a card)."""
+    return False if cfg.debug_nans else None
 
 
 def _ranks() -> tuple:
@@ -472,7 +487,8 @@ def do_train(cfg: TrainConfig, device=None):
     iters_per_epoch = len(train_loader)
     teacher = build_teacher(cfg, datasets["test"][0], device) if cfg.teacher.enabled else None
     training = build_training(cfg, iters_per_epoch, device=device, seed=cfg.seed,
-                              eval_loss=cfg.eval_loss, teacher=teacher, image_bank=image_bank)
+                              eval_loss=cfg.eval_loss, teacher=teacher, image_bank=image_bank,
+                              eval_graph=eval_graph_flag(cfg))
     model, optimizer = training.model, training.optimizer
     train_step, eval_step, schedule = training.train_step, training.eval_step, training.schedule
     load_text_embed(model, cfg.teacher.text_embed_path)
@@ -633,7 +649,8 @@ def test_model(cfg: TrainConfig, test_ckpt: str | None = None, device=None):
                              process_count=world)
     model = Model3DETR(cfg.model, device=device, seed=cfg.seed)
     epoch = restore_eval_checkpoint(model, test_ckpt, cfg.checkpoint_dir)
-    ap = evaluate(make_eval_step(model), test_loader, dataset_config, device)
+    ap = evaluate(make_eval_step(model, graph=eval_graph_flag(cfg)), test_loader, dataset_config,
+                  device)
     if rank != 0:  # rank 0 scores the gathered detections
         return None
     m = ap.compute_metrics()
@@ -668,8 +685,11 @@ def run_rank(local_rank: int, argv, plan) -> None:
     init_multihost(plan, local_rank, device)
     try:
         run(args, cfg, device)
+        # leave together: no rank closes its gloo pairs while another still
+        # holds them (a failed rank skips this, so that none waits for it)
+        dist.barrier()
     finally:
-        dist.destroy_process_group()
+        leave_data_group()
 
 
 def main(argv=None):

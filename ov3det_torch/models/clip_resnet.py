@@ -13,15 +13,17 @@ Activations are channels-last (B, H, W, C), as in JAX; a plain conv runs as
 with weights stored channels-last too.  A float32 conv on the card follows
 `torch.backends.cudnn.allow_tf32` (PyTorch's default is TF32).
 
-`QuantConv`, the W8A8 trunk conv, has the two modes of the JAX module that
-`RegionCLIPTeacher` reaches (`ov3det/models/regionclip.py:70-72`):
-  * "folded" (production): a static calibrated activation scale `a_scale`
-    and the frozen BatchNorm folded into the dequant (`scale`, `bias`);
-  * "dynamic" (calibration): an abs-max activation scale per call, whose
-    maximum over calls is recorded in `a_max` for
+`QuantConv`, the W8A8 trunk conv, has the three modes of the JAX module
+(`ov3det/models/clip_resnet.py:57-139`, `_trunk_conv`):
+  * "folded" (production, `RegionCLIPTeacher`'s "int8"): a static
+    calibrated activation scale `a_scale` and the frozen BatchNorm folded
+    into the dequant (`scale`, `bias`);
+  * "static": the calibrated `a_scale`, with the frozen BatchNorm a module
+    of its own after the conv (no bias); no teacher dtype of either
+    package selects it, the tower takes it as `quant="static"`;
+  * "dynamic" (calibration, "int8_calib"): an abs-max activation scale per
+    call, whose maximum over calls is recorded in `a_max` for
     `regionclip.quantize_teacher_params`.
-The JAX module's third mode, "static" (static scale, separate BatchNorm),
-has no caller there and is not ported.
 
 The int8 product is exact int32, as XLA's is: `torch._int_mm` over an
 im2col of the int8 activations (nine shifted views of the padded tensor for
@@ -134,21 +136,22 @@ class QuantConv(nn.Module):
     def __init__(self, cin: int, cout: int, kernel_size: int, padding: int = 0,
                  dtype: Optional[torch.dtype] = None, mode: str = "folded"):
         super().__init__()
-        if mode not in ("folded", "dynamic"):
-            raise ValueError(f"QuantConv mode {mode!r}: 'folded' or 'dynamic'")
+        if mode not in ("folded", "static", "dynamic"):
+            raise ValueError(f"QuantConv mode {mode!r}: 'folded', 'static' or 'dynamic'")
         self.kernel_size, self.padding, self.dtype, self.mode = kernel_size, padding, dtype, mode
         self.register_buffer("kernel_q", torch.zeros(cout, kernel_size * kernel_size * cin,
                                                      dtype=torch.int8))
         self.register_buffer("scale", torch.ones(cout))
-        if mode == "folded":
+        if mode != "dynamic":
             self.register_buffer("a_scale", torch.ones(()))
+        if mode == "folded":
             self.register_buffer("bias", torch.zeros(cout))
         self.a_max: Optional[torch.Tensor] = None  # "dynamic": the largest |x| seen
 
     def quantize(self, x: torch.Tensor):
         """x -> (int8 x, its f32 scale s_x)."""
         xf = x.float()
-        if self.mode == "folded":
+        if self.mode != "dynamic":
             s_x = self.a_scale
         else:
             a_max = xf.abs().amax()
@@ -167,8 +170,8 @@ class QuantConv(nn.Module):
 
 def trunk_conv(quant: Optional[str], dtype, cin: int, cout: int, kernel_size: int,
                padding: int = 0) -> nn.Module:
-    """The trunk's conv: `QuantConv` in mode `quant` ("folded" | "dynamic"),
-    a plain `Conv` when `quant` is None."""
+    """The trunk's conv: `QuantConv` in mode `quant` ("folded" | "static" |
+    "dynamic"), a plain `Conv` when `quant` is None."""
     if quant:
         return QuantConv(cin, cout, kernel_size, padding, dtype, quant)
     return Conv(cin, cout, kernel_size, padding=padding, dtype=dtype)

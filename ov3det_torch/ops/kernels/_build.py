@@ -19,7 +19,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("fps", "ball_group", "attention_fwd", "attention_bwd")
+KERNEL_SOURCES = ("fps", "ball_group", "attention_fwd", "attention_bwd", "auction", "nms")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

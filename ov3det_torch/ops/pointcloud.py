@@ -59,7 +59,10 @@ def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     xyz, centers = xyz.detach().float(), centers.detach().float()
     B, N, _ = xyz.shape
     M = centers.shape[1]
-    r2 = torch.tensor(np.float32(radius * radius), device=xyz.device)
+    # device scalars filled on the device (no copy from the host: a CUDA
+    # graph captures the first-K request too)
+    r2 = torch.full((), np.float32(radius * radius), dtype=torch.float32, device=xyz.device)
+    past = torch.full((), N, dtype=torch.int32, device=xyz.device)
     order = torch.arange(N, dtype=torch.int32, device=xyz.device)
     chunk = max(1, _FIRST_K_ELEMENTS // max(1, B * N))
     out = []
@@ -67,8 +70,7 @@ def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
         in_ball = _d2_expanded(centers[:, m:m + chunk])(xyz) < r2  # (B, m, N)
         # in-ball points score their index, the others N: the nsample
         # smallest scores are the first hits, ascending
-        scores = torch.where(in_ball, order, torch.tensor(N, dtype=torch.int32,
-                                                          device=xyz.device))
+        scores = torch.where(in_ball, order, past)
         first = torch.topk(scores, nsample, dim=-1, largest=False, sorted=True).values
         count = in_ball.sum(-1, keepdim=True)
         head = torch.where(count > 0, first[..., :1], torch.zeros_like(first[..., :1]))
@@ -87,7 +89,7 @@ def group_points(xyz: torch.Tensor, features, centers: torch.Tensor, group_inds:
     B, M, K = group_inds.shape
     flat = group_inds.reshape(B, M * K)
     rel = gather_points(xyz, flat).reshape(B, M, K, 3) - centers[:, :, None, :]
-    rel = rel / torch.tensor(np.float32(radius), device=rel.device)
+    rel = rel / torch.full((), np.float32(radius), dtype=torch.float32, device=rel.device)
     if features is None:
         return rel
     g_feat = gather_points(features, flat).reshape(B, M, K, features.shape[-1])

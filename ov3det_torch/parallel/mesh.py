@@ -206,6 +206,14 @@ def _host_group():
     return _HOST_GROUP[1]
 
 
+def leave_data_group() -> None:
+    """Destroy the process groups, the host group's last reference first, so
+    that no gloo group of this module outlives `destroy_process_group` into
+    the interpreter's exit."""
+    _HOST_GROUP.clear()
+    dist.destroy_process_group()
+
+
 def any_rank(flag: bool) -> bool:
     """True on every rank when `flag` is true on any (an all-reduce of the
     maximum): ranks that must leave a loop together agree on it.  The flag

@@ -6,7 +6,7 @@ and recall per class at an IoU threshold, axis-aligned IoU by default.
 
 A copy of `ov3det/tools/evaluate_box.py` on the port's VOC matching
 (`ov3det_torch/eval/voc.py` `eval_det_cls`, which takes each scan's
-detections as a (boxes, scores) pair and the IoU as an argument) and its
+detections as a list of (box, score) tuples and the IoU as an argument) and its
 rotated IoU (`geometry/iou_np.py` `box3d_iou_batch_np`).
 """
 from __future__ import annotations
@@ -26,13 +26,6 @@ def _aabb_pairwise(dets: np.ndarray, gts: np.ndarray) -> np.ndarray:
     for i, d in enumerate(dets):
         out[i] = box_3d_iou(d, gts, typ="cs")
     return out
-
-
-def _box_score_pairs(dets: list) -> tuple:
-    """One scan's [(box, score)] -> (boxes, scores) arrays."""
-    if not dets:
-        return np.zeros((0, 8, 3)), np.zeros(0)
-    return np.stack([np.asarray(b) for b, _ in dets]), np.array([s for _, s in dets])
 
 
 class PRCalculator:
@@ -64,7 +57,7 @@ class PRCalculator:
         ret, prec_list, rec_list = {}, [], []
         iou = _aabb_pairwise if self.aabb else None  # None: the rotated IoU
         results = {
-            cls: eval_det_cls({i: _box_score_pairs(d) for i, d in pred[cls].items()},
+            cls: eval_det_cls(pred[cls],
                               {i: np.asarray(g) for i, g in gt[cls].items()},
                               self.ap_iou_thresh, iou=iou)
             for cls in gt

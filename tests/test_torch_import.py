@@ -49,7 +49,8 @@ def test_importing_every_module_leaves_jax_out():
                  "tools.seg_metrics", "tools.extract_class_features", "models.clip_text",
                  "models.convert_3detr", "utils.png", "utils.visualize", "parallel",
                  "parallel.mesh", "datasets.image_bank", "utils.jpeg",
-                 "datasets.image_utils", "ops.kernels", "ops.kernels.auction"):
+                 "datasets.image_utils", "ops.kernels", "ops.kernels.auction",
+                 "ops.kernels.nms", "geometry.nms"):
         assert f"ov3det_torch.{name}" in report["modules"]
     # importing the native IoU or the JPEG decoder neither builds nor loads
     # it: that waits for the first IoU of an evaluation, the first dataset

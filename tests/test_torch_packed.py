@@ -219,3 +219,59 @@ def test_q16_step_matches_jax_make_packed_step():
     assert set(got) == set(want)
     for k, w in want.items():
         np.testing.assert_allclose(float(got[k]), float(w), rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_multi_step_matches_jax_make_packed_multi_step():
+    """Two steps on a group of 2 packed batches: JAX's
+    `make_packed_multi_step` (one `lax.scan`) and the port's
+    `make_packed_multi_step` (eager on the CPU), from the same weights,
+    dropout at 0: the losses within 1e-4 relative on step 1 and 2e-3 on
+    step 2 (`tests/test_torch_train.py`'s f32 bounds), grad_norm within
+    1e-4 on step 1 (on step 2 it reads 2.7e-3 apart: JAX's scan body rounds
+    otherwise than its one-step program, and a random-init step is
+    ill-conditioned in f32, ROADMAP's reference-side notes); the port's
+    stacked metrics equal two `PackedStep` steps bit for bit."""
+    from ov3det.engine.train import make_packed_multi_step as jax_make_packed_multi_step
+
+    jm, tm = (tp.zero_dropout(m) for m in tp.configs("float32"))
+    jq = dataclasses.replace(jc.sunrgbd_quick(), model=jm)
+    jq = dataclasses.replace(jq, optim=dataclasses.replace(jq.optim, warm_lr_epochs=0))
+    tq = dataclasses.replace(tc.sunrgbd_quick(), model=tm)
+    tq = dataclasses.replace(tq, optim=dataclasses.replace(tq.optim, warm_lr_epochs=0))
+    batches = [tp.make_batch(seed=30 + i) for i in range(2)]
+    packed = [J.pack_batch(b) for b in batches]
+    assert packed[0][1] == packed[1][1]
+    metas = packed[0][1]
+    bufs = np.stack([buf for buf, _ in packed])
+    model, variables = tp.jax_model_and_variables(jm, batches[0])
+    tx = jax_build_optimizer(jq.optim, jax_schedule(jq.optim, jq.max_epoch, 100))
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
+                       frozen=jax.tree_util.tree_map(jnp.asarray, variables["frozen"]),
+                       opt_state=tx.init(params))
+    jstep = jax_make_packed_multi_step(jax_make_train_step(model, tx, jq.loss, jm.num_angle_bin,
+                                                           jm.num_semcls))
+    _, want = jstep(state, jnp.asarray(bufs), metas, jax.random.PRNGKey(0))
+
+    def port(multi: bool):
+        net = Model3DETR(tm, device="cpu")
+        net.load_state_dict(from_flax_variables(variables))
+        schedule = T.make_lr_schedule(tq.optim, tq.max_epoch, 100)
+        opt = T.build_optimizer(net, tq.optim, schedule)
+        step = T.make_train_step(net, opt, tq.loss, tm.num_angle_bin, tm.num_semcls)
+        training = T.Training(net, opt, schedule, step, None)
+        if multi:
+            return T.make_packed_multi_step(training, seed=0, device="cpu")(
+                torch.from_numpy(bufs), metas, 0)[0], opt
+        one = T.PackedStep(training, seed=0, device="cpu")
+        ms = [one(torch.from_numpy(bufs[g]), metas, g)[0] for g in range(2)]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}, opt
+
+    (got, opt), (singles, _) = port(True), port(False)
+    assert opt.count == 2 and set(got) == set(want) == set(singles)
+    for k, w in want.items():
+        assert got[k].shape == (2,) and torch.equal(got[k], singles[k]), k
+        for g, rtol in ((0, 1e-4), (1, 2e-3))[:1 if k == "grad_norm" else 2]:
+            np.testing.assert_allclose(float(got[k][g]), float(w[g]), rtol=rtol, atol=1e-6,
+                                       err_msg=f"{k} step {g + 1}")

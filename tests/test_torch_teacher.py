@@ -235,7 +235,8 @@ def test_teacher_matches_jax(width, inputs, request):
 
 @pytest.mark.parametrize("cin,cout,k,mode", [(8, 16, 3, "folded"), (40, 40, 3, "dynamic"),
                                              (320, 320, 3, "folded"), (2560, 640, 1, "folded"),
-                                             (1280, 640, 1, "dynamic")])
+                                             (1280, 640, 1, "dynamic"), (40, 40, 3, "static"),
+                                             (1280, 640, 1, "static")])
 def test_quant_conv_matches_jax(cin, cout, k, mode):
     rng = np.random.default_rng(cin + k)
     x = (rng.normal(size=(2, 7, 9, cin)) * rng.uniform(0.5, 3)).astype(np.float32)
@@ -243,10 +244,11 @@ def test_quant_conv_matches_jax(cin, cout, k, mode):
     kq = rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8)
     scale = rng.uniform(1e-3, 2e-2, cout).astype(np.float32)
     params = {"kernel_q": kq, "scale": scale}
+    if mode != "dynamic":
+        params.update(a_scale=np.float32(np.abs(x).max() * 1.25 / 127))
     if mode == "folded":
-        params.update(a_scale=np.float32(np.abs(x).max() * 1.25 / 127),
-                      bias=rng.normal(size=cout).astype(np.float32))
-    jmod = jcr.QuantConv(cout, (k, k), k // 2, jnp.bfloat16, static_act=mode == "folded",
+        params.update(bias=rng.normal(size=cout).astype(np.float32))
+    jmod = jcr.QuantConv(cout, (k, k), k // 2, jnp.bfloat16, static_act=mode != "dynamic",
                          use_bias=mode == "folded")
     want, stats = jmod.apply({"params": params}, x_bf, mutable=["quant_stats"])
     tmod = tcr.QuantConv(cin, cout, k, k // 2, torch.bfloat16, mode)
@@ -268,6 +270,51 @@ def test_quant_conv_matches_jax(cin, cout, k, mode):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
     if mode == "dynamic":
         assert float(tmod.a_max) == float(np.asarray(stats["quant_stats"]["a_max"]).max())
+
+
+def test_static_bottleneck_matches_jax():
+    """QuantConv's "static" mode in its tower: a bottleneck whose convs take
+    calibrated activation scales and keep their frozen BatchNorms, JAX's
+    tree carried over by the weight bridge; the int32 accumulators of its
+    first conv equal, the block's output within 1e-3 of the largest value.
+    In f32: in bf16 a BatchNorm output one ulp apart (each framework orders
+    its affine otherwise) can round to another int8 at the next conv."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 6, 8, 64)).astype(np.float32)
+    jblock = jcr.Bottleneck(16, 2, None, quant="static")
+    shapes = jax.eval_shape(jblock.init, jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = {}
+    for name, leaves in shapes.items():
+        p = {}
+        for leaf, sd in leaves.items():
+            if leaf == "kernel_q":
+                p[leaf] = rng.integers(-127, 128, sd.shape, dtype=np.int8)
+            elif leaf == "a_scale":
+                p[leaf] = np.float32(rng.uniform(0.02, 0.05))
+            elif leaf == "scale" and "conv" in name:  # the dequant's per-channel scale
+                p[leaf] = rng.uniform(1e-3, 2e-2, sd.shape).astype(np.float32)
+            elif leaf in ("scale", "var"):  # a BatchNorm's
+                p[leaf] = rng.uniform(0.5, 2.0, sd.shape).astype(np.float32)
+            else:
+                p[leaf] = rng.normal(0, 0.5, sd.shape).astype(np.float32)
+        params[name] = p
+    assert "bn1" in params and "a_scale" in params["conv1"] and "bias" not in params["conv1"]
+    want = np.asarray(jblock.apply({"params": params}, jnp.asarray(x)))
+    tblock = tcr.Bottleneck(64, 16, 2, None, quant="static")
+    tblock.load_state_dict(from_flax_teacher_variables({"params": params}))
+    x_t = _t(x)
+    with torch.no_grad():
+        got = tblock(x_t).numpy()
+        xq, _ = tblock.conv1.quantize(x_t)
+        acc = tcr.int8_conv(xq, tblock.conv1.kernel_q, 1, 0)
+    kq = params["conv1"]["kernel_q"]
+    jxq = jnp.asarray(xq.numpy())
+    dn = jax.lax.conv_dimension_numbers(jxq.shape, kq.shape, ("NHWC", "HWIO", "NHWC"))
+    jacc = jax.lax.conv_general_dilated(jxq, jnp.asarray(kq), (1, 1), [(0, 0)] * 2,
+                                        dimension_numbers=dn, preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
+    assert got.shape == want.shape == (2, 3, 4, 64)
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
 
 
 def test_quantize_teacher_params_matches_jax(tiny, tiny_int8):
