@@ -121,22 +121,31 @@ at once), then:
      the frozen RegionCLIP RN50x4 teacher in int8 at its defaults, seeded
      weights, 8 `SyntheticOVDataset` scenes x 20 000 points with 530 x 730
      uint8 canvases, 1024 regions a step):
-       `QuantConv`'s int8 product at three trunk shapes (res4 block 3x3,
-       8 x 33 x 45 rows, 320 -> 320; res5 block 0 3x3 over a chunk, 82 944
-       rows, 640 -> 640; res5 1x1, 20 736 rows, 2560 -> 640): the int32
-       accumulators on the card equal the CPU's bit for bit; `_int_mm`
-       alone, the whole int8 conv (im2col + product) and cuDNN's bf16 conv
-       timed in turns beside their operations bounds;
        the whole teacher on one canvas and 8 boxes, card against CPU from
        the same weights: f32 within 1e-3 of the largest value; int8
        (quantised and calibrated on the card) cosine >= 0.999 per region
        and within INT8_CARD_VS_CPU of the largest value, beside the bf16
-       teacher's distance from the int8 one;
-       the teacher's forward alone on a batch, int8 against bf16, in turns;
+       teacher's distance from the int8 one; the fused int8 teacher (the
+       `quant_conv` chain) equal to the unfused module path on the card
+       bit for bit;
+       the trunk's kernels at every distinct conv of one int8 teacher
+       forward on an OV batch (8 canvases x 128 boxes: 141 `quant_conv`
+       calls in 27 shapes and epilogues, 18 `pool_quantize` passes in 9),
+       on the activations that forward gives them: each equal to its plain
+       version bit for bit, the conv in its own epilogue, the full one and
+       the dequant-only f32 one (and at 15 rows on a 3 x 5 image), the full
+       one also against the CPU at the 3 x 3 convs of at most
+       CPU_CHECK_MACS products; kernel,
+       `_int_mm` alone, the plain version and cuDNN's bf16 conv timed in
+       turns (graph replays) beside the int8 bound, summed over a forward;
+       the teacher's forward alone on that batch, fused int8, unfused int8
+       and bf16, in turns;
        training: `build_training(..., teacher=)` with the teacher of
        `ov3det_torch.main.build_teacher`, one warm-up and 3 timed steps,
-       each launching FPS twice, the ball-group once and each attention
-       kernel 3 times, with a finite loss and loss_2dalignment > 0; the
+       each launching FPS twice, the ball-group once, each attention
+       kernel 3 times, `quant_conv` 141 times and `pool_quantize` 18 times
+       (and `torch._int_mm` never, on any path), with a finite loss and
+       loss_2dalignment > 0; the
        stage split (forward, teacher, criterion, backward, optimiser), peak
        memory, one profiled step (with the teacher range's device time and
        kernels, and the host's waits for the card), the lines that make the
@@ -479,11 +488,28 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+@functools.lru_cache(maxsize=None)
+def count_int_mm():
+    """`torch._int_mm` replaced by a wrapper that counts its calls in
+    `.launches`: the plain int8 product, which no path on the card may call
+    (the kernels' oracles do, outside the counted runs)."""
+    original = torch._int_mm
+
+    def int_mm(*args, **kwargs):
+        int_mm.launches += 1
+        return original(*args, **kwargs)
+
+    int_mm.launches = 0
+    torch._int_mm = int_mm
+    return int_mm
+
+
 def kernel_counters() -> dict:
     """name -> (wrapper, attribute): each wrapper counts its kernel's launches
     in `.launches`, the attention wrappers those of the radius variant in
-    `.radius_launches`."""
-    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms
+    `.radius_launches`; "int_mm" counts `torch._int_mm`'s calls, which must
+    stay 0."""
+    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms, quant_conv
 
     count_eval_replays()
     counters = {"fps": (fps.fps, "launches"), "ball_group": (ball_group.ball_group, "launches"),
@@ -493,6 +519,9 @@ def kernel_counters() -> dict:
         counters[f"{name}_radius"] = (getattr(attention, name), "radius_launches")
     counters["auction"] = (auction.auction_phases, "launches")
     counters["nms"] = (nms.nms_keep, "launches")
+    counters["quant_conv"] = (quant_conv.quant_conv, "launches")
+    counters["pool_quantize"] = (quant_conv.pool_quantize, "launches")
+    counters["int_mm"] = (count_int_mm(), "launches")
     return counters
 
 
@@ -586,7 +615,7 @@ def reset_counts() -> None:
 
 def kernel_sources() -> dict:
     """name -> (source in the repo, the TPU kernel it replaces)."""
-    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms
+    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms, quant_conv
 
     return {"fps": (fps.SOURCE, fps.REPLACES),
             "ball_group": (ball_group.SOURCE, ball_group.REPLACES),
@@ -598,7 +627,9 @@ def kernel_sources() -> dict:
             "attention_dq_radius": (attention.BWD_SOURCE, attention.DQ_RADIUS_REPLACES),
             "attention_dkv_radius": (attention.BWD_SOURCE, attention.DKV_RADIUS_REPLACES),
             "auction": (auction.SOURCE, auction.REPLACES),
-            "nms": (nms.SOURCE, nms.REPLACES)}
+            "nms": (nms.SOURCE, nms.REPLACES),
+            "quant_conv": (quant_conv.SOURCE, quant_conv.REPLACES),
+            "pool_quantize": (quant_conv.SOURCE, quant_conv.POOL_REPLACES)}
 
 
 def expect(**counts) -> dict:
@@ -1269,23 +1300,22 @@ def stage_times(det, batch: dict, reps: int = 3) -> None:
 
 
 def range_kernels(prof, name: str):
-    """(device ms, kernel count) of the kernels launched inside the profiler
-    range `name` (a `record_function`), from the kernels the profiler ties
-    to each op of the range; None when the range holds none."""
-    found = [e for e in prof.events() if e.name == name]
-    if not found:
-        return None
-
-    def walk(e):
-        kernels = list(getattr(e, "kernels", []))
-        us, n = sum(k.duration for k in kernels), len(kernels)
-        for child in getattr(e, "cpu_children", []):
-            c_us, c_n = walk(child)
-            us, n = us + c_us, n + c_n
-        return us, n
-
-    us, n = map(sum, zip(*(walk(e) for e in found)))
-    return (us / 1e3, n) if n else None
+    """(device ms, kernel count) of the kernels launched while the profiler
+    range `name` (a `record_function`) was open on the host: each CUDA
+    runtime or driver call ("cu...") inside the range's host interval, on its
+    thread, matched to the device events of its correlation id.  (The
+    kernels a wrapper launches through ctypes belong to no PyTorch op, so
+    the ops' own kernel lists miss them.)  None when the range holds none."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end, e.thread) for e in events
+             if e.name == name and e.device_type == cpu]
+    launched = {e.id for e in events
+                if e.device_type == cpu and e.name.startswith("cu")
+                and any(s <= e.time_range.start <= t and e.thread == th for s, t, th in spans)}
+    kernels = [e.time_range.end - e.time_range.start for e in events
+               if e.device_type != cpu and e.name != name and e.id in launched]
+    return (sum(kernels) / 1e3, len(kernels)) if kernels else None
 
 
 def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
@@ -2013,12 +2043,14 @@ def cli_phase(card: str) -> dict:
 
 # ------------------------------------------------------------ phase 10: the OV step
 INT8_PEAK = 1979e12  # dense int8 tensor operations a second, H100 SXM data sheet
-# (label, rows as (images, H, W), C_in, C_out, kernel) of three trunk convs
-# of the RN50x4 teacher on 8 canvases of 530 x 730 and one chunk of 256 regions
-QUANT_SHAPES = (("res4 block 3x3", (8, 33, 45), 320, 320, 3),
-                ("res5 block 0 3x3, one chunk", (256, 18, 18), 640, 640, 3),
-                ("res5 1x1", (256, 9, 9), 2560, 640, 1))
+# the frozen RN50x4 teacher's kernels in one OV step (8 canvases, 128 boxes
+# each, res5 in 4 chunks of 256 regions): 65 trunk convs in the backbone and
+# 19 a chunk in res5; the quantise passes: the stem's conv1 output and
+# pooled output, 2 in each of layer2's and layer3's stride-2 blocks, 3 a chunk
+TEACHER_STEP = dict(quant_conv=141, pool_quantize=18)
 OV_STEPS = 3
+QUANT_REPS = 5  # calls a timing graph of one trunk conv
+CPU_CHECK_MACS = 2.5e10  # the trunk's 3x3 convs up to this many products are also run on the CPU
 # the int8 teacher's features, card against CPU from the same quantised state,
 # over the largest value
 INT8_CARD_VS_CPU = 1e-3
@@ -2032,42 +2064,214 @@ OV_CLI_ARGV = ["--dataset_name", "synthetic", "--device", "cuda", "--use_image",
                "--loss_no_object_weight", "0.1", "--save_separate_checkpoint_every_epoch", "-1"]
 
 
-def check_quant_conv(card: str, dev: torch.device) -> None:
-    """The int8 product of `QuantConv` at three of the teacher's trunk
-    shapes: the int32 accumulators on the card equal the CPU's bit for bit;
-    then `torch._int_mm` alone, the whole int8 conv (im2col + product) and
-    cuDNN's bf16 conv of the same shape, timed in turns."""
-    from ov3det_torch.models.clip_resnet import im2col_int8, int8_conv
+def ov_step() -> dict:
+    """The launches of one OV training step: the detector's and the teacher's."""
+    return expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+                  auction=1, **TEACHER_STEP)
 
-    g = torch.Generator().manual_seed(10)
-    for label, (B, H, W), cin, cout, k in QUANT_SHAPES:
-        xq = torch.randint(-127, 128, (B, H, W, cin), generator=g, dtype=torch.int8)
-        kq = torch.randint(-127, 128, (cout, k * k * cin), generator=g, dtype=torch.int8)
-        want = int8_conv(xq, kq, k, k // 2)
-        xq_d, kq_d = xq.to(dev), kq.to(dev)
-        got = int8_conv(xq_d, kq_d, k, k // 2)
-        torch.cuda.synchronize()
-        require(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
-                f"QuantConv {label}: the int32 products differ between card and CPU")
-        a = im2col_int8(xq_d, k, k // 2)
-        x_bf = xq_d.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
-        w_bf = kq_d.view(cout, k, k, cin).permute(0, 3, 1, 2).to(torch.bfloat16)
+
+def ov_boxes(dev: torch.device) -> torch.Tensor:
+    """(8, 128, 4) region boxes on 530 x 730 canvases: an OV step's 1024."""
+    from ov3det_torch.models.regionclip import calibration_boxes
+
+    rng = np.random.default_rng(3)
+    return torch.from_numpy(np.concatenate([calibration_boxes(rng, 530.0, 730.0, n=128)
+                                            for _ in range(BATCH)])).to(dev)
+
+
+def record_trunk(teacher, images, boxes) -> tuple:
+    """One forward of the fused int8 teacher with its kernel wrappers spied
+    on: ({signature: calls, first call's arguments} of `quant_conv`, the
+    same of `pool_quantize`).  A conv's signature is its input shape, kernel
+    and epilogue; a pass's its input shape and dtype, pool and scales."""
+    from ov3det_torch.models import clip_resnet as cr
+
+    convs, pools = {}, {}
+    conv, pool = cr.quant_conv, cr.pool_quantize
+
+    def keep(table, key, args):
+        entry = table.setdefault(key, {"calls": 0})
+        entry["calls"] += 1
+        if "args" not in entry:
+            entry["args"] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+    def conv_spy(xq, kernel_q, k, padding, s_x, scale, bias=None, residual=None, relu=False,
+                 s_next=None, out_bf16=True, dtype=torch.bfloat16):
+        args = [xq, kernel_q, k, padding, s_x, scale, bias, residual, relu, s_next, out_bf16, dtype]
+        keep(convs, (tuple(xq.shape), tuple(kernel_q.shape), k, bias is not None,
+                     residual is not None, relu, s_next is not None, out_bf16, dtype), args)
+        return conv(*args)
+
+    def pool_spy(x, p, scales):
+        keep(pools, (tuple(x.shape), x.dtype, p, len(scales)), [x, p, list(scales)])
+        return pool(x, p, scales)
+
+    cr.quant_conv, cr.pool_quantize = conv_spy, pool_spy
+    try:
+        with torch.no_grad():
+            teacher(images, boxes)
+    finally:
+        cr.quant_conv, cr.pool_quantize = conv, pool
+    torch.cuda.synchronize()
+    return convs, pools
+
+
+def conv_label(key) -> str:
+    (B, H, W, C), (N, _), k, bias, res, relu, q, out, dtype = key
+    parts = ["bias" if bias else "no bias", "residual" if res else "", "relu" if relu else "",
+             "bf16 out" if out and dtype == torch.bfloat16 else ("f32 out" if out else ""),
+             "int8 out" if q else ""]
+    return f"{k}x{k} {C}->{N} at {B}x{H}x{W} ({', '.join(p for p in parts if p)})"
+
+
+def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> dict:
+    """Phase 10's kernel check, at every distinct trunk conv of the int8
+    teacher's forward on an OV batch (8 canvases, 128 boxes each) and on the
+    activations that forward gives it: `quant_conv` equals
+    `quant_conv_plain` bit for bit in the forward's epilogue, in the full
+    one (bias, a random residual, ReLU, bf16 and int8 out) and in the
+    dequant-only one with an f32 output ("static" and "dynamic" modes of an
+    f32 tower); then, in turns, the kernel, `torch._int_mm` alone on the
+    im2col, the plain version (im2col, `_int_mm`, the elementwise ops) and
+    cuDNN's bf16 conv of the same shape, each by replays of a CUDA graph of
+    QUANT_REPS calls, beside the int8 bound.  The quantise passes likewise
+    (kernel, plain version, `F.avg_pool2d` alone).  A conv of 15 rows on an
+    odd 3 x 5 image, C_in 40, is checked too.  Returns the kernels-line
+    entries, times summed over one forward's calls."""
+    from ov3det_torch.ops.kernels import quant_conv as qc
+
+    t0 = time.perf_counter()
+    convs, pools = record_trunk(teacher, images, boxes)
+    n_conv = sum(e["calls"] for e in convs.values())
+    n_pool = sum(e["calls"] for e in pools.values())
+    require((n_conv, n_pool) == (TEACHER_STEP["quant_conv"], TEACHER_STEP["pool_quantize"]),
+            f"the teacher's forward made {n_conv} conv and {n_pool} quantise-pass calls, expected "
+            f"{TEACHER_STEP}")
+    g = torch.Generator(device=dev).manual_seed(14)
+    xs = torch.randint(-127, 128, (1, 3, 5, 40), generator=g, device=dev, dtype=torch.int8)
+    ks = torch.randint(-127, 128, (40, 9 * 40), generator=g, device=dev, dtype=torch.int8)
+    small = [xs, ks, 3, 1, torch.tensor(0.02, device=dev), torch.rand(40, generator=g, device=dev),
+             torch.randn(40, generator=g, device=dev), None, True, torch.tensor(0.05, device=dev),
+             True, torch.bfloat16]
+    cases = {**convs, ("small",): {"calls": 0, "args": small}}
+    totals = collections.Counter()
+    classes = collections.defaultdict(collections.Counter)  # class -> sums over its calls
+    cpu_checked = 0
+    print(f"quant_conv: {n_conv} calls in {len(convs)} distinct shapes and epilogues, "
+          f"{n_pool} quantise passes in {len(pools)}, recorded from one int8 teacher forward on "
+          f"8 canvases x 128 boxes")
+    for key, entry in cases.items():
+        xq, kq, k, pad, s_x, scale, bias, res, relu, s_next, out, dtype = entry["args"]
+        B, H, W, C = xq.shape
+        N = kq.shape[0]
+        rand_res = (torch.randn((B, H, W, N), generator=g, device=dev) * 2).to(torch.bfloat16)
+        variants = {"as called": entry["args"],
+                    "full": [xq, kq, k, pad, s_x, scale, scale * 3 - 0.05, rand_res, True,
+                             s_next if s_next is not None else s_x, True, torch.bfloat16],
+                    "dequant only, f32": [xq, kq, k, pad, s_x, scale, None, None, False, None,
+                                          True, None]}
+        for name, args in variants.items():
+            got, want = qc.quant_conv(*args), qc.quant_conv_plain(*args)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                require((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                        f"quant_conv {key} {name}: the kernel differs from the plain version")
+        if k == 3 and B * H * W * 9 * C * N <= CPU_CHECK_MACS:  # the card against the CPU
+            cpu = [t.cpu() if isinstance(t, torch.Tensor) else t for t in variants["full"]]
+            for a, b in zip(qc.quant_conv(*variants["full"]), qc.quant_conv_plain(*cpu)):
+                require(torch.equal(a.cpu(), b), f"quant_conv {key}: the card differs from the CPU")
+            cpu_checked += 1
+        if key == ("small",):
+            print(f"quant_conv 3x3 40->40 at 1x3x5 (15 rows): equal to the plain version bit for "
+                  f"bit in the three epilogues")
+            continue
+        a = qc.im2col_int8(xq, k, pad).contiguous()
+        x_bf = xq.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        w_bf = kq.view(N, k, k, C).permute(0, 3, 1, 2).to(torch.bfloat16)
         w_bf = w_bf.contiguous(memory_format=torch.channels_last)
-        runs = {"int_mm": lambda: torch._int_mm(a, kq_d.t()),
-                "int8 conv (im2col + int_mm)": lambda: int8_conv(xq_d, kq_d, k, k // 2),
-                "cuDNN bf16 conv": lambda: torch.nn.functional.conv2d(x_bf, w_bf, padding=k // 2)}
+        args = entry["args"]
+        runs = {"kernel": lambda: qc.quant_conv(*args),
+                "int_mm": lambda: torch._int_mm(a, kq.t()),
+                "plain": lambda: qc.quant_conv_plain(*args),
+                "cudnn bf16": lambda: torch.nn.functional.conv2d(x_bf, w_bf, padding=pad)}
         ms = {n: [] for n in runs}
         for order in (list(runs), list(runs)[::-1]):
             for n in order:
-                ms[n].append(cuda_ms(runs[n], 10))
-        M, K = a.shape
-        ops = 2 * M * K * cout
+                ms[n].append(graph_ms(runs[n], QUANT_REPS))
         best = {n: min(v) for n, v in ms.items()}
-        print(f"QuantConv {label}: {M} rows, K {K}, N {cout}: int32 equal to the CPU's; "
-              + ", ".join(f"{n} {best[n]:.3f} ms ({ops / best[n] / 1e9:.0f} TOPS)" for n in best)
-              + f"; bounds: int8 {ops / INT8_PEAK * 1e3:.3f} ms, bf16 {ops / BF16_PEAK * 1e3:.3f} "
-              f"ms (operations) ({card})")
-        del a, x_bf, w_bf, xq_d, kq_d, got
+        M, K = a.shape
+        ops = 2 * M * K * N
+        nbytes = M * C + N * K + 8 * N + (2 * M * N if res is not None else 0) \
+            + (2 * M * N if out else 0) + (M * N if s_next is not None else 0)
+        b_ms, by = bound_ms(nbytes, ops, INT8_PEAK)
+        calls = entry["calls"]
+        cls = (("3x3 in res5" if B != images.shape[0] else "3x3 in the backbone") if k == 3
+               else "1x1 with a residual" if res is not None else "1x1, no residual")
+        for n, v in best.items():
+            totals[n] += calls * v
+            classes[cls][n] += calls * v
+        classes[cls]["calls"] += calls
+        classes[cls]["bound"] += calls * b_ms
+        totals["bound"] += calls * b_ms
+        totals[f"bound {by}"] += calls * b_ms
+        print(f"quant_conv {conv_label(key)}, {calls} calls: M {M}, K {K}, N {N}; equal to the "
+              f"plain version bit for bit in the three epilogues; kernel {best['kernel']:.4f} ms "
+              f"({ops / best['kernel'] / 1e9:.0f} TOPS), _int_mm alone {best['int_mm']:.4f} ms, "
+              f"plain {best['plain']:.4f} ms, cuDNN bf16 conv {best['cudnn bf16']:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({by}; int8 operations {ops / INT8_PEAK * 1e3:.4f} ms, bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) ({card})")
+        del a, x_bf, w_bf
+    print(f"quant_conv: the full epilogue on the card equal to the plain version on the CPU bit "
+          f"for bit at the {cpu_checked} 3x3 shapes of at most {CPU_CHECK_MACS:.1e} products")
+    conv_by = "operations" if totals["bound operations"] >= totals["bound bytes"] else "bytes"
+    print(f"quant_conv over one teacher forward ({n_conv} calls): kernel {totals['kernel']:.3f} ms, "
+          f"_int_mm alone {totals['int_mm']:.3f} ms, plain {totals['plain']:.3f} ms, cuDNN bf16 "
+          f"{totals['cudnn bf16']:.3f} ms, bound {totals['bound']:.3f} ms (operations-bound "
+          f"convs {totals['bound operations']:.3f} ms, bytes-bound {totals['bound bytes']:.3f} "
+          f"ms) ({card})")
+    for cls, t in sorted(classes.items()):
+        print(f"quant_conv, {cls}: {t['calls']} calls, kernel {t['kernel']:.3f} ms, _int_mm alone "
+              f"{t['int_mm']:.3f} ms, plain {t['plain']:.3f} ms, cuDNN bf16 {t['cudnn bf16']:.3f} "
+              f"ms, bound {t['bound']:.3f} ms, summed over a forward ({card})")
+
+    ptotals = collections.Counter()
+    for (shape, dtype, p, n_scales), entry in pools.items():
+        x, _, scales = entry["args"]
+        got, want = qc.pool_quantize(x, p, scales), qc.pool_quantize_plain(x, p, scales)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"pool_quantize {shape} pool {p}: the pass differs from the plain version")
+        runs = {"kernel": lambda: qc.pool_quantize(x, p, scales),
+                "plain": lambda: qc.pool_quantize_plain(x, p, scales),
+                "avg_pool2d": lambda: qc.avg_pool(x, p)}
+        ms = {n: [] for n in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for n in order:
+                ms[n].append(graph_ms(runs[n], QUANT_REPS))
+        best = {n: min(v) for n, v in ms.items()}
+        out_n = x.numel() // (p * p)
+        nbytes = x.numel() * x.element_size() + n_scales * out_n
+        b_ms, by = bound_ms(nbytes, x.numel() + 4 * n_scales * out_n, F32_PEAK)
+        for n, v in best.items():
+            ptotals[n] += entry["calls"] * v
+        ptotals["bound"] += entry["calls"] * b_ms
+        print(f"pool_quantize {'x'.join(map(str, shape))} {str(dtype)[6:]}, pool {p}, "
+              f"{n_scales} scale(s), {entry['calls']} calls: equal to the plain version bit for "
+              f"bit; kernel {best['kernel']:.4f} ms, plain {best['plain']:.4f} ms, F.avg_pool2d "
+              f"alone {best['avg_pool2d']:.4f} ms; bound {b_ms:.4f} ms ({by}) ({card})")
+    print(f"pool_quantize over one teacher forward ({n_pool} calls): kernel "
+          f"{ptotals['kernel']:.3f} ms, plain {ptotals['plain']:.3f} ms, bound "
+          f"{ptotals['bound']:.3f} ms; the check took {time.perf_counter() - t0:.1f} s ({card})")
+    per = f"summed over one teacher forward ({n_conv} calls, {len(convs)} shapes)"
+    del convs, pools
+    return {"quant_conv": dict(max_abs_err=0.0, ms=totals["kernel"], plain_ms=totals["plain"],
+                               bound_ms=totals["bound"], bound_by=conv_by,
+                               library_ms=totals["cudnn bf16"], int_mm_ms=totals["int_mm"],
+                               per=per, library="cuDNN bf16 conv2d of each shape"),
+            "pool_quantize": dict(max_abs_err=0.0, ms=ptotals["kernel"], plain_ms=ptotals["plain"],
+                                  bound_ms=ptotals["bound"], bound_by="bytes", library_ms=None,
+                                  avg_pool2d_ms=ptotals["avg_pool2d"],
+                                  per=f"summed over one teacher forward ({n_pool} calls)")}
 
 
 def teacher_card_vs_cpu(state: dict, image: np.ndarray, boxes: np.ndarray,
@@ -2077,7 +2281,9 @@ def teacher_card_vs_cpu(state: dict, image: np.ndarray, boxes: np.ndarray,
     value; int8 (quantised and calibrated on the card, the same state on
     both) cosine >= 0.999 per region and within INT8_CARD_VS_CPU of the
     largest value, a limit that the int8 teacher's distance from a bf16 one
-    on the card (printed beside it) exceeds."""
+    on the card (printed beside it) exceeds; the fused int8 teacher (the
+    kernel chain) equal to the unfused one (the plain module path) on the
+    card bit for bit."""
     from ov3det_torch.models.regionclip import RegionCLIPTeacher, quantize_teacher_params
 
     img, bx = torch.from_numpy(image), torch.from_numpy(boxes)
@@ -2116,6 +2322,11 @@ def teacher_card_vs_cpu(state: dict, image: np.ndarray, boxes: np.ndarray,
             print(f"teacher f32, one canvas, 8 boxes: card vs CPU within {err:.2e} of the largest "
                   f"value (the CPU forward {cpu_s:.1f} s)")
         else:
+            unfused = card.clone(fused=False).load(s_card)
+            with torch.no_grad():
+                plain = unfused(img.to(dev), bx.to(dev)).cpu()
+            require(torch.equal(got, plain), "teacher int8: the fused teacher differs from the "
+                                             f"unfused one on the card by {(got - plain).abs().max()}")
             cos = torch.nn.functional.cosine_similarity(got[0], want[0], dim=-1)
             err = ((got - want).abs().max() / want.abs().max()).item()
             vs_bf16 = ((got - feats["bfloat16"]).abs().max() / got.abs().max()).item()
@@ -2123,43 +2334,44 @@ def teacher_card_vs_cpu(state: dict, image: np.ndarray, boxes: np.ndarray,
             require(cos.min().item() >= 0.999, f"teacher int8: card vs CPU cosine {cos.tolist()}")
             require(err <= INT8_CARD_VS_CPU,
                     f"teacher int8: card vs CPU {err} of the largest value (bf16 is {vs_bf16})")
-            print(f"teacher int8, one canvas, 8 boxes: card vs CPU cosine >= "
+            print(f"teacher int8, one canvas, 8 boxes: fused (the quant_conv chain) equal to the "
+                  f"unfused module path on the card bit for bit; card vs CPU cosine >= "
                   f"{cos.min().item():.7f}, within {err:.2e} of the largest value (limit "
                   f"{INT8_CARD_VS_CPU:.0e}; the bf16 teacher on the card is {vs_bf16:.2e} from "
                   f"the int8 one); int8 vs f32 on the card: cosine {vs_f32.min().item():.4f} to "
                   f"{vs_f32.max().item():.4f} (random weights, noise canvas; not a gate) "
                   f"(the CPU forward {cpu_s:.1f} s)")
+            del unfused
         del card, cpu, s_card
 
 
-def teacher_forward_times(teacher, state: dict, batch: dict, dev: torch.device) -> None:
+def teacher_forward_times(card: str, teacher, state: dict, images, boxes,
+                          dev: torch.device) -> None:
     """The teacher's forward alone on one OV batch (8 canvases, 128 boxes
-    each, 4 chunks of 256 regions): the int8 teacher the step runs against
-    a bf16 one from the same weights, timed in turns (int8, bf16, bf16,
-    int8)."""
-    from ov3det_torch.models.regionclip import (
-        RegionCLIPTeacher,
-        calibration_boxes,
-        quantize_teacher_params,
-    )
+    each, 4 chunks of 256 regions): the fused int8 teacher the step runs,
+    the unfused int8 module path and a bf16 teacher from the same weights,
+    timed in turns (fused, unfused, bf16, bf16, unfused, fused); the fused
+    features equal the unfused ones bit for bit."""
+    from ov3det_torch.models.regionclip import RegionCLIPTeacher, quantize_teacher_params
 
-    rng = np.random.default_rng(3)
-    boxes = torch.from_numpy(np.concatenate([calibration_boxes(rng, 530.0, 730.0, n=128)
-                                             for _ in range(BATCH)])).to(dev)
-    images = torch.from_numpy(batch["image"]).to(dev)
+    unfused = teacher.clone(fused=False).load(teacher.state_dict())
     bf16 = RegionCLIPTeacher(compute_dtype="bfloat16", device=dev)
     bf16.load(quantize_teacher_params({k: v.to(dev) for k, v in state.items()}, "bfloat16"))
-    ms = {"int8": [], "bfloat16": []}
+    models = {"int8 fused": teacher, "int8 unfused": unfused, "bf16": bf16}
+    ms = {n: [] for n in models}
     with torch.no_grad():
-        for name in ("int8", "bfloat16", "bfloat16", "int8"):
-            t = teacher if name == "int8" else bf16
-            ms[name].append(cuda_ms(lambda: t(images, boxes), 2))
-        cos = torch.nn.functional.cosine_similarity(teacher(images, boxes), bf16(images, boxes),
-                                                    dim=-1)
-    print(f"teacher forward alone, 8 canvases x 128 boxes: int8 {min(ms['int8']):.2f} ms, bf16 "
-          f"{min(ms['bfloat16']):.2f} ms (CUDA events, in turns; each {ms}); int8 vs bf16 "
-          f"cosine >= {cos.min().item():.4f}")
-    del bf16
+        for name in ("int8 fused", "int8 unfused", "bf16", "bf16", "int8 unfused", "int8 fused"):
+            ms[name].append(cuda_ms(lambda: models[name](images, boxes), 2))
+        got, plain = teacher(images, boxes), unfused(images, boxes)
+        require(torch.equal(got, plain), "teacher forward: fused and unfused int8 features differ")
+        cos = torch.nn.functional.cosine_similarity(got, bf16(images, boxes), dim=-1)
+    best = {n: min(v) for n, v in ms.items()}
+    print(f"teacher forward alone, 8 canvases x 128 boxes: int8 fused {best['int8 fused']:.2f} ms, "
+          f"int8 unfused {best['int8 unfused']:.2f} ms, bf16 {best['bf16']:.2f} ms (CUDA events, "
+          f"in turns; each {ms}); fused equal to unfused bit for bit; int8 fused "
+          f"{'no slower' if best['int8 fused'] <= best['bf16'] else 'SLOWER'} than bf16; int8 vs "
+          f"bf16 cosine >= {cos.min().item():.4f} ({card})")
+    del unfused, bf16
 
 
 def ov_config():
@@ -2198,7 +2410,7 @@ def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = 
     from ov3det_torch.engine.checkpoint import CheckpointManager
     from ov3det_torch.engine.train import build_training
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
+    train_step = ov_step()
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_ov_cli_") as run:
@@ -2254,7 +2466,8 @@ def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = 
 
 def ov_phase(card: str, dev: torch.device) -> tuple:
     """Phase 10: the open-vocabulary step; returns the launch counts of its
-    training run and of its CLI run, and the CLI's waits on the loader."""
+    training run and of its CLI run, the CLI's waits on the loader and the
+    kernels-line entries of `quant_conv` and `pool_quantize`."""
     from ov3det_torch import main as cli
     from ov3det_torch.models.regionclip import (
         RegionCLIPTeacher,
@@ -2263,7 +2476,6 @@ def ov_phase(card: str, dev: torch.device) -> tuple:
     )
 
     t_phase = time.perf_counter()
-    check_quant_conv(card, dev)
     cfg = ov_config()
     batches = ov_batches(cfg, OV_STEPS + 1, 700)
     first = {k: v[0] for k, v in batches[0].items()}
@@ -2281,21 +2493,23 @@ def ov_phase(card: str, dev: torch.device) -> tuple:
     torch.cuda.synchronize()
     print(f"teacher build (seeded weights, int8 quantisation, calibration on the card): "
           f"{time.perf_counter() - t0:.2f} s")
-    teacher_forward_times(teacher, state, batches[0], dev)
-    del state
+    images, regions = torch.from_numpy(batches[0]["image"]).to(dev), ov_boxes(dev)
+    entries = check_quant_conv(card, teacher, images, regions, dev)
+    teacher_forward_times(card, teacher, state, images, regions, dev)
+    del state, images, regions
+    gc.collect()
+    torch.cuda.empty_cache()
     nbytes = sum(v.nbytes for v in batches[0].values())
     print(f"one OV batch crossing to the card: {nbytes / 1e6:.2f} MB, of which the uint8 "
           f"canvases {batches[0]['image'].nbytes / 1e6:.2f} MB (int64 would make them "
           f"{8 * batches[0]['image'].nbytes / 1e6:.2f} MB)")
-    trained = train(cfg, OV_STEPS, expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
-                                          attention_dkv=3, auction=1), "ov_sunrgbd", 700, dev,
-                    teacher=teacher, batches=batches)
+    trained = train(cfg, OV_STEPS, ov_step(), "ov_sunrgbd", 700, dev, teacher=teacher,
+                    batches=batches)
     del teacher, batches
     gc.collect()
     cli_counts, waits = ov_cli(card, dev)
     print(f"phase 10 (the open-vocabulary step): {time.perf_counter() - t_phase:.1f} s")
-    return trained, cli_counts, waits
-
+    return trained, cli_counts, waits, entries
 
 
 # ------------------------------------------------------------ phase 11: the pseudo-label round
@@ -3229,7 +3443,7 @@ def bank_cli(card: str, dev: torch.device, unbanked_waits: list) -> dict:
     from ov3det_torch.datasets.registry import build_dataset
     from ov3det_torch.engine.train import batch_to_device, build_training, decode_banked_images
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
+    train_step = ov_step()
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_bank_cli_") as run:
@@ -3425,7 +3639,7 @@ def sun_bank_cli(card: str, dev: torch.device, argv: list, unbanked_waits: list)
     from ov3det_torch.datasets.image_bank import build_image_bank, yuv420_encode
     from ov3det_torch.datasets.registry import build_dataset
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
+    train_step = ov_step()
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_sun_bank_") as run:
@@ -3716,8 +3930,7 @@ def flagged_cli(card: str, argv: list, group: int, label: str) -> tuple:
     times a batch, loader waits, wall)."""
     import tempfile
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
-                        auction=1)
+    train_step = ov_step()
     eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_flagged_") as run:
@@ -3772,7 +3985,7 @@ def packed_phase(card: str, dev: torch.device) -> tuple:
                           attention_dq_radius=3, attention_dkv_radius=3, auction=1))
     batches = ov_batches(ov, GRAPH_STEPS, 1700)
     teacher = cli.build_teacher(ov, {k: v[0] for k, v in batches[0].items()}, dev)
-    graph_vs_eager(card, dev, "ov_sunrgbd", ov, batches, step, teacher=teacher)
+    graph_vs_eager(card, dev, "ov_sunrgbd", ov, batches, ov_step(), teacher=teacher)
     del teacher, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4095,7 +4308,8 @@ def main() -> int:
     train_card_vs_cpu(masked, "scannet_masked", 400)
 
     cli_counts = cli_phase(card)
-    ov_trained, ov_cli_counts, ov_waits = ov_phase(card, dev)
+    ov_trained, ov_cli_counts, ov_waits, quant_entries = ov_phase(card, dev)
+    entries.update(quant_entries)
     pseudo_counts = pseudo_phase(card, dev)
     ddp_counts = ddp_phase(card, dev, ov_waits)
     image_counts = images_phase(card, dev)
@@ -4111,6 +4325,8 @@ def main() -> int:
             **{f"packed {i}": c for i, c in enumerate(packed_counts)}}
     print("launches by run: " + json.dumps({label: {n: c for n, c in counts.items() if c}
                                             for label, counts in runs.items()}))
+    int_mm = {label: counts["int_mm"] for label, counts in runs.items() if counts.get("int_mm")}
+    require(not int_mm, f"torch._int_mm ran on the card's main paths: {int_mm}")
     kernels = []
     for name, (source, replaces) in kernel_sources().items():
         count = sum(c.get(name, 0) for c in runs.values())

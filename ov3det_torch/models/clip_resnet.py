@@ -25,21 +25,43 @@ with weights stored channels-last too.  A float32 conv on the card follows
     call, whose maximum over calls is recorded in `a_max` for
     `regionclip.quantize_teacher_params`.
 
-The int8 product is exact int32, as XLA's is: `torch._int_mm` over an
-im2col of the int8 activations (nine shifted views of the padded tensor for
-a 3 x 3 conv) against the int8 kernel, stored once at load as (C_out, K)
-with K in (kh, kw, C_in) order, the layout the product reads.  A float conv
-over int8 values would not do: past 2**24 an f32 sum rounds, and cuDNN's
-default TF32 keeps 10 bits.
+The int8 product is exact int32, as XLA's is: `ops.kernels.quant_conv`'s
+implicit-GEMM kernel on the card, an im2col and `torch._int_mm` in its
+plain version (the CPU path), against the int8 kernel stored once at load
+as (C_out, K) with K in (kh, kw, C_in) order.  A float conv over int8
+values would not do: past 2**24 an f32 sum rounds, and cuDNN's default TF32
+keeps 10 bits.
+
+With `fused` (the default) a "folded" tower runs as a chain
+(`run_blocks`): each conv's kernel epilogue carries its block's residual
+and ReLU and quantises its output for the next conv, and `pool_quantize`
+quantises what no epilogue can (the stem's conv1 output, the pooled inputs
+of the anti-aliased blocks and the RoI features), so that no activation
+passes between convs in bf16 that only a quantise reads.  Every op is the
+unfused path's in the same order, so both give the same bits.  `fused=False`
+keeps the unfused module path (`QuantConv.forward` on each conv: torch's
+quantise, the plain product, the elementwise ops) for comparison; the
+"static" and "dynamic" modes take the kernel for their product alone.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ov3det_torch.ops.kernels.quant_conv import (  # noqa: F401  (im2col_int8, int8_conv: re-exported)
+    avg_pool,
+    im2col_int8,
+    int8_conv,
+    pool_quantize,
+    quant_conv,
+    quant_conv_plain,
+    quantize_plain,
+)
 
 _CHANNELS_LAST = torch.channels_last
 
@@ -50,11 +72,6 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
-
-
-def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
-    """flax `nn.avg_pool(x, (k, k), strides=(k, k))` (VALID) on (B, H, W, C)."""
-    return _nhwc(F.avg_pool2d(_nchw(x), k, k))
 
 
 class FrozenBatchNorm(nn.Module):
@@ -96,49 +113,23 @@ class Conv(nn.Module):
         return _nhwc(F.conv2d(_nchw(x), w, stride=self.stride, padding=self.padding))
 
 
-def im2col_int8(xq: torch.Tensor, kernel_size: int, padding: int) -> torch.Tensor:
-    """(B, H, W, C) int8 -> (B * H * W, k * k * C), stride 1, K in (kh, kw,
-    C) order, zero padding (the quantized zero)."""
-    B, H, W, C = xq.shape
-    if kernel_size == 1:
-        return xq.reshape(B * H * W, C)
-    p = padding
-    xp = F.pad(xq, (0, 0, p, p, p, p))
-    Ho, Wo = H + 2 * p - kernel_size + 1, W + 2 * p - kernel_size + 1
-    views = [xp[:, i:i + Ho, j:j + Wo, :] for i in range(kernel_size) for j in range(kernel_size)]
-    return torch.stack(views, dim=3).reshape(B * Ho * Wo, kernel_size * kernel_size * C)
-
-
-def int8_conv(xq: torch.Tensor, kernel_q: torch.Tensor, kernel_size: int,
-              padding: int) -> torch.Tensor:
-    """Exact int32 conv of int8 (B, H, W, C) with the int8 (C_out, K) kernel
-    -> (B, H', W', C_out), as `torch._int_mm(im2col, kernel_q.t())`.  On the
-    card `_int_mm` takes more than 16 rows and K, C_out multiples of 8: the
-    trunk's channels are, and fewer rows are padded with zero rows."""
-    B = xq.shape[0]
-    a = im2col_int8(xq, kernel_size, padding).contiguous()
-    M = a.shape[0]
-    if a.is_cuda and M <= 16:
-        a = F.pad(a, (0, 0, 0, 17 - M))
-    y = torch._int_mm(a, kernel_q.t())[:M]
-    Ho = xq.shape[1] + 2 * padding - kernel_size + 1
-    return y.view(B, Ho, -1, kernel_q.shape[0])
-
-
 class QuantConv(nn.Module):
     """W8A8 trunk conv (`ov3det/models/clip_resnet.py:57-128`), stride 1.
 
     In JAX's order: xq = clip(round(x / s_x), -127, 127) in f32 with round
     half to even; y = the exact int32 conv; out = y * (s_x * scale) (+ bias
-    in "folded" mode), cast to the compute dtype at the end.
+    in "folded" mode), cast to the compute dtype at the end.  `fused`: the
+    quantise and the conv are `pool_quantize` and `quant_conv` (the kernels
+    on the card), else their plain versions.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, padding: int = 0,
-                 dtype: Optional[torch.dtype] = None, mode: str = "folded"):
+                 dtype: Optional[torch.dtype] = None, mode: str = "folded", fused: bool = True):
         super().__init__()
         if mode not in ("folded", "static", "dynamic"):
             raise ValueError(f"QuantConv mode {mode!r}: 'folded', 'static' or 'dynamic'")
         self.kernel_size, self.padding, self.dtype, self.mode = kernel_size, padding, dtype, mode
+        self.fused = fused
         self.register_buffer("kernel_q", torch.zeros(cout, kernel_size * kernel_size * cin,
                                                      dtype=torch.int8))
         self.register_buffer("scale", torch.ones(cout))
@@ -148,32 +139,45 @@ class QuantConv(nn.Module):
             self.register_buffer("bias", torch.zeros(cout))
         self.a_max: Optional[torch.Tensor] = None  # "dynamic": the largest |x| seen
 
-    def quantize(self, x: torch.Tensor):
-        """x -> (int8 x, its f32 scale s_x)."""
-        xf = x.float()
+    def act_scale(self, x: torch.Tensor) -> torch.Tensor:
+        """The f32 activation scale s_x of input x: `a_scale`, or in
+        "dynamic" mode max|x| / 127 (recorded in `a_max`)."""
         if self.mode != "dynamic":
-            s_x = self.a_scale
-        else:
-            a_max = xf.abs().amax()
-            self.a_max = a_max if self.a_max is None else torch.maximum(self.a_max, a_max)
-            s_x = torch.clamp(a_max, min=1e-6) / 127.0
-        return torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8), s_x
+            return self.a_scale
+        a_max = x.float().abs().amax()
+        self.a_max = a_max if self.a_max is None else torch.maximum(self.a_max, a_max)
+        return torch.clamp(a_max, min=1e-6) / 127.0
+
+    def quantize(self, x: torch.Tensor):
+        """x -> (int8 x, its f32 scale s_x), as torch ops."""
+        s_x = self.act_scale(x)
+        return quantize_plain(x, s_x), s_x
+
+    def conv(self, xq: torch.Tensor, s_x: torch.Tensor, residual=None, relu: bool = False,
+             s_next=None, out: bool = True) -> tuple:
+        """The int8 product of `xq` (quantised at `s_x`) and its epilogue
+        (`quant_conv`'s arguments): -> (output in the compute dtype or
+        None, int8 output at `s_next` or None)."""
+        fn = quant_conv if self.fused else quant_conv_plain
+        bias = self.bias if self.mode == "folded" else None
+        return fn(xq, self.kernel_q, self.kernel_size, self.padding, s_x, self.scale, bias,
+                  residual, relu, s_next, out, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq, s_x = self.quantize(x)
-        y = int8_conv(xq, self.kernel_q, self.kernel_size, self.padding)
-        out = y.float() * (s_x * self.scale)
-        if self.mode == "folded":
-            out = out + self.bias
-        return out.to(self.dtype) if self.dtype is not None else out
+        if self.fused:
+            s_x = self.act_scale(x)
+            xq = pool_quantize(x, 1, (s_x,))[0]
+        else:
+            xq, s_x = self.quantize(x)
+        return self.conv(xq, s_x)[0]
 
 
 def trunk_conv(quant: Optional[str], dtype, cin: int, cout: int, kernel_size: int,
-               padding: int = 0) -> nn.Module:
+               padding: int = 0, fused: bool = True) -> nn.Module:
     """The trunk's conv: `QuantConv` in mode `quant` ("folded" | "static" |
     "dynamic"), a plain `Conv` when `quant` is None."""
     if quant:
-        return QuantConv(cin, cout, kernel_size, padding, dtype, quant)
+        return QuantConv(cin, cout, kernel_size, padding, dtype, quant, fused)
     return Conv(cin, cout, kernel_size, padding=padding, dtype=dtype)
 
 
@@ -186,22 +190,62 @@ def _bn(quant, channels: int, dtype) -> nn.Module:
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, dtype=None, quant=None):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, dtype=None, quant=None,
+                 fused: bool = True):
         super().__init__()
         out = planes * self.expansion
         self.stride = stride
-        self.conv1 = trunk_conv(quant, dtype, inplanes, planes, 1)
+        self.chained = quant == "folded" and fused
+        conv = functools.partial(trunk_conv, quant, dtype, fused=fused)
+        self.conv1 = conv(inplanes, planes, 1)
         self.bn1 = _bn(quant, planes, dtype)
-        self.conv2 = trunk_conv(quant, dtype, planes, planes, 3, padding=1)
+        self.conv2 = conv(planes, planes, 3, padding=1)
         self.bn2 = _bn(quant, planes, dtype)
-        self.conv3 = trunk_conv(quant, dtype, planes, out, 1)
+        self.conv3 = conv(planes, out, 1)
         self.bn3 = _bn(quant, out, dtype)
         self.has_downsample = stride > 1 or inplanes != out
         if self.has_downsample:
-            self.downsample_conv = trunk_conv(quant, dtype, inplanes, out, 1)
+            self.downsample_conv = conv(inplanes, out, 1)
             self.downsample_bn = _bn(quant, out, dtype)
 
+    def in_scales(self) -> list:
+        """The scales the block's input is quantised at, in one pass:
+        conv1's, and the downsample conv's when it reads the input unpooled."""
+        scales = [self.conv1.a_scale]
+        if self.has_downsample and self.stride == 1:
+            scales.append(self.downsample_conv.a_scale)
+        return scales
+
+    def chain(self, x: Optional[torch.Tensor], xq: list, next_scales: Sequence) -> tuple:
+        """The "folded" block on its quantised input.  x: the input in the
+        compute dtype (None when only its int8 forms are read: a stride-1
+        downsample); xq: one int8 form per `in_scales()`; next_scales: the
+        next block's `in_scales()`, empty after the last block.  Returns
+        (the output in the compute dtype, its int8 forms at next_scales):
+        one form comes from conv3's epilogue, two from a quantise pass."""
+        if x is None and not (self.has_downsample and self.stride == 1):
+            raise ValueError("Bottleneck.chain: this block reads its input in the compute dtype")
+        c1, c2, c3 = self.conv1, self.conv2, self.conv3
+        _, h = c1.conv(xq[0], c1.a_scale, relu=True, s_next=c2.a_scale, out=False)
+        if self.stride > 1:  # anti-aliased: the avgpool between conv2 and conv3
+            h, _ = c2.conv(h, c2.a_scale, relu=True)
+            h = pool_quantize(h, self.stride, (c3.a_scale,))[0]
+        else:
+            _, h = c2.conv(h, c2.a_scale, relu=True, s_next=c3.a_scale, out=False)
+        identity = x
+        if self.has_downsample:
+            ds = self.downsample_conv
+            dq = xq[1] if self.stride == 1 else pool_quantize(x, self.stride, (ds.a_scale,))[0]
+            identity, _ = ds.conv(dq, ds.a_scale)
+        one = next_scales[0] if len(next_scales) == 1 else None
+        y, yq = c3.conv(h, c3.a_scale, residual=identity, relu=True, s_next=one)
+        if len(next_scales) > 1:
+            return y, pool_quantize(y, 1, next_scales)
+        return y, [yq] if one is not None else []
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.chained:
+            return run_blocks([self], x)
         out = torch.relu(self.bn1(self.conv1(x)))
         out = torch.relu(self.bn2(self.conv2(out)))
         if self.stride > 1:  # anti-aliased: avgpool instead of a strided conv
@@ -215,20 +259,42 @@ class Bottleneck(nn.Module):
         return torch.relu(out + identity)
 
 
+def run_blocks(blocks: Sequence[Bottleneck], x: Optional[torch.Tensor],
+               xq: Optional[list] = None) -> torch.Tensor:
+    """Chained "folded" bottlenecks (`Bottleneck.chain`): each block's last
+    epilogue quantises for the next block.  xq: the input's int8 forms at
+    `blocks[0].in_scales()`, quantised from x here when None."""
+    if xq is None:
+        xq = pool_quantize(x, 1, blocks[0].in_scales())
+    for i, block in enumerate(blocks):
+        x, xq = block.chain(x, xq, blocks[i + 1].in_scales() if i + 1 < len(blocks) else ())
+    return x
+
+
 class ModifiedResNetStem(nn.Module):
     """conv1 stays a plain conv in the compute dtype even in int8 mode (its
     3-channel normalised input has a per-channel std that no per-tensor
     scale folds), so its bn1 stays a live module under quant "folded"."""
 
-    def __init__(self, width: int, dtype=None, quant=None):
+    def __init__(self, width: int, dtype=None, quant=None, fused: bool = True):
         super().__init__()
         w = width
         self.conv1 = Conv(3, w // 2, 3, stride=2, padding=1, dtype=dtype)
         self.bn1 = FrozenBatchNorm(w // 2, dtype)
-        self.conv2 = trunk_conv(quant, dtype, w // 2, w // 2, 3, padding=1)
+        self.conv2 = trunk_conv(quant, dtype, w // 2, w // 2, 3, padding=1, fused=fused)
         self.bn2 = _bn(quant, w // 2, dtype)
-        self.conv3 = trunk_conv(quant, dtype, w // 2, w, 3, padding=1)
+        self.conv3 = trunk_conv(quant, dtype, w // 2, w, 3, padding=1, fused=fused)
         self.bn3 = _bn(quant, w, dtype)
+
+    def chain(self, x: torch.Tensor, next_scales: Sequence) -> list:
+        """The "folded" stem: its pooled output quantised at each of
+        `next_scales` (layer1's first block's `in_scales()`)."""
+        h = torch.relu(self.bn1(self.conv1(x)))
+        c2, c3 = self.conv2, self.conv3
+        hq = pool_quantize(h, 1, (c2.a_scale,))[0]
+        _, hq = c2.conv(hq, c2.a_scale, relu=True, s_next=c3.a_scale, out=False)
+        h, _ = c3.conv(hq, c3.a_scale, relu=True)
+        return pool_quantize(h, 2, next_scales)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.conv1(x)))
@@ -239,16 +305,21 @@ class ModifiedResNetStem(nn.Module):
 
 class ResNetStage(nn.Module):
     def __init__(self, inplanes: int, planes: int, blocks: int, stride: int = 1, dtype=None,
-                 quant=None):
+                 quant=None, fused: bool = True):
         super().__init__()
         self.blocks = blocks
-        self.add_module("block0", Bottleneck(inplanes, planes, stride, dtype, quant))
+        self.add_module("block0", Bottleneck(inplanes, planes, stride, dtype, quant, fused))
         for i in range(1, blocks):
-            self.add_module(f"block{i}", Bottleneck(planes * 4, planes, 1, dtype, quant))
+            self.add_module(f"block{i}", Bottleneck(planes * 4, planes, 1, dtype, quant, fused))
+
+    def bottlenecks(self) -> list:
+        return [getattr(self, f"block{i}") for i in range(self.blocks)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(self.blocks):
-            x = getattr(self, f"block{i}")(x)
+        if self.block0.chained:
+            return run_blocks(self.bottlenecks(), x)
+        for block in self.bottlenecks():
+            x = block(x)
         return x
 
 
@@ -256,15 +327,20 @@ class CLIPResNetBackbone(nn.Module):
     """Stem + res2..res4 (stride 16): (B, H, W, 3) -> (B, H/16, W/16, 16 width)."""
 
     def __init__(self, width: int = 80, layers: Sequence[int] = (4, 6, 10, 6), dtype=None,
-                 quant=None):
+                 quant=None, fused: bool = True):
         super().__init__()
         w = width
-        self.stem = ModifiedResNetStem(w, dtype, quant)
-        self.layer1 = ResNetStage(w, w, layers[0], 1, dtype, quant)
-        self.layer2 = ResNetStage(4 * w, 2 * w, layers[1], 2, dtype, quant)
-        self.layer3 = ResNetStage(8 * w, 4 * w, layers[2], 2, dtype, quant)
+        self.stem = ModifiedResNetStem(w, dtype, quant, fused)
+        self.layer1 = ResNetStage(w, w, layers[0], 1, dtype, quant, fused)
+        self.layer2 = ResNetStage(4 * w, 2 * w, layers[1], 2, dtype, quant, fused)
+        self.layer3 = ResNetStage(8 * w, 4 * w, layers[2], 2, dtype, quant, fused)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.layer1.block0.chained:
+            blocks = [*self.layer1.bottlenecks(), *self.layer2.bottlenecks(),
+                      *self.layer3.bottlenecks()]
+            xq = self.stem.chain(x, blocks[0].in_scales())
+            return run_blocks(blocks, None, xq)
         return self.layer3(self.layer2(self.layer1(self.stem(x))))
 
 
@@ -361,9 +437,9 @@ class CLIPResNetRes5Head(nn.Module):
     (R, embed_dim)."""
 
     def __init__(self, width: int = 80, blocks: int = 6, embed_dim: int = 640,
-                 image_resolution: int = 288, dtype=None, quant=None):
+                 image_resolution: int = 288, dtype=None, quant=None, fused: bool = True):
         super().__init__()
-        self.layer4 = ResNetStage(16 * width, 8 * width, blocks, 2, dtype, quant)
+        self.layer4 = ResNetStage(16 * width, 8 * width, blocks, 2, dtype, quant, fused)
         self.attnpool = AttentionPool2d(32 * width, 32 * width // 64, image_resolution // 32,
                                         embed_dim, dtype)
 

@@ -46,29 +46,32 @@ class RegionCLIPTeacher(nn.Module):
     `quantize_teacher_params`, everything else bf16) or "int8_calib" (the
     calibration mode: dynamic activation scales, BatchNorm live).  The
     region head runs in chunks of at most `roi_chunk_regions` regions.
-    Built on `device`: CUDA unless the caller passes "cpu"; raises when
+    `fused` (int8): the trunk as a chain of `quant_conv` kernels whose
+    epilogues carry the residuals, ReLUs and next quantises
+    (`clip_resnet.run_blocks`); False keeps the unfused module path, the
+    same bits, for comparison.  Built on `device`: CUDA unless the caller passes "cpu"; raises when
     CUDA is asked for and absent."""
 
     def __init__(self, width: int = 80, layers: tuple = (4, 6, 10, 6), embed_dim: int = 640,
                  pooler_resolution: int = 18, pooler_scale: float = 1.0 / 16.0,
                  image_resolution: int = 288, compute_dtype: Optional[str] = None,
-                 roi_chunk_regions: int = 256, device=None):
+                 roi_chunk_regions: int = 256, fused: bool = True, device=None):
         super().__init__()
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown teacher compute_dtype {compute_dtype!r}")
         self.hparams = dict(width=width, layers=tuple(layers), embed_dim=embed_dim,
                             pooler_resolution=pooler_resolution, pooler_scale=pooler_scale,
                             image_resolution=image_resolution, compute_dtype=compute_dtype,
-                            roi_chunk_regions=roi_chunk_regions)
+                            roi_chunk_regions=roi_chunk_regions, fused=fused)
         self.compute_dtype = compute_dtype
         self.quant = {"int8": "folded", "int8_calib": "dynamic"}.get(compute_dtype)
         self.dtype = torch.bfloat16 if compute_dtype in ("bfloat16", "int8", "int8_calib") else None
         self.roi_chunk_regions = roi_chunk_regions
         self.pooler_resolution, self.pooler_scale = pooler_resolution, pooler_scale
         self.image_resolution = image_resolution
-        self.backbone = CLIPResNetBackbone(width, layers, self.dtype, self.quant)
+        self.backbone = CLIPResNetBackbone(width, layers, self.dtype, self.quant, fused)
         self.roi_head = CLIPResNetRes5Head(width, layers[3], embed_dim, image_resolution,
-                                           self.dtype, self.quant)
+                                           self.dtype, self.quant, fused)
         # the CLIP normalisation, copied to the device once with the
         # weights, not on every forward; not weights, so not in state_dict
         self.register_buffer("pixel_mean", torch.from_numpy(_PIXEL_MEAN), persistent=False)

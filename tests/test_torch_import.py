@@ -50,7 +50,7 @@ def test_importing_every_module_leaves_jax_out():
                  "models.convert_3detr", "utils.png", "utils.visualize", "parallel",
                  "parallel.mesh", "datasets.image_bank", "utils.jpeg",
                  "datasets.image_utils", "ops.kernels", "ops.kernels.auction",
-                 "ops.kernels.nms", "geometry.nms"):
+                 "ops.kernels.nms", "geometry.nms", "ops.kernels.quant_conv"):
         assert f"ov3det_torch.{name}" in report["modules"]
     # importing the native IoU or the JPEG decoder neither builds nor loads
     # it: that waits for the first IoU of an evaluation, the first dataset
