@@ -8,9 +8,11 @@ at once), then:
   1. prints the card's name and power limit, the build time, each kernel's
      registers and shared memory (ptxas) and, from `cuobjdump -sass`, that the
      wgmma kernels (forward, dq, dk/dv, each with and without the radius)
-     hold HGMMA and LDGSTS (cp.async) and no HMMA, and that the tile
-     ball-group kernels the route launches (the forward at both tiles of
-     centers, the pick pass) hold no FFMA;
+     hold HGMMA and LDGSTS (cp.async) and no HMMA, that the trunk conv's
+     wgmma kernels hold IGMMA and LDGSTS and no IMMA, with no spill, no
+     stack frame and no ptxas advisory that it serialised their wgmma, and
+     that the tile ball-group kernels the route launches (the forward at
+     both tiles of centers, the pick pass) hold no FFMA;
   2. holds each kernel against its plain PyTorch version on the card at the
      shapes the main paths give it, and times kernel, plain version and,
      where one exists, a PyTorch call as a yardstick:
@@ -132,14 +134,16 @@ at once), then:
        forward on an OV batch (8 canvases x 128 boxes: 141 `quant_conv`
        calls in 27 shapes and epilogues, 18 `pool_quantize` passes in 9),
        on the activations that forward gives them: each equal to its plain
-       version bit for bit, the conv in its own epilogue, the full one and
-       the dequant-only f32 one (and at 15 rows on a 3 x 5 image), the full
-       one also against the CPU at the 3 x 3 convs of at most
-       CPU_CHECK_MACS products; kernel,
-       `_int_mm` alone, the plain version and cuDNN's bf16 conv timed in
-       turns (graph replays) beside the int8 bound, summed over a forward;
-       the teacher's forward alone on that batch, fused int8, unfused int8
-       and bf16, in turns;
+       version bit for bit, the conv in both designs (the routed one, wgmma
+       for C_in a multiple of 16, and the first) in its own epilogue, the
+       full one and the dequant-only f32 one (and at 15 rows on a 3 x 5
+       image, C_in 40 and 48), the full one also against the CPU at the
+       3 x 3 convs of at most CPU_CHECK_MACS products; the routed kernel,
+       the first design, `_int_mm` alone, the plain version and cuDNN's
+       bf16 conv timed in turns (graph replays) beside the int8 bound, per
+       shape, per class and summed over a forward;
+       the teacher's forward alone on that batch, fused int8 (and with
+       every conv on the first design), unfused int8 and bf16, in turns;
        training: `build_training(..., teacher=)` with the teacher of
        `ov3det_torch.main.build_teacher`, one warm-up and 3 timed steps,
        each launching FPS twice, the ball-group once, each attention
@@ -311,15 +315,21 @@ def card_line() -> str:
 
 def ptxas_summary(log: str) -> list:
     """One line per compiled kernel from nvcc's `-Xptxas -v` report:
-    registers, spill stores and shared memory."""
+    registers, spill stores, shared memory and any stack frame (local
+    memory, such as an array indexed at run time)."""
     import re
 
     lines, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         tile = re.search(r"ball_group_tileILi([01])ELi(\d+)E", m.group(1)) if m else None
+        conv = re.search(r"(quant_conv_kernel|quant_conv_wgmma)I((?:Li\d+E)+)(13__nv_bfloat16|f)E",
+                         m.group(1)) if m else None
         if tile:
             kernel = f"ball_group_tile<{('fill', 'sources')[int(tile.group(1))]}, {tile.group(2)}>"
+        elif conv:
+            ints = re.findall(r"Li(\d+)E", conv.group(2))
+            kernel = f"{conv.group(1)}<{', '.join(ints + ['bf16' if conv.group(3) != 'f' else 'f32'])}>"
         elif m:
             t = re.search(r"(attn_(?:fwd|dq|dkv)_(?:bf16|f32|wgmma)|fps_kernel|fps_cluster_kernel|"
                           r"pick_kernel|fill_kernel)(?:ILi(\d+)E)?(?:ILb([01])E|Lb([01])E)?", m.group(1))
@@ -329,13 +339,22 @@ def ptxas_summary(log: str) -> list:
             kernel = (t.group(1) + (f"<{', '.join(args)}>" if args else "")) if t else m.group(1)
         elif "spill stores" in line and kernel:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+            frame = re.search(r"(\d+) bytes stack frame", line).group(1)
         elif "Used" in line and "registers" in line and kernel:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             smem = re.search(r"(\d+) bytes smem", line)
             lines.append(f"{kernel}: {regs} registers, {spill} B spilled, "
-                         f"{smem.group(1) if smem else 0} B shared")
+                         f"{smem.group(1) if smem else 0} B shared"
+                         + (f", {frame} B stack frame" if frame != "0" else ""))
             kernel = None
     return lines
+
+
+def wgmma_advisories(log: str) -> list:
+    """ptxas's advisories that it serialised a kernel's wgmma instructions
+    (or ignored its setmaxnreg) in an `-Xptxas -v` report."""
+    return [line.strip() for line in log.splitlines()
+            if ("wgmma" in line and "serializ" in line.lower()) or "setmaxnreg ignored" in line]
 
 
 def sass_summary() -> list:
@@ -388,6 +407,28 @@ def sass_summary() -> list:
                 ffma[kernel] = 0
         elif kernel and re.search(r"\bFFMA\b", line):
             ffma[kernel] += 1
+    # the trunk conv's wgmma design: integer warpgroup products (IGMMA) and
+    # cp.async alone, no mma.sync (IMMA)
+    res = subprocess.run([tool, "-sass", str(_build.library_path("quant_conv"))],
+                         capture_output=True, text=True, timeout=300, check=True)
+    counts, kernel = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            t = re.search(r"quant_conv_wgmmaILi(\d+)E(13__nv_bfloat16|f)E", m.group(1))
+            kernel = (f"quant_conv_wgmma<{t.group(1)}, {'f32' if t.group(2) == 'f' else 'bf16'}>"
+                      if t else None)
+            if kernel:
+                counts[kernel] = dict(IGMMA=0, IMMA=0, LDGSTS=0)
+        elif kernel:
+            for op in ("IGMMA", "IMMA", "LDGSTS"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[kernel][op] += 1
+    for kernel, c in sorted(counts.items()):
+        require(c["IGMMA"] > 0 and c["LDGSTS"] > 0 and c["IMMA"] == 0,
+                f"{kernel} must run on wgmma and cp.async alone: {c}")
+        lines.append(f"{kernel}: {c['IGMMA']} IGMMA, {c['IMMA']} IMMA, {c['LDGSTS']} LDGSTS in its SASS")
+    require(len(counts) == 4, f"quant_conv: expected 4 wgmma kernels in the SASS, found {sorted(counts)}")
     modes = sorted(k.split("<")[1].split(",")[0] for k in ffma)
     require(modes == ["fill", "fill", "sources"],
             f"ball_group: expected the forward at two tiles and the pick pass in the SASS, found "
@@ -2127,16 +2168,18 @@ def conv_label(key) -> str:
 def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> dict:
     """Phase 10's kernel check, at every distinct trunk conv of the int8
     teacher's forward on an OV batch (8 canvases, 128 boxes each) and on the
-    activations that forward gives it: `quant_conv` equals
-    `quant_conv_plain` bit for bit in the forward's epilogue, in the full
-    one (bias, a random residual, ReLU, bf16 and int8 out) and in the
-    dequant-only one with an f32 output ("static" and "dynamic" modes of an
-    f32 tower); then, in turns, the kernel, `torch._int_mm` alone on the
+    activations that forward gives it: `quant_conv` (the design `_route`
+    picks) and its first design (`_impl="mma"`) equal `quant_conv_plain`
+    bit for bit in the forward's epilogue, in the full one (bias, a random
+    residual, ReLU, bf16 and int8 out) and in the dequant-only one with an
+    f32 output ("static" and "dynamic" modes of an f32 tower); then, in
+    turns, the routed kernel, the first design, `torch._int_mm` alone on the
     im2col, the plain version (im2col, `_int_mm`, the elementwise ops) and
     cuDNN's bf16 conv of the same shape, each by replays of a CUDA graph of
     QUANT_REPS calls, beside the int8 bound.  The quantise passes likewise
-    (kernel, plain version, `F.avg_pool2d` alone).  A conv of 15 rows on an
-    odd 3 x 5 image, C_in 40, is checked too.  Returns the kernels-line
+    (kernel, plain version, `F.avg_pool2d` alone).  Two convs of 15 rows on
+    an odd 3 x 5 image are checked too: C_in 40 (the first design) and C_in
+    48 (the wgmma design, ragged in M and N).  Returns the kernels-line
     entries, times summed over one forward's calls."""
     from ov3det_torch.ops.kernels import quant_conv as qc
 
@@ -2148,12 +2191,16 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
             f"the teacher's forward made {n_conv} conv and {n_pool} quantise-pass calls, expected "
             f"{TEACHER_STEP}")
     g = torch.Generator(device=dev).manual_seed(14)
-    xs = torch.randint(-127, 128, (1, 3, 5, 40), generator=g, device=dev, dtype=torch.int8)
-    ks = torch.randint(-127, 128, (40, 9 * 40), generator=g, device=dev, dtype=torch.int8)
-    small = [xs, ks, 3, 1, torch.tensor(0.02, device=dev), torch.rand(40, generator=g, device=dev),
-             torch.randn(40, generator=g, device=dev), None, True, torch.tensor(0.05, device=dev),
-             True, torch.bfloat16]
-    cases = {**convs, ("small",): {"calls": 0, "args": small}}
+    cases = dict(convs)
+    for c_small in (40, 48):  # the first design's 8-byte gathers, the wgmma design's ragged tile
+        xs = torch.randint(-127, 128, (1, 3, 5, c_small), generator=g, device=dev, dtype=torch.int8)
+        ks = torch.randint(-127, 128, (c_small, 9 * c_small), generator=g, device=dev,
+                           dtype=torch.int8)
+        small = [xs, ks, 3, 1, torch.tensor(0.02, device=dev),
+                 torch.rand(c_small, generator=g, device=dev),
+                 torch.randn(c_small, generator=g, device=dev), None, True,
+                 torch.tensor(0.05, device=dev), True, torch.bfloat16]
+        cases[("small", c_small)] = {"calls": 0, "args": small}
     totals = collections.Counter()
     classes = collections.defaultdict(collections.Counter)  # class -> sums over its calls
     cpu_checked = 0
@@ -2170,20 +2217,24 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
                              s_next if s_next is not None else s_x, True, torch.bfloat16],
                     "dequant only, f32": [xq, kq, k, pad, s_x, scale, None, None, False, None,
                                           True, None]}
+        route = qc._route(C, N, k)
         for name, args in variants.items():
-            got, want = qc.quant_conv(*args), qc.quant_conv_plain(*args)
-            torch.cuda.synchronize()
-            for a, b in zip(got, want):
-                require((a is None) == (b is None) and (a is None or torch.equal(a, b)),
-                        f"quant_conv {key} {name}: the kernel differs from the plain version")
+            want = qc.quant_conv_plain(*args)
+            for impl in (None, "mma"):
+                got = qc.quant_conv(*args, _impl=impl)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    require((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                            f"quant_conv {key} {name}: the {impl or route} design differs from "
+                            f"the plain version")
         if k == 3 and B * H * W * 9 * C * N <= CPU_CHECK_MACS:  # the card against the CPU
             cpu = [t.cpu() if isinstance(t, torch.Tensor) else t for t in variants["full"]]
             for a, b in zip(qc.quant_conv(*variants["full"]), qc.quant_conv_plain(*cpu)):
                 require(torch.equal(a.cpu(), b), f"quant_conv {key}: the card differs from the CPU")
             cpu_checked += 1
-        if key == ("small",):
-            print(f"quant_conv 3x3 40->40 at 1x3x5 (15 rows): equal to the plain version bit for "
-                  f"bit in the three epilogues")
+        if key[0] == "small":
+            print(f"quant_conv 3x3 {C}->{N} at 1x3x5 (15 rows), route {route}: it and the first "
+                  f"design equal to the plain version bit for bit in the three epilogues")
             continue
         a = qc.im2col_int8(xq, k, pad).contiguous()
         x_bf = xq.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
@@ -2191,6 +2242,7 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
         w_bf = w_bf.contiguous(memory_format=torch.channels_last)
         args = entry["args"]
         runs = {"kernel": lambda: qc.quant_conv(*args),
+                "first": lambda: qc.quant_conv(*args, _impl="mma"),
                 "int_mm": lambda: torch._int_mm(a, kq.t()),
                 "plain": lambda: qc.quant_conv_plain(*args),
                 "cudnn bf16": lambda: torch.nn.functional.conv2d(x_bf, w_bf, padding=pad)}
@@ -2214,9 +2266,12 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
         classes[cls]["bound"] += calls * b_ms
         totals["bound"] += calls * b_ms
         totals[f"bound {by}"] += calls * b_ms
-        print(f"quant_conv {conv_label(key)}, {calls} calls: M {M}, K {K}, N {N}; equal to the "
-              f"plain version bit for bit in the three epilogues; kernel {best['kernel']:.4f} ms "
-              f"({ops / best['kernel'] / 1e9:.0f} TOPS), _int_mm alone {best['int_mm']:.4f} ms, "
+        bn = qc._n_tile(N, k * k * C)
+        design = f"wgmma, tile {qc.WGMMA_ROWS}x{bn}" if route == "wgmma" else "mma"
+        print(f"quant_conv {conv_label(key)}, {calls} calls: M {M}, K {K}, N {N}, route {design}; "
+              f"it and the first design equal to the plain version bit for bit in the three "
+              f"epilogues; kernel {best['kernel']:.4f} ms ({ops / best['kernel'] / 1e9:.0f} TOPS), "
+              f"first design {best['first']:.4f} ms, _int_mm alone {best['int_mm']:.4f} ms, "
               f"plain {best['plain']:.4f} ms, cuDNN bf16 conv {best['cudnn bf16']:.4f} ms; bound "
               f"{b_ms:.4f} ms ({by}; int8 operations {ops / INT8_PEAK * 1e3:.4f} ms, bytes "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) ({card})")
@@ -2225,13 +2280,15 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
           f"for bit at the {cpu_checked} 3x3 shapes of at most {CPU_CHECK_MACS:.1e} products")
     conv_by = "operations" if totals["bound operations"] >= totals["bound bytes"] else "bytes"
     print(f"quant_conv over one teacher forward ({n_conv} calls): kernel {totals['kernel']:.3f} ms, "
-          f"_int_mm alone {totals['int_mm']:.3f} ms, plain {totals['plain']:.3f} ms, cuDNN bf16 "
+          f"first design {totals['first']:.3f} ms, _int_mm alone {totals['int_mm']:.3f} ms, "
+          f"plain {totals['plain']:.3f} ms, cuDNN bf16 "
           f"{totals['cudnn bf16']:.3f} ms, bound {totals['bound']:.3f} ms (operations-bound "
           f"convs {totals['bound operations']:.3f} ms, bytes-bound {totals['bound bytes']:.3f} "
           f"ms) ({card})")
     for cls, t in sorted(classes.items()):
-        print(f"quant_conv, {cls}: {t['calls']} calls, kernel {t['kernel']:.3f} ms, _int_mm alone "
-              f"{t['int_mm']:.3f} ms, plain {t['plain']:.3f} ms, cuDNN bf16 {t['cudnn bf16']:.3f} "
+        print(f"quant_conv, {cls}: {t['calls']} calls, kernel {t['kernel']:.3f} ms, first design "
+              f"{t['first']:.3f} ms, _int_mm alone {t['int_mm']:.3f} ms, plain {t['plain']:.3f} "
+              f"ms, cuDNN bf16 {t['cudnn bf16']:.3f} "
               f"ms, bound {t['bound']:.3f} ms, summed over a forward ({card})")
 
     ptotals = collections.Counter()
@@ -2264,8 +2321,8 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
           f"{ptotals['bound']:.3f} ms; the check took {time.perf_counter() - t0:.1f} s ({card})")
     per = f"summed over one teacher forward ({n_conv} calls, {len(convs)} shapes)"
     del convs, pools
-    return {"quant_conv": dict(max_abs_err=0.0, ms=totals["kernel"], plain_ms=totals["plain"],
-                               bound_ms=totals["bound"], bound_by=conv_by,
+    return {"quant_conv": dict(max_abs_err=0.0, ms=totals["kernel"], first_ms=totals["first"],
+                               plain_ms=totals["plain"], bound_ms=totals["bound"], bound_by=conv_by,
                                library_ms=totals["cudnn bf16"], int_mm_ms=totals["int_mm"],
                                per=per, library="cuDNN bf16 conv2d of each shape"),
             "pool_quantize": dict(max_abs_err=0.0, ms=ptotals["kernel"], plain_ms=ptotals["plain"],
@@ -2349,24 +2406,39 @@ def teacher_forward_times(card: str, teacher, state: dict, images, boxes,
                           dev: torch.device) -> None:
     """The teacher's forward alone on one OV batch (8 canvases, 128 boxes
     each, 4 chunks of 256 regions): the fused int8 teacher the step runs,
-    the unfused int8 module path and a bf16 teacher from the same weights,
-    timed in turns (fused, unfused, bf16, bf16, unfused, fused); the fused
-    features equal the unfused ones bit for bit."""
+    the same with every trunk conv on the first design, the unfused int8
+    module path and a bf16 teacher from the same weights, timed in turns
+    (fused, first, unfused, bf16, bf16, unfused, first, fused); the fused
+    features equal the unfused ones, and the first design's, bit for bit."""
+    from ov3det_torch.models import clip_resnet as cr
     from ov3det_torch.models.regionclip import RegionCLIPTeacher, quantize_teacher_params
 
     unfused = teacher.clone(fused=False).load(teacher.state_dict())
     bf16 = RegionCLIPTeacher(compute_dtype="bfloat16", device=dev)
     bf16.load(quantize_teacher_params({k: v.to(dev) for k, v in state.items()}, "bfloat16"))
-    models = {"int8 fused": teacher, "int8 unfused": unfused, "bf16": bf16}
+    routed = cr.quant_conv
+
+    def first_design(*args):
+        cr.quant_conv = functools.partial(routed, _impl="mma")
+        try:
+            return teacher(*args)
+        finally:
+            cr.quant_conv = routed
+
+    models = {"int8 fused": teacher, "int8 fused, first design": first_design,
+              "int8 unfused": unfused, "bf16": bf16}
     ms = {n: [] for n in models}
     with torch.no_grad():
-        for name in ("int8 fused", "int8 unfused", "bf16", "bf16", "int8 unfused", "int8 fused"):
+        for name in list(models) + list(models)[::-1]:
             ms[name].append(cuda_ms(lambda: models[name](images, boxes), 2))
         got, plain = teacher(images, boxes), unfused(images, boxes)
         require(torch.equal(got, plain), "teacher forward: fused and unfused int8 features differ")
+        require(torch.equal(got, first_design(images, boxes)),
+                "teacher forward: the wgmma and first designs' int8 features differ")
         cos = torch.nn.functional.cosine_similarity(got, bf16(images, boxes), dim=-1)
     best = {n: min(v) for n, v in ms.items()}
-    print(f"teacher forward alone, 8 canvases x 128 boxes: int8 fused {best['int8 fused']:.2f} ms, "
+    print(f"teacher forward alone, 8 canvases x 128 boxes: int8 fused {best['int8 fused']:.2f} ms "
+          f"(the first design {best['int8 fused, first design']:.2f} ms), "
           f"int8 unfused {best['int8 unfused']:.2f} ms, bf16 {best['bf16']:.2f} ms (CUDA events, "
           f"in turns; each {ms}); fused equal to unfused bit for bit; int8 fused "
           f"{'no slower' if best['int8 fused'] <= best['bf16'] else 'SLOWER'} than bf16; int8 vs "
@@ -4265,6 +4337,10 @@ def main() -> int:
             if line not in many:
                 print(f"  {name}: {line}")
             require("_wgmma" not in line or ", 0 B spilled" in line, f"{line}: a wgmma kernel spills")
+            require("quant_conv_wgmma" not in line or "stack frame" not in line,
+                    f"{line}: the trunk conv's accumulators must stay in registers")
+        advisories = wgmma_advisories(log)
+        require(not advisories, f"{name}: ptxas serialised wgmma or ignored setmaxnreg: {advisories}")
         if many:  # one instantiation per count of points a thread, with and without a cluster
             facts = [line.split(": ")[1].split(", ") for line in many]  # registers, spills, shared
             regs = [int(f[0].split()[0]) for f in facts]

@@ -10,46 +10,84 @@
 // `ov3det_torch/ops/kernels/quant_conv.py`, whose outputs these equal bit
 // for bit.
 //
-// The conv (`quant_conv_kernel<BN, VEC, OutT>`), stride 1, "same" padding:
-//   * a GEMM of M = B*H*W output pixels, N = C_out, K = k*k*C_in in the
-//     (kh, kw, C_in) order the int8 kernel (N, K) is stored in.  A CTA
-//     computes a 128 x BN tile (BN 128, or 64 when C_out <= 64) with 8 warps
-//     of `mma.sync.m16n8k32` s8 x s8 -> s32, exact;
-//   * K streams through a 4-stage `cp.async` ring of 64-byte slices of A and
-//     B, rows XOR-swizzled by 16-byte chunk so that `ldmatrix` reads no bank
-//     twice.  A is never materialised: each copy of VEC bytes (16, or 8 when
-//     C_in is not a multiple of 16) is one tap's channels of one pixel, its
-//     address from the tap's offset; a tap outside the image, a row past M and
-//     a column past K are zero-filled (the quantised zero);
-//   * the epilogue, per element, in the plain version's order, with no
-//     contracted multiply-add: acc -> f32 (round to nearest), times
-//     (s_x * scale[c]), plus bias[c] ("folded"), rounded to the output type
-//     (bf16, or f32 for an f32 tower), plus the residual rounded again (JAX
-//     rounds the conv's output before `out + identity`), ReLU, then the
-//     output and/or clamp(rint(v / s_next), -127, 127) as int8 for the next
-//     conv.  The scales are read from device memory: nothing waits on the
-//     host.  The tile passes through shared memory (the ring's bytes) after
-//     the dequant, so that the residual's loads and the outputs' stores are
-//     16 (int8: 8) bytes a thread along a row: with stores in the mma
-//     layout, res5's 1 x 1 640 -> 2560 with a residual took 0.487 ms
-//     against a bound of 0.084 (chip_smoke, NVIDIA H100 80GB HBM3).
-// CTAs walk the N tiles of an M tile first, so that an A tile is read from
-// device memory once and from L2 by the other N tiles.
+// Two designs of the conv compute the same bits; `ov3_quant_conv` routes by
+// shape (`wg::takes`: C_in % 16 == 0 runs the wgmma design, which is every
+// conv of the RN50x4 teacher except the two C_in-40 stem convs), and
+// `ov3_quant_conv_mma` keeps the first design for any shape, as a yardstick.
+// Both: stride 1, "same" padding, a GEMM of M = B*H*W output pixels, N =
+// C_out, K = k*k*C_in in the (kh, kw, C_in) order the int8 kernel (N, K) is
+// stored in; A is never materialised: each copy is one tap's channels of one
+// pixel, its address from the tap's offset, and a tap outside the image, a
+// row past M and a column past K are zero-filled (the quantised zero).  The
+// epilogue, per element, in the plain version's order with no contracted
+// multiply-add: acc -> f32 (round to nearest), times (s_x * scale[c]), plus
+// bias[c] ("folded"), rounded to the output type (bf16, or f32 for an f32
+// tower), plus the residual rounded again (JAX rounds the conv's output
+// before `out + identity`), ReLU, then the output and/or clamp(rint(v /
+// s_next), -127, 127) as int8 for the next conv.  The scales are read from
+// device memory: nothing waits on the host.  The tile passes through shared
+// memory after the dequant, so that the residual's loads and the outputs'
+// stores are 16 (int8: 8) bytes a thread along a row (stores in the mma
+// layout took res5's 1 x 1 640 -> 2560 with a residual to 0.487 ms against
+// a bound of 0.084; chip_smoke, NVIDIA H100 80GB HBM3).
+//
+// The first design (`quant_conv_kernel<BN, VEC, OutT>`): a CTA a 128 x BN
+// tile (BN 128, or 64 when C_out <= 64), 8 warps of `mma.sync.m16n8k32` s8 x
+// s8 -> s32, K through a 4-stage `cp.async` ring of 64-byte slices of A and B
+// (rows XOR-swizzled by 16-byte chunk for `ldmatrix`), copies of 16 bytes or
+// 8 when C_in is not a multiple of 16; the grid is a CTA a tile, the N tiles
+// of an M tile first.  Its losses (35.2 ms over the 141 convs of a teacher
+// forward against a bound of 7.53, chip_smoke, NVIDIA H100 80GB HBM3,
+// 700.00 W): mma.sync reaches part of the int8 peak (res5's 3 x 3 at 409-544
+// TOPS of 1979), and each CTA's ring fills only inside its own tile, so a
+// 1 x 1 conv of K 80-320 runs 1-5 K steps and then an epilogue that nothing
+// overlaps (the backbone's 1 x 1 convs at 4-12x their bound).
+//
+// The wgmma design (`wg::quant_conv_wgmma<BN, OutT>`, BN = `wg::n_tile(N,
+// K)`: 160 for K >= 1024 and C_out above 80, else 80; both divide every
+// C_out of the teacher they meet):
+//   * products on `wgmma.mma_async` m64nBNk32 s8 x s8 -> s32, both operands
+//     K-major from 128-byte-swizzled shared memory (a stage is 128 bytes of K:
+//     four k32 steps, each 32 bytes on along the descriptor);
+//   * warp-specialised: warpgroup 0 gathers A (the implicit im2col, 16 bytes
+//     a copy, into the swizzle: chunk c of row r at r * 128 + ((c ^ r % 8) <<
+//     4)) and B by cp.async into a ring of 5-6 stages, each copy arriving on
+//     the stage's mbarrier as it lands; warpgroups 1 and 2 take the tiles in
+//     turn (ping-pong), each a whole 128 x BN tile, keep one stage's products
+//     in flight and hand stages back on a second mbarrier;
+//   * persistent: one CTA an SM walks the tile list (the N tiles of an M tile
+//     adjacent, so that the CTAs at work share their A tiles in L2) with no
+//     counter to reset.  The ring runs on across tiles, and a warpgroup's
+//     epilogue overlaps the other's products and the producer's loads of the
+//     next tiles.  The epilogue takes the residual by cp.async into its
+//     staging tile (the first chunk while the tile's products run), so that
+//     no thread waits on it in registers, and quantises by the reciprocal of
+//     the scale with an exact fall-back to the division (`store_q8_fast`):
+//     a division's branch to its slow path kept a thread's 8 quantises from
+//     overlapping, with 8 epilogue warps an SM.
+// Against the first design (chip_smoke, NVIDIA H100 80GB HBM3, 700.00 W): the
+// 141 convs of a teacher forward 22.1 ms against 35.2; a 128 x 160 tile
+// reads 288 bytes of operands from L2 for 2 * 128 * 160 int8 operations a
+// byte of K, so res5's 3 x 3 convs at 600-740 TOPS draw about 5 TB/s from L2
+// (PERF.md).
+// Bound on this card (chip_smoke computes it per shape from the call's own
+// inputs): the larger of 2 M N K int8 operations at 1979 TOPS and the bytes
+// (A and the kernel read once, the scales, the residual, the outputs) at
+// 3.35 TB/s.  Over a teacher forward's 141 convs: 10.67 T operations (5.4
+// ms) and about 14 GB (4.2 ms); res5's convs and the 3 x 3 convs are
+// operation-bound, the 1 x 1 convs of small K byte-bound.
 //
 // The pass (`pool_quantize_kernel<T, POOL>`): 8 channels a thread; with POOL
 // 2 the four values are summed in f32 in F.avg_pool2d's order ((0,0), (0,1),
 // (1,0), (1,1), from 0), divided by 4 and rounded to the input type, then
 // quantised with one or two scales (two consumers of one pooled tensor).
-//
-// Bound: the trunk's 141 convs of an OV step are 10.67 T int8 operations
-// (5.4 ms at the dense int8 peak) and about 14 GB of activations (4.2 ms at
-// the memory rate); the large ones are operation-bound, the 1 x 1 convs at
-// the narrow stages near the balance point.  mma.sync reaches part of the
-// int8 peak (the full rate needs wgmma, later work); the design removes the
-// im2col, the dtype copies and the elementwise passes around the product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -61,6 +99,7 @@ constexpr int kMaxDevices = 64;
 constexpr int kPoolThreads = 256;
 
 int opted_in[kMaxDevices] = {0};
+int sm_count[kMaxDevices] = {0};
 
 struct ConvArgs {
   const int8_t* x;        // (B, H, W, C) int8
@@ -86,6 +125,11 @@ struct Io<__nv_bfloat16> {
   static __device__ __forceinline__ void store2(void* p, int64_t i, float a, float b) {
     *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p) + i) =
         __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+    a = __low2float(v);
+    b = __high2float(v);
   }
   using Chunk = uint4;  // 8 values
   static __device__ __forceinline__ Chunk load_chunk(const __nv_bfloat16* p) {
@@ -116,6 +160,11 @@ struct Io<float> {
   static __device__ __forceinline__ float round(float v) { return v; }
   static __device__ __forceinline__ void store2(void* p, int64_t i, float a, float b) {
     *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
+  }
+  static __device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a = v.x;
+    b = v.y;
   }
   struct Chunk {  // 8 values
     float4 lo, hi;
@@ -151,6 +200,37 @@ __device__ __forceinline__ void store_q8(int8_t* q, const float (&v)[8], float s
   raw.x = *reinterpret_cast<uint32_t*>(&lo);
   raw.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(q) = raw;
+}
+
+// `store_q8` without its divisions, for the wgmma design's epilogue.  With rs
+// = 1 / s rounded, t = v * rs and the rounded v / s differ by at most 3 *
+// 2^-24 of their magnitude (1 / s's, the product's and the quotient's
+// roundings): below 128 in magnitude, by at most 2.3e-5.  So rint(t) =
+// rint(v / s) unless t lies within that of a half-integer.  Stores the 8
+// codes from t and returns whether any t lies within 2^-14 of a
+// half-integer or s is outside [2^-125, 2^125] (`exact`: 1 / s not a normal
+// number): the caller then stores them again with `store_q8`.  Beyond 127.5
+// in magnitude both clamp; NaN and infinities take the same path in both.
+// `quantize_fast_emulated` of tests/test_torch_quant_conv_hopper.py holds
+// this formula against `quantize_plain` on every boundary.
+__device__ __forceinline__ bool store_q8_fast(int8_t* q, const float (&v)[8], float rs,
+                                              bool exact) {
+  bool near = exact;
+  int8_t b[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float u = __fmul_rn(v[e], rs);
+    const float t = rintf(u);
+    near |= fabsf(__fsub_rn(fabsf(__fsub_rn(u, t)), 0.5f)) < 0x1p-14f;
+    b[e] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(t, -127.f), 127.f)));
+  }
+  char4 lo = make_char4(b[0], b[1], b[2], b[3]);
+  char4 hi = make_char4(b[4], b[5], b[6], b[7]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(q) = raw;
+  return near;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -438,6 +518,448 @@ pool_quantize_kernel(const T* __restrict__ x, int B, int H, int W, int C, const 
   }
 }
 
+// ------------------------------------------------------------ the wgmma design
+// (quant_conv_wgmma<BN, OutT>: see the note at the head of the file)
+namespace wg {
+
+constexpr int kBM = 128;         // output pixels a tile: one consumer warpgroup's
+constexpr int kBK = 128;         // bytes of K a stage: one 128-byte swizzle row
+constexpr int kThreads = 384;    // warpgroup 0 loads, warpgroups 1 and 2 multiply
+constexpr int kProducerRegs = 72, kConsumerRegs = 216;  // 168 a thread at launch
+constexpr int kSmemLimit = 232448;  // the opt-in maximum of a CTA on sm_90
+constexpr int kATileBytes = kBM * kBK;
+constexpr int kBarriers = 16 * 8 + 2 * 8;  // at most 8 stages' full and empty, two turns
+
+// The route, mirrored by `_route` and `_n_tile` of ops/kernels/quant_conv.py:
+// 16-byte gathers need C % 16 == 0 (a 16-byte chunk never straddles two taps).
+// The N tile is 80 or 160 (a consumer thread holds BN int32 sums): 160 where
+// the products dominate (K >= 1024: res5 and the 3 x 3 convs past the stem),
+// 80 where the epilogue does, which then keeps registers for its loads.
+__host__ __device__ constexpr bool takes(int C) { return C % 16 == 0; }
+__host__ __device__ constexpr int n_tile(int N, int K) { return N <= 80 || K < 1024 ? 80 : 160; }
+
+// columns the epilogue stages through shared memory at a time: 160 bytes of
+// a row, ten 16-byte copies of the residual a thread
+template <typename OutT>
+__host__ __device__ constexpr int chunk_cols() {
+  return static_cast<int>(160 / sizeof(OutT));
+}
+
+template <int BN>
+__host__ __device__ constexpr int stage_bytes() {
+  return kATileBytes + BN * kBK;  // a multiple of 1024: every tile stays swizzle-aligned
+}
+
+template <typename OutT>
+__host__ __device__ constexpr int pitch() {  // 16 bytes of padding a row: no bank conflicts
+  return chunk_cols<OutT>() + static_cast<int>(16 / sizeof(OutT));
+}
+
+template <typename OutT>
+__host__ __device__ constexpr int staging_bytes() {  // one (128, chunk) tile a consumer
+  return 2 * kBM * pitch<OutT>() * static_cast<int>(sizeof(OutT));
+}
+
+// as many ring stages as the opt-in limit holds after the staging, the
+// barriers and the alignment slack, at most 8
+template <int BN, typename OutT>
+__host__ __device__ constexpr int stages() {
+  constexpr int n = (kSmemLimit - 1024 - staging_bytes<OutT>() - kBarriers) / stage_bytes<BN>();
+  return n < 8 ? n : 8;
+}
+
+template <int BN, typename OutT>
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024 + stages<BN, OutT>() * stage_bytes<BN>() + staging_bytes<OutT>() + kBarriers;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// returns once the phase of parity `parity` has completed; a wait of 2^35
+// clocks (about 20 s) is a lost arrival, and traps: the launch then fails
+// with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity)) {
+    if (clock64() - t0 > (1LL << 35)) __trap();
+  }
+}
+
+// an arrival on `bar` once every cp.async this thread has issued has landed;
+// it counts as one of the barrier's expected arrivals
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the 128 threads of one consumer warpgroup (barrier 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// f(std::integral_constant<int, I>) for I in [I0, N): a loop whose index is a
+// compile-time constant in the body, so that the accumulators it indexes stay
+// in registers (indexed at run time, they would go to local memory)
+template <int I0, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I0 < N) {
+    f(std::integral_constant<int, I0>{});
+    static_for<I0 + 1, N>(f);
+  }
+}
+
+// keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products around them
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (this warpgroup's 64 x 80 int32 tile) = or += A (64 x 32 int8) B^T (B 80 x 32)
+__device__ __forceinline__ void wgmma_s8(int (&d)[40], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39} "
+      ", %40, %41, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (this warpgroup's 64 x 160 int32 tile) = or += A (64 x 32 int8) B^T (B 160 x 32)
+__device__ __forceinline__ void wgmma_s8(int (&d)[80], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79} "
+      ", %80, %81, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// One CTA an SM walks the tiles t = blockIdx.x, + gridDim.x, ... (tile t:
+// M tile t / NT, N tile t % NT, so the CTAs at work at any moment share
+// their A tiles through L2).  Warpgroup 0 gathers each stage (A: the
+// implicit im2col, 16 bytes a copy; B: 128 bytes of K of BN kernel rows)
+// into a ring of `stages()` stages by cp.async, each thread's copies
+// arriving on the stage's `full` barrier as they land.  Warpgroups 1 and 2
+// take the CTA's tiles in turn (ping-pong): each multiplies a whole 128 x BN
+// tile (two m64 products a k32 step) and hands each stage back on its
+// `empty` barrier, then runs the tile's epilogue while the other multiplies
+// the next tile.  A warpgroup starts a tile's products only after the other
+// has taken every stage of the tile before (the `turn` barriers), so that
+// no one waits on a stage two uses ahead of its slot.  The ring runs on
+// across tiles: the producer loads the next tiles while the epilogues run.
+template <int BN, typename OutT>
+__global__ void __launch_bounds__(kThreads, 1) quant_conv_wgmma(const ConvArgs p) {
+  constexpr int S = stages<BN, OutT>();
+  constexpr int kStage = stage_bytes<BN>();
+  constexpr int kChunk = chunk_cols<OutT>();
+  constexpr int kPitch = pitch<OutT>();
+  static_assert(BN % kChunk == 0 && kChunk % 8 == 0, "the epilogue's chunks tile BN");
+
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // the 128-byte swizzle needs 1024-aligned tiles
+  uint8_t* const base = smem_raw + (ring - raw);
+  OutT* const staging = reinterpret_cast<OutT*>(base + S * kStage);
+  const uint32_t full = ring + S * kStage + staging_bytes<OutT>();  // S barriers
+  const uint32_t empty = full + 8 * S;                              // S barriers
+  const uint32_t turn = empty + 8 * S;                              // 2 barriers
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 128);  // the producer's threads, as their copies land
+      mbar_init(empty + 8 * s, 4);   // the warps of the consumer of the stage
+    }
+    mbar_init(turn, 4);  // warpgroup 1 may start: warpgroup 2 has taken its stages
+    mbar_init(turn + 8, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int NT = (p.N + BN - 1) / BN;
+  const int tiles = ((p.M + kBM - 1) / kBM) * NT;
+  const int KT = (p.K + kBK - 1) / kBK;
+
+  if (tid < 128) {
+    // ---- the producer: one 16-byte chunk q of every 16th row of a stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int q = tid & 7, r0 = tid >> 3;
+    const int HW = p.H * p.W;
+    uint32_t it = 0;  // stages issued, over all tiles
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / NT) * kBM, n0 = (t % NT) * BN;
+      int a_m[kBM / 16];        // this thread's output pixels, -1 past M
+      uint32_t a_hw[kBM / 16];  // their (h << 16) | w
+#pragma unroll
+      for (int i = 0; i < kBM / 16; ++i) {
+        const int m = m0 + r0 + 16 * i;
+        const int hw = p.ksize == 1 ? 0 : m % HW;
+        a_m[i] = m < p.M ? m : -1;
+        // a 1 x 1 conv has no tap to bound: (0, 0) is inside every image
+        a_hw[i] = p.ksize == 1 ? 0u
+                               : (static_cast<uint32_t>(hw / p.W) << 16) |
+                                     static_cast<uint32_t>(hw % p.W);
+      }
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const uint32_t s = it % S;
+        mbar_wait(empty + 8 * s, ((it / S) & 1) ^ 1);  // the first round passes at once
+        const uint32_t a_s = ring + s * kStage, b_s = a_s + kATileBytes;
+        const int k = kt * kBK + q * 16;
+        const bool k_ok = k < p.K;  // K % 16 == 0: a chunk lies wholly inside K or past it
+        const int tap = k / p.C;
+        const int c = k - tap * p.C;
+        const int dy = tap / p.ksize - p.pad, dx = tap % p.ksize - p.pad;
+#pragma unroll
+        for (int i = 0; i < kBM / 16; ++i) {
+          const int r = r0 + 16 * i;
+          const int h = static_cast<int>(a_hw[i] >> 16) + dy;
+          const int w = static_cast<int>(a_hw[i] & 0xFFFFu) + dx;
+          const bool ok = k_ok && a_m[i] >= 0 && h >= 0 && h < p.H && w >= 0 && w < p.W;
+          const int8_t* src =
+              ok ? p.x + (static_cast<int64_t>(a_m[i]) + dy * p.W + dx) * p.C + c : p.x;
+          cp_async16(a_s + ov3::hopper::swizzled_offset(r, q), src, ok);
+        }
+        const int8_t* w_row = p.w + static_cast<int64_t>(n0 + r0) * p.K + k;  // one pointer walks
+        const int64_t w_step = 16 * static_cast<int64_t>(p.K);                 // the 16th rows
+#pragma unroll
+        for (int i = 0; i < BN / 16; ++i, w_row += w_step) {
+          const int r = r0 + 16 * i;
+          const bool ok = k_ok && n0 + r < p.N;
+          cp_async16(b_s + ov3::hopper::swizzled_offset(r, q), ok ? w_row : p.w, ok);
+        }
+        cp_async_arrive(full + 8 * s);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // ---- the consumers: warpgroup cw takes the CTA's tiles cw, cw + 2, ...
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cw = (tid >> 7) - 1, ct = tid & 127;
+    const int warp = ct >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator row group / column pair
+    OutT* const out_tile = staging + cw * kBM * kPitch;
+    const uint32_t out_tile_s = smem_u32(out_tile);
+    const OutT* residual = static_cast<const OutT*>(p.residual);
+    const float sx = *p.s_x;
+    const float sn = p.out_q != nullptr ? *p.s_next : 1.f;
+    const bool exact = !(sn >= 0x1p-125f && sn <= 0x1p125f);  // 1 / sn not normal: divide
+    const float rs = __frcp_rn(sn);
+    constexpr int kPieces = kChunk / 8;                 // 8 outputs a piece
+    constexpr int kCopies = kChunk * sizeof(OutT) / 16;  // 16-byte residual copies a row
+
+    // the residual's (128, kChunk) part at column `col` into the staging
+    // tile, by cp.async (zero past M and N), one group
+    auto fetch_residual = [&](int m0, int col) {
+#pragma unroll 1  // rolled: unrolled, its addresses take registers the sums need
+      for (int i2 = 0; i2 < kCopies; ++i2) {
+        const int i = ct + i2 * 128;
+        const int r = i / kCopies, e = (i % kCopies) * static_cast<int>(16 / sizeof(OutT));
+        const bool ok = m0 + r < p.M && col + e < p.N;  // N % 8 == 0: a copy is wholly inside
+        const OutT* src = ok ? residual + static_cast<int64_t>(m0 + r) * p.N + col + e : residual;
+        cp_async16(out_tile_s + (r * kPitch + e) * sizeof(OutT), src, ok);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+
+    int acc[2][BN / 2];  // rows 0-63 and 64-127 of the tile
+    uint32_t done = 0;  // tiles of this warpgroup so far
+    for (int j = cw, t = blockIdx.x + cw * gridDim.x; t < tiles;
+         j += 2, t += 2 * gridDim.x, ++done) {
+      const int m0 = (t / NT) * kBM, n0 = (t % NT) * BN;
+      warpgroup_sync(1 + cw);  // the last tile's epilogue is done with the staging tile
+      if (residual != nullptr) fetch_residual(m0, n0);  // lands while the products run
+
+      // wait for the other warpgroup to have taken the stages of tile j - 1
+      if (j > 0) mbar_wait(turn + 8 * cw, (cw == 0 ? done - 1 : done) & 1);
+      uint32_t it = static_cast<uint32_t>(j) * KT;  // the ring's stage of this tile's first
+      // stage `it` of the ring into the accumulators; the tile's first stage
+      // starts them at zero (its first k32 step does not add)
+      auto multiply = [&](uint32_t i, int add) {
+        const uint32_t s = i % S;
+        mbar_wait(full + 8 * s, (i / S) & 1);
+        ov3::hopper::fence_proxy_async();  // the landed copies, to wgmma's async proxy
+        const uint32_t a_s = ring + s * kStage;
+        const uint64_t da0 = ov3::hopper::tile_desc(a_s);
+        const uint64_t da1 = ov3::hopper::tile_desc(a_s + 64 * kBK);
+        const uint64_t db = ov3::hopper::tile_desc(a_s + kATileBytes);
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        ov3::hopper::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 32; ++ks) {  // k32 steps: 32 bytes = 2 descriptor units
+          wgmma_s8(acc[0], da0 + 2 * ks, db + 2 * ks, add | ks);
+          wgmma_s8(acc[1], da1 + 2 * ks, db + 2 * ks, add | ks);
+        }
+        ov3::hopper::wgmma_commit();
+      };
+      multiply(it++, 0);
+      for (int kt = 1; kt < KT; ++kt, ++it) {
+        multiply(it, 1);
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+      }
+      if (lane == 0) mbar_arrive(turn + 8 * (1 - cw));  // every stage of this tile is taken
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+
+      // the epilogue, kChunk columns at a time.  Pass 1, in the accumulator
+      // layout (acc[h][4 j + {0, 1}]: row 64 h + 16 warp + g, columns 8 j +
+      // 2 t4 + {0, 1}; acc[h][4 j + {2, 3}]: 8 rows below): dequant, bias,
+      // rounded to the output type, plus the residual the staging tile holds
+      // there (rounded again), back into the staging tile.  Pass 2, 8
+      // outputs of a row a thread, coalesced: ReLU, the output and the next
+      // conv's int8.
+      static_for<0, BN / kChunk>([&](auto chunk) {
+        constexpr int ch = decltype(chunk)::value;
+        if (residual != nullptr) {
+          if (ch > 0) {
+            warpgroup_sync(1 + cw);  // every thread is done with the last chunk's staging
+            fetch_residual(m0, n0 + ch * kChunk);
+          }
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        }
+        warpgroup_sync(1 + cw);  // the residual has landed; the last pass 2 is done
+#pragma unroll
+        for (int jn = ch * kChunk / 8; jn < (ch + 1) * kChunk / 8; ++jn) {
+          const int c = jn * 8 + t4 * 2;
+          const int n = n0 + c;
+          if (n >= p.N) continue;  // N % 8 == 0: n + 1 < N with n
+          const float sc0 = __fmul_rn(sx, p.scale[n]), sc1 = __fmul_rn(sx, p.scale[n + 1]);
+          const float b0 = p.bias != nullptr ? p.bias[n] : 0.f;
+          const float b1 = p.bias != nullptr ? p.bias[n + 1] : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int r = 64 * h + warp * 16 + g + half * 8;
+              const int at = r * kPitch + c - ch * kChunk;
+              float v0 = __fmul_rn(__int2float_rn(acc[h][4 * jn + 2 * half]), sc0);
+              float v1 = __fmul_rn(__int2float_rn(acc[h][4 * jn + 2 * half + 1]), sc1);
+              if (p.bias != nullptr) {
+                v0 = __fadd_rn(v0, b0);
+                v1 = __fadd_rn(v1, b1);
+              }
+              if (residual != nullptr) {  // rounded to OutT, then the sum rounded again
+                float a0, a1;
+                Io<OutT>::load2(out_tile + at, a0, a1);
+                v0 = __fadd_rn(Io<OutT>::round(v0), a0);
+                v1 = __fadd_rn(Io<OutT>::round(v1), a1);
+              }
+              Io<OutT>::store2(out_tile, at, v0, v1);  // rounds to OutT
+            }
+          }
+        }
+        warpgroup_sync(1 + cw);
+        // pass 2 without a branch: the int8 codes from the reciprocal, one
+        // bit a piece where the division must decide, redone after the loop
+        uint32_t redo = 0;
+        auto piece = [&](int i2, float (&v)[8], int64_t& off) {
+          const int i = ct + i2 * 128;
+          const int r = i / kPieces, c = (i % kPieces) * 8;
+          const int m = m0 + r, n = n0 + ch * kChunk + c;
+          off = static_cast<int64_t>(m) * p.N + n;
+          if (m >= p.M || n >= p.N) return false;
+          Io<OutT>::load8(out_tile + r * kPitch + c, v);
+          if (p.relu) {  // NaN stays NaN, as torch.relu keeps it
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = v[e] < 0.f ? 0.f : v[e];
+          }
+          return true;
+        };
+#pragma unroll
+        for (int i2 = 0; i2 < kPieces; ++i2) {
+          float v[8];
+          int64_t off;
+          if (!piece(i2, v, off)) continue;
+          if (p.out != nullptr) Io<OutT>::store8(static_cast<OutT*>(p.out) + off, v);
+          if (p.out_q != nullptr && store_q8_fast(p.out_q + off, v, rs, exact)) redo |= 1u << i2;
+        }
+        if (redo != 0) {  // rare: a value within 2^-14 of a half-integer step
+          for (int i2 = 0; i2 < kPieces; ++i2) {
+            float v[8];
+            int64_t off;
+            if ((redo >> i2 & 1u) && piece(i2, v, off)) store_q8(p.out_q + off, v, sn);
+          }
+        }
+      });
+    }
+  }
+}
+
+}  // namespace wg
+
 template <int BN, int VEC, typename OutT>
 cudaError_t launch_conv(const ConvArgs& p, cudaStream_t stream) {
   const size_t bytes = smem_bytes<BN, OutT>();
@@ -453,17 +975,39 @@ cudaError_t opt_in() {
                               static_cast<int>(smem_bytes<BN, OutT>()));
 }
 
+template <int BN, typename OutT>
+cudaError_t launch_wgmma(const ConvArgs& p, int sms, cudaStream_t stream) {
+  const int64_t tiles =
+      static_cast<int64_t>((p.M + wg::kBM - 1) / wg::kBM) * ((p.N + BN - 1) / BN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // persistent: one CTA an SM
+  wg::quant_conv_wgmma<BN, OutT><<<grid, wg::kThreads, wg::smem_bytes<BN, OutT>(), stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int BN, typename OutT>
+cudaError_t opt_in_wgmma() {
+  return cudaFuncSetAttribute(wg::quant_conv_wgmma<BN, OutT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              wg::smem_bytes<BN, OutT>());
+}
+
 template <typename OutT>
 cudaError_t opt_in_all() {
   cudaError_t e = opt_in<128, 16, OutT>();
   if (e == cudaSuccess) e = opt_in<128, 8, OutT>();
   if (e == cudaSuccess) e = opt_in<64, 16, OutT>();
   if (e == cudaSuccess) e = opt_in<64, 8, OutT>();
+  if (e == cudaSuccess) e = opt_in_wgmma<80, OutT>();
+  if (e == cudaSuccess) e = opt_in_wgmma<160, OutT>();
   return e;
 }
 
 template <typename OutT>
-cudaError_t dispatch(const ConvArgs& p, cudaStream_t stream) {
+cudaError_t dispatch(const ConvArgs& p, bool by_shape, int sms, cudaStream_t stream) {
+  if (by_shape && wg::takes(p.C)) {
+    return wg::n_tile(p.N, p.K) == 80 ? launch_wgmma<80, OutT>(p, sms, stream)
+                                      : launch_wgmma<160, OutT>(p, sms, stream);
+  }
   const bool narrow = p.N <= 64, vec16 = p.C % 16 == 0;
   if (narrow) {
     return vec16 ? launch_conv<64, 16, OutT>(p, stream) : launch_conv<64, 8, OutT>(p, stream);
@@ -471,27 +1015,21 @@ cudaError_t dispatch(const ConvArgs& p, cudaStream_t stream) {
   return vec16 ? launch_conv<128, 16, OutT>(p, stream) : launch_conv<128, 8, OutT>(p, stream);
 }
 
-}  // namespace
-
-// x (B, H, W, C) int8, w (N, ksize * ksize * C) int8, contiguous; C and N
-// multiples of 8, 2 * pad == ksize - 1 (stride 1, output H x W); s_x, scale
-// (N,), bias (N,) or null, s_next f32 on the device; residual, out (M, N) of
-// the output type (out_f32: f32, else bf16) or null, out_q (M, N) int8 or
-// null (one of out and out_q set).  Every pointer 16-byte aligned.  Returns
-// a cudaError_t.
-extern "C" int ov3_quant_conv(const int8_t* x, const int8_t* w, const float* s_x,
-                              const float* scale, const float* bias, const void* residual,
-                              const float* s_next, void* out, int8_t* out_q, int B, int H, int W,
-                              int C, int N, int ksize, int pad, int relu, int out_f32,
-                              cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 != 0 || N <= 0 || N % 8 != 0 ||
-      ksize <= 0 || 2 * pad != ksize - 1 || (out == nullptr && out_q == nullptr) ||
-      (out_q != nullptr && s_next == nullptr)) {
+int run_conv(const int8_t* x, const int8_t* w, const float* s_x, const float* scale,
+             const float* bias, const void* residual, const float* s_next, void* out,
+             int8_t* out_q, int B, int H, int W, int C, int N, int ksize, int pad, int relu,
+             int out_f32, bool by_shape, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || H > 65535 || W > 65535 || C <= 0 || C % 8 != 0 ||
+      N <= 0 || N % 8 != 0 || ksize <= 0 || 2 * pad != ksize - 1 ||
+      (out == nullptr && out_q == nullptr) || (out_q != nullptr && s_next == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const int64_t M = static_cast<int64_t>(B) * H * W;
   const int64_t K = static_cast<int64_t>(ksize) * ksize * C;
-  if (M > INT32_MAX || K > INT32_MAX || (M + kBM - 1) / kBM > 65535) {
+  const bool wgmma = by_shape && wg::takes(C);
+  const int64_t tiles = (M + wg::kBM - 1) / wg::kBM * ((N + 79) / 80);  // at most this many
+  if (M > INT32_MAX || K > INT32_MAX || (wgmma && tiles > INT32_MAX) ||
+      (!wgmma && (M + kBM - 1) / kBM > 65535)) {
     return cudaErrorInvalidValue;
   }
   int dev = 0;
@@ -501,12 +1039,43 @@ extern "C" int ov3_quant_conv(const int8_t* x, const int8_t* w, const float* s_x
   if (!opted_in[dev]) {  // once a device, at the first call (before any capture)
     e = opt_in_all<__nv_bfloat16>();
     if (e == cudaSuccess) e = opt_in_all<float>();
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
     opted_in[dev] = 1;
   }
   ConvArgs p{x, w, s_x, scale, bias, residual, s_next, out, out_q, static_cast<int>(M), H, W, C,
              N, static_cast<int>(K), ksize, pad, relu};
-  return out_f32 ? dispatch<float>(p, stream) : dispatch<__nv_bfloat16>(p, stream);
+  return out_f32 ? dispatch<float>(p, by_shape, sm_count[dev], stream)
+                 : dispatch<__nv_bfloat16>(p, by_shape, sm_count[dev], stream);
+}
+
+}  // namespace
+
+// x (B, H, W, C) int8, w (N, ksize * ksize * C) int8, contiguous; C and N
+// multiples of 8, H and W at most 65535, 2 * pad == ksize - 1 (stride 1,
+// output H x W); s_x, scale (N,), bias (N,) or null, s_next f32 on the
+// device; residual, out (M, N) of the output type (out_f32: f32, else bf16)
+// or null, out_q (M, N) int8 or null (one of out and out_q set).  Every
+// pointer 16-byte aligned.  C % 16 == 0 runs the wgmma design, any other C
+// the first design (`wg::takes`).  Returns a cudaError_t.
+extern "C" int ov3_quant_conv(const int8_t* x, const int8_t* w, const float* s_x,
+                              const float* scale, const float* bias, const void* residual,
+                              const float* s_next, void* out, int8_t* out_q, int B, int H, int W,
+                              int C, int N, int ksize, int pad, int relu, int out_f32,
+                              cudaStream_t stream) {
+  return run_conv(x, w, s_x, scale, bias, residual, s_next, out, out_q, B, H, W, C, N, ksize, pad,
+                  relu, out_f32, true, stream);
+}
+
+// The same on the first design (quant_conv_kernel) whatever the shape: the
+// yardstick beside which the wgmma design is timed and checked.
+extern "C" int ov3_quant_conv_mma(const int8_t* x, const int8_t* w, const float* s_x,
+                                  const float* scale, const float* bias, const void* residual,
+                                  const float* s_next, void* out, int8_t* out_q, int B, int H,
+                                  int W, int C, int N, int ksize, int pad, int relu, int out_f32,
+                                  cudaStream_t stream) {
+  return run_conv(x, w, s_x, scale, bias, residual, s_next, out, out_q, B, H, W, C, N, ksize, pad,
+                  relu, out_f32, false, stream);
 }
 
 // x (B, H, W, C) bf16 (in_f32: f32), contiguous, C a multiple of 8; pool 1 or

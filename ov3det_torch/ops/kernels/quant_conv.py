@@ -6,7 +6,11 @@ implicit-GEMM conv, the counterpart of `QuantConv.__call__`
 (`ov3det/models/clip_resnet.py:99-128`: XLA's int8 `conv_general_dilated`
 with int32 accumulation and the elementwise ops XLA fuses around it; not a
 Pallas kernel), with its epilogue carrying the dequant, the folded
-BatchNorm, the block's residual and ReLU and the next conv's quantise.
+BatchNorm, the block's residual and ReLU and the next conv's quantise.  Two
+designs compute it: `quant_conv_wgmma` (warp-specialised `wgmma` on a
+persistent grid) for C_in a multiple of 16, the first design
+(`quant_conv_kernel`, `mma.sync`) for the rest (`_route`); `_impl="mma"`
+keeps a CUDA call on the first design.
 `pool_quantize` launches the pass that quantises what no epilogue can: an
 input as it is, or after a 2 x 2 average pool (the anti-aliased stride-2
 blocks, the stem's output).
@@ -110,6 +114,54 @@ def pool_quantize_plain(x: torch.Tensor, pool: int, scales: Sequence[torch.Tenso
     return [quantize_plain(x, s) for s in scales]
 
 
+WGMMA_ROWS = 128  # output pixels a tile of the wgmma design
+
+
+def _route(c_in: int, c_out: int, k: int) -> str:
+    """The design `ov3_quant_conv` launches for a conv, as `wg::takes` of
+    `csrc/quant_conv.cu` decides it: "wgmma" when C_in is a multiple of 16
+    (its 16-byte gathers never straddle two taps), else "mma" (the first
+    design, 8-byte gathers).  C_out and k do not enter: every C_out that is
+    a multiple of 8 has an N tile, and any k with 2 * padding == k - 1."""
+    del c_out, k
+    return "wgmma" if c_in % 16 == 0 else "mma"
+
+
+def _n_tile(c_out: int, depth: int) -> int:
+    """The wgmma design's N tile for C_out and K = k * k * C_in
+    (`wg::n_tile`): 160 where the products dominate (K >= 1024, C_out above
+    80), else 80, which leaves a consumer thread registers for its epilogue
+    (it holds N-tile int32 sums)."""
+    return 80 if c_out <= 80 or depth < 1024 else 160
+
+
+def persistent_tiles(M: int, N: int, K: int, sms: int) -> list:
+    """The wgmma design's tile order: [CTA b's (m0, n0) tiles in the order it
+    takes them], one CTA an SM (at most one a tile).  Tile t is M tile
+    t // NT and N tile t % NT, and CTA b takes t = b, b + grid, ...: the N
+    tiles of an M tile are neighbours, so the CTAs at work share A in L2.
+    Its two consumer warpgroups take the CTA's tiles in turn."""
+    bn = _n_tile(N, K)
+    nt = -(-N // bn)
+    tiles = -(-M // WGMMA_ROWS) * nt
+    grid = min(tiles, sms)
+    return [[((t // nt) * WGMMA_ROWS, (t % nt) * bn) for t in range(b, tiles, grid)]
+            for b in range(grid)]
+
+
+def _entry(impl: Optional[str], on_cuda: bool) -> str:
+    """The C entry point for the private `_impl` argument: None is the route
+    by shape, "mma" the first design whatever the shape."""
+    if impl is None:
+        return "ov3_quant_conv"
+    if impl != "mma":
+        raise ValueError(f"quant_conv: _impl is None (the route by shape) or 'mma', got {impl!r}")
+    if not on_cuda:
+        raise ValueError("quant_conv: _impl chooses between CUDA kernels; these tensors lie on "
+                         "the CPU")
+    return "ov3_quant_conv_mma"
+
+
 def _scalar(s: torch.Tensor, dev: torch.device, what: str) -> torch.Tensor:
     if not (isinstance(s, torch.Tensor) and s.numel() == 1 and s.dtype == torch.float32
             and s.device == dev):
@@ -128,11 +180,12 @@ def quant_conv(xq: torch.Tensor, kernel_q: torch.Tensor, k: int, padding: int,
                s_x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                residual: Optional[torch.Tensor] = None, relu: bool = False,
                s_next: Optional[torch.Tensor] = None, out_bf16: bool = True,
-               dtype: Optional[torch.dtype] = torch.bfloat16) -> tuple:
+               dtype: Optional[torch.dtype] = torch.bfloat16, _impl: Optional[str] = None) -> tuple:
     """:func:`quant_conv_plain`'s function: CUDA tensors launch the kernel
     (C_in and C_out multiples of 8, 2 * padding == k - 1; the scales one-value
-    f32 tensors on the card, read there), one launch with no host wait; CPU
-    tensors take :func:`quant_conv_plain`."""
+    f32 tensors on the card, read there), one launch with no host wait, of
+    the design `_route` picks or, with `_impl="mma"`, of the first design;
+    CPU tensors take :func:`quant_conv_plain`."""
     if xq.dim() != 4 or xq.dtype != torch.int8 or kernel_q.dtype != torch.int8:
         raise ValueError(f"quant_conv expects (B, H, W, C) int8 activations and an int8 kernel, "
                          f"got {tuple(xq.shape)} {xq.dtype}, {kernel_q.dtype}")
@@ -143,6 +196,7 @@ def quant_conv(xq: torch.Tensor, kernel_q: torch.Tensor, k: int, padding: int,
                          f"padding {padding} (stride 1, same size)")
     if not out_bf16 and s_next is None:
         raise ValueError("quant_conv: nothing to write (out_bf16 False and no s_next)")
+    entry = _entry(_impl, xq.device.type == "cuda")
     if xq.device.type == "cpu":
         return quant_conv_plain(xq, kernel_q, k, padding, s_x, scale, bias, residual, relu,
                                 s_next, out_bf16, dtype)
@@ -169,7 +223,7 @@ def quant_conv(xq: torch.Tensor, kernel_q: torch.Tensor, k: int, padding: int,
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ov3_quant_conv(
+        status = getattr(lib, entry)(
             xq.data_ptr(), kernel_q.data_ptr(), s_x.data_ptr(), scale.data_ptr(),
             _ptr(bias), _ptr(residual), _ptr(s_next), _ptr(out), _ptr(out_q),
             B, H, W, C, N, k, padding, int(relu), int(out_dtype == torch.float32), stream)
@@ -229,8 +283,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 _SIGNATURES = {
-    "ov3_quant_conv": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-                       ctypes.c_int),
+    **{name: ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)
+       for name in ("ov3_quant_conv", "ov3_quant_conv_mma")},
     "ov3_pool_quantize": ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5,
                           ctypes.c_int),
 }
