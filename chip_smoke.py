@@ -141,7 +141,12 @@ at once), then:
        3 x 3 convs of at most CPU_CHECK_MACS products; the routed kernel,
        the first design, `_int_mm` alone, the plain version and cuDNN's
        bf16 conv timed in turns (graph replays) beside the int8 bound, per
-       shape, per class and summed over a forward;
+       shape, per class and summed over a forward; the pass in both designs
+       (the routed `pool_quantize_vec` and the first, `_impl="first"`) equal
+       to the plain version bit for bit at its 9 shapes and at odd ones (an
+       odd H or W at pool 2, C 8 short of a multiple of 16, one and two
+       scales, f32, quotients on half-integers), both designs, the plain
+       version and `F.avg_pool2d` alone timed in turns beside the bound;
        the teacher's forward alone on that batch, fused int8 (and with
        every conv on the first design), unfused int8 and bf16, in turns;
        training: `build_training(..., teacher=)` with the teacher of
@@ -246,14 +251,19 @@ at once), then:
        `--super_batch 4` and 1: the logged losses and the final parameters
        and Adam moments equal bit for bit.
  15. the evaluation path (slice 13):
-       the NMS kernel against its plain version on the card: keep masks
-       equal bit for bit in every mode (3D class-aware, 3D, 2D on the
+       the NMS kernel in both designs (the routed cluster design and the
+       first, `_impl="first"`) against its plain version on the card: keep
+       masks equal bit for bit in every mode (3D class-aware, 3D, 2D on the
        bird's-eye boxes, each also old-type) on the outputs of the last
-       `sunrgbd_quick` and masked request (K 128, 256) and on crafted
-       scenes at K 8, 256 and 1024 (exact score ties, NaN, -inf, -1e30
-       scores, IoU exactly at the threshold, a zero-volume box, a scene
-       with nothing valid); K 1025 refused; the kernel (graph replays),
-       the plain loop and the bound timed at the two requests' shapes;
+       `sunrgbd_quick` and masked request (K 128, 256), on crafted scenes
+       at K 8, 256 and 1024 (exact score ties, NaN, -inf, -1e30 scores, IoU
+       exactly at the threshold and one ulp either side, as IoU and as the
+       old type's ratio, a zero-volume and an infinite box, a box of
+       another class over a kept one, a scene with nothing valid) and on
+       scenes where every box survives (K 256, 1024); K 1025 refused; both
+       designs in turns (graph replays), the plain loop and the bound timed
+       at the two requests' shapes, and both designs' parts
+       (`scripts/nms_parts.py`: the rank, the bitmask, the greedy pass);
        every NMS mode x empty-box removal x proposal mode of
        `get_ap_config_dict`: `APCalculator` on the card's parse against the
        CPU's plain path on the same outputs, mAP and AR within 1e-6;
@@ -269,6 +279,10 @@ count, to what `read_counts` reads, and `count_eval_replays()` does the
 same for the eval graphs.  Launch counts are set to 0 just
 before each serving, training and CLI run, and read just after it.  The radius variants of the attention kernels count
 apart (`.radius_launches`) and have their own entries in the kernels line.
+Every profiled request and step runs once under the profiler before the
+call it reads (the profiler's schedule: a warm-up, then the active call),
+and each launch the wrappers count in the active call must be among its
+kernels (`OWN_KERNELS`, by their symbols).
 Exits non-zero, printing no result, without CUDA or without the package
 beside this file.  Any failed check raises.
 """
@@ -1359,21 +1373,60 @@ def range_kernels(prof, name: str):
     return (sum(kernels) / 1e3, len(kernels)) if kernels else None
 
 
+PROFILE_MARGIN_S = 0.2  # idle host time each side of a profiled call, inside the active window
+# counter -> the kernels its wrapper launches, one a launch, by their demangled
+# symbols: the routed design and the first of each (the first ball-group's
+# fill kernel stands for its pair)
+OWN_KERNELS = {
+    "fps": r"\bfps_(?:cluster_)?kernel<",
+    "ball_group": r"\bball_group_tile<0, |\bfill_kernel\(float const\*, float const\*, float const\*, "
+                  r"int const\*",
+    "slot_sources": r"\bball_group_tile<1, ",
+    **{f"attention_{k}{'_radius' if radius else ''}":
+       rf"\battn_{k}_(?:wgmma<{str(radius).lower()}>|(?:bf16|f32)<\d+, {str(radius).lower()}>)\("
+       for k in ("fwd", "dq", "dkv") for radius in (False, True)},
+    "auction": r"\bauction_kernel\(",
+    "nms": r"\bnms_(?:cluster_)?kernel<",
+    "quant_conv": r"\bquant_conv_(?:wgmma|kernel)<",
+    "pool_quantize": r"\bpool_quantize_(?:vec|kernel)<",
+}
+
+
 def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
-    """Run `fn` once under torch.profiler; print the wall time, the device
-    busy time (kernels only), the kernel count, the idle share and the top
-    kernels and ops by device time; for each profiler range named in
-    `ranges`, its kernels' device time, their share of the busy time and
-    their count; with `waits`, the host's calls that wait for the card
-    (stream and device synchronisations), each with its count and host
-    time."""
+    """Run `fn` twice under torch.profiler's schedule, a warm-up call (the
+    profiler traces, and keeps nothing) and the active one; for the active
+    call print the wall time, the device busy time (kernels only), the
+    kernel count, the idle share, the top kernels and ops by device time and
+    the port's own kernels; for each profiler range named in `ranges`, its
+    kernels' device time, their share of the busy time and their count; with
+    `waits`, the host's calls that wait for the card (stream and device
+    synchronisations), each with its count and host time.  Every launch the
+    wrappers count in the active call (`read_counts`, graph replays
+    included) must be in the profile, kernel for kernel (`OWN_KERNELS`)."""
+    import re
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with warnings.catch_warnings(), \
+            torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+        # one cycle: that the profiler keeps the events of the last cycle alone says nothing here
+        warnings.filterwarnings("ignore", message=".*clears events at the end of each cycle")
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        # an idle margin each side of the active call: a graphed masked
+        # request lost its first kernels to a window that began at the call
+        time.sleep(PROFILE_MARGIN_S)
+        before = read_counts()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        after = read_counts()
+        time.sleep(PROFILE_MARGIN_S)
+        prof.step()
+    counted = {n: after[n] - before[n] for n in after if after[n] != before[n] and n in OWN_KERNELS}
 
     def device_us(e):  # the attribute's name changed across PyTorch versions
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
@@ -1397,16 +1450,22 @@ def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
     else:
         print(f"{title}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
               f"in {sum(e.count for e in kernels)} kernels (idle share "
-              f"{1 - busy_us / wall_us:.3f})")
+              f"{1 - busy_us / wall_us:.3f}), after a warm-up call under the profiler")
         for name in ranges:
             got = range_kernels(prof, name)
             print(f" range {name!r}: " + ("device time not measured (no kernel tied to it)"
                                           if got is None else
                                           f"{got[0]:.2f} ms of device time in {got[1]} kernels, "
                                           f"{got[0] * 1e3 / busy_us:.3f} of the busy time"))
-    own = [e for e in kernels if any(k in e.key for k in
-                                     ("fps_kernel", "fps_cluster_kernel", "pick_kernel", "fill_kernel",
-                                      "ball_group_tile", "attn_", "auction_kernel", "nms_kernel"))]
+    seen = {n: sum(e.count for e in kernels if re.search(pat, e.key))
+            for n, pat in OWN_KERNELS.items()}
+    lost = {n: (c, seen[n]) for n, c in counted.items() if seen[n] != c}
+    own = [e for e in kernels if any(re.search(pat, e.key) for pat in OWN_KERNELS.values())]
+    require(not lost, f"{title}: launches the wrappers counted against the profile's kernels "
+                      f"(counted, profiled): {lost}; the port's kernels in the profile: "
+                      f"{[(e.key[:70], e.count) for e in own]}")
+    print(f" every launch the wrappers counted is in the profile: "
+          f"{ {n: c for n, c in sorted(counted.items())} }")
     for name, group in (("kernels", kernels[:12]), ("the port's own kernels", own),
                         ("ops, by the device time of their kernels", ops[:12])):
         print(f" {name}:")
@@ -2176,8 +2235,8 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
     turns, the routed kernel, the first design, `torch._int_mm` alone on the
     im2col, the plain version (im2col, `_int_mm`, the elementwise ops) and
     cuDNN's bf16 conv of the same shape, each by replays of a CUDA graph of
-    QUANT_REPS calls, beside the int8 bound.  The quantise passes likewise
-    (kernel, plain version, `F.avg_pool2d` alone).  Two convs of 15 rows on
+    QUANT_REPS calls, beside the int8 bound.  Then the quantise passes
+    (`check_pass`).  Two convs of 15 rows on
     an odd 3 x 5 image are checked too: C_in 40 (the first design) and C_in
     48 (the wgmma design, ragged in M and N).  Returns the kernels-line
     entries, times summed over one forward's calls."""
@@ -2291,14 +2350,59 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
               f"ms, cuDNN bf16 {t['cudnn bf16']:.3f} "
               f"ms, bound {t['bound']:.3f} ms, summed over a forward ({card})")
 
+    per = f"summed over one teacher forward ({n_conv} calls, {len(convs)} shapes)"
+    entry = dict(max_abs_err=0.0, ms=totals["kernel"], first_ms=totals["first"],
+                 plain_ms=totals["plain"], bound_ms=totals["bound"], bound_by=conv_by,
+                 library_ms=totals["cudnn bf16"], int_mm_ms=totals["int_mm"], per=per,
+                 library="cuDNN bf16 conv2d of each shape")
+    del convs
+    return {"quant_conv": entry, "pool_quantize": check_pass(card, pools, dev, t0)}
+
+
+def check_pass(card: str, pools: dict, dev: torch.device, t0: float) -> dict:
+    """Phase 10's check of the quantise pass at the 9 passes of one teacher
+    forward (`pools`: `record_trunk`'s, on that forward's activations) and
+    at odd shapes (an odd H or W at pool 2, C 8 short of a multiple of 16,
+    one and two scales, f32 inputs, values on the scale's half-integers):
+    the routed design (`pass_launch`) and the first (`_impl="first"`) equal
+    the plain version bit for bit; then, at the forward's passes, in turns,
+    the routed design, the first, the plain version and `F.avg_pool2d` alone,
+    each by replays of a CUDA graph of QUANT_REPS calls, beside the bound.
+    Returns the kernels-line entry, times summed over one forward's calls."""
+    from ov3det_torch.ops.kernels import quant_conv as qc
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    cases = dict(pools)
+    odd = [((2, 7, 9, 48), torch.bfloat16, 2, 1), ((2, 9, 7, 40), torch.bfloat16, 2, 2),
+           ((3, 5, 5, 24), torch.bfloat16, 1, 2), ((1, 3, 3, 8), torch.bfloat16, 1, 1),
+           ((2, 5, 6, 32), torch.float32, 2, 2), ((2, 3, 5, 40), torch.float32, 1, 1)]
+    for shape, dtype, p, n in odd:
+        x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+        cases[("odd", shape, dtype, p, n)] = {"calls": 0, "args": [x, p, [
+            torch.tensor(0.02 + 0.01 * i, device=dev) for i in range(n)]]}
+    halves = (torch.randint(-130, 130, (2, 6, 10, 32), generator=g, device=dev) + 0.5) * 0.25
+    for p in (1, 2):  # quotients on half-integers: the exact fall-back decides every value
+        cases[("half-integers", p)] = {"calls": 0, "args": [halves.to(torch.bfloat16), p, [
+            torch.tensor(0.25, device=dev), torch.tensor(0.0625, device=dev)]]}
     ptotals = collections.Counter()
-    for (shape, dtype, p, n_scales), entry in pools.items():
-        x, _, scales = entry["args"]
-        got, want = qc.pool_quantize(x, p, scales), qc.pool_quantize_plain(x, p, scales)
-        torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(got, want)),
-                f"pool_quantize {shape} pool {p}: the pass differs from the plain version")
+    for key, entry in cases.items():
+        x, p, scales = entry["args"]
+        B, H, W, C = x.shape
+        want = qc.pool_quantize_plain(x, p, scales)
+        for impl in (None, "first"):
+            got = qc.pool_quantize(x, p, scales, _impl=impl)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"pool_quantize {key}: the {impl or 'routed'} design differs from the plain "
+                    f"version")
+        launch = qc.pass_launch(B, H, W, C, p)
+        if not entry["calls"]:
+            print(f"pool_quantize {'x'.join(map(str, x.shape))} {str(x.dtype)[6:]}, pool {p}, "
+                  f"{len(scales)} scale(s) ({key[0]}), launch {launch}: it and the first design "
+                  f"equal to the plain version bit for bit")
+            continue
         runs = {"kernel": lambda: qc.pool_quantize(x, p, scales),
+                "first": lambda: qc.pool_quantize(x, p, scales, _impl="first"),
                 "plain": lambda: qc.pool_quantize_plain(x, p, scales),
                 "avg_pool2d": lambda: qc.avg_pool(x, p)}
         ms = {n: [] for n in runs}
@@ -2307,28 +2411,27 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
                 ms[n].append(graph_ms(runs[n], QUANT_REPS))
         best = {n: min(v) for n, v in ms.items()}
         out_n = x.numel() // (p * p)
-        nbytes = x.numel() * x.element_size() + n_scales * out_n
-        b_ms, by = bound_ms(nbytes, x.numel() + 4 * n_scales * out_n, F32_PEAK)
+        nbytes = x.numel() * x.element_size() + len(scales) * out_n
+        b_ms, by = bound_ms(nbytes, x.numel() + 4 * len(scales) * out_n, F32_PEAK)
         for n, v in best.items():
             ptotals[n] += entry["calls"] * v
         ptotals["bound"] += entry["calls"] * b_ms
-        print(f"pool_quantize {'x'.join(map(str, shape))} {str(dtype)[6:]}, pool {p}, "
-              f"{n_scales} scale(s), {entry['calls']} calls: equal to the plain version bit for "
-              f"bit; kernel {best['kernel']:.4f} ms, plain {best['plain']:.4f} ms, F.avg_pool2d "
-              f"alone {best['avg_pool2d']:.4f} ms; bound {b_ms:.4f} ms ({by}) ({card})")
+        print(f"pool_quantize {'x'.join(map(str, x.shape))} {str(x.dtype)[6:]}, pool {p}, "
+              f"{len(scales)} scale(s), {entry['calls']} calls, launch {launch}: it and the first "
+              f"design equal to the plain version bit for bit; kernel {best['kernel']:.4f} ms "
+              f"({b_ms / best['kernel']:.2f} of the bound), first design {best['first']:.4f} ms, "
+              f"plain {best['plain']:.4f} ms, F.avg_pool2d alone {best['avg_pool2d']:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({by}) ({card})")
+    n_pool = sum(e["calls"] for e in pools.values())
     print(f"pool_quantize over one teacher forward ({n_pool} calls): kernel "
-          f"{ptotals['kernel']:.3f} ms, plain {ptotals['plain']:.3f} ms, bound "
-          f"{ptotals['bound']:.3f} ms; the check took {time.perf_counter() - t0:.1f} s ({card})")
-    per = f"summed over one teacher forward ({n_conv} calls, {len(convs)} shapes)"
-    del convs, pools
-    return {"quant_conv": dict(max_abs_err=0.0, ms=totals["kernel"], first_ms=totals["first"],
-                               plain_ms=totals["plain"], bound_ms=totals["bound"], bound_by=conv_by,
-                               library_ms=totals["cudnn bf16"], int_mm_ms=totals["int_mm"],
-                               per=per, library="cuDNN bf16 conv2d of each shape"),
-            "pool_quantize": dict(max_abs_err=0.0, ms=ptotals["kernel"], plain_ms=ptotals["plain"],
-                                  bound_ms=ptotals["bound"], bound_by="bytes", library_ms=None,
-                                  avg_pool2d_ms=ptotals["avg_pool2d"],
-                                  per=f"summed over one teacher forward ({n_pool} calls)")}
+          f"{ptotals['kernel']:.3f} ms ({ptotals['bound'] / ptotals['kernel']:.2f} of the bound), "
+          f"first design {ptotals['first']:.3f} ms, plain {ptotals['plain']:.3f} ms, F.avg_pool2d "
+          f"alone {ptotals['avg_pool2d']:.3f} ms, bound {ptotals['bound']:.3f} ms; the check took "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    return dict(max_abs_err=0.0, ms=ptotals["kernel"], first_ms=ptotals["first"],
+                plain_ms=ptotals["plain"], bound_ms=ptotals["bound"], bound_by="bytes",
+                library_ms=None, avg_pool2d_ms=ptotals["avg_pool2d"],
+                per=f"summed over one teacher forward ({n_pool} calls)")
 
 
 def teacher_card_vs_cpu(state: dict, image: np.ndarray, boxes: np.ndarray,
@@ -4128,7 +4231,10 @@ def nms_scenes(seed: int, B: int, K: int, D: int) -> tuple:
     """(boxes (B, K, 2D), scores, classes, valid) numpy scenes with the hard
     cases of the greedy rule: boxes on a grid of 1/8, exact score ties, a
     pair at exactly the threshold, a zero-volume box, NaN, -inf, -1e30 and
-    -6e29 scores, and a last scene with nothing valid."""
+    -6e29 scores, and a last scene with nothing valid; at K 32 and more,
+    pairs whose overlap is the threshold and one ulp either side of it (as
+    IoU and as the old type's intersection over the smaller box), an
+    infinite box and a box of another class over a kept one."""
     rng = np.random.default_rng(seed)
     lo = rng.integers(0, 16, (B, K, D)) / 8.0
     boxes = np.concatenate([lo, lo + rng.integers(1, 10, (B, K, D)) / 8.0], -1).astype(np.float32)
@@ -4142,20 +4248,50 @@ def nms_scenes(seed: int, B: int, K: int, D: int) -> tuple:
     scores[0, 3:7] = [np.nan, -np.inf, -1e30, -6e29]
     scores[1, 1::4] = np.nan
     valid[-1] = False
+    if K >= 32:
+        thr = np.float32(NMS_THRESH)
+        heights = (np.nextafter(thr, np.float32(0)), thr, np.nextafter(thr, np.float32(1)))
+        for k, (small_first, h) in enumerate(itertools.product((False, True), heights)):
+            # a unit box and a box of height h inside it: IoU h, and, when the
+            # small box ranks first, the old type's intersection over the unit box h
+            # (apart along x alone: the last axis starts at 0, so h keeps its ulps)
+            i, base = 8 + 2 * k, np.float32(20 + 4 * k)
+            boxes[1, i] = [base] + [0.0] * (D - 1) + [base + 1] + [1.0] * (D - 1)
+            boxes[1, i + 1] = [base] + [0.0] * (D - 1) + [base + 1] + [1.0] * (D - 2) + [h]
+            scores[1, i:i + 2] = (0.97, 0.98) if small_first else (0.98, 0.97)
+            classes[1, i:i + 2], valid[1, i:i + 2] = 1, True
+        boxes[1, 20] = [-np.inf] * D + [np.inf] * D  # an infinite box
+        scores[1, 20], valid[1, 20] = 0.5, True
+        boxes[1, 21], scores[1, 21], classes[1, 21], valid[1, 21] = boxes[1, 8], 0.95, 2, True
     return boxes, scores, classes, valid
 
 
+def all_survive(B: int, K: int, D: int) -> tuple:
+    """Scenes of K disjoint unit boxes in a row with distinct scores, all
+    valid: every box is kept."""
+    lo = np.zeros((B, K, D), np.float32)
+    lo[..., 0] = 2.0 * np.arange(K, dtype=np.float32)
+    boxes = np.concatenate([lo, lo + 1.0], -1)
+    scores = np.tile(np.linspace(1.0, 0.01, K, dtype=np.float32), (B, 1))
+    return boxes, scores, np.zeros((B, K), np.int64), np.ones((B, K), bool)
+
+
 def check_nms(card: str, dev: torch.device, outputs: dict) -> dict:
-    """Phase 15's kernel check: the NMS kernel's keep masks against its plain
-    version's on the card, bit for bit, in every mode (3D class-aware, 3D,
-    2D on the bird's-eye boxes, each also old-type) on the outputs of the
-    two configs' requests (`outputs`: label -> `serve`'s NMS inputs) and on
-    crafted scenes at K 8, 256 and 1024; a K above the kernel's limit
-    raises; the kernel (graph replays), the plain loop and the bound timed
-    at the two requests' shapes (3D class-aware).  Returns the kernels
-    line's keys (sunrgbd, with the masked request's under
+    """Phase 15's kernel check: the NMS kernel's keep masks, of the cluster
+    design and of the first (`_impl="first"`), against its plain version's on
+    the card, bit for bit, in every mode (3D class-aware, 3D, 2D on the
+    bird's-eye boxes, each also old-type) on the outputs of the two configs'
+    requests (`outputs`: label -> `serve`'s NMS inputs), on crafted scenes at
+    K 8, 256 and 1024 and on scenes where every box survives (K 256 and
+    1024); a K above the kernel's limit raises; at the two requests' shapes
+    (3D class-aware) the two designs in turns (graph replays), the plain loop
+    and the bound, then both designs' parts (`scripts/nms_parts.py`).
+    Returns the kernels line's keys (sunrgbd, with the masked request's under
     "scannet_masked")."""
-    from ov3det_torch.ops.kernels.nms import MAX_K, nms_keep, nms_plain
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import nms_parts
+
+    from ov3det_torch.ops.kernels.nms import MAX_K, cluster_size_for, nms_keep, nms_plain
 
     def modes(case: dict):
         for old in (False, True):
@@ -4163,23 +4299,35 @@ def check_nms(card: str, dev: torch.device, outputs: dict) -> dict:
             yield f"3d{' old-type' if old else ''}", case["aabb"], None, old
             yield f"2d bev{' old-type' if old else ''}", case["bev"], None, old
 
+    def on_card(boxes6, boxes4, scores, classes, valid) -> dict:
+        return {k: torch.from_numpy(v).to(dev) for k, v in dict(
+            aabb=boxes6, bev=boxes4, scores=scores, classes=classes, valid=valid).items()}
+
     cases = dict(outputs)
     for K in (8, 256, MAX_K):
         boxes6, scores, classes, valid = nms_scenes(K, 4, K, 3)
-        boxes4 = nms_scenes(K, 4, K, 2)[0]
-        cases[f"crafted K {K}"] = {k: torch.from_numpy(v).to(dev) for k, v in dict(
-            aabb=boxes6, bev=boxes4, scores=scores, classes=classes, valid=valid).items()}
+        cases[f"crafted K {K}"] = on_card(boxes6, nms_scenes(K, 4, K, 2)[0], scores, classes, valid)
+    for K in (256, MAX_K):
+        boxes6, scores, classes, valid = all_survive(2, K, 3)
+        cases[f"every box survives, K {K}"] = on_card(boxes6, all_survive(2, K, 2)[0], scores,
+                                                      classes, valid)
     for label, case in cases.items():
         kept = []
         for mode, boxes, classes, old in modes(case):
-            got = nms_keep(boxes, case["scores"], NMS_THRESH, case["valid"], classes, old)
             want = nms_plain(boxes, case["scores"], NMS_THRESH, case["valid"], classes, old)
-            require(torch.equal(got, want), f"nms {label} {mode}: the kernel's keep mask differs "
-                                            f"from the plain version's in {(got != want).sum()} boxes")
-            kept.append(f"{mode} {int(got.sum())}")
+            for impl in (None, "first"):
+                got = nms_keep(boxes, case["scores"], NMS_THRESH, case["valid"], classes, old,
+                               _impl=impl)
+                require(torch.equal(got, want), f"nms {label} {mode}: the {impl or 'cluster'} "
+                                                f"design's keep mask differs from the plain "
+                                                f"version's in {(got != want).sum()} boxes")
+            require(not label.startswith("every") or bool(want.all()),
+                    f"nms {label} {mode}: not every box was kept")
+            kept.append(f"{mode} {int(want.sum())}")
         B, K = case["scores"].shape
-        print(f"nms {label} (B {B}, K {K}, {int(case['valid'].sum())} valid): keep masks equal "
-              f"the plain version's bit for bit; kept {', '.join(kept)}")
+        print(f"nms {label} (B {B}, K {K}, {int(case['valid'].sum())} valid, clusters of "
+              f"{cluster_size_for(K)} CTAs): both designs' keep masks equal the plain version's bit "
+              f"for bit; kept {', '.join(kept)}")
     big = cases[f"crafted K {MAX_K}"]
     try:
         nms_keep(torch.cat([big["aabb"], big["aabb"][:, :1]], 1),
@@ -4193,16 +4341,24 @@ def check_nms(card: str, dev: torch.device, outputs: dict) -> dict:
     entries = {}
     for label, case in outputs.items():
         args = (case["aabb"], case["scores"], NMS_THRESH, case["valid"], case["classes"])
-        ms = graph_ms(lambda: nms_keep(*args), NMS_REPS)
+        runs = {"kernel": lambda: nms_keep(*args), "first": lambda: nms_keep(*args, _impl="first")}
+        ms = {n: [] for n in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for n in order:
+                ms[n].append(graph_ms(runs[n], NMS_REPS))
+        best = {n: min(v) for n, v in ms.items()}
         plain = cuda_ms(lambda: nms_plain(*args), 3)
-        ms = min(ms, graph_ms(lambda: nms_keep(*args), NMS_REPS))
         B, K = case["scores"].shape
         b_ms, by = nms_bound(B, K, 3, True)
-        entries[label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                              library_ms=None)
-        print(f"nms {label} (B {B}, K {K}, 3d class-aware): kernel {ms:.4f} ms (graph replays of "
-              f"{NMS_REPS} calls), plain loop {plain:.3f} ms, bound {b_ms:.5f} ms ({by}); no "
-              f"library NMS ({card})")
+        entries[label] = dict(max_abs_err=0.0, ms=best["kernel"], first_ms=best["first"],
+                              plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None)
+        print(f"nms {label} (B {B}, K {K}, 3d class-aware, {int(nms_keep(*args).sum())} kept): "
+              f"cluster design {best['kernel']:.4f} ms, first design {best['first']:.4f} ms (graph "
+              f"replays of {NMS_REPS} calls, in turns), plain loop {plain:.3f} ms, bound "
+              f"{b_ms:.5f} ms ({by}); no library NMS ({card})")
+    parts = nms_parts.parts({label: {k: case[k] for k in ("aabb", "scores", "classes", "valid")}
+                             for label, case in outputs.items()})
+    nms_parts.report(parts, card)
     return {**entries["sunrgbd"], "scannet_masked": entries["scannet_masked"]}
 
 

@@ -77,10 +77,25 @@
 // ms) and about 14 GB (4.2 ms); res5's convs and the 3 x 3 convs are
 // operation-bound, the 1 x 1 convs of small K byte-bound.
 //
-// The pass (`pool_quantize_kernel<T, POOL>`): 8 channels a thread; with POOL
-// 2 the four values are summed in f32 in F.avg_pool2d's order ((0,0), (0,1),
-// (1,0), (1,1), from 0), divided by 4 and rounded to the input type, then
-// quantised with one or two scales (two consumers of one pooled tensor).
+// The pass quantises with one or two scales (two consumers of one tensor), at
+// POOL 2 after a 2 x 2 average pool whose four values are summed in f32 in
+// F.avg_pool2d's order ((0,0), (0,1), (1,0), (1,1), from 0), then divided by 4
+// and rounded to the input type.  Bound by its bytes (the input read once, the
+// outputs written once: 0.975 ms over a teacher forward's 18 calls).  The
+// redesign (`pool_quantize_vec<T, POOL, VEC>`, every tensor below 2^31
+// elements): 16 channels a thread (8 where C at POOL 2, or the tensor at
+// POOL 1, is not a multiple of 16), every
+// 16-byte load of a thread issued before its first add, as streaming loads
+// that leave L2 to the next conv's operands; 32-bit indices, the POOL-2 pixel
+// from three divisions by constants as multiply-highs (`FastDiv`); the pool's
+// / 4 as x 0.25 (the same correctly rounded v / 4); the quantise by the
+// reciprocal with the exact fall-back (`codes_q8_fast`; the division out of
+// line, `codes_q8_exact`, for the values within 2^-14 of a half-integer
+// alone), 16-byte stores; a grid of one wave, the CTAs the SMs hold at once.
+// The first design
+// (`pool_quantize_kernel<T, POOL>`, `ov3_pool_quantize_first`): 8 channels a
+// thread, 64-bit flat indices split by division, IEEE divisions in the pool
+// and the quantise, one 8-byte store a scale.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -192,45 +207,59 @@ __device__ __forceinline__ int8_t quantize(float v, float s) {
   return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(t, -127.f), 127.f)));
 }
 
-// 8 values quantised at s, one 8-byte store
-__device__ __forceinline__ void store_q8(int8_t* q, const float (&v)[8], float s) {
+// 8 values quantised at s, as the 8 bytes of one store
+__device__ __forceinline__ uint2 codes_q8(const float (&v)[8], float s) {
   char4 lo = make_char4(quantize(v[0], s), quantize(v[1], s), quantize(v[2], s), quantize(v[3], s));
   char4 hi = make_char4(quantize(v[4], s), quantize(v[5], s), quantize(v[6], s), quantize(v[7], s));
   uint2 raw;
   raw.x = *reinterpret_cast<uint32_t*>(&lo);
   raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(q) = raw;
+  return raw;
 }
 
-// `store_q8` without its divisions, for the wgmma design's epilogue.  With rs
-// = 1 / s rounded, t = v * rs and the rounded v / s differ by at most 3 *
-// 2^-24 of their magnitude (1 / s's, the product's and the quotient's
-// roundings): below 128 in magnitude, by at most 2.3e-5.  So rint(t) =
-// rint(v / s) unless t lies within that of a half-integer.  Stores the 8
-// codes from t and returns whether any t lies within 2^-14 of a
-// half-integer or s is outside [2^-125, 2^125] (`exact`: 1 / s not a normal
-// number): the caller then stores them again with `store_q8`.  Beyond 127.5
-// in magnitude both clamp; NaN and infinities take the same path in both.
-// `quantize_fast_emulated` of tests/test_torch_quant_conv_hopper.py holds
-// this formula against `quantize_plain` on every boundary.
-__device__ __forceinline__ bool store_q8_fast(int8_t* q, const float (&v)[8], float rs,
-                                              bool exact) {
-  bool near = exact;
+// 8 values quantised at s, one 8-byte store
+__device__ __forceinline__ void store_q8(int8_t* q, const float (&v)[8], float s) {
+  *reinterpret_cast<uint2*>(q) = codes_q8(v, s);
+}
+
+// `codes_q8` without its divisions, for the wgmma design's epilogue and the
+// pass.  With rs = 1 / s rounded, t = v * rs and the rounded v / s differ by
+// at most 3 * 2^-24 of their magnitude (1 / s's, the product's and the
+// quotient's roundings): below 128 in magnitude, by at most 2.3e-5.  So
+// rint(t) = rint(v / s) unless t lies within that of a half-integer.  Puts
+// the 8 codes from t in `raw` and returns the values (bit e: v[e]) whose t
+// lies within 2^-14 of a half-integer (|t - rint(t)| > 0.5 - 2^-14: the
+// difference is exact, and never above 0.5), or all 8 when s is outside [2^-125,
+// 2^125] (`exact`: 1 / s not a normal number): the caller then takes
+// `codes_q8`'s codes for them.  Beyond 127.5 in magnitude both clamp; NaN
+// and infinities take the same path in both.  `quantize_fast_emulated` of
+// tests/test_torch_quant_conv_hopper.py holds this formula against
+// `quantize_plain` on every boundary.
+__device__ __forceinline__ uint32_t codes_q8_fast(const float (&v)[8], float rs, bool exact,
+                                                  uint2& raw) {
+  uint32_t near = exact ? 0xffu : 0u;
   int8_t b[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const float u = __fmul_rn(v[e], rs);
     const float t = rintf(u);
-    near |= fabsf(__fsub_rn(fabsf(__fsub_rn(u, t)), 0.5f)) < 0x1p-14f;
+    near |= (fabsf(__fsub_rn(u, t)) > 0.5f - 0x1p-14f ? 1u : 0u) << e;
     b[e] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(t, -127.f), 127.f)));
   }
   char4 lo = make_char4(b[0], b[1], b[2], b[3]);
   char4 hi = make_char4(b[4], b[5], b[6], b[7]);
-  uint2 raw;
   raw.x = *reinterpret_cast<uint32_t*>(&lo);
   raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(q) = raw;
   return near;
+}
+
+// `codes_q8_fast` stored: returns whether the caller must store `store_q8`'s.
+__device__ __forceinline__ bool store_q8_fast(int8_t* q, const float (&v)[8], float rs,
+                                              bool exact) {
+  uint2 raw;
+  const uint32_t near = codes_q8_fast(v, rs, exact, raw);
+  *reinterpret_cast<uint2*>(q) = raw;
+  return near != 0u;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -515,6 +544,162 @@ pool_quantize_kernel(const T* __restrict__ x, int B, int H, int W, int C, const 
     }
     store_q8(q0 + pix * C + g * 8, v, a);
     if (q1 != nullptr) store_q8(q1 + pix * C + g * 8, v, b);
+  }
+}
+
+// ------------------------------------------------------------ the pass, redesigned
+// (`pool_quantize_vec<T, POOL, VEC>`: see the note at the head of the file)
+
+// Division by a run-time constant d >= 1 of an n below 2^31, without a
+// division: q = umulhi(n, m) >> s with l = ceil(log2 d), m = ceil(2^(31 + l) /
+// d) and s = l - 1 (d = 1: q = n).  m d exceeds 2^(31 + l) by less than d <=
+// 2^l, so n m / 2^(31 + l) exceeds n / d by less than 1 / d, too little to
+// reach the next integer.  `fast_div` of
+// tests/test_torch_pool_quantize_hopper.py mirrors it.
+struct FastDiv {
+  uint32_t d, m, s;
+  __device__ __forceinline__ uint32_t div(uint32_t n) const {
+    return d == 1 ? n : __umulhi(n, m) >> s;
+  }
+};
+
+struct PassArgs {
+  const void* x;        // (B, H, W, C) T
+  const float* s0;      // () the first scale
+  const float* s1;      // () the second scale, or null
+  int8_t* q0;           // (B, H / POOL, W / POOL, C) int8
+  int8_t* q1;           // the same, or null
+  uint32_t items;       // the outputs' VEC-channel pieces
+  uint32_t H, W, C;
+  FastDiv groups, wo, ho;  // by C / VEC, W / POOL, H / POOL (POOL 2)
+};
+
+// VEC values of type T from 16-byte chunks, loaded as streaming (evict-first)
+template <typename T, int VEC>
+struct Piece {
+  static constexpr int kChunks = VEC * static_cast<int>(sizeof(T)) / 16;
+  uint4 raw[kChunks];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) raw[c] = __ldcs(reinterpret_cast<const uint4*>(p) + c);
+  }
+  // value e of the piece into v[e / 8][e % 8]
+  __device__ __forceinline__ void unpack(float (&v)[VEC / 8][8]) const {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if constexpr (std::is_same<T, float>::value) {
+        const int e = 4 * c;
+        v[e / 8][e % 8] = __uint_as_float(raw[c].x);
+        v[e / 8][e % 8 + 1] = __uint_as_float(raw[c].y);
+        v[e / 8][e % 8 + 2] = __uint_as_float(raw[c].z);
+        v[e / 8][e % 8 + 3] = __uint_as_float(raw[c].w);
+      } else {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[c]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[c][2 * j] = __low2float(h[j]);
+          v[c][2 * j + 1] = __high2float(h[j]);
+        }
+      }
+    }
+  }
+};
+
+// The codes of the values flagged in `near` (bit e: v[e]) by the division,
+// the others kept from `raw`: out of line, its values by value, so that a
+// call is taken only where a piece needs it, and only the flagged values
+// are divided.  (Inlined, the compiler ran the divisions of every piece;
+// and a zero, half of a ReLU's output, sends __fdiv_rn to its slow path.)
+struct Eight {
+  float v[8];
+};
+__device__ __noinline__ uint2 codes_q8_exact(const Eight e, float s, uint32_t near, uint2 raw) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if ((near >> i) & 1u) {
+      uint32_t& word = i < 4 ? raw.x : raw.y;
+      const int shift = 8 * (i & 3);
+      const uint32_t code = static_cast<uint8_t>(quantize(e.v[i], s));
+      word = (word & ~(0xffu << shift)) | (code << shift);
+    }
+  }
+  return raw;
+}
+
+// VEC pooled values quantised at s (1 / s rounded: rs), in stores of 16 bytes (VEC 8: 8)
+template <int VEC>
+__device__ __forceinline__ void store_codes(int8_t* q, const float (&v)[VEC / 8][8], float s,
+                                            float rs, bool exact) {
+  uint2 raw[VEC / 8];
+#pragma unroll
+  for (int h = 0; h < VEC / 8; ++h) {
+    const uint32_t near = codes_q8_fast(v[h], rs, exact, raw[h]);
+    if (near != 0u) {
+      Eight e;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e.v[j] = v[h][j];
+      raw[h] = codes_q8_exact(e, s, near, raw[h]);
+    }
+  }
+  if constexpr (VEC == 8) {
+    *reinterpret_cast<uint2*>(q) = raw[0];
+  } else {
+#pragma unroll
+    for (int h = 0; h < VEC / 16; ++h)
+      reinterpret_cast<uint4*>(q)[h] = make_uint4(raw[2 * h].x, raw[2 * h].y, raw[2 * h + 1].x,
+                                                  raw[2 * h + 1].y);
+  }
+}
+
+template <typename T, int POOL, int VEC>
+__global__ void __launch_bounds__(kPoolThreads)
+pool_quantize_vec(const PassArgs p) {
+  const float s0 = *p.s0;
+  const float s1 = p.q1 != nullptr ? *p.s1 : 1.f;
+  const float r0 = __frcp_rn(s0), r1 = __frcp_rn(s1);
+  const bool e0 = !(s0 >= 0x1p-125f && s0 <= 0x1p125f), e1 = !(s1 >= 0x1p-125f && s1 <= 0x1p125f);
+  const T* x = static_cast<const T*>(p.x);
+  for (uint32_t t = blockIdx.x * kPoolThreads + threadIdx.x; t < p.items;
+       t += gridDim.x * kPoolThreads) {
+    float v[VEC / 8][8];
+    uint32_t out;
+    if constexpr (POOL == 1) {
+      out = t * VEC;
+      Piece<T, VEC> piece;
+      piece.load(x + out);
+      piece.unpack(v);
+    } else {
+      const uint32_t pix = p.groups.div(t), g = t - pix * p.groups.d;
+      const uint32_t bho = p.wo.div(pix), wo = pix - bho * p.wo.d;
+      const uint32_t bb = p.ho.div(bho), ho = bho - bb * p.ho.d;
+      const uint32_t in = ((bb * p.H + 2 * ho) * p.W + 2 * wo) * p.C + g * VEC;
+      out = pix * p.C + g * VEC;
+      Piece<T, VEC> tap[4];  // (0, 0), (0, 1), (1, 0), (1, 1): every load before the first add
+      tap[0].load(x + in);
+      tap[1].load(x + in + p.C);
+      tap[2].load(x + in + p.W * p.C);
+      tap[3].load(x + in + p.W * p.C + p.C);
+#pragma unroll
+      for (int h = 0; h < VEC / 8; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[h][j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float u[VEC / 8][8];
+        tap[k].unpack(u);
+#pragma unroll
+        for (int h = 0; h < VEC / 8; ++h)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[h][j] = __fadd_rn(v[h][j], u[h][j]);
+      }
+      // x 0.25 and / 4 both round v / 4 correctly: equal for every f32
+#pragma unroll
+      for (int h = 0; h < VEC / 8; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[h][j] = Io<T>::round(__fmul_rn(v[h][j], 0.25f));
+    }
+    store_codes<VEC>(p.q0 + out, v, s0, r0, e0);
+    if (p.q1 != nullptr) store_codes<VEC>(p.q1 + out, v, s1, r1, e1);
   }
 }
 
@@ -1078,17 +1263,19 @@ extern "C" int ov3_quant_conv_mma(const int8_t* x, const int8_t* w, const float*
                   relu, out_f32, false, stream);
 }
 
-// x (B, H, W, C) bf16 (in_f32: f32), contiguous, C a multiple of 8; pool 1 or
-// 2 (a VALID 2 x 2 average pool first: H / 2 x W / 2 outputs); s0 and
-// optionally s1 f32 scales on the device; q0 and q1 (null when s1 is) the
-// (B, H / pool, W / pool, C) int8 outputs.  Returns a cudaError_t.
-extern "C" int ov3_pool_quantize(const void* x, int B, int H, int W, int C, int pool, int in_f32,
-                                 const float* s0, const float* s1, int8_t* q0, int8_t* q1,
-                                 cudaStream_t stream) {
-  if (B <= 0 || H < pool || W < pool || C <= 0 || C % 8 != 0 || (pool != 1 && pool != 2) ||
-      s0 == nullptr || q0 == nullptr || ((s1 == nullptr) != (q1 == nullptr))) {
-    return cudaErrorInvalidValue;
-  }
+namespace {
+
+bool pool_args_ok(int B, int H, int W, int C, int pool, const float* s0, const float* s1,
+                  const int8_t* q0, const int8_t* q1) {
+  return B > 0 && H >= pool && W >= pool && C > 0 && C % 8 == 0 && (pool == 1 || pool == 2) &&
+         s0 != nullptr && q0 != nullptr && (s1 == nullptr) == (q1 == nullptr);
+}
+
+// The pass's first design (`pool_quantize_kernel`): 8 channels a thread, a
+// grid-stride loop over 64-bit flat indices.
+cudaError_t launch_pool_first(const void* x, int B, int H, int W, int C, int pool, int in_f32,
+                              const float* s0, const float* s1, int8_t* q0, int8_t* q1,
+                              cudaStream_t stream) {
   const int64_t total = static_cast<int64_t>(B) * (H / pool) * (W / pool) * (C / 8);
   const int64_t want = (total + kPoolThreads - 1) / kPoolThreads;
   const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
@@ -1112,6 +1299,88 @@ extern "C" int ov3_pool_quantize(const void* x, int B, int H, int W, int C, int 
     }
   }
   return cudaGetLastError();
+}
+
+FastDiv make_fast_div(uint32_t d) {
+  if (d == 1) return FastDiv{1, 0, 0};
+  uint32_t l = 0;
+  while ((1ull << l) < d) ++l;
+  return FastDiv{d, static_cast<uint32_t>(((1ull << (31 + l)) + d - 1) / d), l - 1};
+}
+
+int pass_sms[kMaxDevices] = {0};
+
+// The redesigned pass's launch (its VEC and pieces mirrored by `pass_launch`
+// of ops/kernels/quant_conv.py): VEC values a thread (16 channels, or 8 where C at
+// POOL 2, or the flat tensor at POOL 1, is not a multiple of 16; 32 at POOL 1
+// was slower, scripts/pool_quantize_parts.py), and a grid of at most the CTAs the SMs hold at
+// once (the occupancy of the instantiation, asked once a device), each
+// thread taking pieces a grid apart: one wave, no tail.
+template <typename T, int POOL, int VEC>
+cudaError_t launch_vec(const PassArgs& a, int dev, cudaStream_t stream) {
+  static int per_sm[kMaxDevices] = {0};
+  if (per_sm[dev] == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[dev], pool_quantize_vec<T, POOL, VEC>, kPoolThreads, 0);
+    if (e != cudaSuccess) return e;
+  }
+  const uint32_t want = (a.items + kPoolThreads - 1) / kPoolThreads;
+  const uint32_t most = static_cast<uint32_t>(pass_sms[dev]) * per_sm[dev];
+  const uint32_t blocks = want < most ? want : most;
+  pool_quantize_vec<T, POOL, VEC><<<blocks, kPoolThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int POOL>
+cudaError_t launch_pass(const PassArgs& a, int vec, int dev, cudaStream_t stream) {
+  return vec == 16 ? launch_vec<T, POOL, 16>(a, dev, stream) : launch_vec<T, POOL, 8>(a, dev, stream);
+}
+
+}  // namespace
+
+// x (B, H, W, C) bf16 (in_f32: f32), contiguous, C a multiple of 8; pool 1 or
+// 2 (a VALID 2 x 2 average pool first: H / 2 x W / 2 outputs); s0 and
+// optionally s1 f32 scales on the device; q0 and q1 (null when s1 is) the
+// (B, H / pool, W / pool, C) int8 outputs, 16-byte aligned.  Runs the
+// redesigned pass (`pool_quantize_vec`) while B H W C is below 2^31 (its
+// 32-bit indices), else the first design.  Returns a cudaError_t.
+extern "C" int ov3_pool_quantize(const void* x, int B, int H, int W, int C, int pool, int in_f32,
+                                 const float* s0, const float* s1, int8_t* q0, int8_t* q1,
+                                 cudaStream_t stream) {
+  if (!pool_args_ok(B, H, W, C, pool, s0, s1, q0, q1)) return cudaErrorInvalidValue;
+  const int64_t elements = static_cast<int64_t>(B) * H * W * C;
+  if (elements >= (int64_t{1} << 31))
+    return launch_pool_first(x, B, H, W, C, pool, in_f32, s0, s1, q0, q1, stream);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (pass_sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&pass_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int Ho = H / pool, Wo = W / pool;
+  const int vec = (pool == 1 ? elements % 16 : C % 16) == 0 ? 16 : 8;
+  const int64_t outputs = static_cast<int64_t>(B) * Ho * Wo * C;
+  PassArgs a{x, s0, s1, q0, q1, static_cast<uint32_t>(outputs / vec), static_cast<uint32_t>(H),
+             static_cast<uint32_t>(W), static_cast<uint32_t>(C),
+             make_fast_div(static_cast<uint32_t>(C / vec)), make_fast_div(static_cast<uint32_t>(Wo)),
+             make_fast_div(static_cast<uint32_t>(Ho))};
+  if (in_f32) {
+    return pool == 1 ? launch_pass<float, 1>(a, vec, dev, stream)
+                     : launch_pass<float, 2>(a, vec, dev, stream);
+  }
+  return pool == 1 ? launch_pass<__nv_bfloat16, 1>(a, vec, dev, stream)
+                   : launch_pass<__nv_bfloat16, 2>(a, vec, dev, stream);
+}
+
+// The same on the first design (`pool_quantize_kernel`) whatever the shape:
+// the yardstick beside which the routed design is timed and checked.
+extern "C" int ov3_pool_quantize_first(const void* x, int B, int H, int W, int C, int pool,
+                                       int in_f32, const float* s0, const float* s1, int8_t* q0,
+                                       int8_t* q1, cudaStream_t stream) {
+  if (!pool_args_ok(B, H, W, C, pool, s0, s1, q0, q1)) return cudaErrorInvalidValue;
+  return launch_pool_first(x, B, H, W, C, pool, in_f32, s0, s1, q0, q1, stream);
 }
 
 extern "C" const char* ov3_error_string(int code) {

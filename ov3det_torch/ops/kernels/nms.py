@@ -3,9 +3,12 @@
 The kernel (`ov3det_torch/csrc/nms.cu`) is the counterpart of
 `_greedy_suppress` (`ov3det/geometry/nms.py:38-61`), a `lax.fori_loop` that
 XLA runs on the TPU (not a Pallas kernel), with the overlap matrix of
-`_aabb_overlap_matrix` (`:21-35`) built inside it: one CTA a scene, the
-scene's boxes and the (K, K) suppression bitmask in shared memory, the
-greedy pass on the device, one launch for a whole batch.
+`_aabb_overlap_matrix` (`:21-35`) built inside it, one launch for a whole
+batch.  Two designs compute it: `nms_cluster_kernel` (a thread-block
+cluster of `cluster_size_for(K)` CTAs a scene, the suppression bitmask in
+rank order, a greedy pass that steps through the kept boxes alone) for
+every K, and the first design, `nms_kernel` (one CTA a scene), which the
+private `_impl="first"` keeps reachable on the card as a yardstick.
 
 The plain version (`nms_plain`) builds the (B, K, K) overlap with torch ops
 and runs JAX's K rounds of argmax and suppression for the whole batch: the
@@ -28,6 +31,8 @@ from ov3det_torch.ops.kernels import _build
 SOURCE = "ov3det_torch/csrc/nms.cu"
 REPLACES = "ov3det/geometry/nms.py:38 (_greedy_suppress: lax.fori_loop, XLA, not Pallas)"
 MAX_K = 1024  # boxes a scene the kernel holds in shared memory (csrc/nms.cu kMaxK)
+MAX_CLUSTER = 8  # CTAs a scene of the cluster design (kMaxCluster): the portable limit
+THREADS = 256  # a CTA's threads (kThreads)
 
 _NEG_INF = -1e30
 
@@ -80,6 +85,34 @@ def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, threshold: float, valid
     return keep
 
 
+def cluster_size_for(K: int) -> int:
+    """The cluster design's CTAs a scene for K boxes (`cluster_size_for` of
+    csrc/nms.cu): one a 32 boxes, at most `MAX_CLUSTER`."""
+    return -(-K // 32) if K <= 32 * MAX_CLUSTER else MAX_CLUSTER
+
+
+def rank_threads_for(per_cta: int) -> int:
+    """Threads that count one box's rank together (`rank_threads_for`): the
+    largest power of two up to 32 such that a CTA's `per_cta` boxes take at
+    most its threads."""
+    t = 32
+    while t > 1 and t * per_cta > THREADS:
+        t >>= 1
+    return t
+
+
+def _entry(impl: Optional[str], on_cuda: bool) -> str:
+    """The C entry point for the private `_impl` argument: None is the
+    cluster design, "first" the first design."""
+    if impl is None:
+        return "ov3_nms"
+    if impl != "first":
+        raise ValueError(f"nms: _impl is None (the cluster design) or 'first', got {impl!r}")
+    if not on_cuda:
+        raise ValueError("nms: _impl chooses between CUDA kernels; these tensors lie on the CPU")
+    return "ov3_nms_first"
+
+
 def _check(boxes, scores, valid, classes) -> None:
     if boxes.dim() != 3 or boxes.shape[-1] not in (4, 6) or boxes.dtype != torch.float32:
         raise ValueError(f"nms expects (B, K, 4) or (B, K, 6) f32 boxes, got "
@@ -102,15 +135,18 @@ def _check(boxes, scores, valid, classes) -> None:
 
 
 def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, threshold: float, valid: torch.Tensor,
-             classes: Optional[torch.Tensor] = None, old_type: bool = False) -> torch.Tensor:
+             classes: Optional[torch.Tensor] = None, old_type: bool = False,
+             _impl: Optional[str] = None) -> torch.Tensor:
     """Greedy NMS over a batch: boxes (B, K, 4) or (B, K, 6) f32 [mins,
     maxs], scores (B, K) f32, valid (B, K) bool, classes (B, K) int64 for
     the class-aware variant or None -> (B, K) bool keep mask.
 
     CUDA tensors launch the kernel (K up to `MAX_K`; a larger K raises),
-    one launch for the batch with no host wait; CPU tensors take
+    one launch for the batch with no host wait, of the cluster design or,
+    with `_impl="first"`, of the first design; CPU tensors take
     :func:`nms_plain`."""
     _check(boxes, scores, valid, classes)
+    entry = _entry(_impl, boxes.device.type == "cuda")
     if boxes.device.type == "cpu":
         return nms_plain(boxes, scores, threshold, valid, classes, old_type)
     if boxes.device.type != "cuda":
@@ -125,10 +161,11 @@ def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, threshold: float, valid:
         live = valid.contiguous().view(torch.uint8)
         cls = classes.contiguous() if classes is not None else None
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ov3_nms(boxes.data_ptr(), scores.data_ptr(),
-                             cls.data_ptr() if cls is not None else None, live.data_ptr(),
-                             B, K, boxes.shape[-1] // 2, ctypes.c_float(threshold),
-                             int(old_type), keep.data_ptr(), stream)
+        status = getattr(lib, entry)(boxes.data_ptr(), scores.data_ptr(),
+                                     cls.data_ptr() if cls is not None else None,
+                                     live.data_ptr(), B, K, boxes.shape[-1] // 2,
+                                     ctypes.c_float(threshold), int(old_type), keep.data_ptr(),
+                                     stream)
     _build.check(lib, status, "nms")
     nms_keep.launches += 1
     return keep
@@ -137,8 +174,9 @@ def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, threshold: float, valid:
 nms_keep.launches = 0
 
 _SIGNATURES = {
-    "ov3_nms": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
-                + [ctypes.c_void_p] * 2, ctypes.c_int),
+    name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
+           + [ctypes.c_void_p] * 2, ctypes.c_int)
+    for name in ("ov3_nms", "ov3_nms_first")
 }
 
 

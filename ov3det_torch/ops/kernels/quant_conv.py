@@ -13,7 +13,10 @@ persistent grid) for C_in a multiple of 16, the first design
 keeps a CUDA call on the first design.
 `pool_quantize` launches the pass that quantises what no epilogue can: an
 input as it is, or after a 2 x 2 average pool (the anti-aliased stride-2
-blocks, the stem's output).
+blocks, the stem's output): `pool_quantize_vec` (16 channels a thread,
+32-bit indices, no division on the common path) for every tensor below
+2^31 elements (`pass_launch`), the first design (`pool_quantize_kernel`)
+above; `_impl="first"` keeps a CUDA call on the first design.
 
 The plain versions (`quant_conv_plain`, `pool_quantize_plain`) are the
 unfused module path's torch ops in the same order (`int8_conv`: an im2col
@@ -235,13 +238,44 @@ def quant_conv(xq: torch.Tensor, kernel_q: torch.Tensor, k: int, padding: int,
 quant_conv.launches = 0
 
 
-def pool_quantize(x: torch.Tensor, pool: int, scales: Sequence[torch.Tensor]) -> list:
+def pass_launch(B: int, H: int, W: int, C: int, pool: int) -> dict:
+    """The launch `ov3_pool_quantize` makes for a (B, H, W, C) input: design
+    "vec" (`pool_quantize_vec`) while B H W C is below 2^31, else "first";
+    for "vec", `vec` values a thread (16 channels, or 8 where C at pool 2,
+    or B H W C at pool 1, is not a multiple of 16) and `items`, the
+    outputs' pieces of `vec` values, which a grid of one wave (the CTAs the
+    card's SMs hold at once) takes a grid apart."""
+    elements = B * H * W * C
+    if elements >= 2 ** 31:
+        return dict(design="first")
+    vec = 16 if (elements if pool == 1 else C) % 16 == 0 else 8
+    return dict(design="vec", vec=vec, items=B * (H // pool) * (W // pool) * C // vec)
+
+
+def _pass_entry(impl: Optional[str], on_cuda: bool) -> str:
+    """The C entry point of the pass for the private `_impl` argument: None
+    is the route (`pass_launch`), "first" the first design."""
+    if impl is None:
+        return "ov3_pool_quantize"
+    if impl != "first":
+        raise ValueError(f"pool_quantize: _impl is None (the route) or 'first', got {impl!r}")
+    if not on_cuda:
+        raise ValueError("pool_quantize: _impl chooses between CUDA kernels; this tensor lies on "
+                         "the CPU")
+    return "ov3_pool_quantize_first"
+
+
+def pool_quantize(x: torch.Tensor, pool: int, scales: Sequence[torch.Tensor],
+                  _impl: Optional[str] = None) -> list:
     """:func:`pool_quantize_plain`'s function for one or two scales: CUDA
     tensors (bf16 or f32, C a multiple of 8) launch the pass, one launch
-    with no host wait; CPU tensors take the plain version."""
+    with no host wait, of the design `pass_launch` picks or, with
+    `_impl="first"`, of the first design; CPU tensors take the plain
+    version."""
     if x.dim() != 4 or pool not in (1, 2) or len(scales) not in (1, 2):
         raise ValueError(f"pool_quantize expects (B, H, W, C), pool 1 or 2 and one or two "
                          f"scales, got {tuple(x.shape)}, {pool}, {len(scales)}")
+    entry = _pass_entry(_impl, x.device.type == "cuda")
     if x.device.type == "cpu":
         return pool_quantize_plain(x, pool, scales)
     if x.device.type != "cuda":
@@ -258,7 +292,7 @@ def pool_quantize(x: torch.Tensor, pool: int, scales: Sequence[torch.Tensor]) ->
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ov3_pool_quantize(
+        status = getattr(lib, entry)(
             x.data_ptr(), B, H, W, C, pool, int(x.dtype == torch.float32), ss[0].data_ptr(),
             ss[1].data_ptr() if len(ss) > 1 else None, outs[0].data_ptr(),
             outs[1].data_ptr() if len(ss) > 1 else None, stream)
@@ -285,8 +319,8 @@ def _ptr(t: Optional[torch.Tensor]):
 _SIGNATURES = {
     **{name: ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)
        for name in ("ov3_quant_conv", "ov3_quant_conv_mma")},
-    "ov3_pool_quantize": ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5,
-                          ctypes.c_int),
+    **{name: ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5, ctypes.c_int)
+       for name in ("ov3_pool_quantize", "ov3_pool_quantize_first")},
 }
 
 

@@ -7,6 +7,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "ov3det_torch"
 
@@ -70,3 +72,37 @@ def test_no_source_names_the_jax_package():
     if pattern.search(smoke.read_text()):
         offenders.append("chip_smoke.py")
     assert offenders == []
+
+
+# the port's own scripts: those that drive `ov3det_torch` on the card
+PORT_SCRIPTS = sorted(p.name for p in (REPO / "scripts").glob("*.py")
+                      if "ov3det_torch" in p.read_text())
+
+_SCRIPT_PROBE = """
+import importlib, json, sys
+sys.path.insert(0, "scripts")
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "ov3det", "triton", "PIL"))))
+"""
+
+
+def test_the_port_scripts_are_found():
+    assert {"nms_parts.py", "pool_quantize_parts.py", "attention_parts.py",
+            "quant_conv_designs.py"} <= set(PORT_SCRIPTS)
+
+
+@pytest.mark.parametrize("script", PORT_SCRIPTS)
+def test_port_script_names_no_jax(script):
+    """A script of the port imports neither JAX, flax, the JAX package nor
+    PIL; importing it (on a machine with no card) loads none of them and
+    builds nothing."""
+    pattern = re.compile(r"^\s*(import jax|from jax|import flax|from flax|"
+                         r"from ov3det[ .]|import ov3det\b(?!_torch)|import PIL|from PIL)", re.M)
+    assert not pattern.search((REPO / "scripts" / script).read_text())
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE, script[:-3]], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []

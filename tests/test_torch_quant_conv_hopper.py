@@ -240,7 +240,8 @@ def quantize_fast_emulated(v: np.ndarray, s: float) -> tuple:
     """`store_q8_fast` of `csrc/quant_conv.cu` and its redo by `store_q8`,
     in numpy f32, on groups of 8 consecutive values (a thread's piece): u =
     v * rs with rs = 1 / s rounded; rint(u) unless any u of the group lies
-    within 2^-14 of a half-integer or 1 / s is not normal, then rint(v / s);
+    within 2^-14 of a half-integer (|u - rint(u)| > 0.5 - 2^-14) or 1 / s is
+    not normal, then rint(v / s);
     clamped to +-127 as fminf(fmaxf(t, -127), 127).  Returns (int8 codes, how many
     groups took the division)."""
     v = v.astype(np.float32).reshape(-1, 8)
@@ -250,7 +251,7 @@ def quantize_fast_emulated(v: np.ndarray, s: float) -> tuple:
         rs = np.float32(1.0) / s
         u = v * rs
         t = np.rint(u)
-        near = np.abs(np.abs(u - t) - np.float32(0.5)) < np.float32(2.0 ** -14)
+        near = np.abs(u - t) > np.float32(0.5 - 2.0 ** -14)  # u - t is exact and at most 0.5
         divide = near.any(axis=1) | exact
         t = np.where(divide[:, None], np.rint(v / s), t)
     t = np.fmin(np.fmax(t, np.float32(-127)), np.float32(127))  # NaN -> -127, as fmaxf
@@ -319,10 +320,11 @@ def test_fast_quantise_at_the_edges():
 
 def test_fast_quantise_mirrors_the_source():
     src = (CSRC / "quant_conv.cu").read_text()
-    body = src[src.index("bool store_q8_fast("):src.index("uint32_t smem_u32(")]
+    # the arithmetic, shared by the conv's epilogue (`store_q8_fast`) and the pass
+    body = src[src.index("uint32_t codes_q8_fast("):src.index("bool store_q8_fast(")]
     assert "const float u = __fmul_rn(v[e], rs);" in body
     assert "const float t = rintf(u);" in body
-    assert "near |= fabsf(__fsub_rn(fabsf(__fsub_rn(u, t)), 0.5f)) < 0x1p-14f;" in body
+    assert "near |= (fabsf(__fsub_rn(u, t)) > 0.5f - 0x1p-14f ? 1u : 0u) << e;" in body
     assert "fminf(fmaxf(t, -127.f), 127.f)" in body
     # a flagged piece is stored again by the division (`store_q8`)
     assert "store_q8_fast(p.out_q + off, v, rs, exact)) redo |= 1u << i2;" in src
