@@ -74,9 +74,17 @@ at once), then:
        of its feature gradient (`slot_sources`) equal to its plain version at
        every position on two launches, and on a scene where the direct and
        the expanded distances split at r^2 (it must give the expanded pick,
-       the forward the direct one); the feature gradient on the card against
-       the CPU's, timed with the plain pick pass and with the kernel; the
-       attention kernels with
+       the forward the direct one); the scatter of the feature gradient
+       (`feature_map` then `feature_sum`, counted in `feature_scatter`)
+       equal to `_scatter` (the accumulating `index_put_`) bit for bit on
+       the step's own sources on two launches and on crafted ones (a point
+       every slot of a ball names, empty balls, points no slot names, a
+       scene on one point, K 1 at N 2047 and C 40, C 4, 65536 slots a
+       scene), the whole gradient on the card equal to the CPU's bit for
+       bit, the slots-a-point distribution printed, the kernels,
+       `index_put_`'s path and `index_add_` timed in turns beside the
+       bound, and the gradient with the kernels and with the plain pick
+       pass; the attention kernels with
        the radius bias at the three (N, r^2) of the encoder's layers, with
        token coordinates from the FPS picks above: the radius mask read
        back through the forward, dq and dk/dv kernels, in both designs,
@@ -91,8 +99,8 @@ at once), then:
        ball-group twice, the radius forward 3 times, NMS once and no
        backward kernel, equal to the eager ones bit for bit (phase 15);
        training: one warm-up and 3 timed steps, each launching FPS 3 times,
-       the ball-group twice, its pick pass once and each radius kernel 3
-       times, with the stage
+       the ball-group twice, its pick pass and its scatter once and each
+       radius kernel 3 times, with the stage
        split, peak memory and one profiled step; then one f32 step with
        every dropout at 0 on one scene, card against CPU, as in 6;
   8. the training CLI: `ov3det_torch.main.main(argv)` in this process on a
@@ -230,17 +238,25 @@ at once), then:
        fixtures, 16-bit depth PNGs of `write_png16`, poses) at
        max_frames 64: the shapes, the mask, ms a scene.
  14. the packed transfer and the graphed step (slice 12):
-       the auction kernel against its plain version: assignments equal on
-       the criterion's cost matrices of 3 eager `sunrgbd_quick` steps, on
-       seeded costs with ties, on near-duplicate rows that do not
-       converge (500 tight and 800 loose rounds) and on NaN and -inf
-       benefits (a value, a person, a row); its ms (replays of a
-       CUDA graph of calls) beside the plain loop's and the bound of step
-       0's work (the bidder x object pairs its rounds need);
+       the auction: the fused launch (`auction_lap_kernel`, the whole
+       `auction_lap`) and the first design (`_impl="first"`: torch ops
+       around `auction_kernel`) against the plain `auction_lap`, the three
+       outputs equal, on the criterion's cost matrices of 3 eager
+       `sunrgbd_quick` steps (transposed views) and a contiguous copy, on
+       seeded costs with ties and ragged live persons (0 included), on
+       signed zeros, on near-duplicate rows that do not converge (500 tight
+       and 800 loose rounds) and on NaN and -inf benefits (a value, a
+       person, a row); on step 0's costs the fused launch, the first
+       design's kernel alone and its whole `auction_lap` (replays of a CUDA
+       graph of calls, in turns) beside the plain version, the bound of
+       step 0's work and its rounds' serial chain;
        `PackedStep` graphed against eager from one state and seeds at
        `sunrgbd_quick`, masked and OV width: 3 steps bit for bit in every
        loss, grad_norm, parameter, buffer and Adam moment; each graphed
-       step's launches exact; no host wait in a group's 4 replays (CUDA's
+       step's launches exact (the first auction design's never); no
+       `index_put_`, `index_add_`, `_scatter` or plain auction called in
+       the graphed or eager steps (`plain_spy`); no host wait in a group's
+       4 replays (CUDA's
        sync debug mode); 5 steps of each timed, one graphed step profiled,
        the peak memory with the graph;
        the bytes of a group of 4 SUN RGB-D OV batches with and without the
@@ -562,17 +578,20 @@ def count_int_mm():
 def kernel_counters() -> dict:
     """name -> (wrapper, attribute): each wrapper counts its kernel's launches
     in `.launches`, the attention wrappers those of the radius variant in
-    `.radius_launches`; "int_mm" counts `torch._int_mm`'s calls, which must
-    stay 0."""
+    `.radius_launches`; "int_mm" counts `torch._int_mm`'s calls and
+    "auction_first" the first auction design's launches, which must stay 0."""
     from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms, quant_conv
 
     count_eval_replays()
     counters = {"fps": (fps.fps, "launches"), "ball_group": (ball_group.ball_group, "launches"),
-                "slot_sources": (ball_group.slot_sources, "launches")}
+                "slot_sources": (ball_group.slot_sources, "launches"),
+                "feature_scatter": (ball_group.feature_scatter, "launches")}
     for name in ("attention_fwd", "attention_dq", "attention_dkv"):
         counters[name] = (getattr(attention, name), "launches")
         counters[f"{name}_radius"] = (getattr(attention, name), "radius_launches")
-    counters["auction"] = (auction.auction_phases, "launches")
+    counters["auction"] = (auction.auction_lap, "launches")
+    # the first design's phases alone (`_impl="first"`): no main path launches them
+    counters["auction_first"] = (auction.auction_phases, "launches")
     counters["nms"] = (nms.nms_keep, "launches")
     counters["quant_conv"] = (quant_conv.quant_conv, "launches")
     counters["pool_quantize"] = (quant_conv.pool_quantize, "launches")
@@ -675,6 +694,7 @@ def kernel_sources() -> dict:
     return {"fps": (fps.SOURCE, fps.REPLACES),
             "ball_group": (ball_group.SOURCE, ball_group.REPLACES),
             "slot_sources": (ball_group.SOURCE, ball_group.SOURCES_REPLACES),
+            "feature_scatter": (ball_group.SCATTER_SOURCE, ball_group.SCATTER_REPLACES),
             "attention_fwd": (attention.SOURCE, attention.REPLACES),
             "attention_dq": (attention.BWD_SOURCE, attention.DQ_REPLACES),
             "attention_dkv": (attention.BWD_SOURCE, attention.DKV_REPLACES),
@@ -1035,10 +1055,11 @@ def first_design_check(A, dev: torch.device) -> None:
 def check_masked_points(batch: dict, dev: torch.device) -> tuple:
     """Phase 7, point kernels of the masked ScanNet config: FPS and the
     ball-group at its shapes against their plain versions and first designs,
-    timed, and the pick pass of the ball-group's feature gradient with the
-    gradient itself on the card against the CPU.  Returns (extras for the
-    fps and ball_group entries and the slot_sources entry, the token
-    coordinates at 2048 and 1024 tokens)."""
+    timed, and the pick pass and the scatter of the ball-group's feature
+    gradient, with the gradient itself on the card against the CPU.  Returns
+    (extras for the fps and ball_group entries, the slot_sources and
+    feature_scatter entries, the token coordinates at 2048 and 1024
+    tokens)."""
     from ov3det_torch.ops.kernels import fps
 
     xyz = torch.from_numpy(batch["point_clouds"]).to(dev)
@@ -1059,7 +1080,9 @@ def check_masked_points(batch: dict, dev: torch.device) -> tuple:
     bg_extra = dict(mid, library_ms=None, pre_encoder=pre,
                     work="one interim SA call: 8x2048, M=1024, K=32, C=256")
     return {"fps": fps_extra, "ball_group": bg_extra,
-            "slot_sources": check_slot_sources(pre_xyz, mid_xyz, dev)}, pre_xyz, mid_xyz
+            "slot_sources": check_slot_sources(pre_xyz, mid_xyz, dev),
+            "feature_scatter": check_feature_scatter(card_line(), pre_xyz, mid_xyz, dev)}, \
+        pre_xyz, mid_xyz
 
 
 def check_slot_sources(pre_xyz, mid_xyz, dev: torch.device) -> dict:
@@ -1067,9 +1090,8 @@ def check_slot_sources(pre_xyz, mid_xyz, dev: torch.device) -> dict:
     interim SA's shape: equal to the plain version at every position on two
     launches, and on a scene where the direct and the expanded distances
     split at r^2 (the expanded pick must win); the kernel timed as
-    replays of a CUDA graph (`graph_ms`); then the feature gradient on the
-    card against the CPU's, timed with the plain pick pass ("before") and
-    with the kernel ("after").  Returns the kernels line's entry."""
+    replays of a CUDA graph (`graph_ms`).  Returns the kernels line's
+    entry."""
     from ov3det_torch.ops.kernels import ball_group as BG
 
     B, N, _ = pre_xyz.shape
@@ -1108,32 +1130,116 @@ def check_slot_sources(pre_xyz, mid_xyz, dev: torch.device) -> dict:
     b_ms, b_by = bound_ms((pre_xyz.numel() + mid_xyz.numel()) * 4 + want.numel() * 4,
                           10 * tests + 5 * B * (N + M), F32_PEAK)
 
-    g = torch.randn(B, K, M, 3 + C, generator=torch.Generator().manual_seed(3)).to(dev)
-    grad = BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C)
-    cpu = BG.feature_grad(pre_xyz.cpu(), mid_xyz.cpu(), radius, K, g.cpu(), C)
-    g_err = (grad.cpu() - cpu).abs().max().item() / cpu.abs().max().item()
-    # the card's accumulating index_put_ sums each point's slots in their order, as the CPU does
-    require(g_err <= 1e-5, f"ball_group feature gradient: card vs CPU {g_err} relative")
-    before = cuda_ms(lambda: BG.feature_grad_plain(pre_xyz, mid_xyz, radius, K, g, C), 3)
-    after = cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10)
-    before = min(before, cuda_ms(lambda: BG.feature_grad_plain(pre_xyz, mid_xyz, radius, K, g, C), 3))
-    after = min(after, cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10))
-    # its bound: the grouped gradient's features read once, the feature gradient written once
-    g_bound = (B * K * M * C + B * N * C) * 4 / HBM_BYTES_PER_S * 1e3
     print(f"slot_sources ({B}x{N}, M={M}, K={K}): equals the plain version at all {want.numel()} "
           f"positions on two launches, and gives the expanded pick at the r^2 boundary (the forward "
           f"the direct one); {tests} distance tests with early exit; kernel {ms:.4f} ms, plain "
           f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    print(f"ball_group feature gradient (C=256): card vs CPU within {g_err:.2e} of the largest "
-          f"value; with the pick kernel {after:.3f} ms, with the plain pick pass {before:.3f} ms, "
-          f"bound {g_bound:.4f} ms (bytes)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, distance_tests=tests, feature_grad_ms=after,
-                feature_grad_plain_ms=before, feature_grad_bound_ms=g_bound,
-                feature_grad_rel_err=g_err,
+                library_ms=None, distance_tests=tests,
                 design="ball_group_tile<sources>: the forward's tile design with the expanded "
                        "distance, (B, K, M) int32 out",
                 work="one masked training step's backward: 8x2048, M=1024, K=32")
+
+
+def crafted_sources(dev: torch.device) -> dict:
+    """label -> (sources (B, K, M) int32, cotangent (B, K, M, 3 + C) f32, N,
+    C) on the card: the skews and edges the feature-gradient scatter must
+    sum in slot order, seeded."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def grad(src, C):
+        return torch.randn(*src.shape, 3 + C, generator=gen, device=dev)
+
+    def keys(B, K, M, N):
+        return torch.randint(0, N, (B, K, M), generator=gen, device=dev, dtype=torch.int32)
+
+    out = {}
+    src = keys(8, 32, 1024, 2048)
+    src[:, :, ::5] = src[:, :1, ::5]  # every slot of a fifth of the balls on one point
+    src[:, :, 1::7] = -1  # empty balls
+    out["one point a ball, empty balls"] = (src, grad(src, 256), 2048, 256)
+    src = keys(2, 32, 1024, 1024)  # half the points named by no slot
+    out["points no slot names"] = (src, grad(src, 256), 2048, 256)
+    src = torch.zeros((1, 32, 1024), dtype=torch.int32, device=dev)  # a scene on one point
+    out["every slot on one point"] = (src, grad(src, 256), 2048, 256)
+    src = keys(3, 1, 1024, 2047)
+    out["K 1, N 2047"] = (src, grad(src, 40), 2047, 40)  # C not a multiple of 64
+    src = keys(2, 32, 1024, 2048)
+    out["C 4"] = (src, grad(src, 4), 2048, 4)
+    src = keys(1, 64, 1024, 2048)
+    out["65536 slots a scene"] = (src, grad(src, 16), 2048, 16)
+    return out
+
+
+def check_feature_scatter(card: str, pre_xyz, mid_xyz, dev: torch.device) -> dict:
+    """Phase 7, the feature gradient's scatter (`csrc/feature_grad.cu`, two
+    launches) at the interim SA's shape: equal to `_scatter` (the
+    accumulating `index_put_`) bit for bit on the masked step's own sources
+    on two launches and on crafted ones; the whole gradient (pick pass and
+    scatter) on the card equal to the CPU's bit for bit; the slots-a-point
+    distribution; the kernels, `_scatter` and `index_add_` timed in turns
+    (graph replays), and the whole gradient with the kernels and with the
+    plain pick pass and `_scatter`.  Returns the kernels line's entry."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import feature_grad_parts
+
+    from ov3det_torch.ops.kernels import ball_group as BG
+
+    B, N, _ = pre_xyz.shape
+    M, K, radius, C = mid_xyz.shape[1], 32, 0.4, 256
+    src = BG.slot_sources(pre_xyz, mid_xyz, radius, K)
+    g = torch.randn(B, K, M, 3 + C, generator=torch.Generator().manual_seed(3)).to(dev)
+    want = BG._scatter(src, g, N, C)
+    for launch in range(2):
+        got = BG.feature_scatter(src, g, N, C)
+        require(torch.equal(got, want), f"feature_scatter, launch {launch}: differs from _scatter at "
+                                        f"{int((got != want).sum())} values")
+    crafted = crafted_sources(dev)
+    for label, (c_src, c_g, c_n, c_c) in crafted.items():
+        require(torch.equal(BG.feature_scatter(c_src, c_g, c_n, c_c), BG._scatter(c_src, c_g, c_n, c_c)),
+                f"feature_scatter on crafted sources ({label}): differs from _scatter")
+    grad = BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C)
+    cpu = BG.feature_grad(pre_xyz.cpu(), mid_xyz.cpu(), radius, K, g.cpu(), C)
+    # both sum each point's slots from 0 in slot order: the same bits
+    require(torch.equal(grad.cpu(), cpu), "ball_group feature gradient: card and CPU differ at "
+                                          f"{int((grad.cpu() != cpu).sum())} values")
+    dist = feature_grad_parts.distribution(src, N)
+
+    rows = torch.where(src >= 0, src.long() + N * torch.arange(B, device=dev)[:, None, None],
+                       B * N).reshape(-1)
+    feats = g[..., 3:].reshape(-1, C)
+    atomics = torch.zeros(B * N + 1, C, dtype=torch.float32, device=dev)
+    fns = {"kernels": lambda: BG.feature_scatter(src, g, N, C),
+           "index_put_": lambda: BG._scatter(src, g, N, C),
+           "index_add_": lambda: atomics.index_add_(0, rows, feats)}
+    ms = {k: [] for k in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        ms[name].append(graph_ms(fns[name], 10))
+    ms = {k: min(v) for k, v in ms.items()}
+    with_kernels = cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10)
+    plain_grad = cuda_ms(lambda: BG.feature_grad_plain(pre_xyz, mid_xyz, radius, K, g, C), 3)
+    with_kernels = min(with_kernels, cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g,
+                                                                     C), 10))
+    # the bound: the grouped gradient's features read once, the feature gradient written once
+    g_bound = (B * K * M * C + B * N * C) * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"feature_scatter ({B}x{N}, M={M}, K={K}, C={C}): equals _scatter bit for bit on the "
+          f"masked step's sources (two launches) and on {len(crafted)} crafted sets "
+          f"({', '.join(crafted)}); the whole gradient on the card equals the CPU's bit for bit; slots a "
+          f"point: max {dist['max']}, mean {dist['mean']:.2f}, p99 {dist['p99']:.1f}, named by no "
+          f"slot {dist['unnamed']:.4f}")
+    print(f"feature_scatter times (graph replays, in turns): kernels {ms['kernels']:.4f} ms, "
+          f"index_put_ (_scatter) {ms['index_put_']:.4f} ms, index_add_ {ms['index_add_']:.4f} ms "
+          f"(atomics: its sums' order changes from run to run), bound {g_bound:.4f} ms (bytes); the "
+          f"whole gradient with the pick kernel and the scatter kernels {with_kernels:.4f} ms, with "
+          f"the plain pick pass and _scatter {plain_grad:.3f} ms ({card})")
+    return dict(max_abs_err=0.0, ms=ms["kernels"], plain_ms=ms["index_put_"], bound_ms=g_bound,
+                bound_by="bytes", library_ms=ms["index_add_"],
+                library="index_add_: atomics, its sums' order changes from run to run",
+                distribution=dist, feature_grad_ms=with_kernels, feature_grad_plain_ms=plain_grad,
+                design="feature_map (a cluster of 8 CTAs a scene: a stable counting sort of the "
+                       "slots by point) + feature_sum<64, 16> (a warp a point and 64 channels, "
+                       "rows staged by cp.async, added in slot order)",
+                work="one masked training step's backward: 8x2048, M=1024, K=32, C=256")
 
 
 def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
@@ -1376,16 +1482,19 @@ def range_kernels(prof, name: str):
 PROFILE_MARGIN_S = 0.2  # idle host time each side of a profiled call, inside the active window
 # counter -> the kernels its wrapper launches, one a launch, by their demangled
 # symbols: the routed design and the first of each (the first ball-group's
-# fill kernel stands for its pair)
+# fill kernel stands for its pair); a tuple where a launch is several
+# kernels, each once
 OWN_KERNELS = {
     "fps": r"\bfps_(?:cluster_)?kernel<",
     "ball_group": r"\bball_group_tile<0, |\bfill_kernel\(float const\*, float const\*, float const\*, "
                   r"int const\*",
     "slot_sources": r"\bball_group_tile<1, ",
+    "feature_scatter": (r"\bfeature_map\(", r"\bfeature_sum<"),
     **{f"attention_{k}{'_radius' if radius else ''}":
        rf"\battn_{k}_(?:wgmma<{str(radius).lower()}>|(?:bf16|f32)<\d+, {str(radius).lower()}>)\("
        for k in ("fwd", "dq", "dkv") for radius in (False, True)},
-    "auction": r"\bauction_kernel\(",
+    "auction": r"\bauction_lap_kernel\(",
+    "auction_first": r"\bauction_kernel\(",
     "nms": r"\bnms_(?:cluster_)?kernel<",
     "quant_conv": r"\bquant_conv_(?:wgmma|kernel)<",
     "pool_quantize": r"\bpool_quantize_(?:vec|kernel)<",
@@ -1457,10 +1566,11 @@ def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
                                           if got is None else
                                           f"{got[0]:.2f} ms of device time in {got[1]} kernels, "
                                           f"{got[0] * 1e3 / busy_us:.3f} of the busy time"))
-    seen = {n: sum(e.count for e in kernels if re.search(pat, e.key))
-            for n, pat in OWN_KERNELS.items()}
-    lost = {n: (c, seen[n]) for n, c in counted.items() if seen[n] != c}
-    own = [e for e in kernels if any(re.search(pat, e.key) for pat in OWN_KERNELS.values())]
+    pats = {n: (p,) if isinstance(p, str) else p for n, p in OWN_KERNELS.items()}
+    seen = {n: [sum(e.count for e in kernels if re.search(pat, e.key)) for pat in ps]
+            for n, ps in pats.items()}
+    lost = {n: (c, seen[n]) for n, c in counted.items() if any(s != c for s in seen[n])}
+    own = [e for e in kernels if any(re.search(pat, e.key) for ps in pats.values() for pat in ps)]
     require(not lost, f"{title}: launches the wrappers counted against the profile's kernels "
                       f"(counted, profiled): {lost}; the port's kernels in the profile: "
                       f"{[(e.key[:70], e.count) for e in own]}")
@@ -3927,14 +4037,17 @@ GROUP = 4  # --super_batch of the flagged CLI epoch
 
 
 def auction_work(benefit, live, eps_t, eps_l) -> tuple:
-    """(bidder x object pairs, object x person tests, rounds) that the
-    auction's rows need on these inputs: its rounds replayed with the plain
-    round, counting a row's round only while it has a bidder, and the loose
-    phase only for the rows the tight one left unconverged."""
+    """(bidder x object pairs, object x person tests, row-rounds, the serial
+    chain) that the auction's rows need on these inputs: its rounds
+    replayed with the plain round, counting a row's round only while it has
+    a bidder, and the loose phase only for the rows the tight one left
+    unconverged; the chain is the rounds of the row with the most (the rows
+    run side by side, each round after the last)."""
     from ov3det_torch.ops.kernels import auction
 
     B, P, O = benefit.shape
     pairs = tests = rounds = 0
+    per_row = torch.zeros(B, dtype=torch.int64, device=benefit.device)
     todo = torch.ones(B, dtype=torch.bool, device=benefit.device)
     for eps, cap in ((eps_t, 500), (eps_l, 800)):
         p2o = torch.where(live, -1, -2).to(torch.int64)
@@ -3947,23 +4060,29 @@ def auction_work(benefit, live, eps_t, eps_l) -> tuple:
             n = int(bidders.sum())
             active = int((bidders > 0).sum())
             pairs, tests, rounds = pairs + n * O, tests + active * O * P, rounds + active
+            per_row += bidders > 0
             p2o, o2p, price = auction._round(benefit, p2o, o2p, price, eps[:, None])
         todo = todo & (p2o == -1).any(1)
         if not bool(todo.any()):
             break
-    return pairs, tests, rounds
+    return pairs, tests, rounds, int(per_row.max())
 
 
 def check_auction(card: str, dev: torch.device) -> dict:
-    """The auction kernel against its plain version: on the cost matrices
+    """The fused auction (`auction_lap_kernel`, the whole `auction_lap` in
+    one launch) and the first design (`_impl="first"`: torch ops around
+    `auction_kernel`) against the plain `auction_lap`: on the cost matrices
     of 3 eager `sunrgbd_quick` steps (the criterion's own, caught at its
-    call), on seeded costs with ties, on near-duplicate rows that do not
-    converge and on NaN and infinite costs; assignments equal.  Kernel and plain version timed on the
-    steps' costs beside the bound."""
+    call: transposed views) and a contiguous copy of the first, on seeded
+    costs with ties and ragged live persons (0 included), on signed zeros, on
+    near-duplicate rows that do not converge and on NaN and infinite costs;
+    the three outputs equal.  On step 0's costs, in turns as graph replays:
+    the fused launch, the first design's kernel alone and its whole
+    `auction_lap`; the plain version once; the bound and the rounds' serial
+    chain beside them."""
     from ov3det_torch.config import sunrgbd_quick
     from ov3det_torch.engine.train import batch_to_device, build_training
     from ov3det_torch.losses import criterion
-    from ov3det_torch.ops.hungarian import auction_inputs
     from ov3det_torch.ops.kernels import auction
 
     cfg = sunrgbd_quick()
@@ -3985,8 +4104,13 @@ def check_auction(card: str, dev: torch.device) -> dict:
     del training
     rng = np.random.default_rng(14)
     R, P, O = caught[0][0].shape
-    seeded = [("ties", torch.from_numpy(rng.integers(0, 3, (R, P, O)).astype(np.float32)),
-               rng.integers(0, P + 1, R)),
+    require(caught[0][0].stride()[1] == 1, "the criterion's cost is no longer a transposed view")
+    ragged = rng.integers(0, P + 1, R)
+    ragged[:2] = 0, P
+    seeded = [("ties, ragged live persons", torch.from_numpy(
+                  rng.integers(0, 3, (R, P, O)).astype(np.float32)), ragged),
+              ("signed zeros", torch.from_numpy(
+                  rng.choice(np.array([0.0, -0.0, 0.5], np.float32), (R, P, O))), np.full(R, P)),
               ("near-duplicate rows", torch.from_numpy(
                   (np.repeat(rng.normal(size=(R, 1, O)), P, 1)
                    + 1e-7 * rng.normal(size=(R, P, O))).astype(np.float32)), np.full(R, P))]
@@ -3996,31 +4120,73 @@ def check_auction(card: str, dev: torch.device) -> dict:
         cost[0, 5, 7], cost[1, 2], cost[3] = bad, bad, bad
         seeded.append((name, torch.from_numpy(cost), np.full(R, P)))
     cases = [(f"step {i}", c, n) for i, (c, n) in enumerate(caught)]
+    cases.append(("step 0, contiguous", caught[0][0].contiguous(), caught[0][1]))
     cases += [(name, c.to(dev), torch.from_numpy(n).to(dev)) for name, c, n in seeded]
-    timed = None
     for name, cost, n in cases:
-        benefit, live, span = auction_inputs(cost, n)
-        args = (benefit, live, span * 2e-4, span * 5e-3)
-        got = auction.auction_phases(*args)
-        want = auction.auction_phases_plain(*args, 500, 800)
-        require(all(torch.equal(a, b) for a, b in zip(got, want)),
-                f"auction {name}: the kernel's assignments differ from the plain version's")
-        print(f"auction {name} ({tuple(cost.shape)}): assignments equal the plain version's")
-        if timed is None:
-            timed = args
-    ms = min(graph_ms(lambda: auction.auction_phases(*timed), 20) for _ in range(2))
-    plain = cuda_ms(lambda: auction.auction_phases_plain(*timed, 500, 800), 3)
-    pairs, tests, rounds = auction_work(*timed)
+        want = auction.auction_lap_plain(cost, n)
+        for impl in (None, "first"):
+            got = auction.auction_lap(cost, n, _impl=impl)
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"auction {name}: the {impl or 'fused'} design's outputs differ from the plain "
+                    f"auction_lap's")
+        print(f"auction {name} ({tuple(cost.shape)}, strides {cost.stride()}): the fused launch and "
+              f"the first design equal the plain auction_lap")
+    cost, n = caught[0]
+    benefit, live, span = auction.auction_inputs(cost, n)
+    args = (benefit, live, span * 2e-4, span * 5e-3)
+    fns = {"fused": lambda: auction.auction_lap(cost, n),
+           "first, whole": lambda: auction.auction_lap(cost, n, _impl="first"),
+           "first, kernel": lambda: auction.auction_phases(*args)}
+    ms = {k: [] for k in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        ms[name].append(graph_ms(fns[name], 20))
+    ms = {k: min(v) for k, v in ms.items()}
+    plain = cuda_ms(lambda: auction.auction_lap_plain(cost, n), 3)
+    pairs, tests, rounds, chain = auction_work(*args)
     # each (bidder, object): two subtractions, two comparisons; each (object, person): two
     ops = 4 * pairs + 2 * tests
-    nbytes = R * P * O * 4 + R * P + 2 * R * 4 + R * (P + O) * 8
+    nbytes = R * P * O * 4 + R * 8 + R * (P + O) * 8 + R * O * 4
     b_ms, b_by = bound_ms(nbytes, ops, F32_PEAK)
-    print(f"auction kernel on step 0's costs, {R} x {P} x {O}: {ms:.4f} ms a call (CUDA-graph "
-          f"replays); the plain version {plain:.3f} ms (its host checks included); {rounds} "
-          f"row-rounds, {pairs} bidder x object pairs; bound {b_ms:.5f} ms ({b_by}) ({card})")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                bound_term=b_by, library_ms=None, design="one CTA a row, rounds on the device",
+    print(f"auction on step 0's costs, {R} x {P} x {O}: the fused launch {ms['fused']:.4f} ms, the "
+          f"first design's kernel alone {ms['first, kernel']:.4f} ms and its whole auction_lap "
+          f"{ms['first, whole']:.4f} ms (graph replays, in turns); the plain auction_lap "
+          f"{plain:.3f} ms (its host checks included); {rounds} row-rounds, a chain of {chain} "
+          f"rounds, {pairs} bidder x object pairs; bound {b_ms:.5f} ms ({b_by}) ({card})")
+    return dict(max_abs_err=0.0, ms=ms["fused"], first_ms=ms["first, whole"],
+                first_kernel_ms=ms["first, kernel"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                bound_term=b_by, library_ms=None, row_rounds=rounds, chain_rounds=chain,
+                design="one launch for auction_lap: one CTA a row, the strided cost negated into "
+                       "shared memory with the span, every round on the device with a 64-bit "
+                       "key-max a winner, the fallback in the CTA",
                 work=f"one sunrgbd_quick step: {R} x {P} x {O}")
+
+
+@contextlib.contextmanager
+def plain_spy():
+    """Count the calls of the plain scatter and auction while the block runs
+    (a Counter by name): none may run on the card's main path.  (The first
+    auction design has a launch counter of its own, "auction_first".)"""
+    from ov3det_torch.ops.kernels import auction, ball_group
+
+    calls = collections.Counter()
+    targets = [(torch.Tensor, "index_put_"), (torch.Tensor, "index_add_"),
+               (ball_group, "_scatter"), (auction, "auction_phases_plain"),
+               (auction, "auction_lap_plain")]
+    originals = [(obj, name, getattr(obj, name)) for obj, name in targets]
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for obj, name, fn in originals:
+        setattr(obj, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
 
 
 def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
@@ -4028,9 +4194,10 @@ def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
     """`PackedStep` graphed and eager from one state and seeds on the same
     packed rows: GRAPH_STEPS steps equal bit for bit in every metric and
     every parameter and buffer; the graphed steps launch `per_step` each
-    (replays counted); no host wait inside a replay; then TIMED_STEPS more
-    of each timed on the host clock and one graphed step profiled.  Returns
-    the launch counts of the graphed steps."""
+    (replays counted; the first auction design never); no plain scatter or
+    auction runs in either (`plain_spy`); no host wait inside a replay; then
+    TIMED_STEPS more of each timed on the host clock and one graphed step
+    profiled.  Returns the launch counts of the graphed steps."""
     from ov3det_torch.datasets.loader import pack_batch
     from ov3det_torch.engine.train import build_training
 
@@ -4049,15 +4216,18 @@ def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
             base = torch.cuda.memory_allocated()
         got = []
         reset_counts()
-        for i in range(GRAPH_STEPS):
-            before = read_counts()
-            metrics, _ = step(rows[i % n], metas, i)
-            after = read_counts()
-            if graph:
-                delta = {k: after[k] - before[k] for k in after}
-                require(delta == per_step, f"{label} graphed step {i}: launches {delta}, "
-                                           f"expected {per_step}")
-            got.append({k: v.clone() for k, v in metrics.items()})
+        with plain_spy() as plain_calls:
+            for i in range(GRAPH_STEPS):
+                before = read_counts()
+                metrics, _ = step(rows[i % n], metas, i)
+                after = read_counts()
+                if graph:
+                    delta = {k: after[k] - before[k] for k in after}
+                    require(delta == per_step, f"{label} graphed step {i}: launches {delta}, "
+                                               f"expected {per_step}")
+                got.append({k: v.clone() for k, v in metrics.items()})
+        require(not plain_calls, f"{label} {'graphed' if graph else 'eager'} steps called plain "
+                                 f"versions on the card: {dict(plain_calls)}")
         counts = read_counts()
         state = {k: v.clone() for k, v in training.model.state_dict().items()}
         state.update({f"mu{j}": t.clone() for j, t in enumerate(training.optimizer.mu)})
@@ -4088,7 +4258,8 @@ def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
     bad = [k for k in g_s if not torch.equal(g_s[k], e_s[k])]
     require(not bad, f"{label}: graphed and eager state differs in {bad[:4]}")
     print(f"{label}: {GRAPH_STEPS} graphed steps equal the eager ones bit for bit (losses, "
-          f"grad_norm, {len(g_s)} parameters, buffers and Adam moments); step time (host clock "
+          f"grad_norm, {len(g_s)} parameters, buffers and Adam moments), and neither called "
+          f"index_put_, index_add_, _scatter or the plain auction (a spy); step time (host clock "
           f"to a sync, {TIMED_STEPS} steps) graphed median {np.median(times[True]):.2f} ms "
           f"({min(times[True]):.2f} to {max(times[True]):.2f}), eager median "
           f"{np.median(times[False]):.2f} ms ({min(times[False]):.2f} to {max(times[False]):.2f}); "
@@ -4156,8 +4327,9 @@ def packed_phase(card: str, dev: torch.device) -> tuple:
     graph_vs_eager(card, dev, "sunrgbd", sun, synthetic_batches(sun, GRAPH_STEPS, 1500), step)
     graph_vs_eager(card, dev, "scannet_masked", masked,
                    synthetic_batches(masked, GRAPH_STEPS, 1600),
-                   expect(fps=3, ball_group=2, slot_sources=1, attention_fwd_radius=3,
-                          attention_dq_radius=3, attention_dkv_radius=3, auction=1))
+                   expect(fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
+                          attention_fwd_radius=3, attention_dq_radius=3, attention_dkv_radius=3,
+                          auction=1))
     batches = ov_batches(ov, GRAPH_STEPS, 1700)
     teacher = cli.build_teacher(ov, {k: v[0] for k, v in batches[0].items()}, dev)
     graph_vs_eager(card, dev, "ov_sunrgbd", ov, batches, ov_step(), teacher=teacher)
@@ -4534,8 +4706,9 @@ def main() -> int:
                                  expect(fps=3, ball_group=2, attention_fwd_radius=3, nms=1),
                                  "scannet_masked", dev)
     m_trained = train(masked, MASKED_TRAIN_STEPS,
-                      expect(fps=3, ball_group=2, slot_sources=1, attention_fwd_radius=3,
-                             attention_dq_radius=3, attention_dkv_radius=3, auction=1),
+                      expect(fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
+                             attention_fwd_radius=3, attention_dq_radius=3, attention_dkv_radius=3,
+                             auction=1),
                       "scannet_masked", 400, dev)
     train_card_vs_cpu(masked, "scannet_masked", 400)
 

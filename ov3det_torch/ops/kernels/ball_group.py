@@ -21,10 +21,12 @@ yardstick the on-card check times beside the tile design.
 (`ball_group_kernel.py:174-241`): the forward is the kernel (or its plain
 version); the backward, `feature_grad`, is the port of `_bwd`
 (`:207-238`): the pick pass `slot_sources` (`ball_group_tile<sources>` on
-the card) and a scatter-add of the output's feature cotangent onto the
-picked points with an accumulating `index_put_` (each point's slots summed
-in their order, the same bits every run), the library scatter that XLA's
-`.at[].add` is in JAX.  It recomputes the picks as `bucket_picks` of the
+the card) and `feature_scatter`, the scatter-add of the output's feature
+cotangent onto the picked points that XLA's `.at[].add` is in JAX: on the
+card the two launches of `csrc/feature_grad.cu` (the inverse map by a
+stable counting sort, then each point's rows summed in slot order), on the
+CPU `_scatter`, an accumulating `index_put_`; both sum each point's slots
+in ascending slot order from 0, the same bits every run.  It recomputes the picks as `bucket_picks` of the
 JAX package does (`ov3det/ops/pointcloud.py:222-244`), with the expanded,
 clamped distance of `_pairwise_d2` (`:156-165`) and not the forward's
 direct subtraction, so at the r^2 boundary the gradient can land on a point
@@ -44,8 +46,10 @@ from ov3det_torch.ops.kernels import _build
 SOURCE = "ov3det_torch/csrc/ball_group.cu"
 REPLACES = "ov3det/ops/pallas/ball_group_kernel.py:45"
 # the pick pass replaces the recomputation of the picks in the custom VJP
-# `_bwd` (XLA in JAX, not Pallas)
+# `_bwd` (XLA in JAX, not Pallas), the scatter its `.at[].add`
 SOURCES_REPLACES = "ov3det/ops/pallas/ball_group_kernel.py:207"
+SCATTER_SOURCE = "ov3det_torch/csrc/feature_grad.cu"
+SCATTER_REPLACES = "ov3det/ops/pallas/ball_group_kernel.py:235 (_bwd's .at[].add, XLA, not Pallas)"
 
 
 def _f32(x: float) -> float:
@@ -139,10 +143,11 @@ def slot_sources_plain(xyz, centers, radius: float, nsample: int) -> torch.Tenso
 
 
 def _scatter(src: torch.Tensor, grad_out: torch.Tensor, N: int, num_channels: int) -> torch.Tensor:
-    """Sum the feature cotangent grad_out[..., 3:] (B, K, M, 3 + C) onto the
-    points `src` (B, K, M) names, in the cotangent's own order (no
-    transpose, no copy); the rows of empty balls (-1) go to a spare row past
-    the last point, which is dropped."""
+    """Plain PyTorch scatter of the feature gradient: sum the feature
+    cotangent grad_out[..., 3:] (B, K, M, 3 + C) onto the points `src`
+    (B, K, M) names, in the cotangent's own order (no transpose, no copy);
+    the rows of empty balls (-1) go to a spare row past the last point,
+    which is dropped.  The CPU's path and the kernels' oracle on the card."""
     B = src.shape[0]
     rows = src.long() + (torch.arange(B, device=src.device) * N)[:, None, None]
     rows = torch.where(src >= 0, rows, B * N).reshape(-1)
@@ -154,6 +159,60 @@ def _scatter(src: torch.Tensor, grad_out: torch.Tensor, N: int, num_channels: in
     return out[:B * N].view(B, N, num_channels)
 
 
+def feature_scatter(src: torch.Tensor, grad_out: torch.Tensor, N: int,
+                    num_channels: int) -> torch.Tensor:
+    """The scatter of the feature gradient: sources (B, K, M) int32 (-1
+    throughout an empty ball) and the cotangent (B, K, M, 3 + C) f32 ->
+    (B, N, C) f32, each point's slots summed from 0 in ascending slot order
+    k * M + m.
+
+    For CUDA tensors, the two launches of `csrc/feature_grad.cu`
+    (`feature_map`, then `feature_sum`), counted once a call in
+    `feature_scatter.launches`; the cotangent is read in place.  CPU tensors
+    take :func:`_scatter`, the same bits.  The card refuses more than 65536
+    slots a scene and a point axis whose map does not fit shared memory."""
+    C = num_channels
+    if src.dim() != 3 or src.dtype != torch.int32:
+        raise TypeError(f"feature_scatter expects (B, K, M) int32 sources, got "
+                        f"{tuple(src.shape)} {src.dtype}")
+    if tuple(grad_out.shape) != (*src.shape, 3 + C) or grad_out.dtype != torch.float32:
+        raise TypeError(f"feature_scatter expects a (B, K, M, 3 + C) f32 cotangent beside sources "
+                        f"{tuple(src.shape)} and C = {C}, got {tuple(grad_out.shape)} "
+                        f"{grad_out.dtype}")
+    if src.device != grad_out.device:
+        raise ValueError(f"feature_scatter operands on several devices: {src.device}, "
+                         f"{grad_out.device}")
+    if N < 1 or C < 1:
+        raise ValueError(f"feature_scatter needs N >= 1 and C >= 1, got {N}, {C}")
+    if src.device.type == "cpu":
+        return _scatter(src, grad_out, N, C)
+    if src.device.type != "cuda":
+        raise ValueError(f"feature_scatter runs on cuda or cpu tensors, got {src.device}")
+    B, K, M = src.shape
+    KM = K * M
+    lib = _build.load("feature_grad", _SCATTER_SIGNATURES)
+    with torch.cuda.device(src.device):
+        warps = ctypes.c_int()
+        _build.check(lib, lib.ov3_feature_map_warps(N, KM, ctypes.byref(warps)), "feature_scatter")
+        if not warps.value:
+            raise ValueError(f"feature_scatter kernel: {KM} slots and {N} points a scene do not fit "
+                             "its map (at most 65536 slots, and a histogram of the points in shared "
+                             "memory)")
+        src, grad_out = src.contiguous(), grad_out.contiguous()
+        slots = torch.empty((B, KM), dtype=torch.int32, device=src.device)
+        work = torch.empty((B, N, 4), dtype=torch.int32, device=src.device)
+        out = torch.empty((B, N, C), dtype=torch.float32, device=src.device)
+        status = lib.ov3_feature_scatter(src.data_ptr(), grad_out.data_ptr(), B, N, KM, C,
+                                         slots.data_ptr(), work.data_ptr(), out.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, status, "feature_scatter")
+    feature_scatter.launches += 1
+    return out
+
+
+feature_scatter.launches = 0
+
+
 def feature_grad(xyz, centers, radius: float, nsample: int, grad_out: torch.Tensor,
                  num_channels: int) -> torch.Tensor:
     """The feature cotangent of the ball-group, `_bwd` of
@@ -161,10 +220,10 @@ def feature_grad(xyz, centers, radius: float, nsample: int, grad_out: torch.Tens
     grad_out (B, K, M, 3 + C).  The picks come from :func:`slot_sources` (the
     kernel for CUDA tensors); an empty slot takes the first non-empty
     bucket's pick; an empty ball passes no gradient; the rest is summed onto
-    the picked points with an accumulating `index_put_` (XLA's scatter-add
-    in JAX)."""
-    return _scatter(slot_sources(xyz, centers, radius, nsample), grad_out, xyz.shape[1],
-                    num_channels)
+    the picked points by :func:`feature_scatter` (XLA's scatter-add in
+    JAX; the kernels for CUDA tensors)."""
+    return feature_scatter(slot_sources(xyz, centers, radius, nsample), grad_out, xyz.shape[1],
+                           num_channels)
 
 
 def feature_grad_plain(xyz, centers, radius: float, nsample: int, grad_out: torch.Tensor,
@@ -321,6 +380,12 @@ def slot_sources(xyz, centers, radius: float, nsample: int) -> torch.Tensor:
 slot_sources.launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SCATTER_SIGNATURES = {
+    "ov3_feature_map_warps": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "ov3_feature_map": ([_P, _I, _I, _I, _P, _P, _P], _I),
+    "ov3_feature_sum": ([_P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "ov3_feature_scatter": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+}
 _SIGNATURES = {
     "ov3_ball_group": ([_P] * 3 + [_I] * 5 + [_F, _F, _P, _P, _P], ctypes.c_int),
     "ov3_ball_group_first": ([_P] * 3 + [_I] * 5 + [_F, _F, _P, _P, _P], ctypes.c_int),

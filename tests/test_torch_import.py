@@ -90,7 +90,7 @@ print(json.dumps(sorted(m for m in sys.modules
 
 def test_the_port_scripts_are_found():
     assert {"nms_parts.py", "pool_quantize_parts.py", "attention_parts.py",
-            "quant_conv_designs.py"} <= set(PORT_SCRIPTS)
+            "quant_conv_designs.py", "feature_grad_parts.py", "auction_parts.py"} <= set(PORT_SCRIPTS)
 
 
 @pytest.mark.parametrize("script", PORT_SCRIPTS)
