@@ -48,9 +48,12 @@ at once), then:
      `Detector` at the full width of `sunrgbd_quick()` (seeded random
      weights), each request one CUDA-graph replay of the forward and the
      parse: each must launch FPS twice, the ball-group once, the attention
-     forward 3 times, the NMS kernel once and no backward kernel; the same
-     requests eagerly from the same detector give the same detections bit
-     for bit (phase 15), both timed, and one graphed request is profiled;
+     forward 3 times, the NMS kernel and the empty-box test once and no
+     backward kernel; the same requests eagerly from the same detector give
+     the same detections bit for bit (phase 15), both timed; the stages of a
+     request and the memory its parse takes, each beside the former
+     empty-box test's (a batched matmul) from an earlier run; and one
+     graphed request is profiled;
   4. runs one scene at f32 on the card and on the CPU (plain versions) with
      the same weights: query indices equal, box corners within 1e-3;
   5. trains: `build_training(sunrgbd_quick(), ...)` on the card takes one
@@ -96,8 +99,9 @@ at once), then:
        (without dropout and with 0.3); the share of 64 x 64 and 128 x 128
        (q, k) tiles with no in-radius pair is printed;
        serving: 3 graphed requests, each launching FPS 3 times, the
-       ball-group twice, the radius forward 3 times, NMS once and no
-       backward kernel, equal to the eager ones bit for bit (phase 15);
+       ball-group twice, the radius forward 3 times, NMS and the empty-box
+       test once and no backward kernel, equal to the eager ones bit for bit
+       (phase 15), with the stages and the parse's memory as in 3;
        training: one warm-up and 3 timed steps, each launching FPS 3 times,
        the ball-group twice, its pick pass and its scatter once and each
        radius kernel 3 times, with the stage
@@ -115,7 +119,10 @@ at once), then:
      print the AP table of the epoch that saved it, digit for digit.  Every
      training step must launch FPS twice, the ball-group once and each
      attention kernel 3 times, every eval batch FPS twice, the ball-group
-     once and the attention forward 3 times (read around each call alone).
+     once and the attention forward 3 times (read around each call alone),
+     and every parse of the AP calculator NMS once and the empty-box test
+     once in an eval pass, never in the train-time AP (the probe gates each
+     parse of every CLI run of phases 8 and 10-14).
      Printed: wall time per epoch, the host-clock iteration time (median and
      spread), the loop's wait on the loader, each eval pass split into
      forward, parse (NMS) and the host AP, checkpoint save and restore times
@@ -194,10 +201,18 @@ at once), then:
      card against CPU within 1e-5 of the largest value on 30 prompts, timed;
      a reference-layout 3DETR checkpoint at `scannet_quick()`'s width read by
      `load_reference_checkpoint` into a `Detector` with
-     `ball_query_method="first_k"`: one request (FPS twice, no ball-group,
-     the attention forward 3 times), its time and peak memory, the first-K
-     indices card against CPU on one scene, and the first-K query and its
-     grouping timed beside the tile ball-group at 8 x 40 000, M 2048, K 64.
+     `ball_query_method="first_k"`: one request (FPS twice, the first-K
+     query once, no ball-group, the attention forward 3 times, NMS and the
+     empty-box test once), its time and peak memory, and a masked request
+     with the first-K query (twice: the interim SA too); the first-K kernel
+     equal to its plain version bit for bit on two launches at both of the
+     masked request's shapes (every scene: the pre-encoder's 8 x 40 000,
+     M 2048, K 64, r 0.2 and the interim SA's 8 x 2048, M 1024, K 32, r 0.4,
+     on the request's own points and FPS centers) and on crafted cases (the r^2 boundary,
+     full balls at N 1001, empty balls, a ragged stage and tile of centers,
+     K 64 and 32), card against CPU on one scene, K 129 refused; the kernel,
+     its plain version (the former path), the grouping and the tile
+     ball-group timed in turns beside the bound, with each query's memory.
  12. data parallelism and the image bank.  The machine has one card, so two
      ranks share cuda:0 over gloo (NCCL refuses two ranks on one device):
        the steps: two processes this script spawns, each 8 of the 16 scenes
@@ -283,6 +298,13 @@ at once), then:
        every NMS mode x empty-box removal x proposal mode of
        `get_ap_config_dict`: `APCalculator` on the card's parse against the
        CPU's plain path on the same outputs, mAP and AR within 1e-6;
+       the empty-box kernel against its plain version: counts equal bit for
+       bit and in dtype on two launches, on the two requests' outputs (B 8,
+       K 128 x N 20 000, K 256 x N 40 000) and on crafted scenes (points at
+       exactly -eps and the upper limit of each face and a ulp either side,
+       rotated, degenerate and flat boxes, NaN and infinite corners, K 1);
+       the kernel (graph replays), its plain version and the matmul test
+       timed in turns beside the bound;
        `make_packed_multi_step` at G = 4 and `sunrgbd_quick` width: one
        replay of its graph equals 4 replays of `PackedStep`'s one-step
        graph bit for bit (metrics, parameters, buffers, Adam moments).
@@ -580,7 +602,16 @@ def kernel_counters() -> dict:
     in `.launches`, the attention wrappers those of the radius variant in
     `.radius_launches`; "int_mm" counts `torch._int_mm`'s calls and
     "auction_first" the first auction design's launches, which must stay 0."""
-    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms, quant_conv
+    from ov3det_torch.ops.kernels import (
+        attention,
+        auction,
+        ball_group,
+        ball_query,
+        fps,
+        nms,
+        points_in_box,
+        quant_conv,
+    )
 
     count_eval_replays()
     counters = {"fps": (fps.fps, "launches"), "ball_group": (ball_group.ball_group, "launches"),
@@ -595,6 +626,8 @@ def kernel_counters() -> dict:
     counters["nms"] = (nms.nms_keep, "launches")
     counters["quant_conv"] = (quant_conv.quant_conv, "launches")
     counters["pool_quantize"] = (quant_conv.pool_quantize, "launches")
+    counters["points_in_box"] = (points_in_box.points_in_box, "launches")
+    counters["first_k"] = (ball_query.first_k, "launches")
     counters["int_mm"] = (count_int_mm(), "launches")
     return counters
 
@@ -689,7 +722,16 @@ def reset_counts() -> None:
 
 def kernel_sources() -> dict:
     """name -> (source in the repo, the TPU kernel it replaces)."""
-    from ov3det_torch.ops.kernels import attention, auction, ball_group, fps, nms, quant_conv
+    from ov3det_torch.ops.kernels import (
+        attention,
+        auction,
+        ball_group,
+        ball_query,
+        fps,
+        nms,
+        points_in_box,
+        quant_conv,
+    )
 
     return {"fps": (fps.SOURCE, fps.REPLACES),
             "ball_group": (ball_group.SOURCE, ball_group.REPLACES),
@@ -704,7 +746,9 @@ def kernel_sources() -> dict:
             "auction": (auction.SOURCE, auction.REPLACES),
             "nms": (nms.SOURCE, nms.REPLACES),
             "quant_conv": (quant_conv.SOURCE, quant_conv.REPLACES),
-            "pool_quantize": (quant_conv.SOURCE, quant_conv.POOL_REPLACES)}
+            "pool_quantize": (quant_conv.SOURCE, quant_conv.POOL_REPLACES),
+            "points_in_box": (points_in_box.SOURCE, points_in_box.REPLACES),
+            "first_k": (ball_query.SOURCE, ball_query.REPLACES)}
 
 
 def expect(**counts) -> dict:
@@ -1404,11 +1448,37 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
     return entries
 
 
-def stage_times(det, batch: dict, reps: int = 3) -> None:
+# the synchronised stage "parse (empty-box test + NMS)" of one request as this
+# script measured it before the empty-box test was a kernel, and the device
+# memory the parse takes above its inputs as it measured it with the matmul
+# test (`matmul_points_in_box`) and the kernel in turns in a later run (NVIDIA
+# H100 80GB HBM3, 700.00 W)
+EARLIER_PARSE_MS = {"sunrgbd": 2.42, "scannet_masked": 7.89}
+EARLIER_PARSE_MIB = {"sunrgbd": 644.7, "scannet_masked": 2578.4}
+
+
+def matmul_points_in_box(points: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
+    """The empty-box test as the port ran it before its kernel: (B, K, N, 3)
+    relative coordinates and projections, a batched f32 matmul over the three
+    axes and `all`.  The path the kernel replaced, timed beside it; never an
+    oracle (the matmul's order of the three products is cuBLAS's)."""
+    depth = torch.stack([corners[..., 0], corners[..., 2], -corners[..., 1]], dim=-1)
+    origin = depth[:, :, 0, :]
+    edges = torch.stack([depth[:, :, j, :] - origin for j in (1, 3, 4)], dim=2)
+    sq = (edges * edges).sum(dim=-1)
+    rel = points[:, None, :, :] - origin[:, :, None, :]
+    proj = torch.matmul(rel, edges.transpose(-1, -2))
+    inside = ((proj >= -1e-6) & (proj <= sq[:, :, None, :] + 1e-6)).all(dim=-1)
+    return inside.sum(dim=-1)
+
+
+def stage_times(det, batch: dict, label: str, reps: int = 3) -> None:
     """Host-clock time of each stage of `Detector.detect`, each ended by a
     synchronize: the model's forward (pre-encoder, encoder, decoder, heads
     timed apart), the device parse (empty-box test + NMS) and the host
-    assembly.  Medians of `reps` runs."""
+    assembly.  Medians of `reps` runs.  Then the device memory the parse
+    takes above its inputs.  Both beside the matmul test's records
+    (`EARLIER_PARSE_MS`, `EARLIER_PARSE_MIB`)."""
     from ov3det_torch.engine.infer import INPUT_KEYS
     from ov3det_torch.eval.parse import assemble_predictions, parse_predictions
 
@@ -1457,7 +1527,18 @@ def stage_times(det, batch: dict, reps: int = 3) -> None:
     for h in handles:
         h.remove()
     parts = ", ".join(f"{k} {np.median([r[k] for r in rows]) * 1e3:.2f} ms" for k in rows[0])
-    print(f"stages of one request (synchronised, median of {reps}): {parts}")
+    print(f"stages of one request (synchronised, median of {reps}): {parts}; the parse stage "
+          f"before the kernel: {EARLIER_PARSE_MS[label]} ms (NVIDIA H100 80GB HBM3, 700.00 W)")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        parse_predictions(out["box_corners"], out["sem_cls_prob"], out["objectness_prob"],
+                          inputs["point_clouds"])
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    print(f"parse's device memory above its inputs: {peak:.1f} MiB (with the matmul empty-box "
+          f"test: {EARLIER_PARSE_MIB[label]} MiB, NVIDIA H100 80GB HBM3, 700.00 W)")
 
 
 def range_kernels(prof, name: str):
@@ -1498,6 +1579,8 @@ OWN_KERNELS = {
     "nms": r"\bnms_(?:cluster_)?kernel<",
     "quant_conv": r"\bquant_conv_(?:wgmma|kernel)<",
     "pool_quantize": r"\bpool_quantize_(?:vec|kernel)<",
+    "points_in_box": r"\bpoints_in_box_kernel\(",
+    "first_k": r"\bfirst_k_kernel\(",
 }
 
 
@@ -1679,7 +1762,7 @@ def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) 
     print(f"{label}: {len(batches)} graphed requests equal the eager ones bit for bit; request "
           f"(host clock to the detections) graphed {[round(x, 2) for x in ms[True]]} ms, eager "
           f"{[round(x, 2) for x in ms[False]]} ms")
-    stage_times(det, batches[-1])
+    stage_times(det, batches[-1], label)
 
     # one more request under the profiler: device time by kernel and idle share
     profile(f"profiled graphed {label} request", lambda: det.detect(batches[-1]))
@@ -1695,7 +1778,8 @@ def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) 
             bev=torch.cat([mins[..., 0:1], mins[..., 2:3], maxs[..., 0:1], maxs[..., 2:3]], -1),
             scores=out["objectness_prob"].contiguous(),
             classes=torch.argmax(out["sem_cls_prob"], dim=-1),
-            valid=points_in_box_counts(inputs["point_clouds"], corners) >= 5)
+            valid=points_in_box_counts(inputs["point_clouds"], corners) >= 5,
+            points=inputs["point_clouds"][..., :3].contiguous(), corners=corners.contiguous())
     del det
     return counts, nms_inputs
 
@@ -1915,6 +1999,7 @@ class CliProbe:
         self.passes, self.current = [], None
         self.saves, self.restores, self.train_ap_ms = [], [], []
         self.last_pass = None  # the last eval pass's APCalculator
+        self.parses = []  # each AP parse's remove_empty_box (True: an eval pass's exact AP)
         self.train_boxes = []  # each train batch's scans and GT boxes, as the loader gave them
 
     @staticmethod
@@ -1974,6 +2059,25 @@ class CliProbe:
                 self.current[part] += ms
             return out
         return timed
+
+    def _parse(self, parse):
+        """The AP calculator's parse, timed into the current pass and gated:
+        it launches NMS once (none with `no_nms`) and the empty-box test once
+        where it removes empty boxes (an eval pass's exact AP), none where
+        it keeps them (the train-time AP)."""
+        timed = self._timed(parse, "parse")
+
+        def parse_predictions(*args, remove_empty_box=True, no_nms=False, **kwargs):
+            before = read_counts()
+            out = timed(*args, remove_empty_box=remove_empty_box, no_nms=no_nms, **kwargs)
+            delta = {n: c for n, c in self._delta(before).items() if c}
+            want = {n: c for n, c in expect(nms=int(not no_nms),
+                                            points_in_box=int(remove_empty_box)).items() if c}
+            require(delta == want, f"a parse (remove_empty_box {remove_empty_box}, no_nms "
+                                   f"{no_nms}) launched {delta}, expected {want}")
+            self.parses.append(remove_empty_box)
+            return out
+        return parse_predictions
 
     @contextlib.contextmanager
     def patched(self):
@@ -2059,8 +2163,7 @@ class CliProbe:
         spies = [(cli, "DataLoader", TimedLoader), (cli, "build_training", build_training),
                  (cli, "PackedStep", self._packed_step(counted_packed_step())),
                  (cli, "make_eval_step", make_eval_step), (cli, "evaluate", evaluate),
-                 (ap_calculator, "parse_predictions",
-                  self._timed(ap_calculator.parse_predictions, "parse")),
+                 (ap_calculator, "parse_predictions", self._parse(ap_calculator.parse_predictions)),
                  (ap_calculator.APCalculator, "compute_metrics", compute_metrics),
                  (CheckpointManager, "save", save), (CheckpointManager, "restore", restore)]
         originals = {name: getattr(owner, name) for owner, name, _ in spies}
@@ -2184,6 +2287,10 @@ def cli_phase(card: str) -> dict:
         require(all(d == eval_batch for d in probe.evals),
                 f"cli: an eval batch launched {[d for d in probe.evals if d != eval_batch][:1]}, "
                 f"expected {eval_batch}")
+        # each parse gated by the probe: NMS once, the empty-box test once in
+        # the exact eval passes' 6 batches and never in the train-time AP's 2
+        require(sorted(probe.parses) == [False] * 2 + [True] * 6,
+                f"cli: parses with remove_empty_box {probe.parses}, expected 2 False and 6 True")
 
         n_steps = len(probe.steps)
         _, again = run_cli(probe, argv)
@@ -2195,6 +2302,7 @@ def cli_phase(card: str) -> dict:
         metrics, tested = run_cli(probe, argv + ["--test_only", "--test_ckpt", best])
         require(len(probe.evals) == 10 and all(d == test_batch for d in probe.evals[8:]),
                 f"cli --test_only: eval batches launched {probe.evals[8:]}, expected 2 x {test_batch}")
+        require(probe.parses[8:] == [True, True], f"cli --test_only: parses {probe.parses[8:]}")
         saved = [i for i, line in enumerate(lines) if line.startswith("saved new best checkpoint")]
         require(bool(saved), "cli: no best checkpoint was saved")
         best_epoch = max(int(line.split("[")[1].split("/")[0]) for line in lines[:saved[-1]]
@@ -3093,28 +3201,161 @@ def text_tower(card: str, dev: torch.device) -> None:
     del on_card, on_cpu
 
 
+# the first-K request and query as this script measured them before the query
+# was a kernel (NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_FIRST_K = {"request_ms": 70.69, "bucketed_ms": 27.63, "query_ms": 38.21, "query_mib": 675.4}
+# f32 operations a distance test: c.x 5, the sum, 2 c.x, the difference, the
+# test (|c|^2 and |x|^2 are formed once a center and a point; the clamp at 0
+# changes no test below an r^2 > 0, and a NaN stays NaN)
+FIRST_K_OPS = 9
+FIRST_K_REPS = 20  # calls of a timing graph of the first-K query
+
+
+def first_k_tests(inds: torch.Tensor, N: int) -> int:
+    """The distance tests a first-K scan makes, from its output (B, M, K): a
+    full ball stops at its K-th hit (the last slot, which differs from the
+    first), any other ball tests all N points."""
+    full = inds[..., -1] != inds[..., 0]
+    return int(torch.where(full, inds[..., -1] + 1, N).sum())
+
+
+def first_k_scenes(dev: torch.device) -> dict:
+    """Crafted first-K cases: label -> (xyz, centers, radius, nsample): the
+    r^2 boundary scene of tests/test_torch_reference_ckpt.py (a point the
+    expanded distance puts inside and a direct subtraction outside, the first
+    point out under both, an empty ball); balls that hold every point of a
+    cloud of 1001 (not a multiple of 32) at K 64 and 32; centers far from
+    every point; and a random cloud of 5000 points (3 stages of points, the
+    last ragged) with 77 centers (a ragged tile) at K 64 and 32."""
+    radius = 0.2
+    c0, r2 = np.float32(10.0), np.float32(radius * radius)
+    direct = lambda p: (p - c0) * (p - c0)  # noqa: E731
+    expanded = lambda p: np.maximum((c0 * c0 + p * p) - np.float32(2) * (c0 * p), 0)  # noqa: E731
+    p = np.nextafter(np.float32(c0 + np.float32(radius)), np.float32(0))
+    while not (direct(p) >= r2 and expanded(p) < r2):
+        p = np.nextafter(p, np.float32(20))
+    q = p
+    while expanded(q) < r2:
+        q = np.nextafter(q, np.float32(20))
+    edge = np.zeros((1, 6, 3), np.float32)
+    edge[0, :, 0] = [30.0, q, p, c0 - np.float32(0.1), 40.0, c0]
+    edge_c = np.array([[[c0, 0, 0], [30.0, 0, 0], [-5.0, 0, 0]]], np.float32)
+    rng = np.random.default_rng(17)
+    cloud = rng.uniform(-1, 1, (2, 1001, 3)).astype(np.float32)
+    far = rng.uniform(5, 6, (2, 40, 3)).astype(np.float32)
+    big = rng.uniform(-1, 1, (3, 5000, 3)).astype(np.float32)
+    big_c = np.concatenate([big[:, :40], rng.uniform(-1.2, 1.2, (3, 37, 3))], 1).astype(np.float32)
+    cases = {"r^2 boundary, K 4": (edge, edge_c, radius, 4),
+             "full balls, N 1001, K 64": (cloud, cloud[:, :50], 4.0, 64),
+             "full balls, N 1001, K 32": (cloud, cloud[:, :50], 4.0, 32),
+             "empty balls, K 64": (cloud, far, 0.3, 64),
+             "N 5000, M 77, K 64": (big, big_c, 0.3, 64),
+             "N 5000, M 77, K 32": (big, big_c, 0.2, 32)}
+    return {k: (torch.from_numpy(x).to(dev), torch.from_numpy(np.ascontiguousarray(c)).to(dev),
+                r, n) for k, (x, c, r, n) in cases.items()}
+
+
+def check_first_k(card: str, queries: list, dev: torch.device) -> dict:
+    """Phase 11's first-K check.  `queries` are the masked first-K request's
+    two queries on its own points, each (xyz, centers, radius, K): the
+    pre-encoder's (8 x 40 000 points, M 2048, K 64, r 0.2) and the interim
+    SA's (its 2048 points, their FPS 1024 as centers, K 32, r 0.4).  The
+    kernel's indices against its plain version's on the card, bit for bit,
+    on two launches, at both (every scene) and on `first_k_scenes`; the
+    plain version on the card against the CPU's on one scene; a K past the
+    kernel's limit refused on the card; then, at the pre-encoder's query,
+    the kernel (graph replays) and its plain version (the former path, CUDA
+    events), with the grouping and the tile ball-group, timed in turns
+    beside the bound from the distance tests the data needs, and each one's
+    device memory above its inputs.  Returns the kernels line's keys."""
+    from ov3det_torch.ops.kernels.ball_group import ball_group
+    from ov3det_torch.ops.kernels.ball_query import MAX_NSAMPLE, first_k, first_k_plain
+    from ov3det_torch.ops.pointcloud import group_points
+
+    cases = {f"{x.shape[0]} x {x.shape[1]}, M {c.shape[1]}, K {n}, r {r}": (x, c, r, n)
+             for x, c, r, n in queries}
+    cases.update(first_k_scenes(dev))
+    xyz, centers, radius, K = queries[0]
+    for label, (x, c, r, n) in cases.items():
+        want = first_k_plain(x, c, r, n)
+        for launch in range(2):
+            got = first_k(x, c, r, n)
+            require(got.dtype == want.dtype and torch.equal(got, want),
+                    f"first_k {label}, launch {launch}: the kernel's indices differ from the plain "
+                    f"version's at {int((got != want).sum())} slots")
+        hits = ((want[..., 1:] != want[..., :1]).sum(-1) + 1).float()
+        print(f"first_k {label}: the kernel's indices equal the plain version's bit for bit on two "
+              f"launches; distinct indices a ball {hits.mean().item():.1f} (max {int(hits.max())})")
+        if label.startswith("empty"):
+            require(not bool(want.any()), f"first_k {label}: an empty ball is not all 0")
+        if label.startswith("r^2"):
+            require(want[0, 0].tolist() == [2, 3, 5, 2] and want[0, 2].tolist() == [0] * 4,
+                    f"first_k {label}: {want[0].tolist()}")
+        if label.startswith("full"):
+            require(bool((want == torch.arange(n, device=dev)).all()), f"first_k {label}")
+    require(torch.equal(first_k(xyz[:1], centers[:1], radius, K).cpu(),
+                        first_k_plain(xyz[:1].cpu(), centers[:1].cpu(), radius, K)),
+            "first_k: the card's indices differ from the CPU's")
+    try:
+        first_k(xyz, centers, radius, MAX_NSAMPLE + 1)
+    except ValueError as e:
+        print(f"first_k at K {MAX_NSAMPLE + 1} on the card: refused ({e})")
+    else:
+        raise AssertionError(f"first_k at K {MAX_NSAMPLE + 1} was not refused")
+
+    mib = {}
+    for name, fn in (("kernel", first_k), ("plain", first_k_plain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        inds = fn(xyz, centers, radius, K)
+        torch.cuda.synchronize()
+        mib[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    runs = {"kernel": lambda: first_k(xyz, centers, radius, K),
+            "plain": lambda: first_k_plain(xyz, centers, radius, K),
+            "grouping": lambda: group_points(xyz, None, centers, inds, radius),
+            "tile ball-group": lambda: ball_group(xyz, None, centers, radius, K)}
+    ms = {n: [] for n in runs}
+    for n in (*runs, *reversed(runs)):
+        ms[n].append(graph_ms(runs[n], FIRST_K_REPS) if n == "kernel" else cuda_ms(runs[n], 3))
+    best = {n: min(v) for n, v in ms.items()}
+    B, N, M = xyz.shape[0], xyz.shape[1], centers.shape[1]
+    tests = first_k_tests(inds, N)
+    b_ms, by = bound_ms(B * N * 12 + B * M * 12 + B * M * K * 8, FIRST_K_OPS * tests, F32_PEAK)
+    print(f"first_k at {B} x {N}, M {M}, K {K}, r {radius} ({tests / 1e6:.1f} M distance tests of "
+          f"{FIRST_K_OPS} f32 operations, each rounded on its own, "
+          f"{(inds[..., -1] != inds[..., 0]).float().mean().item():.3f} of the balls full): kernel "
+          f"{best['kernel']:.4f} ms (graph replays of {FIRST_K_REPS} calls, "
+          f"{mib['kernel']:.1f} MiB above its inputs), plain version (the former path) "
+          f"{best['plain']:.3f} ms ({mib['plain']:.1f} MiB; before the kernel: "
+          f"{EARLIER_FIRST_K['query_ms']} ms, "
+          f"{EARLIER_FIRST_K['query_mib']} MiB), grouping {best['grouping']:.3f} ms, tile "
+          f"ball-group {best['tile ball-group']:.3f} ms (CUDA events, in turns), bound "
+          f"{b_ms:.5f} ms ({by}; the operations term at {F32_PEAK / 1e12:.0f} TFLOP/s, which counts "
+          f"an FMA as two: at the {F32_PEAK / 2e12:.1f} T/s of operations that are not fused, "
+          f"{FIRST_K_OPS * tests / (F32_PEAK / 2) * 1e3:.5f} ms); no library call ({card})")
+    return dict(max_abs_err=0.0, ms=best["kernel"], plain_ms=best["plain"], bound_ms=b_ms,
+                bound_by=by, library_ms=None)
+
+
 def reference_checkpoint(card: str, dev: torch.device) -> dict:
     """A reference-layout 3DETR checkpoint at scannet_quick()'s width (the
     port's seeded model written by `to_reference_state_dict`, saved as a
     .pth) read by `load_reference_checkpoint` into a `Detector` with
-    `ball_query_method="first_k"`: one request's launches (FPS twice, no
-    ball-group, the attention forward 3 times), time and peak memory; the
-    first-K indices card against CPU on one scene; the first-K query and its
-    grouping beside the tile ball-group at 8 x 40 000, M 2048, K 64.
-    Returns the request's launch counts."""
+    `ball_query_method="first_k"`: one request's launches (FPS twice, the
+    first-K query once, no ball-group, the attention forward 3 times, NMS
+    and the empty-box test once), time and peak memory beside the bucketed
+    request and the earlier record; the masked config with the first-K query (its
+    interim SA too: the query twice); then `check_first_k` at both of the
+    masked request's queries, on its second batch's points.  Returns the
+    requests' launch counts and the first-K query's kernels-line keys."""
     import tempfile
 
     from ov3det_torch.config import scannet_quick
     from ov3det_torch.engine.infer import Detector
     from ov3det_torch.models.convert_3detr import load_reference_checkpoint, to_reference_state_dict
     from ov3det_torch.models.detr3d import Model3DETR
-    from ov3det_torch.ops.kernels.ball_group import ball_group
-    from ov3det_torch.ops.pointcloud import (
-        ball_query,
-        furthest_point_sample,
-        gather_points,
-        group_points,
-    )
+    from ov3det_torch.ops.pointcloud import furthest_point_sample, gather_points
 
     quick = scannet_quick()
     cfg = dataclasses.replace(quick.model, ball_query_method="first_k")
@@ -3138,9 +3379,8 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     request_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
-    require(counts == expect(fps=2, attention_fwd=3, nms=1),
-            f"reference checkpoint request: launches {counts}, expected fps 2, attention_fwd 3, "
-            "nms 1")
+    want = expect(fps=2, first_k=1, attention_fwd=3, nms=1, points_in_box=1)
+    require(counts == want, f"reference checkpoint request: launches {counts}, expected {want}")
     require(len(dets) == BATCH and all(np.isfinite(c).all() and np.isfinite(s).all()
                                        for _, c, s in dets), "reference checkpoint: bad detections")
     # the same weights and request with the bucketed ball-group, the
@@ -3157,37 +3397,42 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     print(f"reference checkpoint ({len(ref)} tensors, {mb:.2f} MB, read and converted in "
           f"{load_ms:.1f} ms): first_k request of 8 x {SCANNET_POINTS} points {request_ms:.2f} ms, "
           f"peak device memory {peak / 2**30:.3f} GiB (the same request with the bucketed "
-          f"ball-group: {bucketed_ms:.2f} ms, {bucketed_peak / 2**30:.3f} GiB), detections per "
-          f"scene {[len(c) for c, _, _ in dets]}, launches "
+          f"ball-group: {bucketed_ms:.2f} ms, {bucketed_peak / 2**30:.3f} GiB; before the kernel: "
+          f"first_k request {EARLIER_FIRST_K['request_ms']} ms and bucketed "
+          f"{EARLIER_FIRST_K['bucketed_ms']} ms), "
+          f"detections per scene {[len(c) for c, _, _ in dets]}, launches "
           f"{ {n: c for n, c in counts.items() if c} } ({card})")
-
-    xyz = torch.from_numpy(batches[1]["point_clouds"][..., :3]).to(dev).contiguous()
-    centers = gather_points(xyz, furthest_point_sample(xyz, 2048)).contiguous()
-    radius, K = cfg.preenc_radius, cfg.preenc_nsample
-    got = ball_query(xyz[:1], centers[:1], radius, K).cpu()
-    want = ball_query(xyz[:1].cpu(), centers[:1].cpu(), radius, K)
-    require(torch.equal(got, want), "first_k: the card's indices differ from the CPU's")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    inds = ball_query(xyz, centers, radius, K)
-    torch.cuda.synchronize()
-    query_peak = torch.cuda.max_memory_allocated() - base
-    ms = {}
-    for name in ("first_k query", "first_k grouping", "tile ball-group", "tile ball-group",
-                 "first_k grouping", "first_k query"):
-        fn = {"first_k query": lambda: ball_query(xyz, centers, radius, K),
-              "first_k grouping": lambda: group_points(xyz, None, centers, inds, radius),
-              "tile ball-group": lambda: ball_group(xyz, None, centers, radius, K)}[name]
-        ms[name] = min(ms.get(name, math.inf), cuda_ms(fn, 5))
-    hits = (inds[..., 1:] != inds[..., :1]).sum(-1).float().mean().item() + 1
-    print(f"first_k at 8 x {SCANNET_POINTS}, M 2048, K {K}, r {radius}: indices equal card vs CPU "
-          f"on one scene; query {ms['first_k query']:.3f} ms (peak {query_peak / 2**20:.1f} MiB "
-          f"above its inputs) + grouping {ms['first_k grouping']:.3f} ms against the tile "
-          f"ball-group's {ms['tile ball-group']:.3f} ms (CUDA events, in turns; about {hits:.1f} "
-          f"distinct neighbours a ball) ({card})")
     del det
-    return counts
+
+    # the masked config with the first-K query: the pre-encoder and the interim SA
+    masked = dataclasses.replace(scannet_masked().model, ball_query_method="first_k")
+    m_det = Detector(masked, device=dev, seed=5)
+    m_det.detect(batches[0])  # warm-up and capture
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_dets = m_det.detect(batches[1])
+    masked_ms = (time.perf_counter() - t0) * 1e3
+    m_counts = read_counts()
+    want = expect(fps=3, first_k=2, attention_fwd_radius=3, nms=1, points_in_box=1)
+    require(m_counts == want, f"masked first_k request: launches {m_counts}, expected {want}")
+    require(all(np.isfinite(c).all() and np.isfinite(s).all() for _, c, s in m_dets),
+            "masked first_k request: non-finite detections")
+    print(f"masked first_k request (graphed) of 8 x {SCANNET_POINTS} points: {masked_ms:.2f} ms, "
+          f"launches { {n: c for n, c in m_counts.items() if c} } ({card})")
+    del m_det
+    counts = collections.Counter(counts)
+    counts.update(m_counts)
+
+    # the masked request's two queries on batches[1]: the pre-encoder's, then
+    # the interim SA's on the pre-encoder's points (`Model3DETR.forward`)
+    xyz = torch.from_numpy(batches[1]["point_clouds"][..., :3]).to(dev).contiguous()
+    pre = gather_points(xyz, furthest_point_sample(xyz, masked.preenc_npoints)).contiguous()
+    interim = gather_points(pre, furthest_point_sample(pre, masked.preenc_npoints // 2))
+    entry = check_first_k(card, [(xyz, pre, masked.preenc_radius, masked.preenc_nsample),
+                                 (pre, interim.contiguous(), masked.interim_radius,
+                                  masked.interim_nsample)], dev)
+    return dict(counts), entry
 
 
 def pseudo_phase(card: str, dev: torch.device) -> dict:
@@ -3197,7 +3442,8 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
     those rows), the rows card against CPU, retrain an epoch with --use_pbox
     on the kept boxes, lift a scene, the text tower and a reference
     checkpoint with the first-K ball query.  Returns the launch counts of
-    its training runs, label passes and first-K request."""
+    its training runs, label passes and first-K requests, and the first-K
+    query's kernels-line keys."""
     import shutil
     import tempfile
 
@@ -3337,9 +3583,10 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
 
         lift_scene(tree, tree["train"][0], run)
     text_tower(card, dev)
-    total.update(reference_checkpoint(card, dev))
+    ref_counts, first_k_entry = reference_checkpoint(card, dev)
+    total.update(ref_counts)
     print(f"phase 11 (the pseudo-label round): {time.perf_counter() - t_phase:.1f} s")
-    return dict(total)
+    return dict(total), first_k_entry
 
 
 # ------------------------------------------------------------ phase 12: data parallel and the bank
@@ -4534,6 +4781,135 @@ def check_nms(card: str, dev: torch.device, outputs: dict) -> dict:
     return {**entries["sunrgbd"], "scannet_masked": entries["scannet_masked"]}
 
 
+PIB_REPS = 50  # calls of a timing graph of the empty-box test
+PIB_OPS = 24  # f32 operations a (point, box) pair: 3 differences, 3 projections of 5, 6 comparisons
+
+
+def pib_bound(B: int, K: int, N: int) -> tuple:
+    """The least time of one empty-box test: the points and corners read once
+    and the counts written once at the memory rate, against PIB_OPS f32
+    operations a (point, box) pair at the f32 rate.  That rate counts an FMA
+    as two operations; the test's operations are each rounded on their own,
+    which the card issues at half of it, so no kernel that gives the plain
+    version's bits reaches this bound (`check_points_in_box` prints both)."""
+    return bound_ms(B * N * 12 + B * K * (96 + 4), PIB_OPS * B * K * N, F32_PEAK)
+
+
+def depth_to_camera(depth: np.ndarray) -> np.ndarray:
+    """Corners in depth coordinates (x, y, z) -> camera ones (x, -z, y), the
+    inverse of the test's flip."""
+    return np.stack([depth[..., 0], -depth[..., 2], depth[..., 1]], -1)
+
+
+def box_faces_scene(L: float, rng) -> tuple:
+    """One scene of the empty-box test's boundary: (points (N, 3), corners
+    (7, 8, 3) camera coordinates, the count box 0 must have).  Box 0 is the
+    cube [0, L]^3 (L a power of two, so every projection is exact): on each
+    face a point whose projection is exactly -eps or the upper limit
+    f32(L^2 + eps), and one a ulp either side of it; then its two opposite
+    corners and 1000 uniform points.  The others: two rotated boxes, a
+    degenerate one (every corner the same point: each projection is 0, so it
+    holds every point), a flat one (a zero edge), one with a NaN corner and
+    one with an infinite corner."""
+    eps = np.float32(1e-6)
+    L = np.float32(L)
+    lo, hi = -eps / L, (np.float32(L * L) + eps) / L  # exact: L is a power of two
+    pts = []
+    for j in range(3):
+        for r, inward, outward in ((lo, np.float32(np.inf), -np.float32(np.inf)),
+                                   (hi, -np.float32(np.inf), np.float32(np.inf))):
+            for v in (r, np.nextafter(r, inward), np.nextafter(r, outward)):
+                p = np.full(3, L / 2, np.float32)
+                p[j] = v
+                pts.append(p)
+    pts += [np.zeros(3, np.float32), np.full(3, L, np.float32)]
+    inside = 2 * 6 + 2  # the point on each face and the one a ulp in; the corners
+    rand = rng.uniform(-2.0, 3.0, (1100, 3)).astype(np.float32)
+    # none within 1e-4 of a face
+    rand = rand[(np.minimum(np.abs(rand), np.abs(rand - L)) > 1e-4).all(-1)][:1000]
+    require(len(rand) == 1000, "box_faces_scene: too few points away from the faces")
+    inside += int(((rand > 0) & (rand < L)).all(-1).sum())
+    points = np.concatenate([np.stack(pts), rand])
+
+    unit = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                     [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float32)
+    cube = depth_to_camera(unit * L)
+    from ov3det_torch.geometry.boxes_np import corners_from_upright_depth_param_np
+
+    rotated = corners_from_upright_depth_param_np(rng.uniform(-1, 2, (2, 3)),
+                                                  rng.uniform(0.3, 2.5, (2, 3)),
+                                                  rng.uniform(-np.pi, np.pi, 2))
+    degenerate = np.broadcast_to(cube[6], (8, 3))
+    flat = depth_to_camera(unit * np.array([L, L, 0], np.float32))
+    nan, inf = cube.copy(), cube.copy()
+    nan[4, 1], inf[3, 0] = np.nan, np.inf
+    corners = np.stack([cube, *rotated, degenerate, flat, nan, inf]).astype(np.float32)
+    return points.astype(np.float32), corners, inside
+
+
+def check_points_in_box(card: str, dev: torch.device, outputs: dict) -> dict:
+    """Phase 15's empty-box check: the kernel's counts against its plain
+    version's on the card, bit for bit and in the same dtype, on two launches,
+    at the two requests' shapes on their own outputs (`outputs`: label ->
+    `serve`'s points and corners) and on crafted scenes (`box_faces_scene`
+    at L 0.5, 1 and 2, plus the same scenes' boxes at K 1); then the kernel
+    (graph replays), its plain version and the matmul test
+    (`matmul_points_in_box`) timed in turns beside the bound.  Returns the
+    kernels line's keys (sunrgbd, the masked request's under
+    "scannet_masked")."""
+    from ov3det_torch.ops.kernels.points_in_box import points_in_box, points_in_box_plain
+
+    rng = np.random.default_rng(18)
+    scenes = [box_faces_scene(L, rng) for L in (0.5, 1.0, 2.0)]
+    crafted = {"box faces": (torch.from_numpy(np.stack([p for p, _, _ in scenes])).to(dev),
+                             torch.from_numpy(np.stack([c for _, c, _ in scenes])).to(dev))}
+    crafted["box faces, K 1"] = (crafted["box faces"][0],
+                                 crafted["box faces"][1][:, :1].contiguous())
+    cases = {label: (o["points"], o["corners"]) for label, o in outputs.items()}
+    cases.update(crafted)
+    for label, (points, corners) in cases.items():
+        want = points_in_box_plain(points, corners)
+        for launch in range(2):
+            got = points_in_box(points, corners)
+            require(got.dtype == want.dtype and torch.equal(got, want),
+                    f"points_in_box {label}, launch {launch}: the kernel's counts ({got.dtype}) "
+                    f"differ from the plain version's ({want.dtype}) in "
+                    f"{int((got != want).sum())} boxes")
+        B, K, N = corners.shape[0], corners.shape[1], points.shape[1]
+        summary = (f"{want.tolist()}" if K <= 8 else
+                   f"from {int(want.min())} to {int(want.max())}, {int((want < 5).sum())} under 5")
+        print(f"points_in_box {label} (B {B}, K {K}, N {N}): the kernel's counts equal the plain "
+              f"version's bit for bit on two launches; counts {summary}")
+    faces = crafted["box faces"]
+    counted = points_in_box_plain(*faces)[:, 0].tolist()
+    require(counted == [n for _, _, n in scenes],
+            f"points_in_box box faces: the cubes hold {counted}, expected "
+            f"{[n for _, _, n in scenes]}")
+
+    entries = {}
+    for label, (points, corners) in cases.items():
+        if label not in outputs:
+            continue
+        runs = {"kernel": lambda: points_in_box(points, corners),
+                "plain": lambda: points_in_box_plain(points, corners),
+                "matmul": lambda: matmul_points_in_box(points, corners)}
+        ms = {n: [] for n in runs}
+        for n in ("kernel", "plain", "matmul", "matmul", "plain", "kernel"):
+            ms[n].append(graph_ms(runs[n], PIB_REPS) if n == "kernel" else cuda_ms(runs[n], 3))
+        best = {n: min(v) for n, v in ms.items()}
+        B, K, N = corners.shape[0], corners.shape[1], points.shape[1]
+        b_ms, by = pib_bound(B, K, N)
+        entries[label] = dict(max_abs_err=0.0, ms=best["kernel"], plain_ms=best["plain"],
+                              matmul_ms=best["matmul"], bound_ms=b_ms, bound_by=by, library_ms=None)
+        print(f"points_in_box {label} (B {B}, K {K}, N {N}, {B * K * N / 1e6:.1f} M point-box "
+              f"pairs): kernel {best['kernel']:.4f} ms (graph replays of {PIB_REPS} calls), plain "
+              f"version {best['plain']:.3f} ms, the matmul test {best['matmul']:.3f} ms (CUDA "
+              f"events, in turns), bound {b_ms:.5f} ms ({by}; its operations at the "
+              f"{F32_PEAK / 2e12:.1f} T/s of operations that are not fused "
+              f"{PIB_OPS * B * K * N / (F32_PEAK / 2) * 1e3:.5f} ms); no library call ({card})")
+    return {**entries["sunrgbd"], "scannet_masked": entries["scannet_masked"]}
+
+
 def ap_configs_card_vs_cpu(card: str, dev: torch.device) -> None:
     """Every NMS mode x the empty-box removal x the three proposal modes of
     `get_ap_config_dict`: `APCalculator` on the card's parse and on the
@@ -4630,13 +5006,14 @@ def eval_phase(card: str, dev: torch.device, nms_inputs: dict) -> dict:
     """Phase 15: the evaluation path (slice 13).  The graphed requests
     against the eager ones ran in `serve` (phases 3 and 7); here the NMS
     kernel, every AP setting card against CPU and the multi-step graph.
-    Returns the NMS kernel's kernels-line keys."""
+    Returns the kernels-line keys of NMS and the empty-box test."""
     t0 = time.perf_counter()
-    entry = check_nms(card, dev, nms_inputs)
+    entries = {"nms": check_nms(card, dev, nms_inputs),
+               "points_in_box": check_points_in_box(card, dev, nms_inputs)}
     ap_configs_card_vs_cpu(card, dev)
     multi_step_vs_single(card, dev)
     print(f"phase 15 (the evaluation path): {time.perf_counter() - t0:.1f} s")
-    return entry
+    return entries
 
 
 def main() -> int:
@@ -4686,8 +5063,8 @@ def main() -> int:
     sun, masked = sunrgbd_quick(), scannet_masked()
     batches = synthetic_batches(sun, REQUESTS, 100)
     entries = {**check_kernels(batches[0], dev), **check_attention(dev)}
-    served, sun_nms = serve(sun, batches, expect(fps=2, ball_group=1, attention_fwd=3, nms=1),
-                            "sunrgbd", dev)
+    served, sun_nms = serve(sun, batches, expect(fps=2, ball_group=1, attention_fwd=3, nms=1,
+                                                 points_in_box=1), "sunrgbd", dev)
     card_vs_cpu(batches[0])
     trained = train(sun, TRAIN_STEPS, expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
                                              attention_dkv=3, auction=1), "sunrgbd", 200, dev)
@@ -4703,7 +5080,8 @@ def main() -> int:
     entries.update(check_radius_attention(pre_xyz, mid_xyz, dev))
     del pre_xyz, mid_xyz
     m_served, masked_nms = serve(masked, m_batches,
-                                 expect(fps=3, ball_group=2, attention_fwd_radius=3, nms=1),
+                                 expect(fps=3, ball_group=2, attention_fwd_radius=3, nms=1,
+                                        points_in_box=1),
                                  "scannet_masked", dev)
     m_trained = train(masked, MASKED_TRAIN_STEPS,
                       expect(fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
@@ -4715,11 +5093,11 @@ def main() -> int:
     cli_counts = cli_phase(card)
     ov_trained, ov_cli_counts, ov_waits, quant_entries = ov_phase(card, dev)
     entries.update(quant_entries)
-    pseudo_counts = pseudo_phase(card, dev)
+    pseudo_counts, entries["first_k"] = pseudo_phase(card, dev)
     ddp_counts = ddp_phase(card, dev, ov_waits)
     image_counts = images_phase(card, dev)
     entries["auction"], packed_counts = packed_phase(card, dev)
-    entries["nms"] = eval_phase(card, dev, {"sunrgbd": sun_nms, "scannet_masked": masked_nms})
+    entries.update(eval_phase(card, dev, {"sunrgbd": sun_nms, "scannet_masked": masked_nms}))
     del sun_nms, masked_nms
 
     runs = {"sunrgbd requests": served, "sunrgbd steps": trained, "masked requests": m_served,

@@ -12,23 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ov3det_torch.geometry.boxes import flip_axis_to_depth
 from ov3det_torch.geometry.nms import nms_2d, nms_3d, nms_3d_class_aware
+from ov3det_torch.ops.kernels.points_in_box import points_in_box
 
 
 def points_in_box_counts(points: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
     """points (B, N, 3) upright-depth; corners (B, K, 8, 3) camera coords.
-    Returns (B, K) int64 counts of points inside each box (half-space test
-    against the three edges at corner 0)."""
-    box_depth = flip_axis_to_depth(corners)
-    origin = box_depth[:, :, 0, :]
-    edges = torch.stack([box_depth[:, :, j, :] - origin for j in (1, 3, 4)], dim=2)
-    sq = (edges * edges).sum(dim=-1)  # (B, K, 3)
-    rel = points[:, None, :, :] - origin[:, :, None, :]  # (B, K, N, 3)
-    proj = torch.matmul(rel, edges.transpose(-1, -2))  # (B, K, N, 3)
-    eps = 1e-6
-    inside = ((proj >= -eps) & (proj <= sq[:, :, None, :] + eps)).all(dim=-1)
-    return inside.sum(dim=-1)
+    Returns (B, K) int32 counts of points inside each box (half-space test
+    against the three edges at corner 0): one launch of the kernel for CUDA
+    tensors, the plain version for CPU ones (`ops.kernels.points_in_box`)."""
+    return points_in_box(points, corners)
 
 
 def parse_predictions(box_corners, sem_cls_probs, objectness_probs, point_clouds,

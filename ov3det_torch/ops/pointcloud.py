@@ -8,23 +8,20 @@ features, as `ball_group_pallas` does (`ops.kernels.ball_group.BallGroup`).
 
 `ball_query` (JAX's `method="first_k"`) and `group_points`
 (`pointcloud.py:168-219, 377-401`) are the CUDA-parity neighbourhoods that
-reference 3DETR checkpoints were trained with.  They are XLA in JAX and plain PyTorch here,
-on both devices: the first `nsample` points in index order whose squared
-distance, in the expanded form of `_pairwise_d2` (`:156-165`), lies below
-r^2, found as the `nsample` smallest int32 index scores, the tail filled
-with the first hit.
+reference 3DETR checkpoints were trained with, XLA in JAX: the first
+`nsample` points in index order whose squared distance, in the expanded
+form of `_pairwise_d2` (`:156-165`), lies below r^2, the tail filled with
+the first hit.  The query goes through its kernel wrapper
+(`ops.kernels.ball_query.first_k`); the grouping is a gather.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ov3det_torch.ops.kernels.ball_group import BallGroup, _d2_expanded
+from ov3det_torch.ops.kernels.ball_group import BallGroup
+from ov3det_torch.ops.kernels.ball_query import first_k
 from ov3det_torch.ops.kernels.fps import fps
-
-# the (B, chunk, N) distances and scores of `ball_query` hold at most about
-# this many elements: 8 x 40 000 points take chunks of 104 centers
-_FIRST_K_ELEMENTS = 1 << 25
 
 
 def furthest_point_sample(xyz: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -53,30 +50,11 @@ def ball_query(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     """First-K fixed-radius neighbourhoods: xyz (B, N, 3), centers (B, M, 3)
     -> (B, M, nsample) int64 indices into xyz, in index order, the tail past
     the ball's count filled with its first hit (0 for an empty ball, as
-    JAX's top-k leaves it).  The centers go through in chunks, so the
-    (B, chunk, N) distances stay near `_FIRST_K_ELEMENTS`.  The bucketed
-    query is the fused `ball_group`."""
-    xyz, centers = xyz.detach().float(), centers.detach().float()
-    B, N, _ = xyz.shape
-    M = centers.shape[1]
-    # device scalars filled on the device (no copy from the host: a CUDA
-    # graph captures the first-K request too)
-    r2 = torch.full((), np.float32(radius * radius), dtype=torch.float32, device=xyz.device)
-    past = torch.full((), N, dtype=torch.int32, device=xyz.device)
-    order = torch.arange(N, dtype=torch.int32, device=xyz.device)
-    chunk = max(1, _FIRST_K_ELEMENTS // max(1, B * N))
-    out = []
-    for m in range(0, M, chunk):
-        in_ball = _d2_expanded(centers[:, m:m + chunk])(xyz) < r2  # (B, m, N)
-        # in-ball points score their index, the others N: the nsample
-        # smallest scores are the first hits, ascending
-        scores = torch.where(in_ball, order, past)
-        first = torch.topk(scores, nsample, dim=-1, largest=False, sorted=True).values
-        count = in_ball.sum(-1, keepdim=True)
-        head = torch.where(count > 0, first[..., :1], torch.zeros_like(first[..., :1]))
-        slot = torch.arange(nsample, device=xyz.device)
-        out.append(torch.where(slot < count, first, head).long())
-    return torch.cat(out, dim=1)
+    JAX's top-k leaves it).  The kernel for CUDA tensors; on the CPU the
+    centers go through in chunks, so the (B, chunk, N) distances stay near
+    `ops.kernels.ball_query.FIRST_K_ELEMENTS`.  The bucketed query is the
+    fused `ball_group`."""
+    return first_k(xyz.detach().float(), centers.detach().float(), radius, nsample)
 
 
 def group_points(xyz: torch.Tensor, features, centers: torch.Tensor, group_inds: torch.Tensor,

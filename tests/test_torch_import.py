@@ -106,3 +106,15 @@ def test_port_script_names_no_jax(script):
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_every_kernel_source_has_its_cu_file():
+    """Each name `_build` compiles is a `.cu` file of `ov3det_torch/csrc/`,
+    the empty-box test and the first-K query among them, and no `.cu` file
+    there is left out of the build."""
+    from ov3det_torch.ops.kernels import _build
+
+    names = set(_build.KERNEL_SOURCES)
+    assert len(names) == len(_build.KERNEL_SOURCES)
+    assert {"points_in_box", "first_k"} <= names
+    assert names == {p.stem for p in (PORT / "csrc").glob("*.cu")}

@@ -58,14 +58,14 @@ def test_first_k_ball_query_equals_jax(radius, nsample):
 
 def test_first_k_ball_query_chunks_the_centers(monkeypatch):
     """Chunks of 1 and 7 centers give the indices of one chunk."""
-    import ov3det_torch.ops.pointcloud as pc
+    import ov3det_torch.ops.kernels.ball_query as bq
 
     rng = np.random.default_rng(3)
     xyz = _t(rng.uniform(-1, 1, (2, 300, 3)).astype(np.float32))
     centers = xyz[:, :20].clone()
     whole = ball_query(xyz, centers, 0.3, 16)
     for elements in (600, 7 * 600):
-        monkeypatch.setattr(pc, "_FIRST_K_ELEMENTS", elements)
+        monkeypatch.setattr(bq, "FIRST_K_ELEMENTS", elements)
         np.testing.assert_array_equal(ball_query(xyz, centers, 0.3, 16).numpy(), whole.numpy())
 
 
