@@ -205,14 +205,18 @@ at once), then:
      query once, no ball-group, the attention forward 3 times, NMS and the
      empty-box test once), its time and peak memory, and a masked request
      with the first-K query (twice: the interim SA too); the first-K kernel
-     equal to its plain version bit for bit on two launches at both of the
-     masked request's shapes (every scene: the pre-encoder's 8 x 40 000,
-     M 2048, K 64, r 0.2 and the interim SA's 8 x 2048, M 1024, K 32, r 0.4,
-     on the request's own points and FPS centers) and on crafted cases (the r^2 boundary,
-     full balls at N 1001, empty balls, a ragged stage and tile of centers,
-     K 64 and 32), card against CPU on one scene, K 129 refused; the kernel,
-     its plain version (the former path), the grouping and the tile
-     ball-group timed in turns beside the bound, with each query's memory.
+     in both designs (the routed `first_k_lanes` and the first,
+     `_impl="first"`) equal to its plain version bit for bit on two launches
+     each at both of the masked request's shapes (every scene: the
+     pre-encoder's 8 x 40 000, M 2048, K 64, r 0.2 and the interim SA's
+     8 x 2048, M 1024, K 32, r 0.4, on the request's own points and FPS
+     centers) and on crafted cases (the r^2 boundary, full balls at N 1001,
+     empty balls, a ragged stage and tile of centers, K 64 and 32, balls
+     that fill at a stage and a slice boundary, K 1 and 128, N 1 and 31,
+     M 65), card against CPU on one scene, K 129 refused; both designs, the
+     plain version (the former path), the grouping and the tile ball-group
+     timed in turns beside the bound at both f32 rates, at both queries,
+     with the pre-encoder query's memory.
  12. data parallelism and the image bank.  The machine has one card, so two
      ranks share cuda:0 over gloo (NCCL refuses two ranks on one device):
        the steps: two processes this script spawns, each 8 of the 16 scenes
@@ -298,13 +302,15 @@ at once), then:
        every NMS mode x empty-box removal x proposal mode of
        `get_ap_config_dict`: `APCalculator` on the card's parse against the
        CPU's plain path on the same outputs, mAP and AR within 1e-6;
-       the empty-box kernel against its plain version: counts equal bit for
-       bit and in dtype on two launches, on the two requests' outputs (B 8,
-       K 128 x N 20 000, K 256 x N 40 000) and on crafted scenes (points at
-       exactly -eps and the upper limit of each face and a ulp either side,
-       rotated, degenerate and flat boxes, NaN and infinite corners, K 1);
-       the kernel (graph replays), its plain version and the matmul test
-       timed in turns beside the bound;
+       the empty-box kernel in both designs (the routed cluster design and
+       the first, `_impl="first"`) against its plain version: counts equal
+       bit for bit and in dtype on two launches each, on the two requests'
+       outputs (B 8, K 128 x N 20 000, K 256 x N 40 000) and on crafted
+       scenes (points at exactly -eps and the upper limit of each face and a
+       ulp either side, rotated, degenerate and flat boxes, NaN and infinite
+       corners, K 1, K 37 and N 300); both designs (graph replays), the
+       plain version and the matmul test timed in turns beside the bound at
+       both f32 rates;
        `make_packed_multi_step` at G = 4 and `sunrgbd_quick` width: one
        replay of its graph equals 4 replays of `PackedStep`'s one-step
        graph bit for bit (metrics, parameters, buffers, Adam moments).
@@ -375,10 +381,17 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         tile = re.search(r"ball_group_tileILi([01])ELi(\d+)E", m.group(1)) if m else None
+        lanes = re.search(r"first_k_lanesILi(\d+)E", m.group(1)) if m else None
+        named = re.search(r"\d(points_in_box_cluster|points_in_box_kernel|first_k_kernel)E",
+                          m.group(1)) if m else None
         conv = re.search(r"(quant_conv_kernel|quant_conv_wgmma)I((?:Li\d+E)+)(13__nv_bfloat16|f)E",
                          m.group(1)) if m else None
         if tile:
             kernel = f"ball_group_tile<{('fill', 'sources')[int(tile.group(1))]}, {tile.group(2)}>"
+        elif lanes:
+            kernel = f"first_k_lanes<{lanes.group(1)}>"
+        elif named:
+            kernel = named.group(1)
         elif conv:
             ints = re.findall(r"Li(\d+)E", conv.group(2))
             kernel = f"{conv.group(1)}<{', '.join(ints + ['bf16' if conv.group(3) != 'f' else 'f32'])}>"
@@ -1455,6 +1468,11 @@ def check_radius_attention(pre_xyz, mid_xyz, dev: torch.device) -> dict:
 # H100 80GB HBM3, 700.00 W)
 EARLIER_PARSE_MS = {"sunrgbd": 2.42, "scannet_masked": 7.89}
 EARLIER_PARSE_MIB = {"sunrgbd": 644.7, "scannet_masked": 2578.4}
+# the graphed requests (host clock) and the synchronised parse stage as this
+# script measured them with the first designs of the empty-box test and the
+# first-K query (NVIDIA H100 80GB HBM3, 700.00 W)
+FIRST_DESIGNS_REQUEST_MS = {"sunrgbd": "16.42-17.43", "scannet_masked": "22.72-23.12"}
+FIRST_DESIGNS_PARSE_MS = {"sunrgbd": 0.60, "scannet_masked": 0.75}
 
 
 def matmul_points_in_box(points: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
@@ -1528,7 +1546,8 @@ def stage_times(det, batch: dict, label: str, reps: int = 3) -> None:
         h.remove()
     parts = ", ".join(f"{k} {np.median([r[k] for r in rows]) * 1e3:.2f} ms" for k in rows[0])
     print(f"stages of one request (synchronised, median of {reps}): {parts}; the parse stage "
-          f"before the kernel: {EARLIER_PARSE_MS[label]} ms (NVIDIA H100 80GB HBM3, 700.00 W)")
+          f"before the kernel: {EARLIER_PARSE_MS[label]} ms, with the first designs: "
+          f"{FIRST_DESIGNS_PARSE_MS[label]} ms (NVIDIA H100 80GB HBM3, 700.00 W)")
     with torch.inference_mode():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1579,8 +1598,8 @@ OWN_KERNELS = {
     "nms": r"\bnms_(?:cluster_)?kernel<",
     "quant_conv": r"\bquant_conv_(?:wgmma|kernel)<",
     "pool_quantize": r"\bpool_quantize_(?:vec|kernel)<",
-    "points_in_box": r"\bpoints_in_box_kernel\(",
-    "first_k": r"\bfirst_k_kernel\(",
+    "points_in_box": r"\bpoints_in_box_(?:cluster|kernel)\(",
+    "first_k": r"\bfirst_k_(?:lanes<|kernel\()",
 }
 
 
@@ -1760,7 +1779,8 @@ def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) 
                     f"{label} request {r}: graphed and eager detections differ")
     det.request.graph = True
     print(f"{label}: {len(batches)} graphed requests equal the eager ones bit for bit; request "
-          f"(host clock to the detections) graphed {[round(x, 2) for x in ms[True]]} ms, eager "
+          f"(host clock to the detections) graphed {[round(x, 2) for x in ms[True]]} ms (with the "
+          f"first designs: {FIRST_DESIGNS_REQUEST_MS[label]} ms), eager "
           f"{[round(x, 2) for x in ms[False]]} ms")
     stage_times(det, batches[-1], label)
 
@@ -3209,6 +3229,10 @@ EARLIER_FIRST_K = {"request_ms": 70.69, "bucketed_ms": 27.63, "query_ms": 38.21,
 # changes no test below an r^2 > 0, and a NaN stays NaN)
 FIRST_K_OPS = 9
 FIRST_K_REPS = 20  # calls of a timing graph of the first-K query
+# the pre-encoder's query and the first-K requests (host clock) as this
+# script measured them with the first design (NVIDIA H100 80GB HBM3, 700.00 W)
+FIRST_DESIGN_QUERY_MS = 0.9026
+FIRST_DESIGN_REQUEST_MS = {"first_k request": 19.05, "masked first_k request": 23.33}
 
 
 def first_k_tests(inds: torch.Tensor, N: int) -> int:
@@ -3255,37 +3279,86 @@ def first_k_scenes(dev: torch.device) -> dict:
                 r, n) for k, (x, c, r, n) in cases.items()}
 
 
+def first_k_seams(dev: torch.device) -> dict:
+    """First-K cases at the seams of the routed design (`first_k_lanes`: a
+    warp a slice of the points, staged `SLICE_POINTS` at a time, tiles of
+    `LANE_TILE` centers): label -> (xyz, centers, radius, nsample).  In a
+    cloud of 2400 far points (4 slices of 600 at nsample 16), a ball whose
+    16th hit is the last point of slice 0's first stage, with more hits
+    after it there and in slice 1; a ball whose hits close slice 0 and open
+    slice 1; a ball of every point; then nsample 1 and 128 (2 slices), N 1
+    and N 31, and M 65 (a tile and one center)."""
+    from ov3det_torch.ops.kernels.ball_query import SLICE_POINTS, slices_for
+
+    N, ns = 2400, 16
+    L = N // slices_for(ns)
+    seam = np.full((1, N, 3), 50.0, np.float32)
+    seam[0, SLICE_POINTS - ns:SLICE_POINTS] = 0.0  # fills at the end of a stage
+    seam[0, SLICE_POINTS + 20:SLICE_POINTS + 30] = 0.0  # hits it no longer takes
+    seam[0, L + 5:L + 9] = 0.0
+    seam[0, L - 10:L] = 10.0  # closes slice 0 ...
+    seam[0, L:L + 6] = 10.0  # ... and opens slice 1
+    seam[0, L + 40:L + 60] = 10.0
+    seam_c = np.array([[[0, 0, 0], [10, 10, 10], [50, 50, 50]]], np.float32)
+    rng = np.random.default_rng(19)
+    cloud = rng.uniform(-1, 1, (2, 3000, 3)).astype(np.float32)
+    tiny = rng.uniform(-1, 1, (2, 31, 3)).astype(np.float32)
+    cases = {"seams: a stage and a slice boundary, K 16": (seam, seam_c, 0.1, ns),
+             "K 1": (cloud, cloud[:, :70], 0.1, 1),
+             "K 128 (2 slices)": (cloud, cloud[:, :70], 0.6, 128),
+             "N 1, K 1": (tiny[:, :1], tiny[:, :5], 0.5, 1),
+             "N 31, K 31": (tiny, tiny[:, :9], 0.8, 31),
+             "M 65, K 64": (cloud, cloud[:, 100:165], 0.4, 64)}
+    return {k: (torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(c)).to(dev), r, n)
+            for k, (x, c, r, n) in cases.items()}
+
+
 def check_first_k(card: str, queries: list, dev: torch.device) -> dict:
     """Phase 11's first-K check.  `queries` are the masked first-K request's
     two queries on its own points, each (xyz, centers, radius, K): the
     pre-encoder's (8 x 40 000 points, M 2048, K 64, r 0.2) and the interim
-    SA's (its 2048 points, their FPS 1024 as centers, K 32, r 0.4).  The
-    kernel's indices against its plain version's on the card, bit for bit,
-    on two launches, at both (every scene) and on `first_k_scenes`; the
-    plain version on the card against the CPU's on one scene; a K past the
-    kernel's limit refused on the card; then, at the pre-encoder's query,
-    the kernel (graph replays) and its plain version (the former path, CUDA
-    events), with the grouping and the tile ball-group, timed in turns
-    beside the bound from the distance tests the data needs, and each one's
+    SA's (its 2048 points, their FPS 1024 as centers, K 32, r 0.4).  Both
+    designs (the routed `first_k_lanes` and the first, `_impl="first"`)
+    against the plain version on the card, bit for bit, on two launches each,
+    at both queries (every scene), on `first_k_scenes` and on
+    `first_k_seams`; the plain version on the card against the CPU's on one
+    scene; a K past the kernel's limit refused on the card; then, at both
+    queries, the routed design and the first (graph replays) and the plain
+    version (the former path, CUDA events), with the grouping and the tile
+    ball-group at the pre-encoder's, timed in turns beside the bound from
+    the distance tests the data needs at both f32 rates, and each one's
     device memory above its inputs.  Returns the kernels line's keys."""
     from ov3det_torch.ops.kernels.ball_group import ball_group
-    from ov3det_torch.ops.kernels.ball_query import MAX_NSAMPLE, first_k, first_k_plain
+    from ov3det_torch.ops.kernels.ball_query import (
+        LANE_TILE,
+        MAX_NSAMPLE,
+        SLICE_POINTS,
+        UNROLL,
+        first_k,
+        first_k_plain,
+        slices_for,
+    )
     from ov3det_torch.ops.pointcloud import group_points
 
     cases = {f"{x.shape[0]} x {x.shape[1]}, M {c.shape[1]}, K {n}, r {r}": (x, c, r, n)
              for x, c, r, n in queries}
     cases.update(first_k_scenes(dev))
+    cases.update(first_k_seams(dev))
     xyz, centers, radius, K = queries[0]
     for label, (x, c, r, n) in cases.items():
         want = first_k_plain(x, c, r, n)
-        for launch in range(2):
-            got = first_k(x, c, r, n)
-            require(got.dtype == want.dtype and torch.equal(got, want),
-                    f"first_k {label}, launch {launch}: the kernel's indices differ from the plain "
-                    f"version's at {int((got != want).sum())} slots")
+        for impl in (None, "first"):
+            for launch in range(2):
+                got = first_k(x, c, r, n, _impl=impl)
+                require(got.dtype == want.dtype and torch.equal(got, want),
+                        f"first_k {label}, {impl or 'routed'} design, launch {launch}: the "
+                        f"kernel's indices differ from the plain version's at "
+                        f"{int((got != want).sum())} slots")
         hits = ((want[..., 1:] != want[..., :1]).sum(-1) + 1).float()
-        print(f"first_k {label}: the kernel's indices equal the plain version's bit for bit on two "
-              f"launches; distinct indices a ball {hits.mean().item():.1f} (max {int(hits.max())})")
+        print(f"first_k {label}: both designs' indices equal the plain version's bit for bit on "
+              f"two launches each; distinct indices a ball {hits.mean().item():.1f} (max "
+              f"{int(hits.max())})")
         if label.startswith("empty"):
             require(not bool(want.any()), f"first_k {label}: an empty ball is not all 0")
         if label.startswith("r^2"):
@@ -3293,6 +3366,11 @@ def check_first_k(card: str, queries: list, dev: torch.device) -> dict:
                     f"first_k {label}: {want[0].tolist()}")
         if label.startswith("full"):
             require(bool((want == torch.arange(n, device=dev)).all()), f"first_k {label}")
+        if label.startswith("seams"):
+            L = x.shape[1] // slices_for(n)
+            require(want[0, 0].tolist() == list(range(SLICE_POINTS - n, SLICE_POINTS))
+                    and want[0, 1].tolist() == list(range(L - 10, L + 6)),
+                    f"first_k {label}: {want[0, :2].tolist()}")
     require(torch.equal(first_k(xyz[:1], centers[:1], radius, K).cpu(),
                         first_k_plain(xyz[:1].cpu(), centers[:1].cpu(), radius, K)),
             "first_k: the card's indices differ from the CPU's")
@@ -3311,31 +3389,95 @@ def check_first_k(card: str, queries: list, dev: torch.device) -> dict:
         inds = fn(xyz, centers, radius, K)
         torch.cuda.synchronize()
         mib[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
-    runs = {"kernel": lambda: first_k(xyz, centers, radius, K),
-            "plain": lambda: first_k_plain(xyz, centers, radius, K),
-            "grouping": lambda: group_points(xyz, None, centers, inds, radius),
-            "tile ball-group": lambda: ball_group(xyz, None, centers, radius, K)}
-    ms = {n: [] for n in runs}
-    for n in (*runs, *reversed(runs)):
-        ms[n].append(graph_ms(runs[n], FIRST_K_REPS) if n == "kernel" else cuda_ms(runs[n], 3))
-    best = {n: min(v) for n, v in ms.items()}
-    B, N, M = xyz.shape[0], xyz.shape[1], centers.shape[1]
-    tests = first_k_tests(inds, N)
-    b_ms, by = bound_ms(B * N * 12 + B * M * 12 + B * M * K * 8, FIRST_K_OPS * tests, F32_PEAK)
-    print(f"first_k at {B} x {N}, M {M}, K {K}, r {radius} ({tests / 1e6:.1f} M distance tests of "
-          f"{FIRST_K_OPS} f32 operations, each rounded on its own, "
-          f"{(inds[..., -1] != inds[..., 0]).float().mean().item():.3f} of the balls full): kernel "
-          f"{best['kernel']:.4f} ms (graph replays of {FIRST_K_REPS} calls, "
-          f"{mib['kernel']:.1f} MiB above its inputs), plain version (the former path) "
-          f"{best['plain']:.3f} ms ({mib['plain']:.1f} MiB; before the kernel: "
-          f"{EARLIER_FIRST_K['query_ms']} ms, "
-          f"{EARLIER_FIRST_K['query_mib']} MiB), grouping {best['grouping']:.3f} ms, tile "
-          f"ball-group {best['tile ball-group']:.3f} ms (CUDA events, in turns), bound "
-          f"{b_ms:.5f} ms ({by}; the operations term at {F32_PEAK / 1e12:.0f} TFLOP/s, which counts "
-          f"an FMA as two: at the {F32_PEAK / 2e12:.1f} T/s of operations that are not fused, "
-          f"{FIRST_K_OPS * tests / (F32_PEAK / 2) * 1e3:.5f} ms); no library call ({card})")
-    return dict(max_abs_err=0.0, ms=best["kernel"], plain_ms=best["plain"], bound_ms=b_ms,
-                bound_by=by, library_ms=None)
+    timed = {}
+    for (x, c, r, n), label in zip(queries, ("pre-encoder", "interim SA")):
+        runs = {"kernel": lambda: first_k(x, c, r, n),
+                "first": lambda: first_k(x, c, r, n, _impl="first"),
+                "plain": lambda: first_k_plain(x, c, r, n)}
+        if label == "pre-encoder":
+            runs["grouping"] = lambda: group_points(x, None, c, inds, r)
+            runs["tile ball-group"] = lambda: ball_group(x, None, c, r, n)
+        ms = {name: [] for name in runs}
+        for name in (*runs, *reversed(runs)):
+            ms[name].append(graph_ms(runs[name], FIRST_K_REPS) if name in ("kernel", "first")
+                            else cuda_ms(runs[name], 3))
+        best = {name: min(v) for name, v in ms.items()}
+        out = inds if label == "pre-encoder" else first_k(x, c, r, n)
+        B, N, M = x.shape[0], x.shape[1], c.shape[1]
+        tests = first_k_tests(out, N)
+        b_ms, by = bound_ms(B * N * 12 + B * M * 12 + B * M * n * 8, FIRST_K_OPS * tests, F32_PEAK)
+        unfused = FIRST_K_OPS * tests / (F32_PEAK / 2) * 1e3
+        S = slices_for(n)
+        shared = S * LANE_TILE * (n + UNROLL) * 4 + S * (2 * (3 * SLICE_POINTS + 4) * 4
+                                                         + SLICE_POINTS * 16)
+        print(f"first_k {label} at {B} x {N}, M {M}, K {n}, r {r} ({tests / 1e6:.1f} M distance "
+              f"tests of {FIRST_K_OPS} f32 operations, each rounded on its own, "
+              f"{(out[..., -1] != out[..., 0]).float().mean().item():.3f} of the balls full): "
+              f"routed design (first_k_lanes<{S}>, {-(-M // LANE_TILE) * B} CTAs of {32 * S} "
+              f"threads, {shared} B dynamic shared memory) {best['kernel']:.4f} ms, first design "
+              f"{best['first']:.4f} ms (graph replays of {FIRST_K_REPS} calls, in turns), plain "
+              f"version {best['plain']:.3f} ms (CUDA events)"
+              + (f", grouping {best['grouping']:.3f} ms, tile ball-group "
+                 f"{best['tile ball-group']:.3f} ms" if "grouping" in best else "")
+              + f"; bound {b_ms:.5f} ms ({by}; at {F32_PEAK / 1e12:.0f} TFLOP/s, which counts an "
+              f"FMA as two: at the {F32_PEAK / 2e12:.1f} T/s of operations that are not fused, "
+              f"{unfused:.5f} ms): the routed design at {b_ms / best['kernel']:.3f} and "
+              f"{unfused / best['kernel']:.3f} of them; no library call ({card})")
+        timed[label] = dict(max_abs_err=0.0, ms=best["kernel"], first_ms=best["first"],
+                            plain_ms=best["plain"], bound_ms=b_ms, bound_by=by,
+                            bound_ms_unfused=unfused, library_ms=None)
+    print(f"first_k device memory above its inputs at the pre-encoder's query: kernel "
+          f"{mib['kernel']:.1f} MiB, plain version (the former path) {mib['plain']:.1f} MiB (before "
+          f"the kernel: {EARLIER_FIRST_K['query_ms']} ms, {EARLIER_FIRST_K['query_mib']} MiB; "
+          f"the first design {FIRST_DESIGN_QUERY_MS} ms; NVIDIA H100 80GB HBM3, 700.00 W)")
+    return {**timed["pre-encoder"], "interim_sa": timed["interim SA"]}
+
+
+@contextlib.contextmanager
+def first_designs():
+    """The main path's first-K query and empty-box test routed to their first
+    designs (`_impl="first"`) while the block runs, through the names their
+    callers look up (`ops.pointcloud.first_k`, `eval.parse.points_in_box`)."""
+    from ov3det_torch.eval import parse
+    from ov3det_torch.ops import pointcloud
+
+    saved = pointcloud.first_k, parse.points_in_box
+    pointcloud.first_k = functools.partial(saved[0], _impl="first")
+    parse.points_in_box = functools.partial(saved[1], _impl="first")
+    try:
+        yield
+    finally:
+        pointcloud.first_k, parse.points_in_box = saved
+
+
+def first_k_requests_in_turns(card: str, builds: dict, batches: list, dev: torch.device,
+                              rounds: int = 4) -> None:
+    """Each first-K request (label -> a function that builds its `Detector`)
+    graphed with the routed designs of the first-K query and the empty-box
+    test and with their first designs (a detector each, captured while
+    `first_designs` routes them), timed in turns on the host clock (routed,
+    first, first, routed, `rounds` times); the medians and ranges
+    printed."""
+    for label, build in builds.items():
+        dets = {"routed": build()}
+        dets["routed"].detect(batches[0])  # warm-up and capture
+        with first_designs():
+            dets["first"] = build()
+            dets["first"].detect(batches[0])
+        ms = {name: [] for name in dets}
+        for _ in range(rounds):
+            for name in ("routed", "first", "first", "routed"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dets[name].detect(batches[1])
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        print(f"{label} (graphed) in turns: the routed designs {np.median(ms['routed']):.2f} ms "
+              f"({min(ms['routed']):.2f} to {max(ms['routed']):.2f}), the first designs of the "
+              f"first-K query and the empty-box test {np.median(ms['first']):.2f} ms "
+              f"({min(ms['first']):.2f} to {max(ms['first']):.2f}), {2 * rounds} requests each "
+              f"({card})")
+        del dets
+    torch.cuda.empty_cache()
 
 
 def reference_checkpoint(card: str, dev: torch.device) -> dict:
@@ -3399,7 +3541,8 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
           f"peak device memory {peak / 2**30:.3f} GiB (the same request with the bucketed "
           f"ball-group: {bucketed_ms:.2f} ms, {bucketed_peak / 2**30:.3f} GiB; before the kernel: "
           f"first_k request {EARLIER_FIRST_K['request_ms']} ms and bucketed "
-          f"{EARLIER_FIRST_K['bucketed_ms']} ms), "
+          f"{EARLIER_FIRST_K['bucketed_ms']} ms; with the first design: "
+          f"{FIRST_DESIGN_REQUEST_MS['first_k request']} ms), "
           f"detections per scene {[len(c) for c, _, _ in dets]}, launches "
           f"{ {n: c for n, c in counts.items() if c} } ({card})")
     del det
@@ -3418,11 +3561,16 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     require(m_counts == want, f"masked first_k request: launches {m_counts}, expected {want}")
     require(all(np.isfinite(c).all() and np.isfinite(s).all() for _, c, s in m_dets),
             "masked first_k request: non-finite detections")
-    print(f"masked first_k request (graphed) of 8 x {SCANNET_POINTS} points: {masked_ms:.2f} ms, "
-          f"launches { {n: c for n, c in m_counts.items() if c} } ({card})")
+    print(f"masked first_k request (graphed) of 8 x {SCANNET_POINTS} points: {masked_ms:.2f} ms "
+          f"(with the first design: "
+          f"{FIRST_DESIGN_REQUEST_MS['masked first_k request']} ms), launches "
+          f"{ {n: c for n, c in m_counts.items() if c} } ({card})")
     del m_det
     counts = collections.Counter(counts)
     counts.update(m_counts)
+    first_k_requests_in_turns(card, {
+        "first_k request": lambda: Detector(cfg, state_dict=state, device=dev),
+        "masked first_k request": lambda: Detector(masked, device=dev, seed=5)}, batches, dev)
 
     # the masked request's two queries on batches[1]: the pre-encoder's, then
     # the interim SA's on the pre-encoder's points (`Model3DETR.forward`)
@@ -4783,6 +4931,8 @@ def check_nms(card: str, dev: torch.device, outputs: dict) -> dict:
 
 PIB_REPS = 50  # calls of a timing graph of the empty-box test
 PIB_OPS = 24  # f32 operations a (point, box) pair: 3 differences, 3 projections of 5, 6 comparisons
+# the first design alone as this script timed it (NVIDIA H100 80GB HBM3, 700.00 W)
+FIRST_DESIGN_PIB_MS = {"sunrgbd": 0.0451, "scannet_masked": 0.1373}
 
 
 def pib_bound(B: int, K: int, N: int) -> tuple:
@@ -4848,16 +4998,24 @@ def box_faces_scene(L: float, rng) -> tuple:
 
 
 def check_points_in_box(card: str, dev: torch.device, outputs: dict) -> dict:
-    """Phase 15's empty-box check: the kernel's counts against its plain
-    version's on the card, bit for bit and in the same dtype, on two launches,
-    at the two requests' shapes on their own outputs (`outputs`: label ->
-    `serve`'s points and corners) and on crafted scenes (`box_faces_scene`
-    at L 0.5, 1 and 2, plus the same scenes' boxes at K 1); then the kernel
-    (graph replays), its plain version and the matmul test
-    (`matmul_points_in_box`) timed in turns beside the bound.  Returns the
-    kernels line's keys (sunrgbd, the masked request's under
-    "scannet_masked")."""
-    from ov3det_torch.ops.kernels.points_in_box import points_in_box, points_in_box_plain
+    """Phase 15's empty-box check: both designs' counts (the routed
+    `points_in_box_cluster` and the first, `_impl="first"`) against the plain
+    version's on the card, bit for bit and in the same dtype, on two launches
+    each, at the two requests' shapes on their own outputs (`outputs`: label
+    -> `serve`'s points and corners) and on crafted scenes (`box_faces_scene`
+    at L 0.5, 1 and 2, the same scenes' boxes at K 1, seeded boxes at K 37,
+    no multiple of the routed tile, and N 300, under one CTA's slice); then
+    the routed design and the first (graph replays), the plain version and
+    the matmul test (`matmul_points_in_box`) timed in turns beside the bound
+    at both f32 rates.  Returns the kernels line's keys (sunrgbd, the masked
+    request's under "scannet_masked")."""
+    from ov3det_torch.geometry.boxes_np import corners_from_upright_depth_param_np
+    from ov3det_torch.ops.kernels.points_in_box import (
+        CLUSTER_TILE,
+        cluster_size_for,
+        points_in_box,
+        points_in_box_plain,
+    )
 
     rng = np.random.default_rng(18)
     scenes = [box_faces_scene(L, rng) for L in (0.5, 1.0, 2.0)]
@@ -4865,21 +5023,30 @@ def check_points_in_box(card: str, dev: torch.device, outputs: dict) -> dict:
                              torch.from_numpy(np.stack([c for _, c, _ in scenes])).to(dev))}
     crafted["box faces, K 1"] = (crafted["box faces"][0],
                                  crafted["box faces"][1][:, :1].contiguous())
+    for K, N in ((37, 5000), (9, 300)):
+        pts = rng.uniform(0.0, 6.0, (2, N, 3)).astype(np.float32)
+        boxes = corners_from_upright_depth_param_np(
+            rng.uniform(0.0, 6.0, (2 * K, 3)), rng.uniform(0.3, 3.0, (2 * K, 3)),
+            rng.uniform(-np.pi, np.pi, 2 * K)).reshape(2, K, 8, 3).astype(np.float32)
+        crafted[f"seeded boxes, K {K}, N {N}"] = (torch.from_numpy(pts).to(dev),
+                                                  torch.from_numpy(boxes).to(dev))
     cases = {label: (o["points"], o["corners"]) for label, o in outputs.items()}
     cases.update(crafted)
     for label, (points, corners) in cases.items():
         want = points_in_box_plain(points, corners)
-        for launch in range(2):
-            got = points_in_box(points, corners)
-            require(got.dtype == want.dtype and torch.equal(got, want),
-                    f"points_in_box {label}, launch {launch}: the kernel's counts ({got.dtype}) "
-                    f"differ from the plain version's ({want.dtype}) in "
-                    f"{int((got != want).sum())} boxes")
+        for impl in (None, "first"):
+            for launch in range(2):
+                got = points_in_box(points, corners, _impl=impl)
+                require(got.dtype == want.dtype and torch.equal(got, want),
+                        f"points_in_box {label}, {impl or 'routed'} design, launch {launch}: the "
+                        f"kernel's counts ({got.dtype}) differ from the plain version's "
+                        f"({want.dtype}) in {int((got != want).sum())} boxes")
         B, K, N = corners.shape[0], corners.shape[1], points.shape[1]
         summary = (f"{want.tolist()}" if K <= 8 else
                    f"from {int(want.min())} to {int(want.max())}, {int((want < 5).sum())} under 5")
-        print(f"points_in_box {label} (B {B}, K {K}, N {N}): the kernel's counts equal the plain "
-              f"version's bit for bit on two launches; counts {summary}")
+        print(f"points_in_box {label} (B {B}, K {K}, N {N}; the routed design's grid "
+              f"{cluster_size_for(N)} x {-(-K // CLUSTER_TILE)} x {B}): both designs' counts "
+              f"equal the plain version's bit for bit on two launches each; counts {summary}")
     faces = crafted["box faces"]
     counted = points_in_box_plain(*faces)[:, 0].tolist()
     require(counted == [n for _, _, n in scenes],
@@ -4891,22 +5058,28 @@ def check_points_in_box(card: str, dev: torch.device, outputs: dict) -> dict:
         if label not in outputs:
             continue
         runs = {"kernel": lambda: points_in_box(points, corners),
+                "first": lambda: points_in_box(points, corners, _impl="first"),
                 "plain": lambda: points_in_box_plain(points, corners),
                 "matmul": lambda: matmul_points_in_box(points, corners)}
         ms = {n: [] for n in runs}
-        for n in ("kernel", "plain", "matmul", "matmul", "plain", "kernel"):
-            ms[n].append(graph_ms(runs[n], PIB_REPS) if n == "kernel" else cuda_ms(runs[n], 3))
+        for n in (*runs, *reversed(runs)):
+            ms[n].append(graph_ms(runs[n], PIB_REPS) if n in ("kernel", "first")
+                         else cuda_ms(runs[n], 3))
         best = {n: min(v) for n, v in ms.items()}
         B, K, N = corners.shape[0], corners.shape[1], points.shape[1]
         b_ms, by = pib_bound(B, K, N)
-        entries[label] = dict(max_abs_err=0.0, ms=best["kernel"], plain_ms=best["plain"],
-                              matmul_ms=best["matmul"], bound_ms=b_ms, bound_by=by, library_ms=None)
+        unfused = PIB_OPS * B * K * N / (F32_PEAK / 2) * 1e3
+        entries[label] = dict(max_abs_err=0.0, ms=best["kernel"], first_ms=best["first"],
+                              plain_ms=best["plain"], matmul_ms=best["matmul"], bound_ms=b_ms,
+                              bound_by=by, bound_ms_unfused=unfused, library_ms=None)
         print(f"points_in_box {label} (B {B}, K {K}, N {N}, {B * K * N / 1e6:.1f} M point-box "
-              f"pairs): kernel {best['kernel']:.4f} ms (graph replays of {PIB_REPS} calls), plain "
-              f"version {best['plain']:.3f} ms, the matmul test {best['matmul']:.3f} ms (CUDA "
-              f"events, in turns), bound {b_ms:.5f} ms ({by}; its operations at the "
-              f"{F32_PEAK / 2e12:.1f} T/s of operations that are not fused "
-              f"{PIB_OPS * B * K * N / (F32_PEAK / 2) * 1e3:.5f} ms); no library call ({card})")
+              f"pairs): routed design {best['kernel']:.4f} ms, first design {best['first']:.4f} ms "
+              f"(graph replays of {PIB_REPS} calls; earlier, alone: "
+              f"{FIRST_DESIGN_PIB_MS[label]} ms), plain version {best['plain']:.3f} ms, the matmul test "
+              f"{best['matmul']:.3f} ms (CUDA events, in turns), bound {b_ms:.5f} ms ({by}; its "
+              f"operations at the {F32_PEAK / 2e12:.1f} T/s of operations that are not fused "
+              f"{unfused:.5f} ms): the routed design at {b_ms / best['kernel']:.3f} and "
+              f"{unfused / best['kernel']:.3f} of them; no library call ({card})")
     return {**entries["sunrgbd"], "scannet_masked": entries["scannet_masked"]}
 
 
@@ -5114,8 +5287,11 @@ def main() -> int:
     for name, (source, replaces) in kernel_sources().items():
         count = sum(c.get(name, 0) for c in runs.values())
         require(count > 0, f"{name} was not launched on the main paths")
+        # every row names its first design's time: `first_ms`, from the
+        # older rows' `ms_previous_design`; null where the kernel has none
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": count, **entries[name]})
+                        "launches": count,
+                        "first_ms": entries[name].get("ms_previous_design"), **entries[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

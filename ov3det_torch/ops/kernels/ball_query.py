@@ -6,8 +6,13 @@ that XLA runs on the TPU (not a Pallas kernel): for each center the first
 `nsample` points in index order whose squared distance, in the expanded,
 clamped form of `_pairwise_d2` (`:156-165`), lies below r^2, the tail past
 the ball's count filled with its first hit, an empty ball all 0 (as JAX's
-top_k leaves it).  One warp tests a few centers against the points in index
-order and stops at their nsample-th hit; one launch for all centers.
+top_k leaves it).  One launch for all centers, of one of two designs:
+`first_k_lanes` (a lane two centers, a warp a contiguous slice of the
+scene's points staged by cp.async, each lane's hits appended to its own
+lists and the slices' lists merged in index order), the route for every
+call; and the first design, `first_k_kernel` (a warp tests a few centers
+against the points by ballots), which the private `_impl="first"` keeps
+reachable on the card as a yardstick.
 
 The plain version (`first_k_plain`) finds the hits as the `nsample`
 smallest int32 index scores (`torch.topk`), the centers in chunks so that
@@ -19,6 +24,7 @@ kernel keeps a tile's picks in shared memory) and at most N, and return
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,9 +36,21 @@ SOURCE = "ov3det_torch/csrc/first_k.cu"
 REPLACES = ('ov3det/ops/pointcloud.py:168 (ball_query method="first_k": top_k over index '
             'scores, XLA, not Pallas)')
 MAX_NSAMPLE = 128  # kMaxSample of csrc/first_k.cu
+# the routed design's split (csrc/first_k.cu), mirrored by the CPU tests'
+# emulation: a CTA's tile of centers (kLaneTile), the points a warp stages
+# at a time (kSlicePoints) and tests before it looks at its hits (kUnroll)
+LANE_TILE = 64
+SLICE_POINTS = 256
+UNROLL = 4
 # the (B, chunk, N) distances and scores of the plain version hold at most
 # about this many elements: 8 x 40 000 points take chunks of 104 centers
 FIRST_K_ELEMENTS = 1 << 25
+
+
+def slices_for(nsample: int) -> int:
+    """The routed design's slices of a scene's points, a warp each
+    (`slices_for` of csrc/first_k.cu): 4, or 2 above nsample 64."""
+    return 4 if nsample <= 64 else 2
 
 
 def _r2(radius: float) -> float:
@@ -84,16 +102,31 @@ def first_k_plain(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     return torch.cat(out, dim=1)
 
 
-def first_k(xyz: torch.Tensor, centers: torch.Tensor, radius: float, nsample: int) -> torch.Tensor:
+def _entry(impl: Optional[str], on_cuda: bool) -> str:
+    """The C entry point for the private `_impl` argument: None is the
+    routed design, "first" the first design."""
+    if impl is None:
+        return "ov3_first_k"
+    if impl != "first":
+        raise ValueError(f"first_k: _impl is None (the routed design) or 'first', got {impl!r}")
+    if not on_cuda:
+        raise ValueError("first_k: _impl chooses between CUDA kernels; these tensors lie on the CPU")
+    return "ov3_first_k_first"
+
+
+def first_k(xyz: torch.Tensor, centers: torch.Tensor, radius: float, nsample: int,
+            _impl: Optional[str] = None) -> torch.Tensor:
     """First-K fixed-radius neighbourhoods: xyz (B, N, 3), centers (B, M, 3)
     f32 -> (B, M, nsample) int64 indices into xyz.
 
     CUDA tensors launch the kernel, one launch for all centers with no host
-    wait, counted in `first_k.launches`; a failed launch raises.  CPU
-    tensors take :func:`first_k_plain`, whose chunks of centers are a CPU
-    memory measure (the kernel holds no such temporary).  nsample is
-    checked on both routes."""
+    wait, of the routed design or, with `_impl="first"`, of the first
+    design, counted in `first_k.launches` either way; a failed launch
+    raises.  CPU tensors take :func:`first_k_plain`, whose chunks of
+    centers are a CPU memory measure (the kernel holds no such temporary).
+    nsample is checked on both routes."""
     _check(xyz, centers, radius, nsample)
+    entry = _entry(_impl, xyz.device.type == "cuda")
     if xyz.device.type == "cpu":
         return first_k_plain(xyz, centers, radius, nsample)
     if xyz.device.type != "cuda":
@@ -104,9 +137,9 @@ def first_k(xyz: torch.Tensor, centers: torch.Tensor, radius: float, nsample: in
     lib = _build.load("first_k", _SIGNATURES)
     with torch.cuda.device(xyz.device):
         xyz, centers = xyz.contiguous(), centers.contiguous()
-        status = lib.ov3_first_k(xyz.data_ptr(), centers.data_ptr(), B, N, M, nsample,
-                                 ctypes.c_float(_r2(radius)), out.data_ptr(),
-                                 torch.cuda.current_stream().cuda_stream)
+        status = getattr(lib, entry)(xyz.data_ptr(), centers.data_ptr(), B, N, M, nsample,
+                                     ctypes.c_float(_r2(radius)), out.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "first_k")
     first_k.launches += 1
     return out
@@ -115,4 +148,5 @@ def first_k(xyz: torch.Tensor, centers: torch.Tensor, radius: float, nsample: in
 first_k.launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"ov3_first_k": ([_P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P], _I)}
+_SIGNATURES = {name: ([_P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P], _I)
+               for name in ("ov3_first_k", "ov3_first_k_first")}

@@ -5,7 +5,13 @@ The kernel (`ov3det_torch/csrc/points_in_box.cu`) replaces
 TPU (not a Pallas kernel): the count of scene points inside each predicted
 box, a point being inside when its projections on the box's three edges at
 corner 0 lie within [-eps, |edge|^2 + eps].  One launch a parse, with no
-temporary in device memory.
+temporary in device memory, of one of two designs: `points_in_box_cluster`
+(a thread-block cluster of CTAs a scene and tile of 16 boxes, each CTA a
+contiguous slice of the points staged by cp.async, a thread 4 boxes in
+registers, the partial counts summed by DSMEM in the leader CTA), the route
+for every call; and the first design, `points_in_box_kernel` (a CTA a scene
+and 8 boxes, a thread one box), which the private `_impl="first"` keeps
+reachable on the card as a yardstick.
 
 The plain version (`points_in_box_plain`) is the same function with torch
 ops in the kernel's operation order, every product and sum rounded on its
@@ -28,6 +34,14 @@ from ov3det_torch.ops.kernels import _build
 SOURCE = "ov3det_torch/csrc/points_in_box.cu"
 REPLACES = "ov3det/eval/parse.py:28 (points_in_box_counts: XLA, not Pallas)"
 EPS = float(np.float32(1e-6))  # the faces' margin, as the JAX code's weak float becomes f32
+# the routed design's split (csrc/points_in_box.cu), mirrored by the CPU
+# tests' emulation: boxes a CTA (kClusterTile), a thread's boxes
+# (kBoxesPerThread), the points a CTA of the cluster takes at the fewest
+# (kSliceMin) and at most (kMaxCluster) CTAs a cluster
+CLUSTER_TILE = 16
+BOXES_PER_THREAD = 4
+SLICE_MIN = 512
+MAX_CLUSTER = 8
 # the (B, chunk, N) temporaries of the plain version hold at most about this
 # many elements: 8 x 40 000 points take chunks of 26 boxes
 PLAIN_ELEMENTS = 1 << 23
@@ -79,14 +93,38 @@ def points_in_box_plain(points: torch.Tensor, corners: torch.Tensor,
     return torch.cat(counts, dim=1)
 
 
-def points_in_box(points: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
+def cluster_size_for(N: int) -> int:
+    """CTAs of the routed design's cluster for N points (`cluster_size_for`
+    of csrc/points_in_box.cu): one a `SLICE_MIN` points, 1 to
+    `MAX_CLUSTER`."""
+    return 1 if N <= SLICE_MIN else min(-(-N // SLICE_MIN), MAX_CLUSTER)
+
+
+def _entry(impl: Optional[str], on_cuda: bool) -> str:
+    """The C entry point for the private `_impl` argument: None is the
+    routed design, "first" the first design."""
+    if impl is None:
+        return "ov3_points_in_box"
+    if impl != "first":
+        raise ValueError(f"points_in_box: _impl is None (the routed design) or 'first', got "
+                         f"{impl!r}")
+    if not on_cuda:
+        raise ValueError("points_in_box: _impl chooses between CUDA kernels; these tensors lie "
+                         "on the CPU")
+    return "ov3_points_in_box_first"
+
+
+def points_in_box(points: torch.Tensor, corners: torch.Tensor,
+                  _impl: Optional[str] = None) -> torch.Tensor:
     """Count the points inside each box: points (B, N, 3) f32 upright-depth,
     corners (B, K, 8, 3) f32 camera coordinates -> (B, K) int32.
 
     CUDA tensors launch the kernel, one launch for the batch with no host
-    wait, counted in `points_in_box.launches`; a failed launch raises.  CPU
-    tensors take :func:`points_in_box_plain`."""
+    wait, of the routed design or, with `_impl="first"`, of the first
+    design, counted in `points_in_box.launches` either way; a failed launch
+    raises.  CPU tensors take :func:`points_in_box_plain`."""
     _check(points, corners)
+    entry = _entry(_impl, points.device.type == "cuda")
     if points.device.type == "cpu":
         return points_in_box_plain(points, corners)
     if points.device.type != "cuda":
@@ -97,9 +135,9 @@ def points_in_box(points: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
     lib = _build.load("points_in_box", _SIGNATURES)
     with torch.cuda.device(points.device):
         points, corners = points.contiguous(), corners.contiguous()
-        status = lib.ov3_points_in_box(points.data_ptr(), corners.data_ptr(), B, N, K,
-                                       ctypes.c_float(EPS), counts.data_ptr(),
-                                       torch.cuda.current_stream().cuda_stream)
+        status = getattr(lib, entry)(points.data_ptr(), corners.data_ptr(), B, N, K,
+                                     ctypes.c_float(EPS), counts.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "points_in_box")
     points_in_box.launches += 1
     return counts
@@ -108,4 +146,5 @@ def points_in_box(points: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
 points_in_box.launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"ov3_points_in_box": ([_P, _P, _I, _I, _I, ctypes.c_float, _P, _P], _I)}
+_SIGNATURES = {name: ([_P, _P, _I, _I, _I, ctypes.c_float, _P, _P], _I)
+               for name in ("ov3_points_in_box", "ov3_points_in_box_first")}
