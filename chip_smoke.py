@@ -162,17 +162,35 @@ at once), then:
        odd H or W at pool 2, C 8 short of a multiple of 16, one and two
        scales, f32, quotients on half-integers), both designs, the plain
        version and `F.avg_pool2d` alone timed in turns beside the bound;
+       the RoI head's kernels at the 4 chunks of that forward, on the
+       arguments it gives them, in bf16 and in f32: `roi_align` equal to
+       `roi_align_plain` and `pool_tokens` to its plain version bit for
+       bit, `pool_attend` within 1 bf16 ulp of its plain version (f32:
+       1e-5 of the largest value), each second launch equal to the first;
+       RoIAlign also on crafted boxes (taps clipped at every border, a
+       width clamped to 1e-6, an inverted box, the canvas edge, NaN and
+       infinite coordinates), batched and by image index; each kernel, its
+       plain version and its yardstick (`roi_align_einsum`, the two
+       contractions; SDPA on the concatenated tokens) timed in turns by
+       graph replays beside the bound;
        the teacher's forward alone on that batch, fused int8 (and with
-       every conv on the first design), unfused int8 and bf16, in turns;
+       every conv on the first design, and with the einsum RoI head: the
+       module-level names swapped), unfused int8 and bf16, in turns; one
+       forward with the kernels and one with the einsum RoI head profiled,
+       with the device ms of its ranges (normalise, stem conv1, trunk,
+       roi_align, res5, attnpool) and its peak memory; the teacher build's
+       calibration forward launching each RoI-head kernel once;
        training: `build_training(..., teacher=)` with the teacher of
        `ov3det_torch.main.build_teacher`, one warm-up and 3 timed steps,
        each launching FPS twice, the ball-group once, each attention
-       kernel 3 times, `quant_conv` 141 times and `pool_quantize` 18 times
-       (and `torch._int_mm` never, on any path), with a finite loss and
+       kernel 3 times, `quant_conv` 141 times, `pool_quantize` 18 times
+       and `roi_align`, `pool_tokens` and `pool_attend` 4 times each (and
+       `torch._int_mm` never, on any path), with a finite loss and
        loss_2dalignment > 0; the
        stage split (forward, teacher, criterion, backward, optimiser), peak
-       memory, one profiled step (with the teacher range's device time and
-       kernels, and the host's waits for the card), the lines that make the
+       memory, one profiled step (with the device time and kernels of the
+       teacher's range and of its parts' ranges, and the host's waits for
+       the card), the lines that make the
        host wait in one step (CUDA's sync debug mode) and the bytes of one
        batch crossing to the card;
        the CLI: `main(argv)` with --use_image, --loss_2dalignment_weight 1
@@ -273,8 +291,9 @@ at once), then:
        `sunrgbd_quick`, masked and OV width: 3 steps bit for bit in every
        loss, grad_norm, parameter, buffer and Adam moment; each graphed
        step's launches exact (the first auction design's never); no
-       `index_put_`, `index_add_`, `_scatter` or plain auction called in
-       the graphed or eager steps (`plain_spy`); no host wait in a group's
+       `index_put_`, `index_add_`, `_scatter`, plain auction, plain
+       RoIAlign or plain attention pool called in the graphed or eager
+       steps (`plain_spy`); no host wait in a group's
        4 replays (CUDA's
        sync debug mode); 5 steps of each timed, one graphed step profiled,
        the peak memory with the graph;
@@ -384,6 +403,8 @@ def ptxas_summary(log: str) -> list:
         lanes = re.search(r"first_k_lanesILi(\d+)E", m.group(1)) if m else None
         named = re.search(r"\d(points_in_box_cluster|points_in_box_kernel|first_k_kernel)E",
                           m.group(1)) if m else None
+        head = re.search(r"\d(roi_align_kernel|pool_tokens_kernel|pool_attend_kernel|pool_attend_mma)I"
+                         r"((?:f|13__nv_bfloat16|S\d*_)+)E", m.group(1)) if m else None
         conv = re.search(r"(quant_conv_kernel|quant_conv_wgmma)I((?:Li\d+E)+)(13__nv_bfloat16|f)E",
                          m.group(1)) if m else None
         if tile:
@@ -392,6 +413,11 @@ def ptxas_summary(log: str) -> list:
             kernel = f"first_k_lanes<{lanes.group(1)}>"
         elif named:
             kernel = named.group(1)
+        elif head:
+            types = []  # "S1_" and the like repeat an earlier type: here the one before
+            for t in re.findall(r"f|13__nv_bfloat16|S\d*_", head.group(2)):
+                types.append(types[-1] if t.startswith("S") else "f32" if t == "f" else "bf16")
+            kernel = f"{head.group(1)}<{', '.join(types)}>"
         elif conv:
             ints = re.findall(r"Li(\d+)E", conv.group(2))
             kernel = f"{conv.group(1)}<{', '.join(ints + ['bf16' if conv.group(3) != 'f' else 'f32'])}>"
@@ -617,6 +643,7 @@ def kernel_counters() -> dict:
     "auction_first" the first auction design's launches, which must stay 0."""
     from ov3det_torch.ops.kernels import (
         attention,
+        attn_pool,
         auction,
         ball_group,
         ball_query,
@@ -624,6 +651,7 @@ def kernel_counters() -> dict:
         nms,
         points_in_box,
         quant_conv,
+        roi_align,
     )
 
     count_eval_replays()
@@ -641,6 +669,9 @@ def kernel_counters() -> dict:
     counters["pool_quantize"] = (quant_conv.pool_quantize, "launches")
     counters["points_in_box"] = (points_in_box.points_in_box, "launches")
     counters["first_k"] = (ball_query.first_k, "launches")
+    counters["roi_align"] = (roi_align.roi_align, "launches")
+    counters["pool_tokens"] = (attn_pool.pool_tokens, "launches")
+    counters["pool_attend"] = (attn_pool.pool_attend, "launches")
     counters["int_mm"] = (count_int_mm(), "launches")
     return counters
 
@@ -737,6 +768,7 @@ def kernel_sources() -> dict:
     """name -> (source in the repo, the TPU kernel it replaces)."""
     from ov3det_torch.ops.kernels import (
         attention,
+        attn_pool,
         auction,
         ball_group,
         ball_query,
@@ -744,6 +776,7 @@ def kernel_sources() -> dict:
         nms,
         points_in_box,
         quant_conv,
+        roi_align,
     )
 
     return {"fps": (fps.SOURCE, fps.REPLACES),
@@ -761,7 +794,10 @@ def kernel_sources() -> dict:
             "quant_conv": (quant_conv.SOURCE, quant_conv.REPLACES),
             "pool_quantize": (quant_conv.SOURCE, quant_conv.POOL_REPLACES),
             "points_in_box": (points_in_box.SOURCE, points_in_box.REPLACES),
-            "first_k": (ball_query.SOURCE, ball_query.REPLACES)}
+            "first_k": (ball_query.SOURCE, ball_query.REPLACES),
+            "roi_align": (roi_align.SOURCE, roi_align.REPLACES),
+            "pool_tokens": (attn_pool.SOURCE, attn_pool.TOKENS_REPLACES),
+            "pool_attend": (attn_pool.SOURCE, attn_pool.ATTEND_REPLACES)}
 
 
 def expect(**counts) -> dict:
@@ -1561,12 +1597,13 @@ def stage_times(det, batch: dict, label: str, reps: int = 3) -> None:
 
 
 def range_kernels(prof, name: str):
-    """(device ms, kernel count) of the kernels launched while the profiler
-    range `name` (a `record_function`) was open on the host: each CUDA
-    runtime or driver call ("cu...") inside the range's host interval, on its
-    thread, matched to the device events of its correlation id.  (The
-    kernels a wrapper launches through ctypes belong to no PyTorch op, so
-    the ops' own kernel lists miss them.)  None when the range holds none."""
+    """(device ms, kernel count, {kernel name: device ms}) of the kernels
+    launched while the profiler range `name` (a `record_function`) was open
+    on the host: each CUDA API call ("cu...") inside the
+    range's host interval, on its thread, matched to the device events of
+    its correlation id.  (The kernels a wrapper launches through ctypes
+    belong to no PyTorch op, so the ops' own kernel lists miss them.)  None
+    when the range holds none."""
     cpu = torch.autograd.DeviceType.CPU
     events = prof.events()
     spans = [(e.time_range.start, e.time_range.end, e.thread) for e in events
@@ -1574,9 +1611,12 @@ def range_kernels(prof, name: str):
     launched = {e.id for e in events
                 if e.device_type == cpu and e.name.startswith("cu")
                 and any(s <= e.time_range.start <= t and e.thread == th for s, t, th in spans)}
-    kernels = [e.time_range.end - e.time_range.start for e in events
+    kernels = [(e.name, e.time_range.end - e.time_range.start) for e in events
                if e.device_type != cpu and e.name != name and e.id in launched]
-    return (sum(kernels) / 1e3, len(kernels)) if kernels else None
+    by_name = collections.Counter()
+    for kernel, us in kernels:
+        by_name[kernel] += us / 1e3
+    return (sum(by_name.values()), len(kernels), dict(by_name)) if kernels else None
 
 
 PROFILE_MARGIN_S = 0.2  # idle host time each side of a profiled call, inside the active window
@@ -1600,10 +1640,13 @@ OWN_KERNELS = {
     "pool_quantize": r"\bpool_quantize_(?:vec|kernel)<",
     "points_in_box": r"\bpoints_in_box_(?:cluster|kernel)\(",
     "first_k": r"\bfirst_k_(?:lanes<|kernel\()",
+    "roi_align": r"\broi_align_kernel<",
+    "pool_tokens": r"\bpool_tokens_kernel<",
+    "pool_attend": r"\bpool_attend_(?:kernel|mma)<",
 }
 
 
-def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
+def profile(title: str, fn, ranges: tuple = (), waits: bool = False, range_top: int = 0) -> None:
     """Run `fn` twice under torch.profiler's schedule, a warm-up call (the
     profiler traces, and keeps nothing) and the active one; for the active
     call print the wall time, the device busy time (kernels only), the
@@ -1613,7 +1656,9 @@ def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
     `waits`, the host's calls that wait for the card (stream and device
     synchronisations), each with its count and host time.  Every launch the
     wrappers count in the active call (`read_counts`, graph replays
-    included) must be in the profile, kernel for kernel (`OWN_KERNELS`)."""
+    included) must be in the profile, kernel for kernel (`OWN_KERNELS`).
+    With `range_top`, each range's `range_top` largest kernels by device
+    time are printed under it."""
     import re
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1668,6 +1713,8 @@ def profile(title: str, fn, ranges: tuple = (), waits: bool = False) -> None:
                                           if got is None else
                                           f"{got[0]:.2f} ms of device time in {got[1]} kernels, "
                                           f"{got[0] * 1e3 / busy_us:.3f} of the busy time"))
+            for kernel, ms in sorted((got or (0, 0, {}))[2].items(), key=lambda kv: -kv[1])[:range_top]:
+                print(f"   {ms:9.3f} ms  {kernel[:100]}")
     pats = {n: (p,) if isinstance(p, str) else p for n, p in OWN_KERNELS.items()}
     seen = {n: [sum(e.count for e in kernels if re.search(pat, e.key)) for pat in ps]
             for n, ps in pats.items()}
@@ -1921,7 +1968,8 @@ def train(cfg, steps: int, per_step: dict, label: str, seed: int, dev: torch.dev
     print(f"peak device memory of a {label} train step: {peak / 2**30:.3f} GiB "
           f"({base / 2**30:.3f} GiB held before it: weights, Adam moments, batches)")
     profile(f"profiled {label} train step", lambda: step(batches[2], gen),
-            ranges=("teacher",) if teacher is not None else (), waits=teacher is not None)
+            ranges=("teacher", *TEACHER_RANGES) if teacher is not None else (),
+            waits=teacher is not None)
     if teacher is not None:
         sync_points(f"one {label} train step under the sync debug mode",
                     lambda: step(batches[3], gen))
@@ -2385,7 +2433,11 @@ INT8_PEAK = 1979e12  # dense int8 tensor operations a second, H100 SXM data shee
 # each, res5 in 4 chunks of 256 regions): 65 trunk convs in the backbone and
 # 19 a chunk in res5; the quantise passes: the stem's conv1 output and
 # pooled output, 2 in each of layer2's and layer3's stride-2 blocks, 3 a chunk
-TEACHER_STEP = dict(quant_conv=141, pool_quantize=18)
+TEACHER_STEP = dict(quant_conv=141, pool_quantize=18, roi_align=4, pool_tokens=4, pool_attend=4)
+# the RoI head's kernels: one launch each a chunk of 256 regions
+HEAD_KERNELS = ("roi_align", "pool_tokens", "pool_attend")
+# the teacher forward's profiler ranges (`RegionCLIPTeacher.forward`)
+TEACHER_RANGES = ("normalise", "stem conv1", "trunk", "roi_align", "res5", "attnpool")
 OV_STEPS = 3
 QUANT_REPS = 5  # calls a timing graph of one trunk conv
 CPU_CHECK_MACS = 2.5e10  # the trunk's 3x3 convs up to this many products are also run on the CPU
@@ -2672,6 +2724,320 @@ def check_pass(card: str, pools: dict, dev: torch.device, t0: float) -> dict:
                 per=f"summed over one teacher forward ({n_pool} calls)")
 
 
+HEAD_REPS = 5  # calls a timing graph of one RoI-head kernel
+POOL_ATTEND_REL = 1e-5  # pool_attend against its plain version, of the largest value
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same dtype, NaN positions and bits everywhere else."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0).view(_INT_VIEW[a.dtype]),
+                                               b.masked_fill(nb, 0).view(_INT_VIEW[b.dtype]))
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor, floor: float = 0.0) -> float:
+    """The largest |a - b| over the bf16 ulp at the larger magnitude, or over
+    `floor` where that is larger."""
+    a, b = a.float(), b.float()
+    m = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(m > 0, m, torch.ones_like(m)))) - 7)
+    return ((a - b).abs() / torch.clamp(ulp, min=floor)).max().item()
+
+
+def record_head(teacher, images, boxes) -> dict:
+    """One forward of the teacher with the RoI head's calls spied on (the
+    names `regionclip` and `clip_resnet` look up): {name: (args, kwargs) of
+    each call of the kernel's wrapper}, one call a chunk."""
+    from ov3det_torch.models import clip_resnet as cr
+    from ov3det_torch.models import regionclip as rc
+
+    calls = {n: [] for n in HEAD_KERNELS}
+    wrapped = {"roi_align": (rc, "roi_align_batched"), "pool_tokens": (cr, "pool_tokens"),
+               "pool_attend": (cr, "pool_attend")}
+    originals = {n: getattr(obj, attr) for n, (obj, attr) in wrapped.items()}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            kept = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+            if name == "roi_align":  # (B, Q, 4) boxes: the wrapper's (R, 4) and r // Q
+                feat, bx, scale, P = kept
+                calls[name].append(([feat, bx.reshape(-1, 4), None, scale, P, 2],
+                                    {"per_image": bx.shape[1]}))
+            else:
+                calls[name].append((kept, dict(kwargs)))
+            return originals[name](*args, **kwargs)
+        return call
+
+    for n, (obj, attr) in wrapped.items():
+        setattr(obj, attr, spy(n))
+    try:
+        with torch.no_grad():
+            teacher(images, boxes)
+    finally:
+        for n, (obj, attr) in wrapped.items():
+            setattr(obj, attr, originals[n])
+    torch.cuda.synchronize()
+    return calls
+
+
+def crafted_roi_boxes(B: int, per_image: int, h: float, w: float, seed: int) -> torch.Tensor:
+    """(B * per_image, 4) boxes on h x w canvases: taps clipped at every
+    border, a width clamped to 1e-6, an inverted box, a box on the canvas
+    edge, two pixels, NaN and infinite coordinates (regions 5, 6, 7 and 9
+    come out NaN), then seeded ones."""
+    from ov3det_torch.models.regionclip import calibration_boxes
+
+    nan, inf = float("nan"), float("inf")
+    crafted = [[-30.0, -20.0, w + 40.0, h + 30.0], [100.0, 80.0, 100.0 + 1e-5, 90.0],
+               [300.0, 200.0, 120.0, 60.0], [w - 1.0, h - 1.0, w + 50.0, h + 40.0],
+               [16.0, 16.0, 18.0, 18.0], [nan, 40.0, 200.0, 300.0], [40.0, 40.0, 200.0, nan],
+               [-inf, 40.0, inf, 300.0], [40.0, 40.0, inf, 300.0], [-inf, -inf, 90.0, 90.0]]
+    rng = np.random.default_rng(seed)
+    boxes = np.concatenate([calibration_boxes(rng, h, w, n=per_image)[0] for _ in range(B)])
+    boxes[:len(crafted)] = np.asarray(crafted, np.float32)
+    return torch.from_numpy(boxes)
+
+
+def in_turns(runs: dict, reps: int = HEAD_REPS) -> dict:
+    """The smaller of two graph-replay times of each run, timed in order and
+    in the reverse order."""
+    ms = {n: [] for n in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for n in order:
+            ms[n].append(graph_ms(runs[n], reps))
+    return {n: min(v) for n, v in ms.items()}
+
+
+def roi_align_ops(boxes: torch.Tensor, scale: float, H: int, W: int, P: int, C: int) -> int:
+    """The f32 operations (a multiply and an add each) RoIAlign needs on these
+    boxes: each live x slot of every column once for each map row some
+    output row reads, then each live y slot of every output row once for
+    every column; NaN rows need none."""
+    from ov3det_torch.ops import roi_align as ra
+
+    x1, bin_w, y1, bin_h = ra._box_axes(boxes, scale, P)
+    _, _, vx, nan_x = ra._axis_slots(x1, bin_w, W, P)
+    py, _, vy, nan_y = ra._axis_slots(y1, bin_h, H, P)
+    vx, vy = vx & ~nan_x[..., None], vy & ~nan_y[..., None]
+    rows = torch.zeros((boxes.shape[0], H), dtype=torch.int32, device=boxes.device)
+    rows.scatter_add_(1, torch.where(vy, py, 0).flatten(1), vy.flatten(1).int())
+    per_region = vx.sum(dim=(1, 2)) * (rows > 0).sum(dim=1) + P * vy.sum(dim=(1, 2))
+    return int(2 * C * per_region.sum().item())
+
+
+def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
+    """Phase 10's check of the RoI head's kernels on the calls of one int8
+    teacher forward on an OV batch (8 canvases x 128 boxes: 4 chunks of 256
+    regions, each kernel once a chunk, `record_head`), in bf16 as called and
+    in f32: `roi_align` equal to `roi_align_plain` bit for bit (NaN
+    positions included), `pool_tokens` to `pool_tokens_plain`, `pool_attend`
+    within 1 bf16 ulp of `pool_attend_plain` (f32: 1e-5 of the largest
+    value), and each kernel's second launch equal to its first bit for bit;
+    RoIAlign also on crafted boxes (`crafted_roi_boxes`) at the forward's
+    map, batched and through an image index.  Then, at each chunk, in turns
+    by graph replays: each kernel, its plain version and its yardstick
+    (RoIAlign: `roi_align_einsum`, the two contractions; `pool_attend`:
+    `F.scaled_dot_product_attention(u, tokens, tokens, scale=hd**-0.5)` on
+    the concatenated tokens), beside the bound of this batch's work.
+    Returns the kernels-line entries, times summed over the forward's 4
+    calls."""
+    from ov3det_torch.ops import roi_align as ra
+    from ov3det_torch.ops.kernels import attn_pool as ap
+    from ov3det_torch.ops.kernels import roi_align as kra
+
+    t0 = time.perf_counter()
+    calls = record_head(teacher, images, boxes)
+    n = {k: len(v) for k, v in calls.items()}
+    require(n == {k: TEACHER_STEP[k] for k in HEAD_KERNELS},
+            f"the teacher's forward made {n} RoI-head kernel calls, expected 4 each")
+    err = collections.Counter()
+    for (args, kw) in calls["roi_align"]:
+        feat, bx, index, scale, P, ratio = args
+        for dtype in (torch.bfloat16, torch.float32):
+            f = feat.to(dtype)
+            got, again = kra.roi_align(f, bx, index, scale, P, ratio, **kw), \
+                kra.roi_align(f, bx, index, scale, P, ratio, **kw)
+            want = ra.roi_align_plain(f, bx, index, scale, P, ratio, **kw)
+            torch.cuda.synchronize()
+            require(bits_equal(got, want), f"roi_align {tuple(f.shape)} {dtype}: the kernel "
+                                           "differs from roi_align_plain")
+            require(bits_equal(got, again), f"roi_align {dtype}: two launches differ")
+    feat, _, _, scale, P, ratio = calls["roi_align"][0][0]
+    B, H, W, C = feat.shape
+    per_image = calls["roi_align"][0][1]["per_image"]
+    crafted = crafted_roi_boxes(B, per_image, float(images.shape[1]), float(images.shape[2]),
+                                20).to(dev)
+    index = torch.from_numpy(np.random.default_rng(21).integers(0, B, crafted.shape[0])).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        f = feat.to(dtype)
+        for idx, kw in ((None, {"per_image": per_image}), (index, {})):
+            got = kra.roi_align(f, crafted, idx, scale, P, ratio, **kw)
+            want = ra.roi_align_plain(f, crafted, idx, scale, P, ratio, **kw)
+            torch.cuda.synchronize()
+            nan_regions = torch.isnan(got).flatten(1).any(dim=1)[:10].tolist()
+            require(bits_equal(got, want) and bits_equal(got, kra.roi_align(f, crafted, idx, scale,
+                                                                          P, ratio, **kw)),
+                    f"roi_align crafted boxes {dtype} ({'index' if kw == {} else 'batched'}): "
+                    "the kernel differs from roi_align_plain or from itself")
+            require(nan_regions == [False] * 5 + [True] * 3 + [False, True],
+                    f"roi_align crafted boxes: NaN regions {nan_regions}")
+    for (args, kw) in calls["pool_tokens"]:
+        x, pos0 = args
+        for dtype in (torch.bfloat16, torch.float32):
+            xd, pd = x.to(dtype), pos0.to(dtype)
+            got, again = ap.pool_tokens(xd, pd), ap.pool_tokens(xd, pd)
+            torch.cuda.synchronize()
+            require(bits_equal(got, ap.pool_tokens_plain(xd, pd)) and bits_equal(got, again),
+                    f"pool_tokens {tuple(xd.shape)} {dtype}: the kernel differs from its plain "
+                    "version or from itself")
+    for (args, kw) in calls["pool_attend"]:
+        x, pos, token0, u, hd, out_dtype = args
+        for dtype in (torch.bfloat16, torch.float32):
+            a = [t.to(dtype) for t in (x, pos, token0, u)]
+            od = out_dtype if dtype == torch.bfloat16 else torch.float32
+            got, again = ap.pool_attend(*a, hd, od), ap.pool_attend(*a, hd, od)
+            want = ap.pool_attend_plain(*a, hd, od)
+            torch.cuda.synchronize()
+            require(bits_equal(got, again), f"pool_attend {dtype}: two launches differ")
+            require(torch.isfinite(got).all().item(), f"pool_attend {dtype}: a value not finite")
+            if dtype == torch.bfloat16:
+                # an ulp of the element, or 1e-5 of the largest value where
+                # that is larger: an f32 sum in another order moves a value
+                # near 0 (the sum of terms of both signs) by more than its ulp
+                big = want.float().abs().max().item()
+                ulps = bf16_ulps(got, want, POOL_ATTEND_REL * big)
+                require(ulps <= 1, f"pool_attend bf16: {ulps} bf16 ulps (or {POOL_ATTEND_REL} of "
+                                   "the largest value) from the plain version")
+                diff = (got.float() - want.float()).abs()
+                err["pool_attend"] = max(err["pool_attend"], diff.max().item())
+                err["pool_attend ulps"] = max(err["pool_attend ulps"], bf16_ulps(got, want))
+                err["pool_attend off by one"] += int((diff > 0).sum())
+                err["pool_attend values"] += diff.numel()
+            else:
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                require(rel <= POOL_ATTEND_REL, f"pool_attend f32: {rel} of the largest value")
+                err["pool_attend f32"] = max(err["pool_attend f32"], rel)
+    print(f"RoI head: roi_align, pool_tokens and pool_attend at the 4 chunks of one int8 teacher "
+          f"forward (8 canvases x 128 boxes), bf16 and f32: roi_align and pool_tokens equal to "
+          f"their plain versions bit for bit (roi_align also on the crafted boxes, batched and by "
+          f"image index, NaN regions where expected); pool_attend in bf16 within 1 bf16 ulp or "
+          f"{POOL_ATTEND_REL} of the largest value ({err['pool_attend off by one']} of "
+          f"{err['pool_attend values']} values differ, by {err['pool_attend']:.3e} at most, "
+          f"{err['pool_attend ulps']:.1f} ulps of their own), in f32 within "
+          f"{err['pool_attend f32']:.2e} of the largest value; every second launch equal "
+          f"to the first ({time.perf_counter() - t0:.1f} s)")
+
+    totals = collections.defaultdict(collections.Counter)
+    for i in range(len(calls["roi_align"])):
+        (feat, bx, index, scale, P, ratio), kw = calls["roi_align"][i]
+        Q = kw["per_image"]
+        best = in_turns({"kernel": lambda: kra.roi_align(feat, bx, index, scale, P, ratio, **kw),
+                         "plain": lambda: ra.roi_align_plain(feat, bx, index, scale, P, ratio, **kw),
+                         "library": lambda: ra.roi_align_einsum(feat, bx.view(B, Q, 4), scale, P)})
+        es = feat.element_size()
+        nbytes = feat.numel() * es + bx.numel() * 4 + bx.shape[0] * P * P * C * es
+        b_ms, by = bound_ms(nbytes, roi_align_ops(bx, scale, H, W, P, C), F32_PEAK)
+        totals["roi_align"].update(best, bound=b_ms, **{f"bound {by}": b_ms})
+        (x, pos0), _ = calls["pool_tokens"][i]
+        best = in_turns({"kernel": lambda: ap.pool_tokens(x, pos0),
+                         "plain": lambda: ap.pool_tokens_plain(x, pos0)})
+        R, L, Cp = x.shape
+        b_ms, by = bound_ms((x.numel() + (R + 1) * Cp) * x.element_size(), R * Cp * (L + 2),
+                            F32_PEAK)
+        totals["pool_tokens"].update(best, bound=b_ms, **{f"bound {by}": b_ms})
+        (x, pos, token0, u, hd, od), _ = calls["pool_attend"][i]
+        tokens = torch.cat([token0[:, None], x + pos[None, 1:]], dim=1)[:, None]
+        query = u[:, None]
+        best = in_turns({"kernel": lambda: ap.pool_attend(x, pos, token0, u, hd, od),
+                         "plain": lambda: ap.pool_attend_plain(x, pos, token0, u, hd, od),
+                         "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                             query, tokens, tokens, scale=hd ** -0.5)})
+        heads, es = u.shape[1], x.element_size()
+        nbytes = (x.numel() + pos.numel() + token0.numel() + u.numel()) * es \
+            + R * heads * Cp * torch.empty((), dtype=od).element_size()
+        products = 2 * R * heads * (L + 1) * Cp  # the logits' or z's multiplies and adds
+        if x.dtype == torch.bfloat16:  # exact bf16 products: the logits, and z in 3 bf16 terms
+            b_ms, by = bound_ms(nbytes, 4 * products, BF16_PEAK)
+        else:
+            b_ms, by = bound_ms(nbytes, 2 * products, F32_PEAK)
+        totals["pool_attend"].update(best, bound=b_ms, **{f"bound {by}": b_ms})
+        del tokens, query
+    library = {"roi_align": "roi_align_einsum (the two contractions)",
+               "pool_tokens": None,
+               "pool_attend": "F.scaled_dot_product_attention on the concatenated tokens"}
+    entries = {}
+    for name, t in totals.items():
+        by = "operations" if t["bound operations"] >= t["bound bytes"] else "bytes"
+        lib = f", {library[name]} {t['library']:.4f} ms" if library[name] else ""
+        print(f"{name} over one teacher forward (4 calls): kernel {t['kernel']:.4f} ms "
+              f"({t['bound'] / t['kernel']:.2f} of the bound), plain {t['plain']:.4f} ms{lib}; "
+              f"bound {t['bound']:.4f} ms ({by}) (graph replays, in turns) ({card})")
+        entries[name] = dict(max_abs_err=err.get(name, 0.0), ms=t["kernel"], plain_ms=t["plain"],
+                             bound_ms=t["bound"], bound_by=by,
+                             library_ms=t["library"] if library[name] else None,
+                             library=library[name],
+                             per="summed over one teacher forward (4 calls, 256 regions each)")
+    return entries
+
+
+def einsum_head(teacher):
+    """`teacher` with the RoI head as library ops: RoIAlign as the two
+    contractions (`roi_align_einsum`) and the pool's mean token by
+    `torch.mean` and its attention by einsums (`pool_attend_plain`), the
+    module-level names swapped for the call as `teacher_forward_times`
+    swaps `quant_conv`."""
+    from ov3det_torch.models import clip_resnet as cr
+    from ov3det_torch.models import regionclip as rc
+    from ov3det_torch.ops import roi_align as ra
+    from ov3det_torch.ops.kernels import attn_pool as ap
+
+    def mean_token(x, pos0):
+        return x.float().mean(dim=1).to(x.dtype) + pos0
+
+    def run(*args):
+        saved = rc.roi_align_batched, cr.pool_tokens, cr.pool_attend
+        rc.roi_align_batched, cr.pool_tokens, cr.pool_attend = (ra.roi_align_einsum, mean_token,
+                                                                ap.pool_attend_plain)
+        try:
+            return teacher(*args)
+        finally:
+            rc.roi_align_batched, cr.pool_tokens, cr.pool_attend = saved
+
+    return run
+
+
+def teacher_parts(card: str, teacher, images, boxes) -> None:
+    """The teacher forward's ranges (`TEACHER_RANGES`) read from a profile
+    of one forward with the kernels and one with the einsum RoI head
+    (`einsum_head`), each with its peak device memory above what it was
+    given; a forward with the kernels launches each RoI-head kernel 4 times."""
+    old = einsum_head(teacher)
+    for label, fn in (("kernels", teacher), ("the einsum RoI head", old)):
+        def forward(fn=fn):
+            with torch.no_grad():
+                return fn(images, boxes)
+
+        forward()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        forward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        after = read_counts()
+        launched = {k: after[k] - before[k] for k in HEAD_KERNELS}
+        want = {k: TEACHER_STEP[k] if fn is teacher else 0 for k in HEAD_KERNELS}
+        require(launched == want, f"teacher forward ({label}): launches {launched}, "
+                                  f"expected {want}")
+        print(f"teacher forward ({label}), 8 canvases x 128 boxes: peak device memory "
+              f"{peak / 2**20:.1f} MiB above its inputs and weights; launches {launched} ({card})")
+        profile(f"profiled teacher forward ({label})", forward, ranges=TEACHER_RANGES, range_top=6)
+
+
 def teacher_card_vs_cpu(state: dict, image: np.ndarray, boxes: np.ndarray,
                         dev: torch.device) -> None:
     """The full RN50x4 teacher on one canvas and 8 boxes, on the card and on
@@ -2747,10 +3113,11 @@ def teacher_forward_times(card: str, teacher, state: dict, images, boxes,
                           dev: torch.device) -> None:
     """The teacher's forward alone on one OV batch (8 canvases, 128 boxes
     each, 4 chunks of 256 regions): the fused int8 teacher the step runs,
-    the same with every trunk conv on the first design, the unfused int8
-    module path and a bf16 teacher from the same weights, timed in turns
-    (fused, first, unfused, bf16, bf16, unfused, first, fused); the fused
-    features equal the unfused ones, and the first design's, bit for bit."""
+    the same with every trunk conv on the first design, the same with the
+    einsum RoI head (`einsum_head`), the unfused int8 module path and a bf16
+    teacher from the same weights, timed in turns (and in the reverse
+    order); the fused features equal the unfused ones, and the first
+    design's, bit for bit, and the einsum head's within cosine 0.999."""
     from ov3det_torch.models import clip_resnet as cr
     from ov3det_torch.models.regionclip import RegionCLIPTeacher, quantize_teacher_params
 
@@ -2767,7 +3134,8 @@ def teacher_forward_times(card: str, teacher, state: dict, images, boxes,
             cr.quant_conv = routed
 
     models = {"int8 fused": teacher, "int8 fused, first design": first_design,
-              "int8 unfused": unfused, "bf16": bf16}
+              "int8 fused, einsum RoI head": einsum_head(teacher), "int8 unfused": unfused,
+              "bf16": bf16}
     ms = {n: [] for n in models}
     with torch.no_grad():
         for name in list(models) + list(models)[::-1]:
@@ -2777,9 +3145,15 @@ def teacher_forward_times(card: str, teacher, state: dict, images, boxes,
         require(torch.equal(got, first_design(images, boxes)),
                 "teacher forward: the wgmma and first designs' int8 features differ")
         cos = torch.nn.functional.cosine_similarity(got, bf16(images, boxes), dim=-1)
+        old = models["int8 fused, einsum RoI head"](images, boxes)
+        old_cos = torch.nn.functional.cosine_similarity(got, old, dim=-1).min().item()
+        require(old_cos >= 0.999, f"teacher forward: the kernels' features against the einsum RoI "
+                                  f"head's: cosine {old_cos}")
     best = {n: min(v) for n, v in ms.items()}
     print(f"teacher forward alone, 8 canvases x 128 boxes: int8 fused {best['int8 fused']:.2f} ms "
-          f"(the first design {best['int8 fused, first design']:.2f} ms), "
+          f"(the first design {best['int8 fused, first design']:.2f} ms; the einsum RoI head "
+          f"{best['int8 fused, einsum RoI head']:.2f} ms, cosine >= {old_cos:.6f} to the "
+          f"kernels' features), "
           f"int8 unfused {best['int8 unfused']:.2f} ms, bf16 {best['bf16']:.2f} ms (CUDA events, "
           f"in turns; each {ms}); fused equal to unfused bit for bit; int8 fused "
           f"{'no slower' if best['int8 fused'] <= best['bf16'] else 'SLOWER'} than bf16; int8 vs "
@@ -2879,8 +3253,10 @@ def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = 
 
 def ov_phase(card: str, dev: torch.device) -> tuple:
     """Phase 10: the open-vocabulary step; returns the launch counts of its
-    training run and of its CLI run, the CLI's waits on the loader and the
-    kernels-line entries of `quant_conv` and `pool_quantize`."""
+    training run and of its CLI run, the CLI's waits on the loader, the
+    kernels-line entries of `quant_conv`, `pool_quantize`, `roi_align`,
+    `pool_tokens` and `pool_attend`, and the launch counts of the teacher
+    build's calibration forward."""
     from ov3det_torch import main as cli
     from ov3det_torch.models.regionclip import (
         RegionCLIPTeacher,
@@ -2901,14 +3277,22 @@ def ov_phase(card: str, dev: torch.device) -> tuple:
     teacher_card_vs_cpu(state, first["image"][None], boxes, dev)
 
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     teacher = cli.build_teacher(cfg, first, dev)
     torch.cuda.synchronize()
+    calibration = read_counts()
+    launched = {k: calibration[k] for k in HEAD_KERNELS}
+    require(launched == {k: 1 for k in HEAD_KERNELS},
+            f"the calibration forward (8 boxes, one chunk) launched {launched}")
     print(f"teacher build (seeded weights, int8 quantisation, calibration on the card): "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s; the calibration forward's RoI-head launches "
+          f"{launched}")
     images, regions = torch.from_numpy(batches[0]["image"]).to(dev), ov_boxes(dev)
     entries = check_quant_conv(card, teacher, images, regions, dev)
+    entries.update(check_head(card, teacher, images, regions, dev))
     teacher_forward_times(card, teacher, state, images, regions, dev)
+    teacher_parts(card, teacher, images, regions)
     del state, images, regions
     gc.collect()
     torch.cuda.empty_cache()
@@ -2922,7 +3306,7 @@ def ov_phase(card: str, dev: torch.device) -> tuple:
     gc.collect()
     cli_counts, waits = ov_cli(card, dev)
     print(f"phase 10 (the open-vocabulary step): {time.perf_counter() - t_phase:.1f} s")
-    return trained, cli_counts, waits, entries
+    return trained, cli_counts, waits, entries, calibration
 
 
 # ------------------------------------------------------------ phase 11: the pseudo-label round
@@ -4558,15 +4942,19 @@ def check_auction(card: str, dev: torch.device) -> dict:
 
 @contextlib.contextmanager
 def plain_spy():
-    """Count the calls of the plain scatter and auction while the block runs
-    (a Counter by name): none may run on the card's main path.  (The first
-    auction design has a launch counter of its own, "auction_first".)"""
-    from ov3det_torch.ops.kernels import auction, ball_group
+    """Count the calls of the plain scatter, auction, RoIAlign and attention
+    pool while the block runs (a Counter by name): none may run on the
+    card's main path.  (The first auction design has a launch counter of its
+    own, "auction_first".)"""
+    from ov3det_torch.ops import roi_align
+    from ov3det_torch.ops.kernels import attn_pool, auction, ball_group
 
     calls = collections.Counter()
     targets = [(torch.Tensor, "index_put_"), (torch.Tensor, "index_add_"),
                (ball_group, "_scatter"), (auction, "auction_phases_plain"),
-               (auction, "auction_lap_plain")]
+               (auction, "auction_lap_plain"), (roi_align, "roi_align_plain"),
+               (roi_align, "roi_align_einsum"), (attn_pool, "pool_tokens_plain"),
+               (attn_pool, "pool_attend_plain")]
     originals = [(obj, name, getattr(obj, name)) for obj, name in targets]
 
     def counted(name, fn):
@@ -4654,7 +5042,8 @@ def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
     require(not bad, f"{label}: graphed and eager state differs in {bad[:4]}")
     print(f"{label}: {GRAPH_STEPS} graphed steps equal the eager ones bit for bit (losses, "
           f"grad_norm, {len(g_s)} parameters, buffers and Adam moments), and neither called "
-          f"index_put_, index_add_, _scatter or the plain auction (a spy); step time (host clock "
+          f"index_put_, index_add_, _scatter, the plain auction, the plain RoIAlign or the plain "
+          f"attention pool (a spy); step time (host clock "
           f"to a sync, {TIMED_STEPS} steps) graphed median {np.median(times[True]):.2f} ms "
           f"({min(times[True]):.2f} to {max(times[True]):.2f}), eager median "
           f"{np.median(times[False]):.2f} ms ({min(times[False]):.2f} to {max(times[False]):.2f}); "
@@ -5202,12 +5591,14 @@ def main() -> int:
     from ov3det_torch.config import sunrgbd_quick
     from ov3det_torch.ops.kernels import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     logs = _build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached libraries'}")
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s for {sorted(logs) or 'cached libraries'}")
     for name, log in sorted(logs.items()):
         lines = ptxas_summary(log)
         many = [line for line in lines if line.startswith("fps_cluster_kernel")]
@@ -5264,7 +5655,7 @@ def main() -> int:
     train_card_vs_cpu(masked, "scannet_masked", 400)
 
     cli_counts = cli_phase(card)
-    ov_trained, ov_cli_counts, ov_waits, quant_entries = ov_phase(card, dev)
+    ov_trained, ov_cli_counts, ov_waits, quant_entries, calibration = ov_phase(card, dev)
     entries.update(quant_entries)
     pseudo_counts, entries["first_k"] = pseudo_phase(card, dev)
     ddp_counts = ddp_phase(card, dev, ov_waits)
@@ -5275,7 +5666,7 @@ def main() -> int:
 
     runs = {"sunrgbd requests": served, "sunrgbd steps": trained, "masked requests": m_served,
             "masked steps": m_trained, "cli": cli_counts, "ov steps": ov_trained,
-            "ov cli": ov_cli_counts, "pseudo": pseudo_counts,
+            "ov calibration": calibration, "ov cli": ov_cli_counts, "pseudo": pseudo_counts,
             **{f"ddp {i}": c for i, c in enumerate(ddp_counts)},
             **{f"images {i}": c for i, c in enumerate(image_counts)},
             **{f"packed {i}": c for i, c in enumerate(packed_counts)}}
@@ -5292,6 +5683,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count,
                         "first_ms": entries[name].get("ms_previous_design"), **entries[name]})
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s, the build {build_s:.1f} s of it")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

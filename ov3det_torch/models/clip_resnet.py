@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ov3det_torch.ops.kernels.attn_pool import pool_attend, pool_tokens
 from ov3det_torch.ops.kernels.quant_conv import (  # noqa: F401  (im2col_int8, int8_conv: re-exported)
     avg_pool,
     im2col_int8,
@@ -286,21 +287,28 @@ class ModifiedResNetStem(nn.Module):
         self.conv3 = trunk_conv(quant, dtype, w // 2, w, 3, padding=1, fused=fused)
         self.bn3 = _bn(quant, w, dtype)
 
-    def chain(self, x: torch.Tensor, next_scales: Sequence) -> list:
-        """The "folded" stem: its pooled output quantised at each of
-        `next_scales` (layer1's first block's `in_scales()`)."""
-        h = torch.relu(self.bn1(self.conv1(x)))
+    def first(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1, bn1 and the ReLU: the stem's part outside the int8 chain."""
+        return torch.relu(self.bn1(self.conv1(x)))
+
+    def chain(self, h: torch.Tensor, next_scales: Sequence) -> list:
+        """The "folded" stem after `first` (h its output): the pooled output
+        quantised at each of `next_scales` (layer1's first block's
+        `in_scales()`)."""
         c2, c3 = self.conv2, self.conv3
         hq = pool_quantize(h, 1, (c2.a_scale,))[0]
         _, hq = c2.conv(hq, c2.a_scale, relu=True, s_next=c3.a_scale, out=False)
         h, _ = c3.conv(hq, c3.a_scale, relu=True)
         return pool_quantize(h, 2, next_scales)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
+    def rest(self, h: torch.Tensor) -> torch.Tensor:
+        """The unfused stem after `first` (h its output)."""
+        x = torch.relu(self.bn2(self.conv2(h)))
         x = torch.relu(self.bn3(self.conv3(x)))
         return avg_pool(x, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.rest(self.first(x))
 
 
 class ResNetStage(nn.Module):
@@ -335,13 +343,18 @@ class CLIPResNetBackbone(nn.Module):
         self.layer2 = ResNetStage(4 * w, 2 * w, layers[1], 2, dtype, quant, fused)
         self.layer3 = ResNetStage(8 * w, 4 * w, layers[2], 2, dtype, quant, fused)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, h: torch.Tensor) -> torch.Tensor:
+        """Everything after the stem's `first` (h its output): the int8
+        chain, or the module path."""
         if self.layer1.block0.chained:
             blocks = [*self.layer1.bottlenecks(), *self.layer2.bottlenecks(),
                       *self.layer3.bottlenecks()]
-            xq = self.stem.chain(x, blocks[0].in_scales())
+            xq = self.stem.chain(h, blocks[0].in_scales())
             return run_blocks(blocks, None, xq)
-        return self.layer3(self.layer2(self.layer1(self.stem(x))))
+        return self.layer3(self.layer2(self.layer1(self.stem.rest(h))))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.trunk(self.stem.first(x))
 
 
 class _Proj(nn.Module):
@@ -388,7 +401,11 @@ class AttentionPool2d(nn.Module):
     token, so the key projection folds into u_h = K_h q_h, attention runs
     over the raw tokens, and V projects the one pooled token per head.
     Tokens stay in the compute dtype; the mean token, the logits, the
-    softmax and the pooled token are f32, and the products accumulate in f32."""
+    softmax and the pooled token are f32.  The token work is two kernels on
+    the card (`ops/kernels/attn_pool.py`: `pool_tokens`, the mean token
+    plus pos[0]; `pool_attend`, the logits, softmax and pooled token z),
+    their plain versions on the CPU; q, the fold u, v and c are library
+    products, as in JAX."""
 
     def __init__(self, embed_dim: int, num_heads: int, spacial_dim: int, output_dim: int,
                  dtype=None):
@@ -405,14 +422,12 @@ class AttentionPool2d(nn.Module):
         """x (B, H, W, C) -> (B, output_dim), f32."""
         B, H, W, C = x.shape
         tokens = x.reshape(B, H * W, C)
-        mean_tok = tokens.float().mean(dim=1, keepdim=True)
-        tokens = torch.cat([mean_tok.to(tokens.dtype), tokens], dim=1)  # (B, 1 + HW, C)
         pos = self.positional_embedding
         if pos.shape[0] != H * W + 1:  # a checkpoint's grid at another resolution
             side = int(round((pos.shape[0] - 1) ** 0.5))
             grid = resize_bilinear(pos[1:].float().reshape(side, side, C), H, W)
             pos = torch.cat([pos[:1], grid.reshape(H * W, C).to(pos.dtype)], dim=0)
-        tokens = tokens + pos[None].to(tokens.dtype)
+        pos = pos.to(tokens.dtype)
 
         nh = self.num_heads
         hd = C // nh
@@ -420,14 +435,11 @@ class AttentionPool2d(nn.Module):
         k_w, v_w, v_b = self.k_proj.weight, self.v_proj.weight, self.v_proj.bias
         if self.dtype is not None:
             q_w, q_b, k_w, v_w, v_b = (t.to(self.dtype) for t in (q_w, q_b, k_w, v_w, v_b))
-        q = F.linear(tokens[:, :1], q_w, q_b).reshape(B, nh, hd)
+        token0 = pool_tokens(tokens, pos[0])  # (B, C): the mean token + pos[0]
+        q = F.linear(token0, q_w, q_b).reshape(B, nh, hd)
         u = torch.einsum("bhd,hdc->bhc", q.float(), k_w.float().reshape(nh, hd, C))
-        u = u.to(tokens.dtype)
-        tokens_f = tokens.float()
-        attn = torch.einsum("bkc,bhc->bhk", tokens_f, u.float()) / math.sqrt(hd)
-        attn = torch.softmax(attn, dim=-1)
-        z = torch.einsum("bhk,bkc->bhc", attn, tokens_f)
-        out = torch.einsum("bhc,hdc->bhd", z.to(v_w.dtype).float(), v_w.float().reshape(nh, hd, C))
+        z = pool_attend(tokens, pos, token0, u.to(tokens.dtype), hd, v_w.dtype)
+        out = torch.einsum("bhc,hdc->bhd", z.float(), v_w.float().reshape(nh, hd, C))
         out = (out + v_b.reshape(nh, hd)).reshape(B, C)
         return F.linear(out, self.c_proj.weight, self.c_proj.bias)
 

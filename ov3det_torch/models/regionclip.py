@@ -26,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ov3det_torch.device import resolve_device
 from ov3det_torch.models.clip_resnet import CLIPResNetBackbone, CLIPResNetRes5Head, QuantConv
@@ -108,22 +109,33 @@ class RegionCLIPTeacher(nn.Module):
 
     def forward(self, images: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """images (B, H, W, 3) RGB in [0, 255] (uint8 or float); boxes
-        (B, Q, 4) [x1, y1, x2, y2] pixels -> (B, Q, embed_dim) f32."""
+        (B, Q, 4) [x1, y1, x2, y2] pixels -> (B, Q, embed_dim) f32.  Its parts
+        are profiler ranges: "normalise", "stem conv1" (conv1, bn1, ReLU),
+        "trunk" (the rest of the backbone), and a chunk's "roi_align", "res5"
+        and "attnpool"."""
         B, Q = boxes.shape[:2]
-        # normalise straight into the compute dtype: the canvas batch is the
-        # largest tensor the step reads
-        x = (images.float() - self.pixel_mean) * self.inv_std
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        feat = self.backbone(x)
+        with record_function("normalise"):
+            # straight into the compute dtype: the canvas batch is the
+            # largest tensor the step reads
+            x = (images.float() - self.pixel_mean) * self.inv_std
+            if self.dtype is not None:
+                x = x.to(self.dtype)
+        with record_function("stem conv1"):
+            h = self.backbone.stem.first(x)
+        with record_function("trunk"):
+            feat = self.backbone.trunk(h)
         P = self.pooler_resolution
         chunk_q = max(1, min(Q, self.roi_chunk_regions // max(B, 1)))
         embs = []
         for q0 in range(0, Q, chunk_q):
             boxes_c = boxes[:, q0:q0 + chunk_q]
             qc = boxes_c.shape[1]
-            pooled = roi_align_batched(feat, boxes_c, self.pooler_scale, P)
-            embs.append(self.roi_head(pooled.reshape(B * qc, P, P, -1)).reshape(B, qc, -1))
+            with record_function("roi_align"):
+                pooled = roi_align_batched(feat, boxes_c, self.pooler_scale, P)
+            with record_function("res5"):
+                res5 = self.roi_head.layer4(pooled.reshape(B * qc, P, P, -1))
+            with record_function("attnpool"):
+                embs.append(self.roi_head.attnpool(res5).reshape(B, qc, -1))
         return torch.cat(embs, dim=1) if len(embs) > 1 else embs[0]
 
 
