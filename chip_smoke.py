@@ -163,16 +163,19 @@ at once), then:
        scales, f32, quotients on half-integers), both designs, the plain
        version and `F.avg_pool2d` alone timed in turns beside the bound;
        the RoI head's kernels at the 4 chunks of that forward, on the
-       arguments it gives them, in bf16 and in f32: `roi_align` equal to
-       `roi_align_plain` and `pool_tokens` to its plain version bit for
-       bit, `pool_attend` within 1 bf16 ulp of its plain version (f32:
-       1e-5 of the largest value), each second launch equal to the first;
-       RoIAlign also on crafted boxes (taps clipped at every border, a
-       width clamped to 1e-6, an inverted box, the canvas edge, NaN and
-       infinite coordinates), batched and by image index; each kernel, its
-       plain version and its yardstick (`roi_align_einsum`, the two
-       contractions; SDPA on the concatenated tokens) timed in turns by
-       graph replays beside the bound;
+       arguments it gives them, in bf16 and in f32, `roi_align` and
+       `pool_attend` in both designs (the routed one and the first,
+       `_impl="first"`): `roi_align` equal to `roi_align_plain` and
+       `pool_tokens` to its plain version bit for bit, `pool_attend` within
+       1 bf16 ulp of its plain version (f32: 1e-5 of the largest value),
+       each second launch equal to the first; RoIAlign also on crafted
+       boxes (taps clipped at every border, a width clamped to 1e-6, an
+       inverted box, the canvas edge, NaN and infinite coordinates), batched
+       and by image index; each kernel, the first designs, its plain version
+       and its yardstick (`roi_align_einsum`, the two contractions;
+       `torch.mean`; SDPA on the concatenated tokens) timed in turns by
+       graph replays beside the bound; the clusters of `pool_attend` the
+       card holds at once;
        the teacher's forward alone on that batch, fused int8 (and with
        every conv on the first design, and with the einsum RoI head: the
        module-level names swapped), unfused int8 and bf16, in turns; one
@@ -1640,9 +1643,9 @@ OWN_KERNELS = {
     "pool_quantize": r"\bpool_quantize_(?:vec|kernel)<",
     "points_in_box": r"\bpoints_in_box_(?:cluster|kernel)\(",
     "first_k": r"\bfirst_k_(?:lanes<|kernel\()",
-    "roi_align": r"\broi_align_kernel<",
+    "roi_align": r"\broi_align_(?:rows|kernel)<",
     "pool_tokens": r"\bpool_tokens_kernel<",
-    "pool_attend": r"\bpool_attend_(?:kernel|mma)<",
+    "pool_attend": r"\bpool_attend_(?:cluster|kernel|mma)<",
 }
 
 
@@ -2836,10 +2839,13 @@ def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
     positions included), `pool_tokens` to `pool_tokens_plain`, `pool_attend`
     within 1 bf16 ulp of `pool_attend_plain` (f32: 1e-5 of the largest
     value), and each kernel's second launch equal to its first bit for bit;
-    RoIAlign also on crafted boxes (`crafted_roi_boxes`) at the forward's
-    map, batched and through an image index.  Then, at each chunk, in turns
-    by graph replays: each kernel, its plain version and its yardstick
-    (RoIAlign: `roi_align_einsum`, the two contractions; `pool_attend`:
+    `roi_align` and `pool_attend` in both designs (the routed one and the
+    first, `_impl="first"`); RoIAlign also on crafted boxes
+    (`crafted_roi_boxes`) at the forward's map, batched and through an image
+    index.  Then, at each chunk, in turns by graph replays: each kernel, the
+    first design of the two redesigned ones, its plain version and its
+    yardstick (RoIAlign: `roi_align_einsum`, the two contractions;
+    `pool_tokens`: `torch.mean` in f32, the cast and + pos[0]; `pool_attend`:
     `F.scaled_dot_product_attention(u, tokens, tokens, scale=hd**-0.5)` on
     the concatenated tokens), beside the bound of this batch's work.
     Returns the kernels-line entries, times summed over the forward's 4
@@ -2858,13 +2864,16 @@ def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
         feat, bx, index, scale, P, ratio = args
         for dtype in (torch.bfloat16, torch.float32):
             f = feat.to(dtype)
-            got, again = kra.roi_align(f, bx, index, scale, P, ratio, **kw), \
-                kra.roi_align(f, bx, index, scale, P, ratio, **kw)
             want = ra.roi_align_plain(f, bx, index, scale, P, ratio, **kw)
-            torch.cuda.synchronize()
-            require(bits_equal(got, want), f"roi_align {tuple(f.shape)} {dtype}: the kernel "
-                                           "differs from roi_align_plain")
-            require(bits_equal(got, again), f"roi_align {dtype}: two launches differ")
+            for impl in (None, "first"):
+                got, again = (kra.roi_align(f, bx, index, scale, P, ratio, **kw, _impl=impl)
+                              for _ in range(2))
+                torch.cuda.synchronize()
+                require(bits_equal(got, want), f"roi_align {tuple(f.shape)} {dtype} "
+                                               f"({impl or 'routed'} design): the kernel differs "
+                                               "from roi_align_plain")
+                require(bits_equal(got, again), f"roi_align {dtype} ({impl or 'routed'} design): "
+                                                "two launches differ")
     feat, _, _, scale, P, ratio = calls["roi_align"][0][0]
     B, H, W, C = feat.shape
     per_image = calls["roi_align"][0][1]["per_image"]
@@ -2873,15 +2882,18 @@ def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
     index = torch.from_numpy(np.random.default_rng(21).integers(0, B, crafted.shape[0])).to(dev)
     for dtype in (torch.bfloat16, torch.float32):
         f = feat.to(dtype)
-        for idx, kw in ((None, {"per_image": per_image}), (index, {})):
-            got = kra.roi_align(f, crafted, idx, scale, P, ratio, **kw)
+        for (idx, kw), impl in itertools.product(((None, {"per_image": per_image}), (index, {})),
+                                                 (None, "first")):
+            got = kra.roi_align(f, crafted, idx, scale, P, ratio, **kw, _impl=impl)
             want = ra.roi_align_plain(f, crafted, idx, scale, P, ratio, **kw)
             torch.cuda.synchronize()
             nan_regions = torch.isnan(got).flatten(1).any(dim=1)[:10].tolist()
             require(bits_equal(got, want) and bits_equal(got, kra.roi_align(f, crafted, idx, scale,
-                                                                          P, ratio, **kw)),
-                    f"roi_align crafted boxes {dtype} ({'index' if kw == {} else 'batched'}): "
-                    "the kernel differs from roi_align_plain or from itself")
+                                                                          P, ratio, **kw,
+                                                                          _impl=impl)),
+                    f"roi_align crafted boxes {dtype} ({'index' if kw == {} else 'batched'}, "
+                    f"{impl or 'routed'} design): the kernel differs from roi_align_plain or from "
+                    "itself")
             require(nan_regions == [False] * 5 + [True] * 3 + [False, True],
                     f"roi_align crafted boxes: NaN regions {nan_regions}")
     for (args, kw) in calls["pool_tokens"]:
@@ -2893,48 +2905,60 @@ def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
             require(bits_equal(got, ap.pool_tokens_plain(xd, pd)) and bits_equal(got, again),
                     f"pool_tokens {tuple(xd.shape)} {dtype}: the kernel differs from its plain "
                     "version or from itself")
-    for (args, kw) in calls["pool_attend"]:
+    for (args, kw), impl in itertools.product(calls["pool_attend"], (None, "first")):
         x, pos, token0, u, hd, out_dtype = args
         for dtype in (torch.bfloat16, torch.float32):
             a = [t.to(dtype) for t in (x, pos, token0, u)]
             od = out_dtype if dtype == torch.bfloat16 else torch.float32
-            got, again = ap.pool_attend(*a, hd, od), ap.pool_attend(*a, hd, od)
+            got, again = (ap.pool_attend(*a, hd, od, _impl=impl) for _ in range(2))
             want = ap.pool_attend_plain(*a, hd, od)
             torch.cuda.synchronize()
-            require(bits_equal(got, again), f"pool_attend {dtype}: two launches differ")
-            require(torch.isfinite(got).all().item(), f"pool_attend {dtype}: a value not finite")
+            label = f"pool_attend {dtype} ({impl or 'routed'} design)"
+            require(bits_equal(got, again), f"{label}: two launches differ")
+            require(torch.isfinite(got).all().item(), f"{label}: a value not finite")
+            key = "pool_attend" if impl is None else "pool_attend first"
             if dtype == torch.bfloat16:
                 # an ulp of the element, or 1e-5 of the largest value where
                 # that is larger: an f32 sum in another order moves a value
                 # near 0 (the sum of terms of both signs) by more than its ulp
                 big = want.float().abs().max().item()
                 ulps = bf16_ulps(got, want, POOL_ATTEND_REL * big)
-                require(ulps <= 1, f"pool_attend bf16: {ulps} bf16 ulps (or {POOL_ATTEND_REL} of "
-                                   "the largest value) from the plain version")
+                require(ulps <= 1, f"{label}: {ulps} bf16 ulps (or {POOL_ATTEND_REL} of the "
+                                   "largest value) from the plain version")
                 diff = (got.float() - want.float()).abs()
-                err["pool_attend"] = max(err["pool_attend"], diff.max().item())
-                err["pool_attend ulps"] = max(err["pool_attend ulps"], bf16_ulps(got, want))
-                err["pool_attend off by one"] += int((diff > 0).sum())
-                err["pool_attend values"] += diff.numel()
+                err[key] = max(err[key], diff.max().item())
+                err[f"{key} ulps"] = max(err[f"{key} ulps"], bf16_ulps(got, want))
+                err[f"{key} off by one"] += int((diff > 0).sum())
+                err[f"{key} values"] += diff.numel()
             else:
                 rel = ((got - want).abs().max() / want.abs().max()).item()
-                require(rel <= POOL_ATTEND_REL, f"pool_attend f32: {rel} of the largest value")
-                err["pool_attend f32"] = max(err["pool_attend f32"], rel)
+                require(rel <= POOL_ATTEND_REL, f"{label}: {rel} of the largest value")
+                err[f"{key} f32"] = max(err[f"{key} f32"], rel)
     print(f"RoI head: roi_align, pool_tokens and pool_attend at the 4 chunks of one int8 teacher "
-          f"forward (8 canvases x 128 boxes), bf16 and f32: roi_align and pool_tokens equal to "
-          f"their plain versions bit for bit (roi_align also on the crafted boxes, batched and by "
-          f"image index, NaN regions where expected); pool_attend in bf16 within 1 bf16 ulp or "
-          f"{POOL_ATTEND_REL} of the largest value ({err['pool_attend off by one']} of "
-          f"{err['pool_attend values']} values differ, by {err['pool_attend']:.3e} at most, "
-          f"{err['pool_attend ulps']:.1f} ulps of their own), in f32 within "
-          f"{err['pool_attend f32']:.2e} of the largest value; every second launch equal "
-          f"to the first ({time.perf_counter() - t0:.1f} s)")
+          f"forward (8 canvases x 128 boxes), bf16 and f32, roi_align and pool_attend in both "
+          f"designs: roi_align and pool_tokens equal to their plain versions bit for bit "
+          f"(roi_align also on the crafted boxes, batched and by image index, NaN regions where "
+          f"expected); pool_attend in bf16 within 1 bf16 ulp or {POOL_ATTEND_REL} of the largest "
+          f"value (routed: {err['pool_attend off by one']} of {err['pool_attend values']} values "
+          f"differ, by {err['pool_attend']:.3e} at most, {err['pool_attend ulps']:.1f} ulps of "
+          f"their own; first: {err['pool_attend first off by one']} differ, by "
+          f"{err['pool_attend first']:.3e} at most, {err['pool_attend first ulps']:.1f} ulps), "
+          f"in f32 within {err['pool_attend f32']:.2e} (first {err['pool_attend first f32']:.2e}) "
+          f"of the largest value; every second launch equal to the first "
+          f"({time.perf_counter() - t0:.1f} s)")
+    (x, _, _, u, _, _), _ = calls["pool_attend"][0]
+    print(f"pool_attend's cluster design at {x.shape[1] + 1} tokens, {u.shape[1]} heads, C "
+          f"{x.shape[2]}: {ap.clusters_held(x.shape[1] + 1, u.shape[1], x.shape[2])} clusters of "
+          f"{ap.CLUSTER} CTAs on the card at once (cudaOccupancyMaxActiveClusters), "
+          f"{x.shape[0]} clusters a call ({card})")
 
     totals = collections.defaultdict(collections.Counter)
     for i in range(len(calls["roi_align"])):
         (feat, bx, index, scale, P, ratio), kw = calls["roi_align"][i]
         Q = kw["per_image"]
         best = in_turns({"kernel": lambda: kra.roi_align(feat, bx, index, scale, P, ratio, **kw),
+                         "first": lambda: kra.roi_align(feat, bx, index, scale, P, ratio, **kw,
+                                                        _impl="first"),
                          "plain": lambda: ra.roi_align_plain(feat, bx, index, scale, P, ratio, **kw),
                          "library": lambda: ra.roi_align_einsum(feat, bx.view(B, Q, 4), scale, P)})
         es = feat.element_size()
@@ -2943,7 +2967,9 @@ def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
         totals["roi_align"].update(best, bound=b_ms, **{f"bound {by}": b_ms})
         (x, pos0), _ = calls["pool_tokens"][i]
         best = in_turns({"kernel": lambda: ap.pool_tokens(x, pos0),
-                         "plain": lambda: ap.pool_tokens_plain(x, pos0)})
+                         "plain": lambda: ap.pool_tokens_plain(x, pos0),
+                         "library": lambda: torch.mean(x, dim=1, dtype=torch.float32).to(x.dtype)
+                         + pos0})
         R, L, Cp = x.shape
         b_ms, by = bound_ms((x.numel() + (R + 1) * Cp) * x.element_size(), R * Cp * (L + 2),
                             F32_PEAK)
@@ -2952,6 +2978,7 @@ def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
         tokens = torch.cat([token0[:, None], x + pos[None, 1:]], dim=1)[:, None]
         query = u[:, None]
         best = in_turns({"kernel": lambda: ap.pool_attend(x, pos, token0, u, hd, od),
+                         "first": lambda: ap.pool_attend(x, pos, token0, u, hd, od, _impl="first"),
                          "plain": lambda: ap.pool_attend_plain(x, pos, token0, u, hd, od),
                          "library": lambda: torch.nn.functional.scaled_dot_product_attention(
                              query, tokens, tokens, scale=hd ** -0.5)})
@@ -2966,20 +2993,22 @@ def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
         totals["pool_attend"].update(best, bound=b_ms, **{f"bound {by}": b_ms})
         del tokens, query
     library = {"roi_align": "roi_align_einsum (the two contractions)",
-               "pool_tokens": None,
+               "pool_tokens": "torch.mean(dtype=f32), the cast and + pos[0]",
                "pool_attend": "F.scaled_dot_product_attention on the concatenated tokens"}
     entries = {}
     for name, t in totals.items():
         by = "operations" if t["bound operations"] >= t["bound bytes"] else "bytes"
-        lib = f", {library[name]} {t['library']:.4f} ms" if library[name] else ""
+        first = (f", first design {t['first']:.4f} ms ({t['bound'] / t['first']:.2f} of the bound)"
+                 if "first" in t else "")
         print(f"{name} over one teacher forward (4 calls): kernel {t['kernel']:.4f} ms "
-              f"({t['bound'] / t['kernel']:.2f} of the bound), plain {t['plain']:.4f} ms{lib}; "
-              f"bound {t['bound']:.4f} ms ({by}) (graph replays, in turns) ({card})")
+              f"({t['bound'] / t['kernel']:.2f} of the bound){first}, plain {t['plain']:.4f} ms, "
+              f"{library[name]} {t['library']:.4f} ms; bound {t['bound']:.4f} ms ({by}) (graph "
+              f"replays, in turns) ({card})")
         entries[name] = dict(max_abs_err=err.get(name, 0.0), ms=t["kernel"], plain_ms=t["plain"],
-                             bound_ms=t["bound"], bound_by=by,
-                             library_ms=t["library"] if library[name] else None,
+                             bound_ms=t["bound"], bound_by=by, library_ms=t["library"],
                              library=library[name],
-                             per="summed over one teacher forward (4 calls, 256 regions each)")
+                             per="summed over one teacher forward (4 calls, 256 regions each)",
+                             **({"first_ms": t["first"]} if "first" in t else {}))
     return entries
 
 

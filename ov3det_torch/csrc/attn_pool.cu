@@ -43,10 +43,12 @@
 // copy of the tokens reaches device memory.  Bound by the operations: 2 x 2
 // x heads x L x C f32 operations a region (the logits and z; 34 GFLOP an OV
 // forward, 0.51 ms at 67 TFLOP/s), against 0.25 ms of bytes.  bf16 tokens
-// take `pool_attend_mma` below: the same passes on the tensor cores, where
-// the same work is bound by its bytes.
+// take the tensor cores, where the same work is bound by its bytes:
+// `pool_attend_cluster` (the routed design, below) where its limits allow,
+// `pool_attend_mma` (the first design, kept as the yardstick
+// `ov3_pool_attend_first`) otherwise.
 //
-// Both: one launch a call, no scratch, no host wait: a CUDA graph captures it.
+// All: one launch a call, no scratch, no host wait: a CUDA graph captures it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -637,10 +639,426 @@ __global__ void __launch_bounds__(kThreads, 2) pool_attend_mma(
   }
 }
 
+// ------------------------------------------------------- bf16 tokens, routed
+// `pool_attend_cluster` (the route for bf16 tokens where `cluster_takes`):
+// a thread-block cluster of kCluster CTAs a region, CTA `rank` the channel
+// slice [rank S, (rank + 1) S), S = C / kCluster.  At the teacher's shape
+// (L = 82 tokens, 40 heads, C = 2560: S = 320) the first design streams a
+// region's 420 KB of tokens through one SM twice, 80 stages in a chain;
+// here each CTA holds its slice of all the tokens, read once.
+//
+// Shared memory a CTA (bf16 rows of TS = S + 8 elements, 656 bytes at S =
+// 320: an odd count of 16-byte chunks, so ldmatrix's 8 rows meet 32 banks):
+//   tokens  Lp x TS bf16 (Lp = L rounded up to 16; rows L..Lp-1 zero)
+//           96 x 328 x 2 = 62,976 B; after pass 2 z's staging (heads x
+//           (S + 8) in the output dtype: 40 x 328 x 4 = 52,480 B in f32);
+//   aux     u's rows, Hp x TS bf16 (Hp = heads rounded up to 16; rows past
+//           heads zero), 48 x 328 x 2 = 31,488 B; after pass 1 the softmax
+//           weights' three bf16 terms, 3 x Hp x (Lp + 8) = 29,952 B;
+//   part    the partial logits, Hp x Lp f32 = 18,432 B.
+// 112,896 B in all: two CTAs an SM (227,840 B with the 1 KB each reserves,
+// of 228 KB; the carveout set to the most shared memory), a cluster on four
+// SMs.  A cluster of 4 (S = 640) would need 125 KB of tokens alone.
+//
+//   1. Every load in flight at once: token 0's slice, the x rows and u's
+//      rows by 16-byte cp.async, the positional rows (L2-resident, shared by
+//      all regions) by 16-byte loads into registers, kPosChunks a thread.
+//      Each thread rebuilds the token chunks it copied, bf16(x + pos), so
+//      waiting for its own copies suffices before the block's barrier.
+//   2. Pass 1: the partial logits of the slice, u . tokens on the tensor
+//      cores (mma.sync m16n8k16, fragments by ldmatrix; bf16 products exact
+//      in f32).  A warp takes every head tile and a quarter of the token
+//      tiles over half the slice's channels (each k-step's 6 fragments
+//      serve 9 products: a tile a pair of fragments read shared memory 4x
+//      over); the halves' sums meet in `part` in a fixed order; then a
+//      cluster barrier.
+//   3. CTA `rank` owns heads rank, rank + kCluster, ..: a warp a head, a
+//      lane tokens lane, lane + 32, lane + 64.  It loads the kCluster
+//      partials of its (head, token)s over DSMEM (all 24 loads in flight),
+//      sums them in rank order, divides by sqrt(hd) and runs the softmax in
+//      registers and shuffles in the first design's order (max, expf, the
+//      lane's sum then a fixed xor tree, a divide), then writes the
+//      weights' three bf16 terms (hi, lo, lo2: each the rounding of what
+//      the terms before leave, carrying a weight to 2^-24 of itself) into
+//      its rows, then stores them into every other CTA by 16-byte DSMEM
+//      stores; a cluster barrier.  One f32 sum a (head, token) in the
+//      cluster, no atomics: two launches give the same bits.
+//   4. Pass 2: z of the slice, a . tokens, the three terms' products the
+//      smallest first, from the resident tokens (ldmatrix.trans); warp w the
+//      n-tiles (8 channels) w, w + 8, ..; staged in shared memory and
+//      written as whole 16-byte chunks of z's rows.
+// The loops over a warp's tiles hold no branch (a warp short of tiles
+// repeats its last), so that their loads run ahead of the products.
+//
+// Bound by its bytes: the tokens and u once, z once (0.25 ms an OV forward
+// at 3.35 TB/s); the products (four bf16 products a token, head and
+// channel) need 0.03 ms at 989 TFLOP/s.
+constexpr int kCluster = 8;             // CTAs a region; the portable limit; CLUSTER
+constexpr int kClusterMaxSlice = 320;   // channels a CTA at the most; CLUSTER_MAX_SLICE
+constexpr int kClusterMaxTokens = 96;   // tokens rounded up to 16 at the most; CLUSTER_MAX_TOKENS
+constexpr int kClusterMaxHeads = 48;    // heads rounded up to 16 at the most; CLUSTER_MAX_HEADS
+constexpr int kClusterNTiles = kClusterMaxSlice / 8 / kWarps;  // pass 2's n-tiles a warp
+constexpr int kClusterMTiles = kClusterMaxHeads / 16;
+constexpr int kClusterNPer = kClusterMaxTokens / 8 / 4;  // pass 1's token tiles a warp
+constexpr int kPosChunks =              // 16-byte chunks of x + pos a thread rebuilds
+    ((kClusterMaxTokens - 1) * (kClusterMaxSlice / 8) + kThreads - 1) / kThreads;
+constexpr int kSoftHeads = kClusterMaxHeads / kCluster;  // heads a CTA owns, a warp each
+constexpr int kSoftTokens = kClusterMaxTokens / 32;      // tokens a lane in the softmax
+
+
+__host__ __device__ constexpr bool cluster_takes(int L, int heads, int C) {
+  return C % (16 * kCluster) == 0 && C / kCluster <= kClusterMaxSlice &&
+         round16(L) <= kClusterMaxTokens && round16(heads) <= kClusterMaxHeads;
+}
+
+// bytes of the tokens' region (which z's staging reuses) and of aux
+template <typename OutT>
+__host__ __device__ constexpr int cluster_token_bytes(int L, int heads, int C) {
+  return round16(L) * (C / kCluster + 8) * 2 > heads * (C / kCluster + 8) * static_cast<int>(sizeof(OutT))
+             ? round16(L) * (C / kCluster + 8) * 2
+             : heads * (C / kCluster + 8) * static_cast<int>(sizeof(OutT));
+}
+
+__host__ __device__ constexpr int cluster_aux_bytes(int L, int heads, int C) {
+  return round16(heads) * (C / kCluster + 8) * 2 > 3 * round16(heads) * (round16(L) + 8) * 2
+             ? round16(heads) * (C / kCluster + 8) * 2
+             : 3 * round16(heads) * (round16(L) + 8) * 2;
+}
+
+__host__ __device__ constexpr int cluster_part_bytes(int L, int heads) {
+  return round16(heads) * round16(L) * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The address, in the cluster's shared window, of `addr` in CTA `rank`.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void st_cluster16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+// Every thread of the cluster: its shared-memory writes before, visible to
+// every thread's reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned r[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned& b0, unsigned& b1, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(unsigned& b0, unsigned& b1, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void unpack8(const uint4 raw, float v[8]) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<unsigned*>(p) = pack2(a, b);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 2) pool_attend_cluster(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ pos,
+    const __nv_bfloat16* __restrict__ token0, const __nv_bfloat16* __restrict__ u, int L,
+    int heads, int C, float sqrt_hd, OutT* __restrict__ z) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const int S = C / kCluster, TS = S + 8, chunks = S / 8;
+  const int Lp = round16(L), Hp = round16(heads), TR = Lp + 8;
+  bf16* const tok = reinterpret_cast<bf16*>(smem_bytes);
+  OutT* const zs = reinterpret_cast<OutT*>(smem_bytes);  // after pass 2
+  unsigned char* const aux = smem_bytes + cluster_token_bytes<OutT>(L, heads, C);
+  bf16* const us = reinterpret_cast<bf16*>(aux);
+  bf16* const terms = reinterpret_cast<bf16*>(aux);  // after pass 1
+  float* const part = reinterpret_cast<float*>(aux + cluster_aux_bytes(L, heads, C));
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int r = blockIdx.x / kCluster, c0 = rank * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // 1. every load in flight: cp.async for token 0, x and u; pos into registers
+  const bf16* xr = x + static_cast<size_t>(r) * (L - 1) * C + c0;
+  const int xchunks = (L - 1) * chunks;
+  uint4 pv[kPosChunks];
+#pragma unroll
+  for (int i = 0; i < kPosChunks; ++i) {
+    const int e = tid + i * kThreads;
+    if (e < xchunks) {
+      const int k = 1 + e / chunks, c = (e % chunks) * 8;
+      ov3::cp_async16(reinterpret_cast<float*>(tok + k * TS + c),
+                      reinterpret_cast<const float*>(xr + static_cast<size_t>(k - 1) * C + c));
+      pv[i] = __ldg(reinterpret_cast<const uint4*>(pos + static_cast<size_t>(k) * C + c0 + c));
+    }
+  }
+  const bf16* t0 = token0 + static_cast<size_t>(r) * C + c0;
+  for (int e = tid; e < chunks; e += kThreads)
+    ov3::cp_async16(reinterpret_cast<float*>(tok + e * 8), reinterpret_cast<const float*>(t0 + e * 8));
+  const bf16* ur = u + static_cast<size_t>(r) * heads * C + c0;
+  for (int e = tid; e < heads * chunks; e += kThreads) {
+    const int h = e / chunks, c = (e % chunks) * 8;
+    ov3::cp_async16(reinterpret_cast<float*>(us + h * TS + c),
+                    reinterpret_cast<const float*>(ur + static_cast<size_t>(h) * C + c));
+  }
+  ov3::cp_async_commit();
+  // token rows L..Lp-1 and u's rows heads..Hp-1 are zero; no copy writes them
+  for (int e = tid; e < (Lp - L) * chunks; e += kThreads)
+    *reinterpret_cast<uint4*>(tok + (L + e / chunks) * TS + (e % chunks) * 8) = make_uint4(0u, 0u, 0u, 0u);
+  for (int e = tid; e < (Hp - heads) * chunks; e += kThreads)
+    *reinterpret_cast<uint4*>(us + (heads + e / chunks) * TS + (e % chunks) * 8) = make_uint4(0u, 0u, 0u, 0u);
+  ov3::cp_async_wait_all();
+  // tokens 1..L-1 <- bf16(x + pos): the chunks this thread copied
+#pragma unroll
+  for (int i = 0; i < kPosChunks; ++i) {
+    const int e = tid + i * kThreads;
+    if (e < xchunks) {
+      bf16* p = tok + (1 + e / chunks) * TS + (e % chunks) * 8;
+      float v[8], q[8];
+      load8(p, v);
+      unpack8(pv[i], q);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = __fadd_rn(v[j], q[j]);
+      store8(p, v);
+    }
+  }
+  __syncthreads();
+
+  // 2. pass 1: the slice's partial logits.  Warp w takes the head tiles
+  // (16 heads) and the token tiles (8 tokens) 3 (w % 4) .. 3 (w % 4) + 2,
+  // over the k-steps of half w / 4 of the slice: each k-step's fragments
+  // serve 9 products.  The first half's sums go to `part`, the second
+  // half's are added to them: one fixed order.
+  const int mt = Hp / 16, nt = (L + 7) / 8;
+  const int ksteps = S / 16, half = warp / 4, k_begin = half * (ksteps / 2);
+  const int k_end = half == 0 ? ksteps / 2 : ksteps;
+  float acc[kClusterMTiles][kClusterNPer][4];
+  int a_at1[kClusterMTiles], b_at1[kClusterNPer];  // a lane's ldmatrix rows, in elements
+#pragma unroll
+  for (int m = 0; m < kClusterMTiles; ++m) {
+    // a warp short of tiles repeats the last (its sums never stored), so
+    // that the k-step below holds no branch and its loads run ahead
+    a_at1[m] = (16 * min(m, mt - 1) + (lane & 15)) * TS + (lane >> 4) * 8;
+#pragma unroll
+    for (int n = 0; n < kClusterNPer; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < kClusterNPer; ++n)
+    b_at1[n] = (8 * min(kClusterNPer * (warp % 4) + n, nt - 1) + (lane & 7)) * TS +
+               ((lane >> 3) & 1) * 8;
+  for (int ks = k_begin; ks < k_end; ++ks) {
+    unsigned a[kClusterMTiles][4], b[kClusterNPer][2];
+#pragma unroll
+    for (int m = 0; m < kClusterMTiles; ++m) ldsm_x4(a[m], us + a_at1[m] + 16 * ks);
+#pragma unroll
+    for (int n = 0; n < kClusterNPer; ++n) ldsm_x2(b[n][0], b[n][1], tok + b_at1[n] + 16 * ks);
+#pragma unroll
+    for (int m = 0; m < kClusterMTiles; ++m)
+#pragma unroll
+      for (int n = 0; n < kClusterNPer; ++n)
+        mma_bf16(acc[m][n], a[m][0], a[m][1], a[m][2], a[m][3], b[n][0], b[n][1]);
+  }
+  for (int round = 0; round < 2; ++round) {
+    if (half == round) {
+#pragma unroll
+      for (int m = 0; m < kClusterMTiles; ++m) {
+#pragma unroll
+        for (int n = 0; n < kClusterNPer; ++n) {
+          const int n_tile = kClusterNPer * (warp % 4) + n;
+          if (m >= mt || n_tile >= nt) continue;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float2* at = reinterpret_cast<float2*>(part + (16 * m + g + 8 * hh) * Lp +
+                                                   8 * n_tile + 2 * t);
+            float2 v = make_float2(acc[m][n][2 * hh], acc[m][n][2 * hh + 1]);
+            if (round == 1) {
+              const float2 first = *at;
+              v = make_float2(__fadd_rn(first.x, v.x), __fadd_rn(first.y, v.y));
+            }
+            *at = v;
+          }
+        }
+      }
+    }
+    if (round == 0) __syncthreads();
+  }
+  cluster_sync();  // every CTA's partials are written; every warp is done with u
+
+  // 3. the logits of the heads this CTA owns (h = rank + kCluster w, warp w):
+  // the cluster's partials of a (head, token) summed in rank order, / sqrt(hd),
+  // the softmax, and the weights' three bf16 terms into this CTA's rows
+  const int h = rank + kCluster * warp;
+  if (warp < kSoftHeads && h < Hp) {  // warp-uniform
+    float w[kSoftTokens];
+    if (h < heads) {
+      const uint32_t part_addr = smem_u32(part);
+      float v[kSoftTokens][kCluster];  // every load in flight before the first sum
+#pragma unroll
+      for (int j = 0; j < kSoftTokens; ++j) {
+        const int k = lane + 32 * j;
+        const uint32_t at = part_addr + 4u * static_cast<uint32_t>(h * Lp + (k < L ? k : 0));
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) v[j][q] = ld_cluster(map_to_rank(at, q));
+      }
+#pragma unroll
+      for (int j = 0; j < kSoftTokens; ++j) {
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) sum = __fadd_rn(sum, v[j][q]);
+        w[j] = __fdiv_rn(sum, sqrt_hd);
+      }
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kSoftTokens; ++j)
+        if (lane + 32 * j < L) m = fmaxf(m, w[j]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSoftTokens; ++j) {
+        if (lane + 32 * j < L) {
+          w[j] = expf(__fsub_rn(w[j], m));
+          sum = __fadd_rn(sum, w[j]);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+#pragma unroll
+      for (int j = 0; j < kSoftTokens; ++j) w[j] = lane + 32 * j < L ? __fdiv_rn(w[j], sum) : 0.f;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSoftTokens; ++j) w[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kSoftTokens; ++j) {
+      const int k = lane + 32 * j;
+      if (k >= Lp) continue;
+      float rest = w[j];
+#pragma unroll
+      for (int term = 0; term < 3; ++term) {
+        const bf16 tv = __float2bfloat16_rn(rest);
+        terms[(term * Hp + h) * TR + k] = tv;
+        rest = __fsub_rn(rest, __bfloat162float(tv));
+      }
+    }
+    __syncwarp();
+    // the head's three rows into every other CTA of the cluster, 16 bytes a
+    // lane a store
+    const int row_chunks = Lp / 8;
+    for (int e = lane; e < 3 * row_chunks; e += 32) {
+      const bf16* row = terms + ((e / row_chunks) * Hp + h) * TR + (e % row_chunks) * 8;
+      const uint4 v = *reinterpret_cast<const uint4*>(row);
+      const uint32_t at = smem_u32(row);
+#pragma unroll
+      for (int q = 1; q < kCluster; ++q) st_cluster16(map_to_rank(at, (rank + q) % kCluster), v);
+    }
+  }
+  cluster_sync();  // every head's rows are in every CTA; the partials are read
+
+  // 4. pass 2: z of the slice, n-tiles w, w + 8, .. of 8 channels a warp
+  const int nts = chunks;  // n-tiles of 8 channels
+  float zacc[kClusterNTiles][kClusterMTiles][4];
+#pragma unroll
+  for (int jn = 0; jn < kClusterNTiles; ++jn)
+#pragma unroll
+    for (int m = 0; m < kClusterMTiles; ++m)
+      zacc[jn][m][0] = zacc[jn][m][1] = zacc[jn][m][2] = zacc[jn][m][3] = 0.f;
+  // a warp with fewer n-tiles, or fewer head tiles, repeats the last (its
+  // sums never stored): no branch in the k-step
+  int b_at[kClusterNTiles], a_at[kClusterMTiles];
+#pragma unroll
+  for (int jn = 0; jn < kClusterNTiles; ++jn)
+    b_at[jn] = (lane & 15) * TS + 8 * min(warp + kWarps * jn, nts - 1);
+#pragma unroll
+  for (int m = 0; m < kClusterMTiles; ++m)
+    a_at[m] = (16 * min(m, mt - 1) + (lane & 15)) * TR + (lane >> 4) * 8;
+  for (int ks = 0; ks < Lp; ks += 16) {
+    unsigned b[kClusterNTiles][2];
+#pragma unroll
+    for (int jn = 0; jn < kClusterNTiles; ++jn)
+      ldsm_x2_trans(b[jn][0], b[jn][1], tok + b_at[jn] + ks * TS);
+#pragma unroll
+    for (int term = 2; term >= 0; --term) {  // the smallest term first
+      unsigned a[kClusterMTiles][4];
+#pragma unroll
+      for (int m = 0; m < kClusterMTiles; ++m) ldsm_x4(a[m], terms + term * Hp * TR + a_at[m] + ks);
+#pragma unroll
+      for (int jn = 0; jn < kClusterNTiles; ++jn)
+#pragma unroll
+        for (int m = 0; m < kClusterMTiles; ++m)
+          mma_bf16(zacc[jn][m], a[m][0], a[m][1], a[m][2], a[m][3], b[jn][0], b[jn][1]);
+    }
+  }
+  __syncthreads();  // every warp is done with the tokens: z's staging takes their place
+  const int ZS = S + 8;
+#pragma unroll
+  for (int jn = 0; jn < kClusterNTiles; ++jn) {
+    const int n = warp + kWarps * jn;
+    if (n >= nts) continue;
+#pragma unroll
+    for (int m = 0; m < kClusterMTiles; ++m) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int hz = 16 * m + g + 8 * half;
+        if (m < mt && hz < heads)
+          store2(zs + hz * ZS + 8 * n + 2 * t, zacc[jn][m][2 * half], zacc[jn][m][2 * half + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  constexpr int kPer = 16 / static_cast<int>(sizeof(OutT));  // elements a 16-byte chunk
+  const int zchunks = S / kPer;
+  OutT* zr = z + static_cast<size_t>(r) * heads * C + c0;
+  for (int e = tid; e < heads * zchunks; e += kThreads) {
+    const int hz = e / zchunks, c = (e % zchunks) * kPer;
+    *reinterpret_cast<uint4*>(zr + static_cast<size_t>(hz) * C + c) =
+        *reinterpret_cast<const uint4*>(zs + hz * ZS + c);
+  }
+}
+
 size_t attend_mma_smem(int L, int heads) {
   const int Lp = round16(L), Hp = round16(heads);
   return 2 * sizeof(__nv_bfloat16) * static_cast<size_t>(Lp + L + Hp) * kStageRow +
          sizeof(float) * static_cast<size_t>(Hp) * (Lp + 8);
+}
+
+// the cluster's dynamic shared memory; with no arguments, the most it takes
+template <typename OutT>
+size_t cluster_smem(int L = kClusterMaxTokens, int heads = kClusterMaxHeads,
+                    int C = kCluster * kClusterMaxSlice) {
+  return static_cast<size_t>(cluster_token_bytes<OutT>(L, heads, C)) +
+         static_cast<size_t>(cluster_aux_bytes(L, heads, C)) +
+         static_cast<size_t>(cluster_part_bytes(L, heads));
 }
 
 template <typename T>
@@ -651,10 +1069,11 @@ size_t attend_smem(int L, int heads) {
          sizeof(T) * static_cast<size_t>(2 * L + heads) * raw_stride<T>();
 }
 
-// The shared-memory opt-in of `kernel` up to `bytes`, once a device and
-// kernel, at the first call (a warm-up, before any capture).
+// The shared-memory opt-in of `kernel` up to `bytes` (with `most_shared`,
+// the carveout that leaves L1 the least, so that two such CTAs share an SM),
+// once a device and kernel, at the first call (a warm-up, before any capture).
 template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t bytes, bool* opted_in) {
+cudaError_t opt_in(Kernel kernel, size_t bytes, bool* opted_in, bool most_shared = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -662,16 +1081,19 @@ cudaError_t opt_in(Kernel kernel, size_t bytes, bool* opted_in) {
   if (!opted_in[dev]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
+    if (err == cudaSuccess && most_shared)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     opted_in[dev] = true;
   }
   return cudaSuccess;
 }
 
-// f32 tokens: the FMA design
+// f32 tokens: the FMA design, either route
 template <typename OutT>
 int launch_attend(const float* x, const float* pos, const float* token0, const float* u, int R,
-                  int L, int heads, int C, float sqrt_hd, void* z, cudaStream_t stream) {
+                  int L, int heads, int C, float sqrt_hd, void* z, cudaStream_t stream, bool) {
   static bool opted_in[kMaxDevices] = {};
   const cudaError_t err = opt_in(pool_attend_kernel<float, OutT>,
                                  attend_smem<float>(kMaxTokens, kMaxHeads), opted_in);
@@ -681,11 +1103,33 @@ int launch_attend(const float* x, const float* pos, const float* token0, const f
   return cudaGetLastError();
 }
 
-// bf16 tokens: the tensor-core design
+// bf16 tokens: the first tensor-core design (`first`), or the cluster where
+// `cluster_takes`
 template <typename OutT>
 int launch_attend(const __nv_bfloat16* x, const __nv_bfloat16* pos, const __nv_bfloat16* token0,
                   const __nv_bfloat16* u, int R, int L, int heads, int C, float sqrt_hd, void* z,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, bool first) {
+  if (!first && cluster_takes(L, heads, C)) {
+    static bool opted_in[kMaxDevices] = {};
+    const cudaError_t err = opt_in(pool_attend_cluster<OutT>, cluster_smem<OutT>(), opted_in,
+                                   true);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(R) * kCluster);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = cluster_smem<OutT>(L, heads, C);
+    cfg.stream = stream;
+    cudaLaunchAttribute cluster_dim;
+    cluster_dim.id = cudaLaunchAttributeClusterDimension;
+    cluster_dim.val.clusterDim.x = kCluster;
+    cluster_dim.val.clusterDim.y = 1;
+    cluster_dim.val.clusterDim.z = 1;
+    cfg.attrs = &cluster_dim;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, pool_attend_cluster<OutT>, x, pos, token0, u, L,
+                                             heads, C, sqrt_hd, static_cast<OutT*>(z));
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
   static bool opted_in[kMaxDevices] = {};
   const cudaError_t err = opt_in(pool_attend_mma<OutT>, attend_mma_smem(kMaxTokens, kMaxHeads),
                                  opted_in);
@@ -721,13 +1165,11 @@ extern "C" int ov3_pool_tokens(const void* x, const void* pos0, int R, int L, in
   return cudaGetLastError();
 }
 
-// x (R, L - 1, C) raw tokens, pos (L, C), token0 (R, C), u (R, heads, C), all
-// f32 (dtype 0) or bf16 (dtype 1), C a multiple of 8, 16-byte aligned; L up to
-// kMaxTokens, heads up to kMaxHeads -> z (R, heads, C) f32 (out_dtype 0) or
-// bf16 (1).
-extern "C" int ov3_pool_attend(const void* x, const void* pos, const void* token0, const void* u,
-                               int R, int L, int heads, int C, float sqrt_hd, int dtype,
-                               int out_dtype, void* z, cudaStream_t stream) {
+namespace {
+
+int pool_attend(const void* x, const void* pos, const void* token0, const void* u, int R, int L,
+                int heads, int C, float sqrt_hd, int dtype, int out_dtype, void* z,
+                cudaStream_t stream, bool first) {
   if (R < 1 || L < 1 || L > kMaxTokens || heads < 1 || heads > kMaxHeads || C < 8 || C % 8 != 0 ||
       misaligned(x) || misaligned(pos) || misaligned(token0) || misaligned(u))
     return cudaErrorInvalidValue;
@@ -741,14 +1183,59 @@ extern "C" int ov3_pool_attend(const void* x, const void* pos, const void* token
   const auto* tb = static_cast<const bf16*>(token0);
   const auto* ub = static_cast<const bf16*>(u);
   if (dtype == 0 && out_dtype == 0)
-    return launch_attend<float>(xf, pf, tf, uf, R, L, heads, C, sqrt_hd, z, stream);
+    return launch_attend<float>(xf, pf, tf, uf, R, L, heads, C, sqrt_hd, z, stream, first);
   if (dtype == 0 && out_dtype == 1)
-    return launch_attend<bf16>(xf, pf, tf, uf, R, L, heads, C, sqrt_hd, z, stream);
+    return launch_attend<bf16>(xf, pf, tf, uf, R, L, heads, C, sqrt_hd, z, stream, first);
   if (dtype == 1 && out_dtype == 0)
-    return launch_attend<float>(xb, pb, tb, ub, R, L, heads, C, sqrt_hd, z, stream);
+    return launch_attend<float>(xb, pb, tb, ub, R, L, heads, C, sqrt_hd, z, stream, first);
   if (dtype == 1 && out_dtype == 1)
-    return launch_attend<bf16>(xb, pb, tb, ub, R, L, heads, C, sqrt_hd, z, stream);
+    return launch_attend<bf16>(xb, pb, tb, ub, R, L, heads, C, sqrt_hd, z, stream, first);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x (R, L - 1, C) raw tokens, pos (L, C), token0 (R, C), u (R, heads, C), all
+// f32 (dtype 0) or bf16 (dtype 1), C a multiple of 8, 16-byte aligned; L up to
+// kMaxTokens, heads up to kMaxHeads -> z (R, heads, C) f32 (out_dtype 0) or
+// bf16 (1).  bf16 tokens where `cluster_takes` run the cluster, the rest the
+// first designs.
+extern "C" int ov3_pool_attend(const void* x, const void* pos, const void* token0, const void* u,
+                               int R, int L, int heads, int C, float sqrt_hd, int dtype,
+                               int out_dtype, void* z, cudaStream_t stream) {
+  return pool_attend(x, pos, token0, u, R, L, heads, C, sqrt_hd, dtype, out_dtype, z, stream,
+                     false);
+}
+
+// The same with the first designs (`pool_attend_mma` for bf16 tokens): the
+// yardstick beside which the cluster is timed and checked.
+extern "C" int ov3_pool_attend_first(const void* x, const void* pos, const void* token0,
+                                     const void* u, int R, int L, int heads, int C, float sqrt_hd,
+                                     int dtype, int out_dtype, void* z, cudaStream_t stream) {
+  return pool_attend(x, pos, token0, u, R, L, heads, C, sqrt_hd, dtype, out_dtype, z, stream,
+                     true);
+}
+
+// The clusters of the bf16 cluster design that the card holds at once at
+// (L, heads, C), out in bf16 (cudaOccupancyMaxActiveClusters), into *n.
+extern "C" int ov3_pool_attend_clusters(int L, int heads, int C, int* n) {
+  if (!cluster_takes(L, heads, C)) return cudaErrorInvalidValue;
+  static bool opted_in[kMaxDevices] = {};
+  const cudaError_t err = opt_in(pool_attend_cluster<__nv_bfloat16>,
+                                 cluster_smem<__nv_bfloat16>(), opted_in, true);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * 256);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = cluster_smem<__nv_bfloat16>(L, heads, C);
+  cudaLaunchAttribute cluster_dim;
+  cluster_dim.id = cudaLaunchAttributeClusterDimension;
+  cluster_dim.val.clusterDim.x = kCluster;
+  cluster_dim.val.clusterDim.y = 1;
+  cluster_dim.val.clusterDim.z = 1;
+  cfg.attrs = &cluster_dim;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(n, pool_attend_cluster<__nv_bfloat16>, &cfg);
 }
 
 extern "C" const char* ov3_error_string(int code) {

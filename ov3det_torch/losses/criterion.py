@@ -193,11 +193,14 @@ def set_criterion(outputs: dict, targets: dict, cfg: LossConfig, num_angle_bin: 
                                       else card.mean(-1))
 
     if teacher_feats is not None:  # 2D-alignment distillation (criterion.py:132-141)
-        # all in f32; JAX keeps the norm of bf16 embeds in bf16, 2^-9 coarser
+        # in f32, but the norm of bf16 embeds in bf16 as JAX's: the squares'
+        # f32 sum rounded to bf16, its root rounded to bf16
         t = teacher_feats.float() if teacher_feats.dim() == 4 else teacher_feats.float()[None]
-        v = outputs["visual_embeds"].float()
-        cos = (v * t).sum(-1) / torch.clamp(
-            torch.linalg.vector_norm(v, dim=-1) * torch.linalg.vector_norm(t, dim=-1), min=1e-8)
+        embeds = outputs["visual_embeds"]
+        v = embeds.float()
+        norm_v = ((v * v).sum(-1).to(torch.bfloat16).float().sqrt().to(torch.bfloat16).float()
+                  if embeds.dtype == torch.bfloat16 else torch.linalg.vector_norm(v, dim=-1))
+        cos = (v * t).sum(-1) / torch.clamp(norm_v * torch.linalg.vector_norm(t, dim=-1), min=1e-8)
         losses["loss_2dalignment"] = (1.0 - cos).sum((1, 2))
 
     weights = {

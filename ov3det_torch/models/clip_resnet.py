@@ -405,7 +405,8 @@ class AttentionPool2d(nn.Module):
     the card (`ops/kernels/attn_pool.py`: `pool_tokens`, the mean token
     plus pos[0]; `pool_attend`, the logits, softmax and pooled token z),
     their plain versions on the CPU; q, the fold u, v and c are library
-    products, as in JAX."""
+    products, as in JAX.  The teacher casts the projections once a forward
+    (`cast_weights`) and hands them to each chunk's call."""
 
     def __init__(self, embed_dim: int, num_heads: int, spacial_dim: int, output_dim: int,
                  dtype=None):
@@ -418,8 +419,24 @@ class AttentionPool2d(nn.Module):
         self.v_proj = _Proj(C, C)
         self.c_proj = _Proj(C, output_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, C) -> (B, output_dim), f32."""
+    def cast_weights(self) -> tuple:
+        """The projections as a call uses them: q's weight and bias in the
+        compute dtype, the key weight in f32 from the compute dtype as
+        (heads, hd, C), z's dtype (the v projection's), the value weight as
+        the key's and v's bias in the compute dtype.  In f32 nothing is
+        copied."""
+        q_w, q_b = self.q_proj.weight, self.q_proj.bias
+        k_w, v_w, v_b = self.k_proj.weight, self.v_proj.weight, self.v_proj.bias
+        if self.dtype is not None:
+            q_w, q_b, k_w, v_w, v_b = (t.to(self.dtype) for t in (q_w, q_b, k_w, v_w, v_b))
+        C = k_w.shape[1]
+        nh = self.num_heads
+        return (q_w, q_b, k_w.float().reshape(nh, C // nh, C), v_w.dtype,
+                v_w.float().reshape(nh, C // nh, C), v_b)
+
+    def forward(self, x: torch.Tensor, weights: tuple | None = None) -> torch.Tensor:
+        """x (B, H, W, C) -> (B, output_dim), f32; `weights` what
+        `cast_weights` returns, cast here when None."""
         B, H, W, C = x.shape
         tokens = x.reshape(B, H * W, C)
         pos = self.positional_embedding
@@ -431,15 +448,12 @@ class AttentionPool2d(nn.Module):
 
         nh = self.num_heads
         hd = C // nh
-        q_w, q_b = self.q_proj.weight, self.q_proj.bias
-        k_w, v_w, v_b = self.k_proj.weight, self.v_proj.weight, self.v_proj.bias
-        if self.dtype is not None:
-            q_w, q_b, k_w, v_w, v_b = (t.to(self.dtype) for t in (q_w, q_b, k_w, v_w, v_b))
+        q_w, q_b, k_f, z_dtype, v_f, v_b = self.cast_weights() if weights is None else weights
         token0 = pool_tokens(tokens, pos[0])  # (B, C): the mean token + pos[0]
         q = F.linear(token0, q_w, q_b).reshape(B, nh, hd)
-        u = torch.einsum("bhd,hdc->bhc", q.float(), k_w.float().reshape(nh, hd, C))
-        z = pool_attend(tokens, pos, token0, u.to(tokens.dtype), hd, v_w.dtype)
-        out = torch.einsum("bhc,hdc->bhd", z.float(), v_w.float().reshape(nh, hd, C))
+        u = torch.einsum("bhd,hdc->bhc", q.float(), k_f)
+        z = pool_attend(tokens, pos, token0, u.to(tokens.dtype), hd, z_dtype)
+        out = torch.einsum("bhc,hdc->bhd", z.float(), v_f)
         out = (out + v_b.reshape(nh, hd)).reshape(B, C)
         return F.linear(out, self.c_proj.weight, self.c_proj.bias)
 

@@ -126,6 +126,8 @@ class RegionCLIPTeacher(nn.Module):
             feat = self.backbone.trunk(h)
         P = self.pooler_resolution
         chunk_q = max(1, min(Q, self.roi_chunk_regions // max(B, 1)))
+        with record_function("attnpool"):  # the projections cast once, not a chunk
+            pool_weights = self.roi_head.attnpool.cast_weights()
         embs = []
         for q0 in range(0, Q, chunk_q):
             boxes_c = boxes[:, q0:q0 + chunk_q]
@@ -135,7 +137,7 @@ class RegionCLIPTeacher(nn.Module):
             with record_function("res5"):
                 res5 = self.roi_head.layer4(pooled.reshape(B * qc, P, P, -1))
             with record_function("attnpool"):
-                embs.append(self.roi_head.attnpool(res5).reshape(B, qc, -1))
+                embs.append(self.roi_head.attnpool(res5, pool_weights).reshape(B, qc, -1))
         return torch.cat(embs, dim=1) if len(embs) > 1 else embs[0]
 
 

@@ -18,22 +18,30 @@ through the one query (u_h = K_h q_h), the pool of a region's tokens x_1..x_L
     v projection's dtype, which its einsum reads).  Tokens 1..L are rebuilt
     on the fly as x_k + pos_k, rounded to the token dtype, token 0 is
     `pool_tokens`'s: neither the (R, L + 1, C) concatenation nor an f32 copy
-    of the tokens is stored.  A CTA a region streams channel tiles of the
-    tokens through shared memory twice (the logits, then z), the next tile's
-    copies in flight (cp.async) while one is multiplied, every sum in a fixed
-    order with no atomics: two launches give the same bits.  bf16 tokens go
-    to the tensor cores (`pool_attend_mma`: mma.sync m16n8k16, the products
-    of bf16 values exact in f32, the f32 weights of z split into three bf16
-    terms that carry them to 2^-24), f32 tokens to f32 multiply-adds
-    (`pool_attend_kernel`).  Its plain version is the einsum and softmax code
-    the module ran before; the two agree within rounding (z within 1 bf16
-    ulp in bf16, 1e-5 of the largest value in f32).
+    of the tokens is stored.  bf16 tokens go to the tensor cores (mma.sync
+    m16n8k16, the products of bf16 values exact in f32, the f32 weights of z
+    split into three bf16 terms that carry them to 2^-24).  The routed design
+    for bf16 tokens (`pool_attend_cluster`, where `cluster_takes`) is a
+    thread-block cluster of `CLUSTER` CTAs a region, each holding its slice
+    of C / `CLUSTER` channels of all the tokens in shared memory, read from
+    device memory once: partial logits of the slice, summed over the
+    cluster's shared memory in rank order (every CTA the same f32 logits),
+    the softmax, then z of the slice from the resident tokens.  The first
+    design (`pool_attend_mma`, a CTA a region streaming channel tiles of the
+    tokens through shared memory twice), which the private
+    `_impl="first"` keeps, is the yardstick.  f32 tokens take f32
+    multiply-adds on either route (`pool_attend_kernel`, the first design:
+    the teacher's f32 tower is not the path users run).  Every sum runs in a
+    fixed order with no atomics: two launches give the same bits.  Its plain
+    version is the einsum and softmax code the module ran before; the
+    kernels agree with it within rounding (z within 1 bf16 ulp in bf16, 1e-5
+    of the largest value in f32).
 
 The projections (q, the fold u = K_h q_h, v and c) stay library products
 outside the kernels, as JAX leaves them to XLA.  CUDA tensors launch the
 kernels, one launch a call each with no host wait, counted in
-`pool_tokens.launches` and `pool_attend.launches`; CPU tensors take the
-plain versions.  The kernels take f32 or bf16 tokens, C a multiple of 8,
+`pool_tokens.launches` and `pool_attend.launches` (either design); CPU
+tensors take the plain versions.  The kernels take f32 or bf16 tokens, C a multiple of 8,
 16-byte aligned operands, at most `MAX_TOKENS` tokens (the pooled one
 included) and `MAX_HEADS` heads; any other call raises.
 """
@@ -43,6 +51,8 @@ import ctypes
 import math
 
 import torch
+
+from typing import Optional
 
 from ov3det_torch.ops.kernels import _build
 
@@ -56,7 +66,27 @@ MAX_TOKENS = 128
 MAX_HEADS = 64
 TILE = 64
 THREADS = 256
+# the cluster design: kCluster (CTAs a region), kClusterMaxSlice (channels a
+# CTA), kClusterMaxTokens and kClusterMaxHeads (tokens and heads, each
+# rounded up to 16, at the most)
+CLUSTER = 8
+CLUSTER_MAX_SLICE = 320
+CLUSTER_MAX_TOKENS = 96
+CLUSTER_MAX_HEADS = 48
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def cluster_takes(tokens: int, heads: int, C: int) -> bool:
+    """Whether bf16 tokens of this shape (`tokens` = L + 1, the pooled one
+    included) run the cluster design (`cluster_takes` of csrc/attn_pool.cu):
+    C a multiple of 16 x CLUSTER, at most CLUSTER_MAX_SLICE channels a CTA,
+    tokens and heads rounded up to 16 within their limits."""
+    return (C % (16 * CLUSTER) == 0 and C // CLUSTER <= CLUSTER_MAX_SLICE
+            and _round16(tokens) <= CLUSTER_MAX_TOKENS and _round16(heads) <= CLUSTER_MAX_HEADS)
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -143,13 +173,29 @@ def pool_attend_plain(x: torch.Tensor, pos: torch.Tensor, token0: torch.Tensor, 
     return torch.einsum("bhk,bkc->bhc", attn, tokens_f).to(out_dtype)
 
 
+def _entry(impl: Optional[str], on_cuda: bool) -> str:
+    """The C entry point for the private `_impl` argument: None is the
+    routed design, "first" the first design."""
+    if impl is None:
+        return "ov3_pool_attend"
+    if impl != "first":
+        raise ValueError(f"pool_attend: _impl is None (the routed design) or 'first', got "
+                         f"{impl!r}")
+    if not on_cuda:
+        raise ValueError("pool_attend: _impl chooses between CUDA kernels; these tensors lie on "
+                         "the CPU")
+    return "ov3_pool_attend_first"
+
+
 def pool_attend(x: torch.Tensor, pos: torch.Tensor, token0: torch.Tensor, u: torch.Tensor,
-                head_dim: int, out_dtype: torch.dtype) -> torch.Tensor:
+                head_dim: int, out_dtype: torch.dtype, _impl: Optional[str] = None) -> torch.Tensor:
     """The single-query attention of the pool: x (R, L, C) the raw tokens,
     pos (L + 1, C) the positional grid in their dtype, token0 (R, C)
     `pool_tokens`'s, u (R, heads, C) the folded query in their dtype ->
-    z (R, heads, C) in out_dtype (f32 or bf16)."""
+    z (R, heads, C) in out_dtype (f32 or bf16); on CUDA tensors the routed
+    design or, with `_impl="first"`, the first."""
     _check_attend(x, pos, token0, u, head_dim, out_dtype)
+    entry = _entry(_impl, x.device.type == "cuda")
     if x.device.type == "cpu":
         return pool_attend_plain(x, pos, token0, u, head_dim, out_dtype)
     if x.device.type != "cuda":
@@ -166,7 +212,7 @@ def pool_attend(x: torch.Tensor, pos: torch.Tensor, token0: torch.Tensor, u: tor
         if R == 0:
             return z
         lib = _build.load("attn_pool", _SIGNATURES)
-        status = lib.ov3_pool_attend(
+        status = getattr(lib, entry)(
             x.data_ptr(), pos.data_ptr(), token0.data_ptr(), u.data_ptr(), R, L + 1, heads, C,
             ctypes.c_float(math.sqrt(head_dim)), _DTYPES[x.dtype], _DTYPES[out_dtype],
             z.data_ptr(), torch.cuda.current_stream().cuda_stream)
@@ -179,5 +225,16 @@ pool_attend.launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ov3_pool_tokens": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
-               "ov3_pool_attend": ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
-                                    _P], _I)}
+               **{name: ([_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P], _I)
+                  for name in ("ov3_pool_attend", "ov3_pool_attend_first")},
+               "ov3_pool_attend_clusters": ([_I, _I, _I, ctypes.POINTER(_I)], _I)}
+
+
+def clusters_held(tokens: int, heads: int, C: int) -> int:
+    """The clusters of the bf16 cluster design the current card holds at
+    once at this shape (cudaOccupancyMaxActiveClusters); CUDA only."""
+    lib = _build.load("attn_pool", _SIGNATURES)
+    n = _I(0)
+    _build.check(lib, lib.ov3_pool_attend_clusters(tokens, heads, C, ctypes.byref(n)),
+                 "pool_attend_clusters")
+    return n.value

@@ -93,7 +93,8 @@ print(json.dumps(sorted(m for m in sys.modules
 def test_the_port_scripts_are_found():
     assert {"nms_parts.py", "pool_quantize_parts.py", "attention_parts.py",
             "quant_conv_designs.py", "feature_grad_parts.py", "auction_parts.py",
-            "first_k_parts.py", "points_in_box_parts.py", "teacher_parts.py"} <= set(PORT_SCRIPTS)
+            "first_k_parts.py", "points_in_box_parts.py", "teacher_parts.py",
+            "roi_head_designs.py", "roi_head_parts.py"} <= set(PORT_SCRIPTS)
 
 
 @pytest.mark.parametrize("script", PORT_SCRIPTS)

@@ -12,6 +12,11 @@ order, so a contraction's bf16 rounding may fall the other way), f32 within
 1e-6 of the largest value.  On crafted boxes (taps clipped at every border,
 a box whose width clamps to 1e-6, an inverted box, a box on the canvas edge,
 NaN and infinite coordinates) the NaN positions are the einsum's.
+
+The routed design's order (`roi_align_rows`: each map row's columns formed
+once a region and kept in a ring of `RING`, output rows summed from there)
+is emulated in numpy and equals `roi_align_plain` bit for bit, with each
+live map row formed exactly once; `_impl` is checked.
 """
 import numpy as np
 import pytest
@@ -211,3 +216,103 @@ def test_source_mirrors_the_wrapper():
     src = (pathlib.Path(__file__).resolve().parents[1] / kroi.SOURCE).read_text()
     assert int(re.search(r"kMaxOutput = (\d+);", src).group(1)) == kroi.MAX_OUTPUT
     assert "__fmul_rn" in src and "__fadd_rn" in src and "fmaf" not in src
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kGroups"] == kroi.GROUPS and consts["kRing"] == kroi.RING
+    # both designs and their entry points, which `_impl` names
+    assert "roi_align_rows<" in src and "roi_align_kernel<" in src
+    entries = set(re.findall(r'extern "C" int (ov3_\w+)\(', src))
+    assert entries == set(kroi._SIGNATURES) == {kroi._entry(None, True), kroi._entry("first", True)}
+
+
+def _rows_design(feats: torch.Tensor, boxes: torch.Tensor, scale: float, out: int,
+                 per_image: int) -> tuple:
+    """`roi_align_rows` of csrc/roi_align.cu emulated in numpy: a region's
+    output rows walked in order, each live y slot's cols[j, h] (every output
+    column at once, as the CTA's threads form them) taken from a ring of the
+    `kroi.RING` map rows formed last or formed (the live x slots in
+    ascending order, each product and sum rounded in f32, the sum rounded
+    to the feature dtype) and pushed, the oldest row out; the output rows
+    summed in ascending slot order.  Returns (pooled (R, out, out, C) in the
+    feature dtype, {region: map rows formed}, {region: distinct live map
+    rows})."""
+    dtype = feats.dtype
+    f = feats.float().numpy()
+    C = f.shape[-1]
+    x1, bin_w, y1, bin_h = troi._box_axes(boxes, scale, out)
+    px, wx, vx, nan_x = (t.numpy() for t in troi._axis_slots(x1, bin_w, f.shape[2], out))
+    py, wy, vy, nan_y = (t.numpy() for t in troi._axis_slots(y1, bin_h, f.shape[1], out))
+    wx = torch.from_numpy(wx).to(dtype).float().numpy()
+    wy = torch.from_numpy(wy).to(dtype).float().numpy()
+    R = boxes.shape[0]
+    pooled = np.zeros((R, out, out, C), np.float32)
+    formed, distinct = {}, {}
+    for r in range(R):
+        image = f[r // per_image]
+        xlive = vx[r] & ~nan_x[r][:, None]  # a NaN column forms zeros
+        ring = []  # (h, cols (out, C)), the oldest first
+        formed[r] = 0
+        distinct[r] = {int(py[r, i, k]) for i in range(out) for k in range(4) if vy[r, i, k]}
+        for i in range(out):
+            acc = np.zeros((out, C), np.float32)
+            for ky in range(4):
+                if not vy[r, i, ky]:
+                    continue
+                h = int(py[r, i, ky])
+                held = [c for hh, c in ring if hh == h]
+                if held:
+                    cols = held[0]
+                else:
+                    cols = np.zeros((out, C), np.float32)
+                    for kx in range(4):
+                        take = xlive[:, kx, None]
+                        prod = (wx[r, :, kx, None] * image[h, px[r, :, kx]]).astype(np.float32)
+                        cols = np.where(take, (cols + prod).astype(np.float32), cols)
+                    cols = torch.from_numpy(cols).to(dtype).float().numpy()
+                    ring = (ring + [(h, cols)])[-kroi.RING:]
+                    formed[r] += 1
+                acc = (acc + (wy[r, i, ky] * cols).astype(np.float32)).astype(np.float32)
+            nan = nan_y[r, i] | nan_x[r]
+            pooled[r, i] = np.where(nan[:, None], np.float32("nan"), acc)
+    return torch.from_numpy(pooled).to(dtype), formed, distinct
+
+
+@pytest.mark.parametrize("out,C", [(7, 8), (18, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_design_forms_each_row_once(dtype, out, C):
+    """The routed design's order: each live map row's columns formed once a
+    region (the ring of `RING` never drops a row an output row still
+    needs), the result `roi_align_plain`'s bit for bit: on the crafted
+    boxes (taps sharing map pixels, clamped, inverted and edge boxes, NaN
+    and infinite coordinates), on boxes under a map pixel tall (every
+    output row reads the same one or two map rows) and on boxes taller than
+    the map."""
+    rng = np.random.default_rng(30 + out + C)
+    B, Q = 2, 14
+    feats = _features(rng, B, C, dtype)
+    boxes = _crafted(B, Q).reshape(-1, 4)
+    boxes[10] = [3.0, 7.0, 40.0, 9.5]  # 2.5 input pixels tall: bins of 0.03 map rows
+    boxes[11] = [1.0, 20.0, 50.0, 20.3]
+    boxes[12] = [-30.0, -40.0, 90.0, 120.0]  # far taller than the map
+    boxes[13] = [10.0, 5.0, 30.0, 45.0]
+    boxes = torch.from_numpy(boxes)
+    got, formed, distinct = _rows_design(feats, boxes, SCALE, out, Q)
+    want = troi.roi_align_plain(feats, boxes, None, SCALE, out, per_image=Q)
+    assert _same_nan(got, want)
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert formed == {r: len(d) for r, d in distinct.items()}
+    assert max(formed.values()) > kroi.RING  # the ring turns over
+    assert torch.isnan(got).flatten(1).any(dim=1)[:10].tolist() == [False] * 5 + [True] * 3 + \
+        [False, True]
+
+
+def test_impl_argument():
+    """`_impl` is None (the routed design) or "first", and chooses between
+    CUDA kernels only: CPU tensors refuse "first"; nothing counts a launch."""
+    f = torch.zeros(2, 3, 4, 8)
+    b = torch.zeros(6, 4)
+    with pytest.raises(ValueError, match="CUDA kernels"):
+        kroi.roi_align(f, b, None, 1.0, 4, per_image=3, _impl="first")
+    with pytest.raises(ValueError, match="_impl"):
+        kroi.roi_align(f, b, None, 1.0, 4, per_image=3, _impl="rows")
+    assert kroi.roi_align(f, b, None, 1.0, 4, per_image=3).shape == (6, 4, 4, 8)
+    assert kroi.roi_align.launches == 0

@@ -259,18 +259,20 @@ def test_set_criterion_rejects_the_teacher():
     """Once a refusal pin, now the 2D-alignment branch the open-vocabulary
     step ported (the name kept): the teacher's features, shared (B, Q, C)
     or per layer (L, B, Q, C), against `visual_embeds` in f32 and in bf16
-    (the bf16 detector's).  The port computes in f32.  With f32 embeds the
-    losses, the weighted total and the gradient into `visual_embeds` equal
-    JAX's within 1e-5 relative; with bf16 embeds JAX's `norm(v)` stays bf16
-    (rounded to 2^-9 relative), so the losses agree within 1e-3 relative
-    and the bf16 gradients within 1e-2 of the largest (a few bf16 ulps)."""
+    (the bf16 detector's).  The port computes in f32 and, as JAX does, takes
+    the norm of bf16 embeds in bf16 (the squares' f32 sum rounded to bf16,
+    its root rounded to bf16).  The losses and the weighted total equal
+    JAX's within 1e-5 relative with either dtype; the gradient into
+    `visual_embeds` within 1e-5 relative in f32 and, in bf16, within 5e-3
+    of the largest value (about one bf16 ulp there: the two frameworks round
+    the backward's bf16 terms at other places)."""
     batch = tp.make_batch(seed=5)
     out = _outputs(batch)
     rng = np.random.default_rng(11)
     embeds = rng.normal(size=(3, 2, 24, 16)).astype(np.float32)
     jloss = dataclasses.replace(jc.sunrgbd_quick().loss, alignment_2d_weight=0.5)
     tloss = dataclasses.replace(tc.sunrgbd_quick().loss, alignment_2d_weight=0.5)
-    for dtype, rtol in (("float32", 1e-5), ("bfloat16", 1e-3)):
+    for dtype, rtol in (("float32", 1e-5), ("bfloat16", 1e-5)):
         v0 = jnp.asarray(embeds, dtype)
         for shape in ((2, 24, 16), (3, 2, 24, 16)):
             feats = rng.normal(size=shape).astype(np.float32)
@@ -297,7 +299,7 @@ def test_set_criterion_rejects_the_teacher():
             np.testing.assert_allclose(
                 tout["visual_embeds"].grad.float().numpy(), jg,
                 **(dict(rtol=1e-5, atol=1e-7) if dtype == "float32"
-                   else dict(rtol=0, atol=1e-2 * np.abs(jg).max())))
+                   else dict(rtol=0, atol=5e-3 * np.abs(jg).max())))
     tc.LossConfig(alignment_2d_weight=1.0)  # accepted
 
 
