@@ -62,7 +62,9 @@ at once), then:
      the ball-group once and each attention kernel 3 times, and give a
      finite loss and gradient norm.  Then a synchronised split of a step
      into forward, criterion, backward and optimiser, one step under
-     torch.profiler, and the peak device memory of a step;
+     torch.profiler (with the device ms, the kernel count and the largest
+     kernels of each of the step's profiler ranges: forward, criterion,
+     backward, optimizer), and the peak device memory of a step;
   6. takes one training step at f32 with every dropout at 0 on one scene at
      full width, on the card and on the CPU from the same weights: matched
      masks equal, every loss within 1e-4 relative, grad_norm within 1e-3;
@@ -129,10 +131,11 @@ at once), then:
      and sizes, and the peak device memory; then the host AP with the C++
      rotated IoU and with the numpy one, in turns, on the `--test_only` pass
      and on 16 scenes of detections near the GT boxes;
-  9. (after 15) prints the kernels line (launches summed over the serving
+  9. (after 16) prints the kernels line (launches summed over the serving
      and training runs of both configs, the CLI's run, phase 10's OV
      training and OV CLI runs, phase 11's runs, phase 12's, phase 13's and
-     phase 14's CLI runs), the card line, and last {"ok": true, "device": {...}}.
+     phase 14's CLI runs and phase 16's runs), the card line, and last
+     {"ok": true, "device": {...}}.
  10. the open-vocabulary step ("OV sunrgbd_quick": `sunrgbd_quick()` with
      the 2D-alignment loss at weight 1, as bench.py:518-530 builds it, and
      the frozen RegionCLIP RN50x4 teacher in int8 at its defaults, seeded
@@ -162,6 +165,16 @@ at once), then:
        odd H or W at pool 2, C 8 short of a multiple of 16, one and two
        scales, f32, quotients on half-integers), both designs, the plain
        version and `F.avg_pool2d` alone timed in turns beside the bound;
+       the input end on that forward's own inputs (`check_teacher_input`):
+       one `normalise` and one folded pass (`pool_quantize` with the stem's
+       bn1 and ReLU) a forward, each equal to its plain version bit for bit
+       (the normalisation on the uint8 canvases, as f32, with NaN,
+       infinities and -0, into f32, off a 16-byte boundary, past the last
+       whole piece; the folded pass on conv1's output at one and two
+       scales, as f32, with NaN, infinities and -0, on half-integer
+       quotients, at C 8 and on pieces of 8 values), each timed in turns
+       with its plain version and the library chain the forward ran
+       before, beside the bound;
        the RoI head's kernels at the 4 chunks of that forward, on the
        arguments it gives them, in bf16 and in f32, `roi_align` and
        `pool_attend` in both designs (the routed one and the first,
@@ -186,8 +199,9 @@ at once), then:
        training: `build_training(..., teacher=)` with the teacher of
        `ov3det_torch.main.build_teacher`, one warm-up and 3 timed steps,
        each launching FPS twice, the ball-group once, each attention
-       kernel 3 times, `quant_conv` 141 times, `pool_quantize` 18 times
-       and `roi_align`, `pool_tokens` and `pool_attend` 4 times each (and
+       kernel 3 times, `quant_conv` 141 times, `pool_quantize` 17 times,
+       its folded pass and `normalise` once and `roi_align`, `pool_tokens`
+       and `pool_attend` 4 times each (and
        `torch._int_mm` never, on any path), with a finite loss and
        loss_2dalignment > 0; the
        stage split (forward, teacher, criterion, backward, optimiser), peak
@@ -336,6 +350,17 @@ at once), then:
        `make_packed_multi_step` at G = 4 and `sunrgbd_quick` width: one
        replay of its graph equals 4 replays of `PackedStep`'s one-step
        graph bit for bit (metrics, parameters, buffers, Adam moments).
+ 16. the port learns (`learning_phase`): the JAX package's learning check
+     (tests/test_e2e_learning.py: its config, its `make_batch` batches from
+     the same seeds, 300 steps, the schedule's epoch 40 steps) through the
+     graphed `PackedStep`, each step launching FPS twice, the ball-group
+     and the auction once (the encoder's attention on the plain path, as
+     JAX's dispatch keeps it at 128 tokens), gated at the JAX test's
+     thresholds: the loss at step 200 below 0.65 of step 0's, and mAP@0.25
+     on two held-out batches above max(0.10, before + 0.08); then 300
+     graphed steps at `sunrgbd_quick()`'s full width on 25 `make_batch`
+     batches cycled (the attention kernels too), every loss finite, the
+     trajectory and mAP@0.25 printed.
 Every CLI run of phases 8 and 10-14 on one process replays the step's
 CUDA graph, and on one process every eval batch and request replays an
 eval graph (`engine.infer.GraphedEval`); a replay calls no wrapper, so the
@@ -652,6 +677,7 @@ def kernel_counters() -> dict:
         ball_query,
         fps,
         nms,
+        normalise,
         points_in_box,
         quant_conv,
         roi_align,
@@ -670,6 +696,9 @@ def kernel_counters() -> dict:
     counters["nms"] = (nms.nms_keep, "launches")
     counters["quant_conv"] = (quant_conv.quant_conv, "launches")
     counters["pool_quantize"] = (quant_conv.pool_quantize, "launches")
+    # the pass with the stem's bn1 and ReLU (`affine=`) counts apart
+    counters["pool_quantize_affine"] = (quant_conv.pool_quantize, "affine_launches")
+    counters["normalise"] = (normalise.normalise, "launches")
     counters["points_in_box"] = (points_in_box.points_in_box, "launches")
     counters["first_k"] = (ball_query.first_k, "launches")
     counters["roi_align"] = (roi_align.roi_align, "launches")
@@ -777,6 +806,7 @@ def kernel_sources() -> dict:
         ball_query,
         fps,
         nms,
+        normalise,
         points_in_box,
         quant_conv,
         roi_align,
@@ -796,6 +826,8 @@ def kernel_sources() -> dict:
             "nms": (nms.SOURCE, nms.REPLACES),
             "quant_conv": (quant_conv.SOURCE, quant_conv.REPLACES),
             "pool_quantize": (quant_conv.SOURCE, quant_conv.POOL_REPLACES),
+            "pool_quantize_affine": (quant_conv.SOURCE, quant_conv.AFFINE_REPLACES),
+            "normalise": (normalise.SOURCE, normalise.REPLACES),
             "points_in_box": (points_in_box.SOURCE, points_in_box.REPLACES),
             "first_k": (ball_query.SOURCE, ball_query.REPLACES),
             "roi_align": (roi_align.SOURCE, roi_align.REPLACES),
@@ -1603,17 +1635,21 @@ def range_kernels(prof, name: str):
     """(device ms, kernel count, {kernel name: device ms}) of the kernels
     launched while the profiler range `name` (a `record_function`) was open
     on the host: each CUDA API call ("cu...") inside the
-    range's host interval, on its thread, matched to the device events of
-    its correlation id.  (The kernels a wrapper launches through ctypes
-    belong to no PyTorch op, so the ops' own kernel lists miss them.)  None
-    when the range holds none."""
+    range's host interval, on its thread (on any thread for the ranges of
+    `ANY_THREAD_RANGES`: autograd launches the backward's kernels from
+    threads of its own while the range's thread waits), matched to the
+    device events of its correlation id.  (The kernels a wrapper launches
+    through ctypes belong to no PyTorch op, so the ops' own kernel lists
+    miss them.)  None when the range holds none."""
     cpu = torch.autograd.DeviceType.CPU
     events = prof.events()
     spans = [(e.time_range.start, e.time_range.end, e.thread) for e in events
              if e.name == name and e.device_type == cpu]
+    own_thread = name not in ANY_THREAD_RANGES
     launched = {e.id for e in events
                 if e.device_type == cpu and e.name.startswith("cu")
-                and any(s <= e.time_range.start <= t and e.thread == th for s, t, th in spans)}
+                and any(s <= e.time_range.start <= t and (e.thread == th or not own_thread)
+                        for s, t, th in spans)}
     kernels = [(e.name, e.time_range.end - e.time_range.start) for e in events
                if e.device_type != cpu and e.name != name and e.id in launched]
     by_name = collections.Counter()
@@ -1623,6 +1659,11 @@ def range_kernels(prof, name: str):
 
 
 PROFILE_MARGIN_S = 0.2  # idle host time each side of a profiled call, inside the active window
+# the training step's stages, profiler ranges of `engine.train.make_train_step`
+# ("teacher" between "forward" and "criterion" in the OV step)
+STEP_RANGES = ("forward", "criterion", "backward", "optimizer")
+ANY_THREAD_RANGES = ("backward",)
+STEP_RANGE_TOP = 5  # kernels printed under each range of a profiled training step
 # counter -> the kernels its wrapper launches, one a launch, by their demangled
 # symbols: the routed design and the first of each (the first ball-group's
 # fill kernel stands for its pair); a tuple where a launch is several
@@ -1640,7 +1681,9 @@ OWN_KERNELS = {
     "auction_first": r"\bauction_kernel\(",
     "nms": r"\bnms_(?:cluster_)?kernel<",
     "quant_conv": r"\bquant_conv_(?:wgmma|kernel)<",
-    "pool_quantize": r"\bpool_quantize_(?:vec|kernel)<",
+    "pool_quantize": r"\bpool_quantize_(?:vec<[^<>]*, false>|kernel<)",
+    "pool_quantize_affine": r"\bpool_quantize_vec<[^<>]*, true>",
+    "normalise": r"\bnormalise_kernel<",
     "points_in_box": r"\bpoints_in_box_(?:cluster|kernel)\(",
     "first_k": r"\bfirst_k_(?:lanes<|kernel\()",
     "roi_align": r"\broi_align_(?:rows|kernel)<",
@@ -1970,9 +2013,10 @@ def train(cfg, steps: int, per_step: dict, label: str, seed: int, dev: torch.dev
     peak = torch.cuda.max_memory_allocated()
     print(f"peak device memory of a {label} train step: {peak / 2**30:.3f} GiB "
           f"({base / 2**30:.3f} GiB held before it: weights, Adam moments, batches)")
-    profile(f"profiled {label} train step", lambda: step(batches[2], gen),
-            ranges=("teacher", *TEACHER_RANGES) if teacher is not None else (),
-            waits=teacher is not None)
+    ranges = STEP_RANGES if teacher is None else ("forward", "teacher", *STEP_RANGES[1:],
+                                                  *TEACHER_RANGES)
+    profile(f"profiled {label} train step", lambda: step(batches[2], gen), ranges=ranges,
+            waits=teacher is not None, range_top=STEP_RANGE_TOP)
     if teacher is not None:
         sync_points(f"one {label} train step under the sync debug mode",
                     lambda: step(batches[3], gen))
@@ -2436,7 +2480,8 @@ INT8_PEAK = 1979e12  # dense int8 tensor operations a second, H100 SXM data shee
 # each, res5 in 4 chunks of 256 regions): 65 trunk convs in the backbone and
 # 19 a chunk in res5; the quantise passes: the stem's conv1 output and
 # pooled output, 2 in each of layer2's and layer3's stride-2 blocks, 3 a chunk
-TEACHER_STEP = dict(quant_conv=141, pool_quantize=18, roi_align=4, pool_tokens=4, pool_attend=4)
+TEACHER_STEP = dict(quant_conv=141, pool_quantize=17, pool_quantize_affine=1, normalise=1,
+                    roi_align=4, pool_tokens=4, pool_attend=4)
 # the RoI head's kernels: one launch each a chunk of 256 regions
 HEAD_KERNELS = ("roi_align", "pool_tokens", "pool_attend")
 # the teacher forward's profiler ranges (`RegionCLIPTeacher.forward`)
@@ -2495,9 +2540,10 @@ def record_trunk(teacher, images, boxes) -> tuple:
                      residual is not None, relu, s_next is not None, out_bf16, dtype), args)
         return conv(*args)
 
-    def pool_spy(x, p, scales):
-        keep(pools, (tuple(x.shape), x.dtype, p, len(scales)), [x, p, list(scales)])
-        return pool(x, p, scales)
+    def pool_spy(x, p, scales, affine=None):
+        if affine is None:  # the folded pass is `record_input`'s
+            keep(pools, (tuple(x.shape), x.dtype, p, len(scales)), [x, p, list(scales)])
+        return pool(x, p, scales, affine=affine)
 
     cr.quant_conv, cr.pool_quantize = conv_spy, pool_spy
     try:
@@ -2656,7 +2702,8 @@ def check_pass(card: str, pools: dict, dev: torch.device, t0: float) -> dict:
     """Phase 10's check of the quantise pass at the 9 passes of one teacher
     forward (`pools`: `record_trunk`'s, on that forward's activations) and
     at odd shapes (an odd H or W at pool 2, C 8 short of a multiple of 16,
-    one and two scales, f32 inputs, values on the scale's half-integers):
+    C 8 at pool 1 in pieces of 16, one and two scales, f32 inputs, values
+    on the scale's half-integers):
     the routed design (`pass_launch`) and the first (`_impl="first"`) equal
     the plain version bit for bit; then, at the forward's passes, in turns,
     the routed design, the first, the plain version and `F.avg_pool2d` alone,
@@ -2668,7 +2715,8 @@ def check_pass(card: str, pools: dict, dev: torch.device, t0: float) -> dict:
     cases = dict(pools)
     odd = [((2, 7, 9, 48), torch.bfloat16, 2, 1), ((2, 9, 7, 40), torch.bfloat16, 2, 2),
            ((3, 5, 5, 24), torch.bfloat16, 1, 2), ((1, 3, 3, 8), torch.bfloat16, 1, 1),
-           ((2, 5, 6, 32), torch.float32, 2, 2), ((2, 3, 5, 40), torch.float32, 1, 1)]
+           ((2, 5, 6, 32), torch.float32, 2, 2), ((2, 3, 5, 40), torch.float32, 1, 1),
+           ((2, 5, 7, 8), torch.bfloat16, 1, 1)]  # C 8 in pieces of 16: no whole group of C
     for shape, dtype, p, n in odd:
         x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
         cases[("odd", shape, dtype, p, n)] = {"calls": 0, "args": [x, p, [
@@ -3012,6 +3060,202 @@ def check_head(card: str, teacher, images, boxes, dev: torch.device) -> dict:
     return entries
 
 
+# the teacher's input end: one launch each a forward (`RegionCLIPTeacher.forward`'s
+# normalisation; the stem's bn1, ReLU and quantise in the chain's first pass)
+INPUT_KERNELS = ("normalise", "pool_quantize_affine")
+INPUT_REPS = 20  # calls a timing graph of one input-end kernel
+
+
+def record_input(teacher, images, boxes) -> dict:
+    """One forward of the int8 teacher with its input end spied on (the
+    names `regionclip` and `clip_resnet` look up): {"normalise": the
+    arguments of each `normalise` call, "pool_quantize_affine": those of
+    each `pool_quantize` call with an affine}."""
+    from ov3det_torch.models import clip_resnet as cr
+    from ov3det_torch.models import regionclip as rc
+
+    calls = {n: [] for n in INPUT_KERNELS}
+    norm, pool = rc.normalise, cr.pool_quantize
+
+    def keep(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def norm_spy(x, mean, inv_std, out_dtype=None):
+        calls["normalise"].append([keep(x), keep(mean), keep(inv_std), out_dtype])
+        return norm(x, mean, inv_std, out_dtype)
+
+    def pool_spy(x, p, scales, affine=None, **kw):
+        if affine is not None:
+            calls["pool_quantize_affine"].append([keep(x), p, [keep(s) for s in scales],
+                                                  tuple(keep(t) for t in affine)])
+        return pool(x, p, scales, affine=affine, **kw)
+
+    rc.normalise, cr.pool_quantize = norm_spy, pool_spy
+    try:
+        with torch.no_grad():
+            teacher(images, boxes)
+    finally:
+        rc.normalise, cr.pool_quantize = norm, pool
+    torch.cuda.synchronize()
+    return calls
+
+
+def sprinkle(x: torch.Tensor, values: list, n: int, seed: int) -> torch.Tensor:
+    """A copy of x with `n` seeded positions set to `values`, cycled."""
+    out = x.clone()
+    flat = out.view(-1)
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    idx = torch.randperm(flat.numel(), generator=g, device=x.device)[:n]
+    flat[idx] = torch.tensor(values, dtype=torch.float32, device=x.device).repeat(
+        -(-n // len(values)))[:n].to(x.dtype)
+    return out
+
+
+def misaligned(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """x copied into a buffer at `offset` bytes past a 16-byte boundary."""
+    n = x.numel() * x.element_size()
+    buf = torch.empty(n + 16, dtype=torch.uint8, device=x.device)
+    view = buf[offset:offset + n].view(x.dtype).view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def check_teacher_input(card: str, teacher, images, boxes, dev: torch.device) -> dict:
+    """Phase 10's check of the teacher's input end on one int8 forward of an
+    OV batch (8 canvases of 530 x 730, 128 boxes each) and on the arguments
+    that forward gives it (`record_input`): the forward launches `normalise`
+    and the folded pass (`pool_quantize` with bn1's affine and the ReLU)
+    once each, and the trunk's other passes 17 times;
+    `normalise` equals `normalise_plain` bit for bit (NaN positions too) on
+    the forward's uint8 canvases, on them as f32, as f32 with NaN,
+    infinities and -0, into f32, off a 16-byte boundary (a load a value) as
+    uint8 and f32, and on a canvas whose values end past the last 16-value
+    piece; the folded pass equals `pool_quantize_plain(..., affine=)` bit for
+    bit on the forward's conv1 output (bf16, one scale and two), as f32,
+    with NaN, infinities and -0, on values whose quotients lie on
+    half-integers, at C 8 (the channel wrapping twice in a piece) and on a
+    tensor of pieces of 8 values; each second launch equals the first.  Then,
+    in turns by graph replays: each kernel, its plain version and the
+    library chain the forward ran before (`normalise`: the four library
+    kernels of the plain version, which is that chain; the folded pass:
+    bn1 and the ReLU as library ops, then the quantise pass), beside the
+    bound of this batch's bytes.  Returns the kernels-line entries."""
+    from ov3det_torch.ops.kernels import normalise as nk
+    from ov3det_torch.ops.kernels import quant_conv as qc
+
+    t0 = time.perf_counter()
+    calls = record_input(teacher, images, boxes)
+    n_calls = {k: len(v) for k, v in calls.items()}
+    require(n_calls == {k: TEACHER_STEP[k] for k in INPUT_KERNELS},
+            f"the teacher's forward made {n_calls} input-end calls, expected one each")
+    before = read_counts()
+    with torch.no_grad():
+        teacher(images, boxes)
+    torch.cuda.synchronize()
+    after = read_counts()
+    own = ("normalise", "pool_quantize_affine", "pool_quantize", "quant_conv")
+    launched = {k: after[k] - before[k] for k in own}
+    require(launched == {k: TEACHER_STEP[k] for k in own},
+            f"teacher forward: launches {launched}, expected {({k: TEACHER_STEP[k] for k in own})}")
+
+    img, mean, inv, odt = calls["normalise"][0]
+    specials = [float("nan"), float("inf"), float("-inf"), -0.0, 0.0, 255.0, 1e-45, -1e30]
+    cases = {"the forward's uint8 canvases": (img, odt),
+             "the canvases as f32": (img.float(), odt),
+             "f32 with NaN, infinities and -0": (sprinkle(img.float(), specials, 4096, 22), odt),
+             "uint8 into f32": (img, None),
+             "uint8 3 bytes past a 16-byte boundary": (misaligned(img, 3), odt),
+             "f32 4 bytes past a 16-byte boundary": (misaligned(img.float(), 4), odt),
+             "1 x 5 x 7 (105 values: 6 pieces and 9 more)": (img[:1, :5, :7].contiguous(), odt)}
+    for label, (x, dt) in cases.items():
+        want = nk.normalise_plain(x, mean, inv, dt)
+        got = nk.normalise(x, mean, inv, dt)
+        again = nk.normalise(x, mean, inv, dt)
+        torch.cuda.synchronize()
+        require(bits_equal(got, want) and bits_equal(again, got),
+                f"normalise ({label}): the kernel differs from the plain version or itself")
+        print(f"normalise {'x'.join(map(str, x.shape))} {str(x.dtype)[6:]} -> "
+              f"{str(got.dtype)[6:]} ({label}), launch {nk.normalise_launch(x)}: equal to the "
+              f"plain version bit for bit, two launches equal")
+
+    h, _, scales, (w, b) = calls["pool_quantize_affine"][0]
+    C = h.shape[-1]
+    g = torch.Generator(device=dev).manual_seed(23)
+    # bn1 with w = 1 and b = 0.125 on multiples of 0.25: every quotient by
+    # 0.25 on a half-integer, rounded half to even by the division
+    one, eighth = torch.ones(C, device=dev), torch.full((C,), 0.125, device=dev)
+    quarters = (torch.randint(-100, 100, (2, 6, 10, C), generator=g, device=dev) * 0.25)
+    small = [(torch.randn(shape, generator=g, device=dev) * 3, torch.rand(shape[-1], generator=g,
+                                                                          device=dev) + 0.5,
+              torch.randn(shape[-1], generator=g, device=dev)) for shape in ((2, 5, 7, 8),
+                                                                            (1, 3, 5, 40))]
+    bf = torch.bfloat16
+    fold = {"the forward's conv1 output": (h, scales, w, b),
+            "the same at two scales": (h, scales + [scales[0] * 0.37], w, b),
+            "the same as f32": (h.float(), scales, w.float(), b.float()),
+            "with NaN, infinities and -0": (sprinkle(h, specials, 4096, 24), scales, w, b),
+            "quotients on half-integers": (quarters.to(bf), [torch.tensor(0.25, device=dev)],
+                                           one.to(bf), eighth.to(bf)),
+            "C 8, the channel wrapping twice in a piece": (small[0][0].to(bf), scales,
+                                                           small[0][1].to(bf), small[0][2].to(bf)),
+            "1 x 3 x 5 x 40, pieces of 8": (small[1][0].to(bf), scales, small[1][1].to(bf),
+                                            small[1][2].to(bf))}
+    for label, (x, ss, wt, bt) in fold.items():
+        want = qc.pool_quantize_plain(x, 1, ss, affine=(wt, bt))
+        got = qc.pool_quantize(x, 1, ss, affine=(wt, bt))
+        again = qc.pool_quantize(x, 1, ss, affine=(wt, bt))
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) and torch.equal(a, d) for a, c, d in zip(got, want, again)),
+                f"the folded pass ({label}): the kernel differs from the plain version or itself")
+        B, H, W, Cx = x.shape
+        print(f"pool_quantize with bn1's affine and the ReLU, {'x'.join(map(str, x.shape))} "
+              f"{str(x.dtype)[6:]}, {len(ss)} scale(s) ({label}), launch "
+              f"{qc.pass_launch(B, H, W, Cx, 1)}: equal to the plain version bit for bit, two "
+              f"launches equal")
+
+    n_img = img.numel()
+    best_n = in_turns({"kernel": lambda: nk.normalise(img, mean, inv, odt),
+                       "plain": lambda: nk.normalise_plain(img, mean, inv, odt),
+                       "kernel, f32 canvases": lambda: nk.normalise(cases["the canvases as f32"][0],
+                                                                     mean, inv, odt)},
+                      INPUT_REPS)
+    out_size = torch.empty((), dtype=odt or torch.float32).element_size()
+    n_ms, n_by = bound_ms(n_img * (img.element_size() + out_size), 2 * n_img, F32_PEAK / 2)
+    f32_ms, _ = bound_ms(n_img * (4 + out_size), 2 * n_img, F32_PEAK / 2)
+    print(f"normalise over one teacher forward (1 call, {'x'.join(map(str, img.shape))} "
+          f"{str(img.dtype)[6:]} -> {str(odt)[6:]}): kernel {best_n['kernel']:.4f} ms "
+          f"({n_ms / best_n['kernel']:.2f} of the bound), plain (the library chain the forward ran "
+          f"before) {best_n['plain']:.4f} ms; bound {n_ms:.4f} ms ({n_by}); f32 canvases: kernel "
+          f"{best_n['kernel, f32 canvases']:.4f} ms, bound {f32_ms:.4f} ms (graph replays, in "
+          f"turns) ({card})")
+
+    n_h = h.numel()
+    best_f = in_turns({"kernel": lambda: qc.pool_quantize(h, 1, scales, affine=(w, b)),
+                       "plain": lambda: qc.pool_quantize_plain(h, 1, scales, affine=(w, b)),
+                       "chain": lambda: qc.pool_quantize(torch.relu(h * w + b), 1, scales),
+                       "pass alone": lambda: qc.pool_quantize(h, 1, scales)}, INPUT_REPS)
+    f_ms, f_by = bound_ms(n_h * h.element_size() + len(scales) * n_h + 2 * C * w.element_size(),
+                          n_h * (3 + 4 * len(scales)), F32_PEAK / 2)
+    print(f"the folded pass over one teacher forward (1 call, {'x'.join(map(str, h.shape))} "
+          f"{str(h.dtype)[6:]}, {len(scales)} scale): kernel {best_f['kernel']:.4f} ms "
+          f"({f_ms / best_f['kernel']:.2f} of the bound), the chain the forward ran before (bn1 and "
+          f"the ReLU as library ops, then the pass) {best_f['chain']:.4f} ms, the pass alone "
+          f"without the affine {best_f['pass alone']:.4f} ms, plain {best_f['plain']:.4f} ms; "
+          f"bound {f_ms:.4f} ms ({f_by}) (graph replays, in turns); the check took "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    return {"normalise": dict(max_abs_err=0.0, ms=best_n["kernel"], plain_ms=best_n["plain"],
+                              bound_ms=n_ms, bound_by=n_by, library_ms=None,
+                              f32_canvases_ms=best_n["kernel, f32 canvases"],
+                              f32_canvases_bound_ms=f32_ms,
+                              per="one teacher forward (1 call); plain = the library chain"),
+            "pool_quantize_affine": dict(max_abs_err=0.0, ms=best_f["kernel"],
+                                         plain_ms=best_f["plain"], bound_ms=f_ms, bound_by=f_by,
+                                         library_ms=None, chain_ms=best_f["chain"],
+                                         pass_alone_ms=best_f["pass alone"],
+                                         chain="bn1 and the ReLU as library ops, then the pass",
+                                         per="one teacher forward (1 call)")}
+
+
 def einsum_head(teacher):
     """`teacher` with the RoI head as library ops: RoIAlign as the two
     contractions (`roi_align_einsum`) and the pool's mean token by
@@ -3058,8 +3302,9 @@ def teacher_parts(card: str, teacher, images, boxes) -> None:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
         after = read_counts()
-        launched = {k: after[k] - before[k] for k in HEAD_KERNELS}
-        want = {k: TEACHER_STEP[k] if fn is teacher else 0 for k in HEAD_KERNELS}
+        launched = {k: after[k] - before[k] for k in (*HEAD_KERNELS, *INPUT_KERNELS)}
+        want = {**{k: TEACHER_STEP[k] if fn is teacher else 0 for k in HEAD_KERNELS},
+                **{k: TEACHER_STEP[k] for k in INPUT_KERNELS}}
         require(launched == want, f"teacher forward ({label}): launches {launched}, "
                                   f"expected {want}")
         print(f"teacher forward ({label}), 8 canvases x 128 boxes: peak device memory "
@@ -3311,14 +3556,17 @@ def ov_phase(card: str, dev: torch.device) -> tuple:
     teacher = cli.build_teacher(cfg, first, dev)
     torch.cuda.synchronize()
     calibration = read_counts()
-    launched = {k: calibration[k] for k in HEAD_KERNELS}
-    require(launched == {k: 1 for k in HEAD_KERNELS},
+    launched = {k: calibration[k] for k in (*HEAD_KERNELS, *INPUT_KERNELS)}
+    # the calibration runs the dynamic-scale tower, no chain: bn1 is a module there
+    require(launched == {**{k: 1 for k in HEAD_KERNELS}, "normalise": 1,
+                         "pool_quantize_affine": 0},
             f"the calibration forward (8 boxes, one chunk) launched {launched}")
     print(f"teacher build (seeded weights, int8 quantisation, calibration on the card): "
           f"{time.perf_counter() - t0:.2f} s; the calibration forward's RoI-head launches "
           f"{launched}")
     images, regions = torch.from_numpy(batches[0]["image"]).to(dev), ov_boxes(dev)
     entries = check_quant_conv(card, teacher, images, regions, dev)
+    entries.update(check_teacher_input(card, teacher, images, regions, dev))
     entries.update(check_head(card, teacher, images, regions, dev))
     teacher_forward_times(card, teacher, state, images, regions, dev)
     teacher_parts(card, teacher, images, regions)
@@ -4971,19 +5219,20 @@ def check_auction(card: str, dev: torch.device) -> dict:
 
 @contextlib.contextmanager
 def plain_spy():
-    """Count the calls of the plain scatter, auction, RoIAlign and attention
-    pool while the block runs (a Counter by name): none may run on the
+    """Count the calls of the plain scatter, auction, RoIAlign, attention
+    pool, normalisation and quantise pass while the block runs (a Counter by name): none may run on the
     card's main path.  (The first auction design has a launch counter of its
     own, "auction_first".)"""
     from ov3det_torch.ops import roi_align
-    from ov3det_torch.ops.kernels import attn_pool, auction, ball_group
+    from ov3det_torch.ops.kernels import attn_pool, auction, ball_group, normalise, quant_conv
 
     calls = collections.Counter()
     targets = [(torch.Tensor, "index_put_"), (torch.Tensor, "index_add_"),
                (ball_group, "_scatter"), (auction, "auction_phases_plain"),
                (auction, "auction_lap_plain"), (roi_align, "roi_align_plain"),
                (roi_align, "roi_align_einsum"), (attn_pool, "pool_tokens_plain"),
-               (attn_pool, "pool_attend_plain")]
+               (attn_pool, "pool_attend_plain"), (normalise, "normalise_plain"),
+               (quant_conv, "pool_quantize_plain")]
     originals = [(obj, name, getattr(obj, name)) for obj, name in targets]
 
     def counted(name, fn):
@@ -5071,8 +5320,9 @@ def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
     require(not bad, f"{label}: graphed and eager state differs in {bad[:4]}")
     print(f"{label}: {GRAPH_STEPS} graphed steps equal the eager ones bit for bit (losses, "
           f"grad_norm, {len(g_s)} parameters, buffers and Adam moments), and neither called "
-          f"index_put_, index_add_, _scatter, the plain auction, the plain RoIAlign or the plain "
-          f"attention pool (a spy); step time (host clock "
+          f"index_put_, index_add_, _scatter, the plain auction, the plain RoIAlign, the plain "
+          f"attention pool, the plain normalisation or the plain quantise pass (a spy); step time "
+          f"(host clock "
           f"to a sync, {TIMED_STEPS} steps) graphed median {np.median(times[True]):.2f} ms "
           f"({min(times[True]):.2f} to {max(times[True]):.2f}), eager median "
           f"{np.median(times[False]):.2f} ms ({min(times[False]):.2f} to {max(times[False]):.2f}); "
@@ -5194,6 +5444,142 @@ def packed_phase(card: str, dev: torch.device) -> tuple:
     print(f"phase 14 (the packed transfer, the graphed step, the auction): "
           f"{time.perf_counter() - t_phase:.1f} s")
     return entry, [sun_counts, g_counts, s_counts]
+
+
+# ------------------------------------------------------------ phase 16: the port learns
+LEARN_STEPS, LEARN_BATCHES, LEARN_EVAL_SEEDS = 300, 25, (100, 101)
+LEARN_ITERS_PER_EPOCH = 40  # the learning-rate schedule's epoch, as the JAX test sets it
+LEARN_POINTS, LEARN_CLASSES = 768, 3
+
+
+def learning_config():
+    """The config of the JAX package's learning check (`tests/
+    test_e2e_learning.py`) and of its twin `tests/test_torch_e2e_learning.py`,
+    field for field: a 2 x 64 vanilla encoder (its attention on the plain
+    path: 128 tokens, where JAX's dispatch keeps XLA), a 2 x 64 decoder, 32
+    queries, 3 classes whose sizes differ, f32."""
+    from ov3det_torch.config import (
+        DecoderConfig,
+        EncoderConfig,
+        LossConfig,
+        MatcherConfig,
+        ModelConfig,
+        OptimConfig,
+        TrainConfig,
+    )
+
+    return TrainConfig(
+        model=ModelConfig(
+            encoder=EncoderConfig(num_layers=2, dim=64, ffn_dim=64, masking_radius=(0.16, 0.64)),
+            decoder=DecoderConfig(num_layers=2, dim=64, ffn_dim=64), preenc_npoints=128,
+            num_queries=32, preenc_mlp=(32, 64, 64), num_semcls=LEARN_CLASSES, num_angle_bin=1,
+            clip_embed_dim=64, mlp_dropout=0.0),
+        loss=LossConfig(matcher=MatcherConfig(cost_class=1, cost_objectness=5, cost_center=5,
+                                              cost_giou=2),
+                        giou_weight=1.0, center_weight=5.0, giou_compute_dtype="float32"),
+        optim=OptimConfig(base_lr=1.5e-3, warm_lr_epochs=1, clip_gradient=0.1),
+        max_epoch=10)
+
+
+def learning_batches(seeds) -> list:
+    """The JAX test's numpy batches: 4 `make_batch` scenes of 768 points and
+    3 boxes each, from `default_rng(seed)`."""
+    from ov3det_torch.datasets.synthetic import make_batch
+
+    return [make_batch(np.random.default_rng(s), batch_size=4, num_points=LEARN_POINTS,
+                       num_semcls=LEARN_CLASSES, num_angle_bin=1, num_boxes=3) for s in seeds]
+
+
+def learned_ap(eval_step, num_semcls: int, batches: list, dev: torch.device) -> float:
+    """mAP@0.25 of `eval_step` (the graphed eval) on numpy `batches`, as the
+    JAX test measures it (`exact_eval=False`)."""
+    from ov3det_torch.engine.train import batch_to_device
+    from ov3det_torch.eval.ap_calculator import APCalculator
+
+    calc = APCalculator(ap_iou_thresh=[0.25], exact_eval=False,
+                        dataset_config=type("C", (), {"num_semcls": num_semcls})())
+    for b in batches:
+        t = batch_to_device(b, dev)
+        calc.step_meter(eval_step(t), t)
+    return calc.compute_metrics()[0.25]["mAP"]
+
+
+def learn(card: str, dev: torch.device, label: str, cfg, batches: list, eval_batches: list,
+          per_step: dict, gate: bool) -> dict:
+    """LEARN_STEPS steps of `PackedStep` (graphed: step i replays on row
+    i mod len(batches), its dropout seeded `step_seed(0, i)`) from the seeded
+    initialisation, the schedule's epoch LEARN_ITERS_PER_EPOCH steps; each
+    step launches `per_step` (replays counted) and every loss is finite.
+    With `gate`, the JAX test's thresholds on the losses of steps 0, 100 and
+    200 and on mAP@0.25 of `eval_batches` before and after:
+    losses[-1] < 0.65 losses[0], ap_after > max(0.10, ap_before + 0.08).
+    Returns the launch counts of the steps."""
+    from ov3det_torch.datasets.loader import pack_batch
+    from ov3det_torch.engine.train import build_training
+
+    packed = [pack_batch(b) for b in batches]
+    metas = packed[0][1]
+    require(all(m == metas for _, m in packed), f"{label}: the batches' layouts differ")
+    rows = torch.from_numpy(np.stack([buf for buf, _ in packed])).to(dev)
+    training = build_training(cfg, LEARN_ITERS_PER_EPOCH, device=dev, seed=0)
+    ap_before = learned_ap(training.eval_step, cfg.model.num_semcls, eval_batches, dev)
+    step = counted_packed_step()(training, 0, dev)
+    require(step.graph, f"{label}: the step must replay a CUDA graph on the card")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(LEARN_STEPS):
+        metrics, _ = step(rows[i % rows.shape[0]], metas, i)
+        losses.append(metrics["loss"].clone())  # a replay overwrites the static outputs
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: LEARN_STEPS * v for k, v in per_step.items()}
+    require(counts == want, f"{label}: {LEARN_STEPS} steps launched {counts}, expected {want}")
+    losses = torch.stack(losses).float().cpu().numpy()
+    ap_after = learned_ap(training.eval_step, cfg.model.num_semcls, eval_batches, dev)
+    at = [float(losses[i]) for i in range(0, LEARN_STEPS, 100)]
+    trajectory = [round(float(losses[i]), 4) for i in range(0, LEARN_STEPS, 25)]
+    print(f"{label}: {LEARN_STEPS} graphed steps in {wall:.2f} s; loss every 25 steps "
+          f"{trajectory}, at steps 0, 100, 200 {[round(x, 4) for x in at]}, the last "
+          f"{losses[-1]:.4f}; mAP@0.25 on {len(eval_batches)} held-out batches {ap_before:.4f} "
+          f"before, {ap_after:.4f} after ({card})")
+    require(bool(np.isfinite(losses).all()), f"{label}: a loss is not finite: {trajectory}")
+    if gate:
+        require(at[-1] < 0.65 * at[0], f"{label}: the loss fell from {at[0]} to {at[-1]}, not below "
+                                       f"0.65 of it")
+        require(ap_after > max(0.10, ap_before + 0.08),
+                f"{label}: mAP@0.25 {ap_before} -> {ap_after}, not above max(0.10, before + 0.08)")
+        print(f"{label}: passes the JAX test's thresholds (the loss at step 200 below 0.65 of "
+              f"step 0's: {at[-1]:.4f} < {0.65 * at[0]:.4f}; mAP@0.25 {ap_after:.4f} > "
+              f"{max(0.10, ap_before + 0.08):.4f})")
+    del training, step, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def learning_phase(card: str, dev: torch.device) -> list:
+    """Phase 16: the JAX package's learning check on the card through the
+    graphed `PackedStep`, gated at its thresholds (`learn`); then
+    LEARN_STEPS graphed steps at `sunrgbd_quick()`'s full width (bf16, 8
+    `make_batch` scenes x 20 000 points, LEARN_BATCHES batches cycled), every
+    loss finite, the trajectory and mAP@0.25 printed (no AP gate: no JAX run
+    calibrates one at that width).  Returns the launch counts of both runs."""
+    from ov3det_torch.config import sunrgbd_quick
+
+    t_phase = time.perf_counter()
+    tiny = learn(card, dev, "learning check (the JAX test's config)", learning_config(),
+                 learning_batches(range(LEARN_BATCHES)), learning_batches(LEARN_EVAL_SEEDS),
+                 expect(fps=2, ball_group=1, auction=1), gate=True)
+    sun = sunrgbd_quick()
+    wide = learn(card, dev, "learning run (sunrgbd_quick width)", sun,
+                 synthetic_batches(sun, LEARN_BATCHES, 2200), synthetic_batches(sun, 2, 2300),
+                 expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+                        auction=1), gate=False)
+    print(f"phase 16 (the port learns): {time.perf_counter() - t_phase:.1f} s")
+    return [tiny, wide]
 
 
 NMS_THRESH = 0.25  # the eval's IoU of NMS (`get_ap_config_dict`)
@@ -5690,6 +6076,7 @@ def main() -> int:
     ddp_counts = ddp_phase(card, dev, ov_waits)
     image_counts = images_phase(card, dev)
     entries["auction"], packed_counts = packed_phase(card, dev)
+    learning_counts = learning_phase(card, dev)
     entries.update(eval_phase(card, dev, {"sunrgbd": sun_nms, "scannet_masked": masked_nms}))
     del sun_nms, masked_nms
 
@@ -5698,7 +6085,8 @@ def main() -> int:
             "ov calibration": calibration, "ov cli": ov_cli_counts, "pseudo": pseudo_counts,
             **{f"ddp {i}": c for i, c in enumerate(ddp_counts)},
             **{f"images {i}": c for i, c in enumerate(image_counts)},
-            **{f"packed {i}": c for i, c in enumerate(packed_counts)}}
+            **{f"packed {i}": c for i, c in enumerate(packed_counts)},
+            **{f"learning {i}": c for i, c in enumerate(learning_counts)}}
     print("launches by run: " + json.dumps({label: {n: c for n, c in counts.items() if c}
                                             for label, counts in runs.items()}))
     int_mm = {label: counts["int_mm"] for label, counts in runs.items() if counts.get("int_mm")}

@@ -82,7 +82,7 @@
 // F.avg_pool2d's order ((0,0), (0,1), (1,0), (1,1), from 0), then divided by 4
 // and rounded to the input type.  Bound by its bytes (the input read once, the
 // outputs written once: 0.975 ms over a teacher forward's 18 calls).  The
-// redesign (`pool_quantize_vec<T, POOL, VEC>`, every tensor below 2^31
+// redesign (`pool_quantize_vec<T, POOL, VEC, AFFINE>`, every tensor below 2^31
 // elements): 16 channels a thread (8 where C at POOL 2, or the tensor at
 // POOL 1, is not a multiple of 16), every
 // 16-byte load of a thread issued before its first add, as streaming loads
@@ -92,6 +92,14 @@
 // reciprocal with the exact fall-back (`codes_q8_fast`; the division out of
 // line, `codes_q8_exact`, for the values within 2^-14 of a half-integer
 // alone), 16-byte stores; a grid of one wave, the CTAs the SMs hold at once.
+// With AFFINE (`ov3_pool_quantize_affine`, POOL 1: the stem's conv1 output),
+// the stem's bn1 and ReLU run on each value between the load and the
+// quantise (`bn_relu`, in the input type as the module path rounds them; w
+// and b staged in shared memory, the channel a value, a piece crossing
+// pixels at C 40): conv1's output is read once, and the bf16 tensor that
+// bn1, the ReLU and the pass read and wrote in turn is never stored.  Bound
+// by its bytes: 61.9 MB of bf16 in, 31.0 MB of int8 out at the OV batch,
+// 27.7 us at 3.35 TB/s.
 // The first design
 // (`pool_quantize_kernel<T, POOL>`, `ov3_pool_quantize_first`): 8 channels a
 // thread, 64-bit flat indices split by division, IEEE divisions in the pool
@@ -112,6 +120,7 @@ constexpr int kStages = 4;
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxDevices = 64;
 constexpr int kPoolThreads = 256;
+constexpr int kAffineMaxC = 2048;  // channels of the pass's affine, AFFINE_MAX_C
 
 int opted_in[kMaxDevices] = {0};
 int sm_count[kMaxDevices] = {0};
@@ -137,6 +146,7 @@ struct Io<__nv_bfloat16> {
   static __device__ __forceinline__ float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
+  static __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
   static __device__ __forceinline__ void store2(void* p, int64_t i, float a, float b) {
     *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p) + i) =
         __floats2bfloat162_rn(a, b);
@@ -173,6 +183,7 @@ struct Io<__nv_bfloat16> {
 template <>
 struct Io<float> {
   static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ float to_float(float v) { return v; }
   static __device__ __forceinline__ void store2(void* p, int64_t i, float a, float b) {
     *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
   }
@@ -548,7 +559,7 @@ pool_quantize_kernel(const T* __restrict__ x, int B, int H, int W, int C, const 
 }
 
 // ------------------------------------------------------------ the pass, redesigned
-// (`pool_quantize_vec<T, POOL, VEC>`: see the note at the head of the file)
+// (`pool_quantize_vec<T, POOL, VEC, AFFINE>`: see the note at the head of the file)
 
 // Division by a run-time constant d >= 1 of an n below 2^31, without a
 // division: q = umulhi(n, m) >> s with l = ceil(log2 d), m = ceil(2^(31 + l) /
@@ -572,7 +583,37 @@ struct PassArgs {
   uint32_t items;       // the outputs' VEC-channel pieces
   uint32_t H, W, C;
   FastDiv groups, wo, ho;  // by C / VEC, W / POOL, H / POOL (POOL 2)
+  const void* w;        // AFFINE: (C,) T, the per-channel factor
+  const void* b;        // AFFINE: (C,) T, the per-channel offset
+  FastDiv chans;        // AFFINE: by C, the channel of a flat index
 };
+
+// AFFINE (POOL 1, the stem's bn1 and ReLU before its quantise): the pieces'
+// values at channels c0, c0 + 1, ... (mod C) through FrozenBatchNorm's affine
+// and torch.relu in T, as the module path computes them: bf16 rounds the
+// product and then the sum (x * w, + b: two torch ops), f32 takes the
+// product and the sum each rounded (no contracted multiply-add); the ReLU
+// keeps NaN (`y < 0 ? 0 : y`, not fmaxf).  Then a NaN goes to the quantise
+// as 0: the plain version's int8 conversion gives a NaN the code 0 (torch's
+// and XLA's alike), which `codes_q8_fast` would make -127 (its fmaxf; the
+// pass without the affine and the conv's epilogue keep that, PERF.md's open
+// questions).  wb: w then b of the C channels, as f32 in shared
+// memory.  A piece of VEC values crosses pixels wherever C is not a
+// multiple of VEC (C 40 at the stem), so the channel advances a value,
+// wrapping at C.
+template <typename T, int VEC>
+__device__ __forceinline__ void bn_relu(float (&v)[VEC / 8][8], const float* wb, uint32_t C,
+                                        uint32_t c0) {
+  uint32_t c = c0;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    float y = Io<T>::round(__fmul_rn(v[e / 8][e % 8], wb[c]));
+    y = Io<T>::round(__fadd_rn(y, wb[C + c]));
+    y = y < 0.f ? 0.f : y;
+    v[e / 8][e % 8] = y == y ? y : 0.f;  // the code of NaN: 0
+    c = c + 1 == C ? 0 : c + 1;
+  }
+}
 
 // VEC values of type T from 16-byte chunks, loaded as streaming (evict-first)
 template <typename T, int VEC>
@@ -651,9 +692,18 @@ __device__ __forceinline__ void store_codes(int8_t* q, const float (&v)[VEC / 8]
   }
 }
 
-template <typename T, int POOL, int VEC>
+template <typename T, int POOL, int VEC, bool AFFINE>
 __global__ void __launch_bounds__(kPoolThreads)
 pool_quantize_vec(const PassArgs p) {
+  static_assert(!AFFINE || POOL == 1, "the affine and ReLU run before a quantise without a pool");
+  extern __shared__ float pass_affine[];  // AFFINE: w, then b, of the C channels (2 C floats)
+  if constexpr (AFFINE) {
+    for (uint32_t c = threadIdx.x; c < p.C; c += kPoolThreads) {
+      pass_affine[c] = Io<T>::to_float(static_cast<const T*>(p.w)[c]);
+      pass_affine[p.C + c] = Io<T>::to_float(static_cast<const T*>(p.b)[c]);
+    }
+    __syncthreads();
+  }
   const float s0 = *p.s0;
   const float s1 = p.q1 != nullptr ? *p.s1 : 1.f;
   const float r0 = __frcp_rn(s0), r1 = __frcp_rn(s1);
@@ -668,6 +718,7 @@ pool_quantize_vec(const PassArgs p) {
       Piece<T, VEC> piece;
       piece.load(x + out);
       piece.unpack(v);
+      if constexpr (AFFINE) bn_relu<T, VEC>(v, pass_affine, p.C, out - p.chans.div(out) * p.C);
     } else {
       const uint32_t pix = p.groups.div(t), g = t - pix * p.groups.d;
       const uint32_t bho = p.wo.div(pix), wo = pix - bho * p.wo.d;
@@ -1316,24 +1367,54 @@ int pass_sms[kMaxDevices] = {0};
 // was slower, scripts/pool_quantize_parts.py), and a grid of at most the CTAs the SMs hold at
 // once (the occupancy of the instantiation, asked once a device), each
 // thread taking pieces a grid apart: one wave, no tail.
-template <typename T, int POOL, int VEC>
+// (AFFINE: 2 C floats of dynamic shared memory, C at most kAffineMaxC; the
+// occupancy asked at that most)
+template <typename T, int POOL, int VEC, bool AFFINE = false>
 cudaError_t launch_vec(const PassArgs& a, int dev, cudaStream_t stream) {
   static int per_sm[kMaxDevices] = {0};
+  const size_t most_smem = AFFINE ? 2 * kAffineMaxC * sizeof(float) : 0;
   if (per_sm[dev] == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm[dev], pool_quantize_vec<T, POOL, VEC>, kPoolThreads, 0);
+        &per_sm[dev], pool_quantize_vec<T, POOL, VEC, AFFINE>, kPoolThreads, most_smem);
     if (e != cudaSuccess) return e;
   }
   const uint32_t want = (a.items + kPoolThreads - 1) / kPoolThreads;
   const uint32_t most = static_cast<uint32_t>(pass_sms[dev]) * per_sm[dev];
   const uint32_t blocks = want < most ? want : most;
-  pool_quantize_vec<T, POOL, VEC><<<blocks, kPoolThreads, 0, stream>>>(a);
+  const size_t smem = AFFINE ? 2 * a.C * sizeof(float) : 0;
+  pool_quantize_vec<T, POOL, VEC, AFFINE><<<blocks, kPoolThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int POOL>
+template <typename T, int POOL, bool AFFINE = false>
 cudaError_t launch_pass(const PassArgs& a, int vec, int dev, cudaStream_t stream) {
-  return vec == 16 ? launch_vec<T, POOL, 16>(a, dev, stream) : launch_vec<T, POOL, 8>(a, dev, stream);
+  return vec == 16 ? launch_vec<T, POOL, 16, AFFINE>(a, dev, stream)
+                   : launch_vec<T, POOL, 8, AFFINE>(a, dev, stream);
+}
+
+// The redesigned pass's arguments for (B, H, W, C) at `pool`, and the device's
+// SM count read once; returns a cudaError_t.
+cudaError_t pass_args(const void* x, int B, int H, int W, int C, int pool, const float* s0,
+                      const float* s1, int8_t* q0, int8_t* q1, int* dev, int* vec_out, PassArgs* a) {
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return e;
+  if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (pass_sms[*dev] == 0) {
+    e = cudaDeviceGetAttribute(&pass_sms[*dev], cudaDevAttrMultiProcessorCount, *dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int64_t elements = static_cast<int64_t>(B) * H * W * C;
+  const int Ho = H / pool, Wo = W / pool;
+  const int vec = (pool == 1 ? elements % 16 : C % 16) == 0 ? 16 : 8;
+  const int64_t outputs = static_cast<int64_t>(B) * Ho * Wo * C;
+  *vec_out = vec;
+  *a = PassArgs{x, s0, s1, q0, q1, static_cast<uint32_t>(outputs / vec), static_cast<uint32_t>(H),
+                static_cast<uint32_t>(W), static_cast<uint32_t>(C),
+                // (POOL 1 reads no pixel: C / VEC may be 0 there, C 8 at VEC 16)
+                make_fast_div(static_cast<uint32_t>(pool == 1 ? 1 : C / vec)),
+                make_fast_div(static_cast<uint32_t>(Wo)), make_fast_div(static_cast<uint32_t>(Ho)),
+                nullptr, nullptr, make_fast_div(static_cast<uint32_t>(C))};
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1351,27 +1432,37 @@ extern "C" int ov3_pool_quantize(const void* x, int B, int H, int W, int C, int 
   const int64_t elements = static_cast<int64_t>(B) * H * W * C;
   if (elements >= (int64_t{1} << 31))
     return launch_pool_first(x, B, H, W, C, pool, in_f32, s0, s1, q0, q1, stream);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int dev = 0, vec = 16;
+  PassArgs a;
+  const cudaError_t e = pass_args(x, B, H, W, C, pool, s0, s1, q0, q1, &dev, &vec, &a);
   if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (pass_sms[dev] == 0) {
-    e = cudaDeviceGetAttribute(&pass_sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
-  const int Ho = H / pool, Wo = W / pool;
-  const int vec = (pool == 1 ? elements % 16 : C % 16) == 0 ? 16 : 8;
-  const int64_t outputs = static_cast<int64_t>(B) * Ho * Wo * C;
-  PassArgs a{x, s0, s1, q0, q1, static_cast<uint32_t>(outputs / vec), static_cast<uint32_t>(H),
-             static_cast<uint32_t>(W), static_cast<uint32_t>(C),
-             make_fast_div(static_cast<uint32_t>(C / vec)), make_fast_div(static_cast<uint32_t>(Wo)),
-             make_fast_div(static_cast<uint32_t>(Ho))};
   if (in_f32) {
     return pool == 1 ? launch_pass<float, 1>(a, vec, dev, stream)
                      : launch_pass<float, 2>(a, vec, dev, stream);
   }
   return pool == 1 ? launch_pass<__nv_bfloat16, 1>(a, vec, dev, stream)
                    : launch_pass<__nv_bfloat16, 2>(a, vec, dev, stream);
+}
+
+// The pass at pool 1 with the stem's bn1 and ReLU before the quantise: each
+// value y = relu(x * w[c] + b[c]) in x's type (w, b: (C,) of that type on
+// the device, C at most kAffineMaxC), then quantised as above.  The
+// redesigned pass alone: B H W C below 2^31.  Returns a cudaError_t.
+extern "C" int ov3_pool_quantize_affine(const void* x, int B, int H, int W, int C, int in_f32,
+                                        const void* w, const void* b, const float* s0,
+                                        const float* s1, int8_t* q0, int8_t* q1,
+                                        cudaStream_t stream) {
+  if (!pool_args_ok(B, H, W, C, 1, s0, s1, q0, q1) || w == nullptr || b == nullptr ||
+      C > kAffineMaxC || static_cast<int64_t>(B) * H * W * C >= (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  int dev = 0, vec = 16;
+  PassArgs a;
+  const cudaError_t e = pass_args(x, B, H, W, C, 1, s0, s1, q0, q1, &dev, &vec, &a);
+  if (e != cudaSuccess) return e;
+  a.w = w;
+  a.b = b;
+  return in_f32 ? launch_pass<float, 1, true>(a, vec, dev, stream)
+                : launch_pass<__nv_bfloat16, 1, true>(a, vec, dev, stream);
 }
 
 // The same on the first design (`pool_quantize_kernel`) whatever the shape:

@@ -61,6 +61,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ov3det_torch.config import LossConfig, OptimConfig, TrainConfig
 from ov3det_torch.datasets.loader import unpack_batch, yuv420_decode_rows
@@ -228,7 +229,10 @@ def make_train_step(model: Model3DETR, optimizer: AdamW, loss_cfg: LossConfig,
     teacher_fn: `(batch, outputs) -> (B, Q, C) or (L, B, Q, C)` frozen
     2D-teacher region features for the 2D-alignment loss
     (`models.regionclip.make_teacher_fn`); it runs between the forward and
-    the criterion, inside a profiler range named "teacher".
+    the criterion, inside a profiler range named "teacher".  The step's
+    other stages are profiler ranges too: "forward", "criterion",
+    "backward" (autograd's kernels launch from its own threads) and
+    "optimizer".
     image_bank: (bank, (H, W)) when the batches carry `image_ref` in place
     of the canvases (`decode_banked_images`, inside the teacher's range).
     metrics: the criterion's loss dict plus `grad_norm`, the global norm
@@ -245,25 +249,29 @@ def make_train_step(model: Model3DETR, optimizer: AdamW, loss_cfg: LossConfig,
                    mark: Optional[Callable[[str], None]] = None, staged: bool = False) -> dict:
         mark = mark or (lambda _: None)
         model.train()
-        outputs = model({k: batch[k] for k in INPUT_KEYS}, generator)
+        with record_function("forward"):
+            outputs = model({k: batch[k] for k in INPUT_KEYS}, generator)
         mark("forward")
         teacher_feats = None
         if teacher_fn is not None:
-            with torch.profiler.record_function("teacher"):
+            with record_function("teacher"):
                 if image_bank is not None:
                     batch = decode_banked_images(batch, image_bank)
                 teacher_feats = teacher_fn(batch, outputs)
             mark("teacher")
-        total, loss_dict = set_criterion(outputs, batch, loss_cfg, num_angle_bin=num_angle_bin,
-                                         num_semcls=num_semcls, teacher_feats=teacher_feats)
+        with record_function("criterion"):
+            total, loss_dict = set_criterion(outputs, batch, loss_cfg, num_angle_bin=num_angle_bin,
+                                             num_semcls=num_semcls, teacher_feats=teacher_feats)
         mark("criterion")
-        optimizer.zero_grad()
-        total.backward()
+        with record_function("backward"):
+            optimizer.zero_grad()
+            total.backward()
         mark("backward")
         if data_group() is not None:  # the global gradient, on every rank
             all_reduce_grads(optimizer.params)
             mark("all_reduce")
-        grad_norm = optimizer.apply() if staged else optimizer.step()
+        with record_function("optimizer"):
+            grad_norm = optimizer.apply() if staged else optimizer.step()
         mark("optimizer")
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = grad_norm

@@ -35,8 +35,9 @@ keeps 10 bits.
 With `fused` (the default) a "folded" tower runs as a chain
 (`run_blocks`): each conv's kernel epilogue carries its block's residual
 and ReLU and quantises its output for the next conv, and `pool_quantize`
-quantises what no epilogue can (the stem's conv1 output, the pooled inputs
-of the anti-aliased blocks and the RoI features), so that no activation
+quantises what no epilogue can (the stem's conv1 output, with bn1 and the
+ReLU in the same pass, the pooled inputs of the anti-aliased blocks and the
+RoI features), so that no activation
 passes between convs in bf16 that only a quantise reads.  Every op is the
 unfused path's in the same order, so both give the same bits.  `fused=False`
 keeps the unfused module path (`QuantConv.forward` on each conv: torch's
@@ -85,12 +86,20 @@ class FrozenBatchNorm(nn.Module):
         for name, fill in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0), ("var", 1.0)):
             self.register_buffer(name, torch.full((channels,), fill))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self) -> tuple:
+        """(w, b), computed in f32 from the statistics and cast once to the
+        compute dtype: the module path's and the stem's folded pass's."""
         inv = torch.rsqrt(self.var + self.epsilon)
         w = self.scale * inv
         b = self.bias - self.mean * inv * self.scale
         if self.dtype is not None:
-            w, b, x = w.to(self.dtype), b.to(self.dtype), x.to(self.dtype)
+            w, b = w.to(self.dtype), b.to(self.dtype)
+        return w, b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.affine()
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         return x * w + b
 
 
@@ -275,11 +284,15 @@ def run_blocks(blocks: Sequence[Bottleneck], x: Optional[torch.Tensor],
 class ModifiedResNetStem(nn.Module):
     """conv1 stays a plain conv in the compute dtype even in int8 mode (its
     3-channel normalised input has a per-channel std that no per-tensor
-    scale folds), so its bn1 stays a live module under quant "folded"."""
+    scale folds), so its bn1 stays a live module under quant "folded".  In
+    the chain (`chained`: quant "folded", fused) bn1 and the ReLU run inside
+    the quantise pass that feeds conv2 (`pool_quantize(..., affine=)`):
+    `first` is conv1 alone there."""
 
     def __init__(self, width: int, dtype=None, quant=None, fused: bool = True):
         super().__init__()
         w = width
+        self.chained = quant == "folded" and fused
         self.conv1 = Conv(3, w // 2, 3, stride=2, padding=1, dtype=dtype)
         self.bn1 = FrozenBatchNorm(w // 2, dtype)
         self.conv2 = trunk_conv(quant, dtype, w // 2, w // 2, 3, padding=1, fused=fused)
@@ -288,15 +301,17 @@ class ModifiedResNetStem(nn.Module):
         self.bn3 = _bn(quant, w, dtype)
 
     def first(self, x: torch.Tensor) -> torch.Tensor:
-        """conv1, bn1 and the ReLU: the stem's part outside the int8 chain."""
-        return torch.relu(self.bn1(self.conv1(x)))
+        """The stem's part outside the int8 chain: conv1, then bn1 and the
+        ReLU unless `chained` (the chain's first pass runs them)."""
+        h = self.conv1(x)
+        return h if self.chained else torch.relu(self.bn1(h))
 
     def chain(self, h: torch.Tensor, next_scales: Sequence) -> list:
-        """The "folded" stem after `first` (h its output): the pooled output
-        quantised at each of `next_scales` (layer1's first block's
-        `in_scales()`)."""
+        """The "folded" stem after `first` (h conv1's output): bn1 and the
+        ReLU in conv2's quantise pass, then the pooled output quantised at
+        each of `next_scales` (layer1's first block's `in_scales()`)."""
         c2, c3 = self.conv2, self.conv3
-        hq = pool_quantize(h, 1, (c2.a_scale,))[0]
+        hq = pool_quantize(h, 1, (c2.a_scale,), affine=self.bn1.affine())[0]
         _, hq = c2.conv(hq, c2.a_scale, relu=True, s_next=c3.a_scale, out=False)
         h, _ = c3.conv(hq, c3.a_scale, relu=True)
         return pool_quantize(h, 2, next_scales)

@@ -30,6 +30,7 @@ from torch.profiler import record_function
 
 from ov3det_torch.device import resolve_device
 from ov3det_torch.models.clip_resnet import CLIPResNetBackbone, CLIPResNetRes5Head, QuantConv
+from ov3det_torch.ops.kernels.normalise import normalise
 from ov3det_torch.ops.roi_align import roi_align_batched
 from ov3det_torch.utils.calibration import SunrgbdCalibration, project_boxes_to_image
 
@@ -110,16 +111,15 @@ class RegionCLIPTeacher(nn.Module):
     def forward(self, images: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """images (B, H, W, 3) RGB in [0, 255] (uint8 or float); boxes
         (B, Q, 4) [x1, y1, x2, y2] pixels -> (B, Q, embed_dim) f32.  Its parts
-        are profiler ranges: "normalise", "stem conv1" (conv1, bn1, ReLU),
-        "trunk" (the rest of the backbone), and a chunk's "roi_align", "res5"
-        and "attnpool"."""
+        are profiler ranges: "normalise", "stem conv1" (conv1, and bn1 and
+        the ReLU unless the int8 chain runs them in its first pass), "trunk"
+        (the rest of the backbone), and a chunk's "roi_align", "res5" and
+        "attnpool"."""
         B, Q = boxes.shape[:2]
         with record_function("normalise"):
-            # straight into the compute dtype: the canvas batch is the
-            # largest tensor the step reads
-            x = (images.float() - self.pixel_mean) * self.inv_std
-            if self.dtype is not None:
-                x = x.to(self.dtype)
+            # straight into the compute dtype, in one pass (a kernel on the
+            # card): the canvas batch is the largest tensor the step reads
+            x = normalise(images, self.pixel_mean, self.inv_std, self.dtype)
         with record_function("stem conv1"):
             h = self.backbone.stem.first(x)
         with record_function("trunk"):

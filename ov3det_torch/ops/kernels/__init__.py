@@ -2,8 +2,8 @@
 
 `fps`, `ball_group`, `attention`, `auction`, `nms`, `quant_conv`,
 `points_in_box`, `ball_query` (the first-K query), `roi_align` (the
-teacher's RoIAlign) and `attn_pool` (CLIP's attention pool: `pool_tokens`
-and `pool_attend`) each hold wrappers that launch their CUDA kernels
+teacher's RoIAlign), `attn_pool` (CLIP's attention pool: `pool_tokens`
+and `pool_attend`) and `normalise` (the teacher's input normalisation) each hold wrappers that launch their CUDA kernels
 (`ov3det_torch/csrc/*.cu`) for CUDA tensors and count the launches in a
 `launches` attribute (the attention wrappers count their radius variants
 in `radius_launches`); CPU tensors take the plain version in the same

@@ -16,7 +16,11 @@ input as it is, or after a 2 x 2 average pool (the anti-aliased stride-2
 blocks, the stem's output): `pool_quantize_vec` (16 channels a thread,
 32-bit indices, no division on the common path) for every tensor below
 2^31 elements (`pass_launch`), the first design (`pool_quantize_kernel`)
-above; `_impl="first"` keeps a CUDA call on the first design.
+above; `_impl="first"` keeps a CUDA call on the first design.  With
+`affine=(w, b)` (pool 1) the pass first runs the stem's bn1 and ReLU on each
+value, relu(x * w + b) in x's dtype (`ov3_pool_quantize_affine`, the
+`AFFINE` variant of `pool_quantize_vec`; counted apart, in
+`pool_quantize.affine_launches`).
 
 The plain versions (`quant_conv_plain`, `pool_quantize_plain`) are the
 unfused module path's torch ops in the same order (`int8_conv`: an im2col
@@ -40,6 +44,8 @@ REPLACES = ("ov3det/models/clip_resnet.py:99 (QuantConv.__call__: int8 conv_gene
             "and its dequant, XLA, not Pallas)")
 POOL_REPLACES = ("ov3det/models/clip_resnet.py:53 (_avg_pool) and :116 (QuantConv's quantise): "
                  "XLA, not Pallas")
+AFFINE_REPLACES = ("ov3det/models/clip_resnet.py:304 (ModifiedResNetStem: nn.relu of bn1 on "
+                   "conv1's output) and :116 (conv2's QuantConv quantise): XLA, not Pallas")
 
 
 def im2col_int8(xq: torch.Tensor, kernel_size: int, padding: int) -> torch.Tensor:
@@ -109,15 +115,29 @@ def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.avg_pool2d(x.permute(0, 3, 1, 2), k, k).permute(0, 2, 3, 1)
 
 
-def pool_quantize_plain(x: torch.Tensor, pool: int, scales: Sequence[torch.Tensor]) -> list:
+def affine_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """relu(x * w + b) in x's dtype, per channel (the last axis): the stem's
+    bn1 (`FrozenBatchNorm.forward` with its `affine()`) and ReLU as the
+    module path runs them."""
+    return torch.relu(x * w + b)
+
+
+def pool_quantize_plain(x: torch.Tensor, pool: int, scales: Sequence[torch.Tensor],
+                        affine: Optional[tuple] = None) -> list:
     """(B, H, W, C) -> one (B, H / pool, W / pool, C) int8 tensor a scale:
+    `affine_relu_plain(x, *affine)` when `affine` (pool 1 only),
     `avg_pool(x, pool)` when pool > 1, then each quantised at its scale."""
+    if affine is not None:
+        if pool != 1:
+            raise ValueError("pool_quantize: the affine and ReLU come with pool 1 only")
+        x = affine_relu_plain(x, *affine)
     if pool > 1:
         x = avg_pool(x, pool)
     return [quantize_plain(x, s) for s in scales]
 
 
 WGMMA_ROWS = 128  # output pixels a tile of the wgmma design
+AFFINE_MAX_C = 2048  # channels of the pass's affine, `kAffineMaxC` of the source
 
 
 def _route(c_in: int, c_out: int, k: int) -> str:
@@ -266,42 +286,65 @@ def _pass_entry(impl: Optional[str], on_cuda: bool) -> str:
 
 
 def pool_quantize(x: torch.Tensor, pool: int, scales: Sequence[torch.Tensor],
-                  _impl: Optional[str] = None) -> list:
+                  affine: Optional[tuple] = None, _impl: Optional[str] = None) -> list:
     """:func:`pool_quantize_plain`'s function for one or two scales: CUDA
     tensors (bf16 or f32, C a multiple of 8) launch the pass, one launch
     with no host wait, of the design `pass_launch` picks or, with
     `_impl="first"`, of the first design; CPU tensors take the plain
-    version."""
+    version.  `affine`, (w, b) of shape (C,) in x's dtype with C at most
+    AFFINE_MAX_C (pool 1, the routed design): relu(x * w + b) before the
+    quantise, in the same launch (the stem's bn1 and ReLU), counted in
+    `pool_quantize.affine_launches` in place of `.launches`."""
     if x.dim() != 4 or pool not in (1, 2) or len(scales) not in (1, 2):
         raise ValueError(f"pool_quantize expects (B, H, W, C), pool 1 or 2 and one or two "
                          f"scales, got {tuple(x.shape)}, {pool}, {len(scales)}")
+    if affine is not None:
+        w, b = affine
+        C = x.shape[-1]
+        if pool != 1 or _impl is not None:
+            raise ValueError("pool_quantize: the affine and ReLU run at pool 1 on the routed design")
+        if any(t.shape != (C,) or t.dtype != x.dtype or t.device != x.device for t in (w, b)):
+            raise ValueError(f"pool_quantize expects the affine's w and b ({C},) {x.dtype} on "
+                             f"{x.device}, got {[(tuple(t.shape), t.dtype, t.device) for t in (w, b)]}")
     entry = _pass_entry(_impl, x.device.type == "cuda")
     if x.device.type == "cpu":
-        return pool_quantize_plain(x, pool, scales)
+        return pool_quantize_plain(x, pool, scales, affine)
     if x.device.type != "cuda":
         raise ValueError(f"pool_quantize runs on cuda or cpu tensors, got {x.device}")
     B, H, W, C = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32) or C % 8 or H < pool or W < pool:
         raise ValueError(f"pool_quantize kernel takes bf16 or f32 with C a multiple of 8 and "
                          f"at least the pool, got {tuple(x.shape)} {x.dtype}")
+    if affine is not None and (C > AFFINE_MAX_C or x.numel() >= 2 ** 31):
+        raise ValueError(f"pool_quantize: the affine pass takes at most {AFFINE_MAX_C} channels "
+                         f"and fewer than 2^31 values, got {tuple(x.shape)}")
     dev = x.device
     ss = [_scalar(s, dev, "the scale") for s in scales]
     x = x.contiguous()
     _aligned(x)
     outs = [torch.empty((B, H // pool, W // pool, C), dtype=torch.int8, device=dev) for _ in ss]
     lib = _lib()
+    tail = (ss[0].data_ptr(), ss[1].data_ptr() if len(ss) > 1 else None, outs[0].data_ptr(),
+            outs[1].data_ptr() if len(ss) > 1 else None)
+    in_f32 = int(x.dtype == torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, entry)(
-            x.data_ptr(), B, H, W, C, pool, int(x.dtype == torch.float32), ss[0].data_ptr(),
-            ss[1].data_ptr() if len(ss) > 1 else None, outs[0].data_ptr(),
-            outs[1].data_ptr() if len(ss) > 1 else None, stream)
+        if affine is None:
+            status = getattr(lib, entry)(x.data_ptr(), B, H, W, C, pool, in_f32, *tail, stream)
+        else:
+            w, b = (t.contiguous() for t in affine)
+            status = lib.ov3_pool_quantize_affine(x.data_ptr(), B, H, W, C, in_f32, w.data_ptr(),
+                                                  b.data_ptr(), *tail, stream)
     _build.check(lib, status, "pool_quantize")
-    pool_quantize.launches += 1
+    if affine is None:
+        pool_quantize.launches += 1
+    else:
+        pool_quantize.affine_launches += 1
     return outs
 
 
 pool_quantize.launches = 0
+pool_quantize.affine_launches = 0
 
 
 def _aligned(*tensors) -> None:
@@ -321,6 +364,8 @@ _SIGNATURES = {
        for name in ("ov3_quant_conv", "ov3_quant_conv_mma")},
     **{name: ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5, ctypes.c_int)
        for name in ("ov3_pool_quantize", "ov3_pool_quantize_first")},
+    "ov3_pool_quantize_affine": ([ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7,
+                                 ctypes.c_int),
 }
 
 

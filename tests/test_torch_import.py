@@ -54,7 +54,7 @@ def test_importing_every_module_leaves_jax_out():
                  "datasets.image_utils", "ops.kernels", "ops.kernels.auction",
                  "ops.kernels.nms", "geometry.nms", "ops.kernels.quant_conv",
                  "ops.kernels.points_in_box", "ops.kernels.ball_query",
-                 "ops.kernels.roi_align", "ops.kernels.attn_pool"):
+                 "ops.kernels.roi_align", "ops.kernels.attn_pool", "ops.kernels.normalise"):
         assert f"ov3det_torch.{name}" in report["modules"]
     # importing the native IoU or the JPEG decoder neither builds nor loads
     # it: that waits for the first IoU of an evaluation, the first dataset
