@@ -68,6 +68,30 @@ at once), then:
   6. takes one training step at f32 with every dropout at 0 on one scene at
      full width, on the card and on the CPU from the same weights: matched
      masks equal, every loss within 1e-4 relative, grad_norm within 1e-3;
+     then (`check_bn_relu`) the set abstraction's shared MLP on one eager
+     step's own Dense outputs and incoming gradients (`record_sa`, every
+     width), of the bf16 step and of its f32 twin (dropout 0):
+     `bn_stats` within 1e-5 of the largest value of f64 sums, sums
+     and means; given the module's batch statistics and the running ones,
+     `bn_relu_apply` equal to its plain version (y's dtype at a hidden
+     width, the f32 max-pool), `bn_relu_grad_sums` within 1e-4 (q = grad /
+     ties equal), `bn_relu_grad_apply` within one bf16 ulp or 1e-3 of the
+     largest value (bf16) or 1e-4 (f32), every kernel's two launches equal;
+     the whole Function against the module chain's autograd (output, dy,
+     dweight, dbias, the running statistics; the f32 step's gradients
+     against the expression's VJP in f64, which the module's f32 autograd
+     misses by up to 6e-3 of the largest value, leaving out the units
+     whose maximum an ulp of the statistics moves, at most 1e-4 of them);
+     all slots of a unit tied and
+     NaN in y through the same gates; each kernel, its plain version, its
+     library call (`torch.batch_norm_stats`,
+     `torch.batch_norm_backward_reduce`), the kernels' and the module's
+     forward and forward + backward, and the pairs' library yardstick
+     (`F.batch_norm` + ReLU, `native_batch_norm_backward`) timed in turns
+     by graph replays beside the bound of the width's bytes.  A training
+     step launches each of the four kernels once a width (3 a SA module),
+     a request the apply pass alone; the first-K requests of phase 11 hold
+     their own eval-mode widths (slot axis 2) the same way;
   7. the masked-encoder ScanNet config (3DETR-m: `scannet_quick()` with
      `EncoderConfig(kind="masked", dropout=0.3)` and the matcher and loss
      weights of reference scripts/scannet_masked_ep1080.sh), at full width
@@ -108,7 +132,9 @@ at once), then:
        the ball-group twice, its pick pass and its scatter once and each
        radius kernel 3 times, with the stage
        split, peak memory and one profiled step; then one f32 step with
-       every dropout at 0 on one scene, card against CPU, as in 6;
+       every dropout at 0 on one scene, card against CPU, as in 6, and the
+       shared MLP's check of 6 on both SA modules (the pre-encoder and the
+       interim SA: 6 widths);
   8. the training CLI: `ov3det_torch.main.main(argv)` in this process on a
      fresh directory, `--dataset_name synthetic` at the full width of
      `scannet_quick()` (3 x 256 vanilla encoder, 8 x 256 decoder, 256
@@ -675,6 +701,7 @@ def kernel_counters() -> dict:
         auction,
         ball_group,
         ball_query,
+        bn_relu,
         fps,
         nms,
         normalise,
@@ -704,6 +731,8 @@ def kernel_counters() -> dict:
     counters["roi_align"] = (roi_align.roi_align, "launches")
     counters["pool_tokens"] = (attn_pool.pool_tokens, "launches")
     counters["pool_attend"] = (attn_pool.pool_attend, "launches")
+    for name in SA_KERNELS:
+        counters[name] = (getattr(bn_relu, name), "launches")
     counters["int_mm"] = (count_int_mm(), "launches")
     return counters
 
@@ -804,6 +833,7 @@ def kernel_sources() -> dict:
         auction,
         ball_group,
         ball_query,
+        bn_relu,
         fps,
         nms,
         normalise,
@@ -832,7 +862,23 @@ def kernel_sources() -> dict:
             "first_k": (ball_query.SOURCE, ball_query.REPLACES),
             "roi_align": (roi_align.SOURCE, roi_align.REPLACES),
             "pool_tokens": (attn_pool.SOURCE, attn_pool.TOKENS_REPLACES),
-            "pool_attend": (attn_pool.SOURCE, attn_pool.ATTEND_REPLACES)}
+            "pool_attend": (attn_pool.SOURCE, attn_pool.ATTEND_REPLACES),
+            "bn_stats": (bn_relu.SOURCE, bn_relu.STATS_REPLACES),
+            "bn_relu_apply": (bn_relu.SOURCE, bn_relu.APPLY_REPLACES),
+            "bn_relu_grad_sums": (bn_relu.SOURCE, bn_relu.GRAD_SUMS_REPLACES),
+            "bn_relu_grad_apply": (bn_relu.SOURCE, bn_relu.GRAD_APPLY_REPLACES)}
+
+
+# the set abstraction's shared MLP (`ops/kernels/bn_relu`): an SA module of
+# SA_WIDTHS widths launches all four kernels once a width in a training step,
+# the apply pass alone in eval mode (a request, an eval batch)
+SA_KERNELS = ("bn_stats", "bn_relu_apply", "bn_relu_grad_sums", "bn_relu_grad_apply")
+SA_WIDTHS = 3
+
+
+def sa(modules: int = 1, train: bool = True) -> dict:
+    """The shared MLP's launches of `modules` SA modules, for `expect`."""
+    return {n: SA_WIDTHS * modules for n in (SA_KERNELS if train else ("bn_relu_apply",))}
 
 
 def expect(**counts) -> dict:
@@ -1689,6 +1735,10 @@ OWN_KERNELS = {
     "roi_align": r"\broi_align_(?:rows|kernel)<",
     "pool_tokens": r"\bpool_tokens_kernel<",
     "pool_attend": r"\bpool_attend_(?:cluster|kernel|mma)<",
+    "bn_stats": (r"\bbn_stats_partial<", r"\bsums_finish<0>\("),
+    "bn_relu_apply": r"\bbn_relu_apply(?:_pooled)?<",
+    "bn_relu_grad_sums": (r"\bbn_grad_sums(?:_pooled)?<", r"\bsums_finish<1>\("),
+    "bn_relu_grad_apply": r"\bbn_grad_apply(?:_pooled)?<",
 }
 
 
@@ -2073,6 +2123,556 @@ def train_card_vs_cpu(base, label: str, seed: int) -> None:
           f"{m_cpu['grad_norm']:.5f} ({g_err:.2e})")
 
 
+# ------------------------------------------- the set abstraction's shared MLP
+SA_REPS = 3  # calls a timing graph of one shared-MLP pass
+SA_SUMS_REL = 1e-5  # sum y, sum y^2 and the means against f64 sums, of the largest value
+SA_GRAD_REL = 1e-4  # dweight and dbias (the backward's two sums), of the largest value
+SA_DY_REL = 1e-3  # dy: within one bf16 ulp, or this much of the largest value
+SA_OUT_REL = 1e-4  # the whole Function's f32 output against the module's, of the largest value
+SA_MOVED_SHARE = 1e-4  # an f32 pooled width: units whose maximum an ulp moved, at most this share
+SA_CHECKED = {}  # label -> check_bn_relu's result: every run whose widths were held
+
+
+@contextlib.contextmanager
+def spy_sa(model):
+    """`models.pointnet.bn_relu` spied on while the block runs: for each call
+    of `model`'s SA modules, in order, a dict of its module and width
+    (`name`), the Dense output `y`, the BatchNorm's `state` before the call
+    (weight, bias, running statistics), `eps` and mode (`training`), the
+    slot `axis` (None at a hidden width) and, from a hook on the output where
+    it takes a gradient, the gradient the backward handed it (`grad`)."""
+    from ov3det_torch.models import pointnet
+
+    names = {}
+    for module in ("pre_encoder", "interim_downsample"):
+        sa_module = getattr(model, module, None)
+        for i, norm in enumerate(sa_module.norms if sa_module is not None else ()):
+            names[id(norm)] = f"{module} width {i} ({norm.weight.shape[0]} channels)"
+    records, original = [], pointnet.bn_relu
+
+    def spy(y, norm, pool_axis=None):
+        rec = dict(name=names[id(norm)], y=y.detach().clone(), axis=pool_axis, eps=norm.eps,
+                   training=norm.training,
+                   state={k: v.detach().clone() for k, v in norm.state_dict().items()})
+        out = original(y, norm, pool_axis)
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__("grad", g.detach().clone()))
+        records.append(rec)
+        return out
+
+    pointnet.bn_relu = spy
+    try:
+        yield records
+    finally:
+        pointnet.bn_relu = original
+
+
+def record_sa(cfg, batch: dict, dev: torch.device) -> list:
+    """One eager training step of `cfg` (after a warm-up step) under
+    `spy_sa`: every width's records, each with its `grad`."""
+    from ov3det_torch.engine.train import batch_to_device, build_training
+
+    training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = batch_to_device(batch, dev)
+    training.train_step(b, gen)  # warm-up
+    with spy_sa(training.model) as records:
+        training.train_step(b, gen)
+    torch.cuda.synchronize()
+    require(all("grad" in r and r["training"] for r in records),
+            "record_sa: a width got no gradient")
+    del training
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+def record_sa_request(det, batch: dict) -> list:
+    """One request's eager forward (`Detector.eval_step`, the graphed
+    request's own function) under `spy_sa`: every width's records in eval
+    mode (the running statistics), with no gradient."""
+    from ov3det_torch.engine.infer import INPUT_KEYS
+
+    inputs = {k: torch.as_tensor(np.asarray(batch[k], np.float32)).to(det.device)
+              for k in INPUT_KEYS}
+    with spy_sa(det.model) as records:
+        det.eval_step(inputs)
+    torch.cuda.synchronize()
+    require(records and not any(r["training"] or "grad" in r for r in records),
+            "record_sa_request: expected eval-mode widths without gradients")
+    for rec in records:  # plain tensors, out of inference mode
+        rec["y"] = rec["y"].clone()
+        rec["state"] = {k: v.clone() for k, v in rec["state"].items()}
+    return records
+
+
+def sa_norm(rec: dict):
+    """A `BatchNorm` in the recorded state and mode on the record's
+    device."""
+    from ov3det_torch.models.mlp import BatchNorm
+
+    norm = BatchNorm(rec["y"].shape[-1], rec["eps"]).to(rec["y"].device)
+    norm.load_state_dict(rec["state"])
+    return norm.train(rec["training"])
+
+
+def values_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same dtype and shape, NaN positions, and values elsewhere (-0
+    equal to +0: the ReLU of either)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0))
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor, rows: bool = False) -> float:
+    """max |got - want| over max |want| (of each row of a (2, C) pair of sums
+    with `rows`); NaN positions must agree (else inf)."""
+    got, want = got.double(), want.double()
+    na, nw = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(na, nw):
+        return math.inf
+    got, want = got.masked_fill(na, 0), want.masked_fill(nw, 0)
+    if rows:
+        return max(rel_err(g, w) for g, w in zip(got, want))
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def dy_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """`bf16_ulps` of dy, floored at SA_DY_REL of the largest value, with
+    NaN positions equal (else inf)."""
+    na, nw = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(na, nw):
+        return math.inf
+    got, want = got.float().masked_fill(na, 0), want.float().masked_fill(nw, 0)
+    return bf16_ulps(got, want, floor=max(SA_DY_REL * want.abs().max().item(), 1e-30))
+
+
+def sa_vjp(fn, y: torch.Tensor, norm, axis, grad: torch.Tensor) -> tuple:
+    """(output, dy, dweight, dbias) of fn(y, norm, axis) with `grad`."""
+    yr = y.detach().clone().requires_grad_()
+    out = fn(yr, norm, axis)
+    dy, dw, db = torch.autograd.grad(out, [yr, norm.weight, norm.bias], grad.to(out.dtype))
+    return out.detach(), dy, dw, db
+
+
+def sa_bytes(y: torch.Tensor, axis) -> dict:
+    """The bytes each kernel must move at y's shape: each input read once,
+    each output written once (the per-channel vectors included, the partial
+    sums not)."""
+    C, e = y.shape[-1], y.element_size()
+    n = y.numel()
+    pooled = 0 if axis is None else n // y.shape[axis] * 4  # a (B, M, C) f32 tensor
+    vec = 4 * C
+    if axis is None:
+        return {"bn_stats": n * e + 2 * vec, "bn_relu_apply": 2 * n * e + 3 * vec,
+                "bn_relu_grad_sums": 2 * n * e + 6 * vec, "bn_relu_grad_apply": 3 * n * e + 7 * vec}
+    return {"bn_stats": n * e + 2 * vec, "bn_relu_apply": n * e + pooled + 3 * vec,
+            "bn_relu_grad_sums": n * e + 3 * pooled + 6 * vec,
+            "bn_relu_grad_apply": 2 * n * e + 2 * pooled + 7 * vec}
+
+
+# f32 operations an element of each kernel: the sums 3 (an add, a fused
+# square-add); the value 4 (sub, mul, add, the ReLU); the gradient's sums the
+# value, the mask and xhat (2) and their two sums (3); its apply the value,
+# the mask, xhat and the closed form (4)
+SA_OPS = {"bn_stats": 3, "bn_relu_apply": 5, "bn_relu_grad_sums": 10, "bn_relu_grad_apply": 11}
+
+
+def sa_dy_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """dy's error in units of its gate: bf16 ulps (`dy_ulps`) for bf16, the
+    share of SA_GRAD_REL of the largest value for f32; at most 1 passes."""
+    if got.dtype == torch.bfloat16:
+        return dy_ulps(got, want)
+    return rel_err(got, want) / SA_GRAD_REL
+
+
+def check_sa_record(rec: dict) -> dict:
+    """The kernels on one recorded width against their plain versions
+    (`check_bn_relu`); returns this width's errors.  A training record
+    holds all four, its backward at the batch statistics; an eval-mode
+    record (a request's: no gradient) the statistics and the forward."""
+    from ov3det_torch.models import pointnet
+    from ov3det_torch.ops.kernels import bn_relu as bk
+
+    y, axis, label = rec["y"], rec["axis"], rec["name"]
+    training, grad = rec["training"], rec.get("grad")
+    C = y.shape[-1]
+    P = y.numel() // C
+    dims = tuple(range(y.dim() - 1))
+    errs = {}
+
+    # the statistics: two launches equal, against f64 sums
+    s1, s2 = bk.bn_stats(y), bk.bn_stats(y)
+    x64 = y.double().reshape(-1, C)
+    ref = torch.stack([x64.sum(0), (x64 * x64).sum(0)])
+    require(bits_equal(s1, s2), f"bn_stats ({label}): two launches differ")
+    errs["sums"] = rel_err(s1, ref, rows=True)
+    errs["means"] = rel_err(s1 / P, ref / P, rows=True)
+    errs["plain sums"] = rel_err(bk.bn_stats_plain(y), ref, rows=True)
+    require(errs["sums"] <= SA_SUMS_REL and errs["means"] <= SA_SUMS_REL,
+            f"bn_stats ({label}): sums {errs['sums']:.2e}, means {errs['means']:.2e} of the largest "
+            f"value against f64 sums")
+    errs["bn_stats"] = (s1.double() - ref).abs().max().item()
+
+    # the apply pass given the module's own statistics (the batch's in
+    # training, and the running ones); the backward at the batch's
+    norm = sa_norm(rec)
+    stats = {"running": (norm.running_mean, norm.running_var, None)}
+    if training:
+        x = y.float()
+        mean = x.mean(dims)
+        var_raw = (x * x).mean(dims) - mean * mean
+        stats = {"batch": (mean, torch.clamp(var_raw, min=0.0), var_raw), **stats}
+    for which, (m, v, raw) in stats.items():
+        s = torch.rsqrt(v + norm.eps)
+        scale = s * norm.weight.detach()
+        bias = norm.bias.detach()
+        out, again = (bk.bn_relu_apply(y, m, scale, bias, axis) for _ in range(2))
+        want = bk.bn_relu_apply_plain(y, m, scale, bias, axis)
+        require(values_equal(out, want) and bits_equal(out, again),
+                f"bn_relu_apply ({label}, {which} statistics): the kernel differs from the plain "
+                "version or itself")
+        if which == "running":
+            errs.setdefault("bn_relu_apply", 0.0)
+            continue
+        errs["bn_relu_apply"] = 0.0
+        pooled = out if axis is not None else None
+        (sums, q), (sums2, q2) = (bk.bn_relu_grad_sums(y, grad, m, scale, bias, s, axis, pooled)
+                                  for _ in range(2))
+        want_sums, want_q = bk.bn_relu_grad_sums_plain(y, grad, m, scale, bias, s, axis, pooled)
+        require(bits_equal(sums, sums2) and (q is None or bits_equal(q, q2)),
+                f"bn_relu_grad_sums ({label}): two launches differ")
+        require(q is None or values_equal(q, want_q),
+                f"bn_relu_grad_sums ({label}): q = grad / ties differs from the plain version")
+        e_sums = rel_err(sums, want_sums, rows=True)
+        require(e_sums <= SA_GRAD_REL, f"bn_relu_grad_sums ({label}): {e_sums:.2e} of the largest "
+                                       "value")
+        dy, dy2 = (bk.bn_relu_grad_apply(y, grad, m, scale, bias, s, sums, float(P), raw, axis,
+                                         pooled, q) for _ in range(2))
+        want_dy = bk.bn_relu_grad_apply_plain(y, grad, m, scale, bias, s, sums, float(P), raw,
+                                              axis, pooled, q)
+        e_dy = sa_dy_err(dy, want_dy)
+        require(bits_equal(dy, dy2) and e_dy <= 1.0,
+                f"bn_relu_grad_apply ({label}): {e_dy:.2f} of its gate (one bf16 ulp or "
+                f"{SA_DY_REL} of the largest value in bf16, {SA_GRAD_REL} in f32), or two launches "
+                "differ")
+        errs["bn_relu_grad_sums"] = (sums - want_sums).abs().max().item()
+        errs["bn_relu_grad_apply"] = (dy.float() - want_dy.float()).abs().max().item()
+        errs["grad sums"], errs["dy"], errs["q"] = e_sums, e_dy, q
+
+    # the whole Function against the module chain (its autograd in training;
+    # an f32 record's gradients against the expression's VJP in f64)
+    na, nb = sa_norm(rec), sa_norm(rec)
+    kern = lambda t, n, a: pointnet.BnRelu.apply(t, n.weight, n.bias, n, a)  # noqa: E731
+    if training:
+        want = sa_vjp(pointnet.bn_relu_plain, y, na, axis, grad)
+        got = sa_vjp(kern, y, nb, axis, grad)
+    else:
+        with torch.no_grad():
+            want, got = (pointnet.bn_relu_plain(y, na, axis),), (kern(y, nb, axis),)
+    errs["chain out"] = dy_ulps(got[0], want[0]) if got[0].dtype == torch.bfloat16 else \
+        rel_err(got[0], want[0]) / SA_OUT_REL
+    errs["chain running"] = max(rel_err(nb.running_mean, na.running_mean),
+                                rel_err(nb.running_var, na.running_var))
+    gates = errs["chain out"] <= 1.0 and errs["chain running"] <= SA_SUMS_REL
+    if training and y.dtype == torch.bfloat16:
+        errs["chain dy"] = sa_dy_err(got[1], want[1])
+        errs["chain dweight"], errs["chain dbias"] = rel_err(got[2], want[2]), rel_err(got[3], want[3])
+    elif training:
+        ref, keep, errs["moved units"], units = sa_vjp64(rec)
+        errs["moved share"] = errs["moved units"] / units
+        errs["chain dy"] = rel_err(got[1][keep], ref[0][keep]) / SA_GRAD_REL
+        errs["module dy"] = rel_err(want[1][keep], ref[0][keep])
+        errs["chain dweight"], errs["chain dbias"] = rel_err(got[2], ref[1]), rel_err(got[3], ref[2])
+        gates = gates and errs["moved share"] <= SA_MOVED_SHARE
+    if training:
+        gates = gates and errs["chain dy"] <= 1.0 and \
+            max(errs["chain dweight"], errs["chain dbias"]) <= SA_GRAD_REL
+    else:
+        gates = gates and all(bits_equal(a, b) for a, b in zip(nb.buffers(), sa_norm(rec).buffers()))
+    require(gates, f"the shared MLP's kernels ({label}) against the module chain: "
+                   f"{ {k: v for k, v in errs.items() if k != 'q'} }")
+    return errs
+
+
+def sa_vjp64(rec: dict) -> tuple:
+    """The module expression's VJP in f64 on an f32 training record's y,
+    weight, bias and gradient: ((dy, dweight, dbias), keep, moved, units).
+    At the pooled width `keep` leaves out the slots of each unit whose
+    maximum, or whether it is above 0, differs between the f64 values and
+    the Function's f32 ones (its statistics from `bn_stats`): one ulp of a
+    statistic moves a near-tie's gradient to another slot.  `moved` counts
+    those units of `units`; at a hidden width `keep` is all of y."""
+    from ov3det_torch.ops.kernels import bn_relu as bk
+
+    y, axis, eps = rec["y"], rec["axis"], rec["eps"]
+    y64 = y.double().requires_grad_()
+    w64, b64 = (rec["state"][k].double().requires_grad_() for k in ("weight", "bias"))
+    dims = tuple(range(y.dim() - 1))
+    mean = y64.mean(dims)
+    var = torch.clamp((y64 * y64).mean(dims) - mean * mean, min=0.0)
+    r64 = torch.relu((y64 - mean) * (torch.rsqrt(var + eps) * w64) + b64)
+    out = r64 if axis is None else r64.amax(axis)
+    ref = torch.autograd.grad(out, [y64, w64, b64], rec["grad"].double())
+    if axis is None:
+        return ref, torch.ones_like(y, dtype=torch.bool), 0, y.numel()
+    norm = sa_norm(rec)
+    m, v, _, _ = norm.statistics(bk.bn_stats(y), y.numel() // y.shape[-1])
+    sc = torch.rsqrt(v + norm.eps)
+    r32 = bk.bn_relu_apply_plain(y, m, sc * norm.weight.detach(), norm.bias.detach())
+
+    def at_max(t):
+        return (t == t.amax(axis, keepdim=True)) & (t > 0)
+
+    moved = (at_max(r32) != at_max(r64.detach())).any(axis, keepdim=True)
+    units = moved.numel()
+    return ref, (~moved).expand_as(y), int(moved.sum().item()), units
+
+
+def check_sa_crafted(rec: dict) -> None:
+    """All slots of every unit tied (slot 0 copied over the slot axis: q must
+    be grad / K) and NaN in y, each through `check_sa_record`."""
+    y, axis, grad = rec["y"], rec["axis"], rec["grad"]
+    K = y.shape[axis]
+    tied = y.narrow(axis, 0, 1).expand_as(y).contiguous()
+    for case, t in (("all slots tied", tied), ("NaN in y", sprinkle(y, [float("nan")], 64, 31))):
+        errs = check_sa_record(dict(rec, y=t, name=f"{rec['name']}, {case}"))
+        if case == "all slots tied":
+            q = errs["q"]
+            live = ~torch.isnan(q)
+            require(values_equal(q[live], (grad / K)[live]),
+                    f"bn_relu_grad_sums ({rec['name']}, all slots tied): q is not grad / {K}")
+    print(f"shared MLP ({rec['name']}): all slots tied (q = grad / {K}) and NaN in y through every "
+          "gate of the width's check")
+
+
+def time_sa_record(rec: dict) -> dict:
+    """In turns by graph replays (`in_turns`): each kernel and its plain
+    version on the record's inputs, the forward and the forward + backward
+    through the kernels (`BnRelu`) and through the module chain, and the
+    library calls: for the pairs `F.batch_norm(training=True)` and the ReLU
+    forward, and `native_batch_norm_backward` after the ReLU's
+    `threshold_backward`; for `bn_stats` `torch.batch_norm_stats` (each
+    channel's mean and inverse deviation), for `bn_relu_grad_sums`
+    `torch.batch_norm_backward_reduce` on the ReLU-masked gradient (sum g and
+    sum g (y - mean): dbias and, scaled, dweight).  A library call is None
+    where the library refuses the inputs."""
+    import torch.nn.functional as F
+
+    from ov3det_torch.models import pointnet
+    from ov3det_torch.ops.kernels import bn_relu as bk
+
+    y, axis, grad = rec["y"], rec["axis"], rec["grad"]
+    C = y.shape[-1]
+    P = y.numel() // C
+    norm = sa_norm(rec)
+    x = y.float()
+    dims = tuple(range(y.dim() - 1))
+    mean = x.mean(dims)
+    var_raw = (x * x).mean(dims) - mean * mean
+    s = torch.rsqrt(torch.clamp(var_raw, min=0.0) + norm.eps)
+    scale, bias = s * norm.weight.detach(), norm.bias.detach()
+    pooled = bk.bn_relu_apply(y, mean, scale, bias, axis) if axis is not None else None
+    sums, q = bk.bn_relu_grad_sums(y, grad, mean, scale, bias, s, axis, pooled)
+    nk, npl = sa_norm(rec), sa_norm(rec)
+    yk, yp = (y.detach().clone().requires_grad_() for _ in range(2))
+
+    def chain(fn, t, n, backward):
+        if not backward:
+            with torch.no_grad():
+                return fn(t, n)
+        out = fn(t, n)
+        return torch.autograd.grad(out, [t, n.weight, n.bias], grad.to(out.dtype))
+
+    kern = lambda t, n: pointnet.BnRelu.apply(t, n.weight, n.bias, n, axis)  # noqa: E731
+    plain = lambda t, n: pointnet.bn_relu_plain(t, n, axis)  # noqa: E731
+    runs = {
+        "bn_stats": lambda: bk.bn_stats(y),
+        "bn_stats plain": lambda: bk.bn_stats_plain(y),
+        "bn_relu_apply": lambda: bk.bn_relu_apply(y, mean, scale, bias, axis),
+        "bn_relu_apply plain": lambda: bk.bn_relu_apply_plain(y, mean, scale, bias, axis),
+        "bn_relu_grad_sums": lambda: bk.bn_relu_grad_sums(y, grad, mean, scale, bias, s, axis,
+                                                          pooled),
+        "bn_relu_grad_sums plain": lambda: bk.bn_relu_grad_sums_plain(y, grad, mean, scale, bias,
+                                                                      s, axis, pooled),
+        "bn_relu_grad_apply": lambda: bk.bn_relu_grad_apply(y, grad, mean, scale, bias, s, sums,
+                                                            float(P), var_raw, axis, pooled, q),
+        "bn_relu_grad_apply plain": lambda: bk.bn_relu_grad_apply_plain(
+            y, grad, mean, scale, bias, s, sums, float(P), var_raw, axis, pooled, q),
+        "kernels forward": lambda: chain(kern, yk, nk, False),
+        "kernels forward + backward": lambda: chain(kern, yk, nk, True),
+        "module forward": lambda: chain(plain, yp, npl, False),
+        "module forward + backward": lambda: chain(plain, yp, npl, True),
+    }
+    yl = y.detach().reshape(-1, C)
+    gl = grad.reshape(-1, C).to(y.dtype) if axis is None else yl
+    w, b = norm.weight.detach(), norm.bias.detach()
+    rm, rv = norm.running_mean.clone(), norm.running_var.clone()
+    library = ("library forward", "library backward", "bn_stats library",
+               "bn_relu_grad_sums library")
+    try:
+        r, sm, si = torch.ops.aten.native_batch_norm(yl, w, b, rm, rv, True, 0.1, norm.eps)
+        r = torch.relu(r)
+        gm = torch.ops.aten.threshold_backward(gl, r, 0)
+        runs["library forward"] = lambda: torch.relu(F.batch_norm(yl, rm, rv, w, b, True, 0.1,
+                                                                  norm.eps))
+        runs["library backward"] = lambda: torch.ops.aten.native_batch_norm_backward(
+            torch.ops.aten.threshold_backward(gl, r, 0), yl, w, rm, rv, sm, si, True, norm.eps,
+            [True, True, True])
+        runs["bn_stats library"] = lambda: torch.batch_norm_stats(yl, norm.eps)
+        runs["bn_relu_grad_sums library"] = lambda: torch.batch_norm_backward_reduce(
+            gm, yl, sm, si, w, True, True, True)
+        for name in library:
+            runs[name]()
+    except RuntimeError as err:  # a yardstick only: the port calls none of them
+        print(f"shared MLP ({rec['name']}): the library yardstick refused the inputs: {err}")
+        for name in library:
+            runs.pop(name, None)
+    best = in_turns(runs, SA_REPS)
+    for name in library:
+        best.setdefault(name, None)
+    return best
+
+
+def check_bn_relu(card: str, label: str, records: list, timed: bool) -> dict:
+    """The set abstraction's shared MLP on a run's own Dense outputs, every
+    width of every SA module (`check_sa_record`): from a training step
+    (`record_sa`: with the incoming gradients) or a request's forward
+    (`record_sa_request`: eval mode).  `bn_stats` two launches equal, sums
+    and means within SA_SUMS_REL of the largest value against f64 sums;
+    `bn_relu_apply` equal to its plain version given the module's batch
+    statistics (training) and the running ones (the hidden widths' y dtype
+    and the pooled f32, NaN positions too); in training `bn_relu_grad_sums`
+    within SA_GRAD_REL (q = grad / ties equal) and `bn_relu_grad_apply`
+    within one bf16 ulp or SA_DY_REL of the largest value (bf16) or
+    SA_GRAD_REL (f32), each two launches equal; the whole Function
+    (`BnRelu`) against the module chain from one state: the output, the
+    running statistics and in training dy, dweight and dbias (f32: against
+    the expression's VJP in f64, `sa_vjp64`); crafted
+    inputs at a training record's pooled width (`check_sa_crafted`).  With
+    `timed`, each width's passes in turns (`time_sa_record`) beside the
+    bound of its bytes.  Returns the totals over the run's widths, each
+    kernel over the widths that launch it: {kernel: ms, plain_ms,
+    library_ms, bound_ms, max_abs_err, ...}."""
+    t0 = time.perf_counter()
+    tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, ops=0, max_abs_err=0.0)
+           for n in SA_KERNELS}
+    chains = collections.Counter()
+    for rec in records:
+        errs = check_sa_record(rec)
+        if rec["training"] and rec["axis"] is not None:
+            check_sa_crafted(rec)
+        y, axis = rec["y"], rec["axis"]
+        run = SA_KERNELS if rec["training"] else ("bn_relu_apply",)
+        nbytes = sa_bytes(y, axis)
+        for n in run:
+            tot[n]["nbytes"] += nbytes[n]
+            tot[n]["ops"] += SA_OPS[n] * y.numel()
+            tot[n]["max_abs_err"] = max(tot[n]["max_abs_err"], errs.get(n, 0.0))
+        line = (f"shared MLP {label} {rec['name']}: {'x'.join(map(str, y.shape))} "
+                f"{str(y.dtype)[6:]}, slot axis {axis}, "
+                f"{'training' if rec['training'] else 'eval'}: sums {errs['sums']:.1e} and means "
+                f"{errs['means']:.1e} of the largest value against f64 (the plain version "
+                f"{errs['plain sums']:.1e}), apply equal")
+        if rec["training"] and "module dy" not in errs:
+            line += (f", grad sums {errs['grad sums']:.1e}, dy {errs['dy']:.2f} of its gate; the "
+                     f"Function against the module's autograd: output {errs['chain out']:.2f}, dy "
+                     f"{errs['chain dy']:.2f} of their gates, dweight {errs['chain dweight']:.1e}, "
+                     f"dbias {errs['chain dbias']:.1e}, running statistics "
+                     f"{errs['chain running']:.1e}")
+        elif rec["training"]:
+            line += (f", grad sums {errs['grad sums']:.1e}, dy {errs['dy']:.2f} of its gate; the "
+                     f"Function against the module: output {errs['chain out']:.2f} of its gate, "
+                     f"running statistics {errs['chain running']:.1e}; against the expression's "
+                     f"f64 VJP: dy {errs['chain dy']:.2f} of its gate ({SA_GRAD_REL} of the largest "
+                     f"value; the module's f32 autograd {errs['module dy']:.1e}), dweight "
+                     f"{errs['chain dweight']:.1e}, dbias {errs['chain dbias']:.1e}, "
+                     f"{errs['moved units']} units left out, their maximum moved by an ulp "
+                     f"({errs['moved share']:.1e} of them)")
+        else:
+            line += (f"; the Function against the module: output {errs['chain out']:.2f} of its "
+                     "gate, the running statistics untouched")
+        if timed:
+            best = time_sa_record(rec)
+            for n in SA_KERNELS:
+                tot[n]["ms"] += best[n]
+                tot[n]["plain_ms"] += best[f"{n} plain"]
+                lib = best.get(f"{n} library")
+                tot[n]["library_ms"] = None if lib is None or tot[n]["library_ms"] is None else \
+                    tot[n]["library_ms"] + lib
+            for k, v in best.items():
+                if v is not None and not k.startswith(SA_KERNELS):
+                    chains[k] += v
+            bounds = {n: bound_ms(nbytes[n], SA_OPS[n] * y.numel(), F32_PEAK)[0]
+                      for n in SA_KERNELS}
+            line += "; " + ", ".join(f"{n} {best[n]:.4f} ms (plain {best[n + ' plain']:.4f}, "
+                                     f"bound {bounds[n]:.4f}" +
+                                     (f", library {best[n + ' library']:.4f}"
+                                      if best.get(n + " library") is not None else "") + ")"
+                                     for n in SA_KERNELS)
+            line += "; " + ", ".join(f"{k} {v:.4f} ms" for k, v in best.items()
+                                     if not k.startswith(SA_KERNELS) and v is not None)
+            line += " (graph replays, in turns)"
+        print(line + f" ({card})")
+    out = {}
+    for n in SA_KERNELS:
+        if not tot[n]["nbytes"]:
+            continue
+        b_ms, b_by = bound_ms(tot[n]["nbytes"], tot[n]["ops"], F32_PEAK)
+        out[n] = dict(max_abs_err=tot[n]["max_abs_err"], bound_ms=b_ms, bound_by=b_by,
+                      nbytes=tot[n]["nbytes"], **({} if not timed else
+                                                  dict(ms=tot[n]["ms"], plain_ms=tot[n]["plain_ms"],
+                                                       library_ms=tot[n]["library_ms"])))
+    SA_CHECKED[label] = out
+    if timed:
+        out["chains"] = dict(chains)
+    print(f"shared MLP ({label}): {len(records)} widths held; " +
+          ", ".join(f"{n} bound {v['bound_ms']:.4f} ms ({v['nbytes'] / 1e9:.3f} GB)"
+                    for n, v in out.items() if n in SA_KERNELS) +
+          (("; over the widths: " + ", ".join(f"{k} {v:.4f} ms" for k, v in chains.items()))
+           if timed else "") + f"; the check took {time.perf_counter() - t0:.1f} s ({card})")
+    return out
+
+
+def sa_entries(step: dict, masked: dict, checked: dict) -> dict:
+    """The kernels-line entries of the four shared-MLP kernels: the times and
+    bounds of one sunrgbd_quick step's three widths, the masked config's
+    beside them; each kernel's library call (`torch.batch_norm_stats`,
+    `torch.batch_norm_backward_reduce`) and, on the forward pair's row
+    (apply) and the backward pair's (grad_apply), the library call of the
+    pair.  `max_abs_err` is the largest over every checked run (`checked`:
+    label -> `check_bn_relu`'s result), which the entry lists."""
+    chains = step["chains"]
+    pair = {"bn_relu_apply": "library forward", "bn_relu_grad_apply": "library backward"}
+    entries = {}
+    for n in SA_KERNELS:
+        e = {k: v for k, v in step[n].items() if k != "nbytes"}
+        e.update(per="one sunrgbd_quick training step's 3 widths",
+                 scannet_masked={k: v for k, v in masked[n].items() if k != "nbytes"},
+                 checked_runs=sorted(label for label, c in checked.items() if n in c))
+        if n in pair:
+            e["library_ms"] = chains.get(pair[n])
+            e["scannet_masked"]["library_ms"] = masked["chains"].get(pair[n])
+        e["max_abs_err"] = max(c[n]["max_abs_err"] for c in checked.values() if n in c)
+        entries[n] = e
+    entries["bn_stats"]["library"] = "torch.batch_norm_stats: each channel's mean and invstd"
+    entries["bn_relu_grad_sums"]["library"] = (
+        "torch.batch_norm_backward_reduce on the ReLU-masked gradient: sum g and sum g (y - mean)")
+    entries["bn_relu_apply"].update(
+        library="F.batch_norm(training=True) + relu: the forward pair's work (bn_stats + "
+                "bn_relu_apply)",
+        pair_ms=step["bn_stats"]["ms"] + step["bn_relu_apply"]["ms"],
+        kernels_forward_ms=chains.get("kernels forward"), module_forward_ms=chains.get("module forward"))
+    entries["bn_relu_grad_apply"].update(
+        library="threshold_backward + native_batch_norm_backward: the backward pair's work "
+                "(bn_relu_grad_sums + bn_relu_grad_apply)",
+        pair_ms=step["bn_relu_grad_sums"]["ms"] + step["bn_relu_grad_apply"]["ms"],
+        kernels_forward_backward_ms=chains.get("kernels forward + backward"),
+        module_forward_backward_ms=chains.get("module forward + backward"))
+    return entries
+
+
 CLI_ARGV = ["--dataset_name", "synthetic", "--device", "cuda", "--num_points", "40000",
             "--batchsize_per_gpu", "8", "--compute_dtype", "bfloat16", "--max_epoch", "2",
             "--eval_every_epoch", "1", "--eval_loss", "--log_every", "4", "--log_metrics_every", "8",
@@ -2372,9 +2972,10 @@ def cli_phase(card: str) -> dict:
     launch counts of its three runs (train, guard, --test_only)."""
     import tempfile
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
-    test_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    train_step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+                        attention_dkv=3, auction=1)
+    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
+    test_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_cli_") as run:
         argv = CLI_ARGV + ["--checkpoint_dir", run]
@@ -2504,7 +3105,7 @@ OV_CLI_ARGV = ["--dataset_name", "synthetic", "--device", "cuda", "--use_image",
 
 def ov_step() -> dict:
     """The launches of one OV training step: the detector's and the teacher's."""
-    return expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+    return expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
                   auction=1, **TEACHER_STEP)
 
 
@@ -3472,7 +4073,7 @@ def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = 
     from ov3det_torch.engine.train import build_training
 
     train_step = ov_step()
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_ov_cli_") as run:
         argv = argv + ["--checkpoint_dir", run]
@@ -4141,6 +4742,16 @@ def first_k_requests_in_turns(card: str, builds: dict, batches: list, dev: torch
     torch.cuda.empty_cache()
 
 
+def check_first_k_sa(card: str, label: str, det, batch: dict) -> None:
+    """`check_bn_relu` on the widths of one first-K request (eval mode, the
+    running statistics, every last width pooled over slot axis 2)."""
+    records = record_sa_request(det, batch)
+    last = [r for r in records if r["axis"] is not None]
+    require(last and all(r["axis"] == 2 for r in last),
+            f"{label}: the pooled widths are not the first-K layout's (slot axis 2)")
+    check_bn_relu(card, label, records, timed=False)
+
+
 def reference_checkpoint(card: str, dev: torch.device) -> dict:
     """A reference-layout 3DETR checkpoint at scannet_quick()'s width (the
     port's seeded model written by `to_reference_state_dict`, saved as a
@@ -4150,7 +4761,8 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     and the empty-box test once), time and peak memory beside the bucketed
     request and the earlier record; the masked config with the first-K query (its
     interim SA too: the query twice); then `check_first_k` at both of the
-    masked request's queries, on its second batch's points.  Returns the
+    masked request's queries, on its second batch's points; each first-K
+    request's shared-MLP widths held by `check_first_k_sa`.  Returns the
     requests' launch counts and the first-K query's kernels-line keys."""
     import tempfile
 
@@ -4182,10 +4794,12 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     request_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
-    want = expect(fps=2, first_k=1, attention_fwd=3, nms=1, points_in_box=1)
+    want = expect(**sa(train=False), fps=2, first_k=1, attention_fwd=3, nms=1,
+                  points_in_box=1)
     require(counts == want, f"reference checkpoint request: launches {counts}, expected {want}")
     require(len(dets) == BATCH and all(np.isfinite(c).all() and np.isfinite(s).all()
                                        for _, c, s in dets), "reference checkpoint: bad detections")
+    check_first_k_sa(card, "first_k request", det, batches[1])
     # the same weights and request with the bucketed ball-group, the
     # configuration's default: the yardstick of the first-K path's peak
     bucketed = Detector(quick.model, state_dict=state, device=dev)
@@ -4218,10 +4832,12 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     m_dets = m_det.detect(batches[1])
     masked_ms = (time.perf_counter() - t0) * 1e3
     m_counts = read_counts()
-    want = expect(fps=3, first_k=2, attention_fwd_radius=3, nms=1, points_in_box=1)
+    want = expect(**sa(2, train=False), fps=3, first_k=2, attention_fwd_radius=3, nms=1,
+                  points_in_box=1)
     require(m_counts == want, f"masked first_k request: launches {m_counts}, expected {want}")
     require(all(np.isfinite(c).all() and np.isfinite(s).all() for _, c, s in m_dets),
             "masked first_k request: non-finite detections")
+    check_first_k_sa(card, "masked first_k request", m_det, batches[1])
     print(f"masked first_k request (graphed) of 8 x {SCANNET_POINTS} points: {masked_ms:.2f} ms "
           f"(with the first design: "
           f"{FIRST_DESIGN_REQUEST_MS['masked first_k request']} ms), launches "
@@ -4264,8 +4880,9 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
     from ov3det_torch.tools.format_tools import adjust_format_to_nyu40
 
     t_phase = time.perf_counter()
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    train_step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+                        attention_dkv=3, auction=1)
+    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
     total = collections.Counter()
     with tempfile.TemporaryDirectory(prefix="ov3det_pseudo_") as run:
         t0 = time.perf_counter()
@@ -4319,7 +4936,7 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
                 f"pseudo all: files {files}")
         require(all(r.shape == (Q, 7) and np.isfinite(r).all() for r in rows),
                 "pseudo all: a file holds non-finite or misshapen rows")
-        want = expect(fps=2 * 2, ball_group=2, attention_fwd=2 * 3)
+        want = expect(**sa(2, train=False), fps=2 * 2, ball_group=2, attention_fwd=2 * 3)
         require(counts == want and [d for _, d in batches] == [eval_batch, eval_batch],
                 f"pseudo all: launches {counts}, batches {[d for _, d in batches]}")
         total.update(counts)
@@ -4582,7 +5199,8 @@ def ddp_steps(card: str, dev: torch.device) -> dict:
     from ov3det_torch.config import sunrgbd_quick
     from ov3det_torch.engine.train import batch_to_device, build_training
 
-    step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
+    step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+                  auction=1)
     cfg = f32_no_dropout(sunrgbd_quick())
     training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4720,9 +5338,10 @@ def ddp_cli(card: str) -> dict:
     import pickle
     import tempfile
 
-    train_step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
-    test_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    train_step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+                        attention_dkv=3, auction=1)
+    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
+    test_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
     with tempfile.TemporaryDirectory(prefix="ov3det_ddp_cli_") as out:
         run = os.path.join(out, "run")
         argv = CLI_ARGV + ["--max_epoch", "1", "--checkpoint_dir", run]
@@ -4785,7 +5404,7 @@ def bank_cli(card: str, dev: torch.device, unbanked_waits: list) -> dict:
     from ov3det_torch.engine.train import batch_to_device, build_training, decode_banked_images
 
     train_step = ov_step()
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_bank_cli_") as run:
         argv = OV_CLI_ARGV + ["--image_bank", "--checkpoint_dir", run]
@@ -4981,7 +5600,7 @@ def sun_bank_cli(card: str, dev: torch.device, argv: list, unbanked_waits: list)
     from ov3det_torch.datasets.registry import build_dataset
 
     train_step = ov_step()
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_sun_bank_") as run:
         reset_counts()
@@ -5220,11 +5839,12 @@ def check_auction(card: str, dev: torch.device) -> dict:
 @contextlib.contextmanager
 def plain_spy():
     """Count the calls of the plain scatter, auction, RoIAlign, attention
-    pool, normalisation and quantise pass while the block runs (a Counter by name): none may run on the
-    card's main path.  (The first auction design has a launch counter of its
-    own, "auction_first".)"""
+    pool, normalisation, quantise pass and shared MLP while the block runs
+    (a Counter by name): none may run on the card's main path.  (The first
+    auction design has a launch counter of its own, "auction_first".)"""
+    from ov3det_torch.models import pointnet
     from ov3det_torch.ops import roi_align
-    from ov3det_torch.ops.kernels import attn_pool, auction, ball_group, normalise, quant_conv
+    from ov3det_torch.ops.kernels import attn_pool, auction, ball_group, bn_relu, normalise, quant_conv
 
     calls = collections.Counter()
     targets = [(torch.Tensor, "index_put_"), (torch.Tensor, "index_add_"),
@@ -5232,7 +5852,9 @@ def plain_spy():
                (auction, "auction_lap_plain"), (roi_align, "roi_align_plain"),
                (roi_align, "roi_align_einsum"), (attn_pool, "pool_tokens_plain"),
                (attn_pool, "pool_attend_plain"), (normalise, "normalise_plain"),
-               (quant_conv, "pool_quantize_plain")]
+               (quant_conv, "pool_quantize_plain"), (pointnet, "bn_relu_plain"),
+               (bn_relu, "bn_stats_plain"), (bn_relu, "bn_relu_apply_plain"),
+               (bn_relu, "bn_relu_grad_sums_plain"), (bn_relu, "bn_relu_grad_apply_plain")]
     originals = [(obj, name, getattr(obj, name)) for obj, name in targets]
 
     def counted(name, fn):
@@ -5321,7 +5943,8 @@ def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
     print(f"{label}: {GRAPH_STEPS} graphed steps equal the eager ones bit for bit (losses, "
           f"grad_norm, {len(g_s)} parameters, buffers and Adam moments), and neither called "
           f"index_put_, index_add_, _scatter, the plain auction, the plain RoIAlign, the plain "
-          f"attention pool, the plain normalisation or the plain quantise pass (a spy); step time "
+          f"attention pool, the plain normalisation, the plain quantise pass or the plain shared "
+          f"MLP (a spy); step time "
           f"(host clock "
           f"to a sync, {TIMED_STEPS} steps) graphed median {np.median(times[True]):.2f} ms "
           f"({min(times[True]):.2f} to {max(times[True]):.2f}), eager median "
@@ -5340,7 +5963,7 @@ def flagged_cli(card: str, argv: list, group: int, label: str) -> tuple:
     import tempfile
 
     train_step = ov_step()
-    eval_batch = expect(fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_flagged_") as run:
         reset_counts()
@@ -5385,12 +6008,13 @@ def packed_phase(card: str, dev: torch.device) -> tuple:
 
     t_phase = time.perf_counter()
     entry = check_auction(card, dev)
-    step = expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
+    step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+                  auction=1)
     sun, masked, ov = sunrgbd_quick(), scannet_masked(), ov_config()
     graph_vs_eager(card, dev, "sunrgbd", sun, synthetic_batches(sun, GRAPH_STEPS, 1500), step)
     graph_vs_eager(card, dev, "scannet_masked", masked,
                    synthetic_batches(masked, GRAPH_STEPS, 1600),
-                   expect(fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
+                   expect(**sa(2), fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
                           attention_fwd_radius=3, attention_dq_radius=3, attention_dkv_radius=3,
                           auction=1))
     batches = ov_batches(ov, GRAPH_STEPS, 1700)
@@ -5572,11 +6196,11 @@ def learning_phase(card: str, dev: torch.device) -> list:
     t_phase = time.perf_counter()
     tiny = learn(card, dev, "learning check (the JAX test's config)", learning_config(),
                  learning_batches(range(LEARN_BATCHES)), learning_batches(LEARN_EVAL_SEEDS),
-                 expect(fps=2, ball_group=1, auction=1), gate=True)
+                 expect(**sa(), fps=2, ball_group=1, auction=1), gate=True)
     sun = sunrgbd_quick()
     wide = learn(card, dev, "learning run (sunrgbd_quick width)", sun,
                  synthetic_batches(sun, LEARN_BATCHES, 2200), synthetic_batches(sun, 2, 2300),
-                 expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+                 expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
                         auction=1), gate=False)
     print(f"phase 16 (the port learns): {time.perf_counter() - t_phase:.1f} s")
     return [tiny, wide]
@@ -6042,12 +6666,15 @@ def main() -> int:
     sun, masked = sunrgbd_quick(), scannet_masked()
     batches = synthetic_batches(sun, REQUESTS, 100)
     entries = {**check_kernels(batches[0], dev), **check_attention(dev)}
-    served, sun_nms = serve(sun, batches, expect(fps=2, ball_group=1, attention_fwd=3, nms=1,
+    served, sun_nms = serve(sun, batches, expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3, nms=1,
                                                  points_in_box=1), "sunrgbd", dev)
     card_vs_cpu(batches[0])
-    trained = train(sun, TRAIN_STEPS, expect(fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+    trained = train(sun, TRAIN_STEPS, expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
                                              attention_dkv=3, auction=1), "sunrgbd", 200, dev)
     train_card_vs_cpu(sun, "sunrgbd", 200)
+    sa_sun = check_bn_relu(card, "sunrgbd", record_sa(sun, batches[0], dev), timed=True)
+    check_bn_relu(card, "sunrgbd f32", record_sa(f32_no_dropout(sun), batches[0], dev),
+                  timed=False)
 
     m_batches = synthetic_batches(masked, REQUESTS, 300)
     extras, pre_xyz, mid_xyz = check_masked_points(m_batches[0], dev)
@@ -6059,20 +6686,23 @@ def main() -> int:
     entries.update(check_radius_attention(pre_xyz, mid_xyz, dev))
     del pre_xyz, mid_xyz
     m_served, masked_nms = serve(masked, m_batches,
-                                 expect(fps=3, ball_group=2, attention_fwd_radius=3, nms=1,
+                                 expect(**sa(2, train=False), fps=3, ball_group=2, attention_fwd_radius=3, nms=1,
                                         points_in_box=1),
                                  "scannet_masked", dev)
     m_trained = train(masked, MASKED_TRAIN_STEPS,
-                      expect(fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
+                      expect(**sa(2), fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
                              attention_fwd_radius=3, attention_dq_radius=3, attention_dkv_radius=3,
                              auction=1),
                       "scannet_masked", 400, dev)
     train_card_vs_cpu(masked, "scannet_masked", 400)
+    sa_masked = check_bn_relu(card, "scannet_masked", record_sa(masked, m_batches[0], dev),
+                              timed=True)
 
     cli_counts = cli_phase(card)
     ov_trained, ov_cli_counts, ov_waits, quant_entries, calibration = ov_phase(card, dev)
     entries.update(quant_entries)
     pseudo_counts, entries["first_k"] = pseudo_phase(card, dev)
+    entries.update(sa_entries(sa_sun, sa_masked, SA_CHECKED))
     ddp_counts = ddp_phase(card, dev, ov_waits)
     image_counts = images_phase(card, dev)
     entries["auction"], packed_counts = packed_phase(card, dev)

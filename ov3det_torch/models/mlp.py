@@ -141,24 +141,38 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def statistics(self, sums: torch.Tensor, rows: int) -> tuple:
+        """Training mode's (mean, var, var_raw, count) of each channel from its
+        sum x and sum x^2 over `rows` rows ((2, C) f32): the mean and the fast
+        biased variance var = clamp(mean x^2 - mean^2, 0) (var_raw before the
+        clamp), over the data group's global batch when it is sharded (the
+        count and the sums in one differentiable all-reduce; count then that
+        (1,) tensor, else the float `rows`).  Updates the running statistics
+        in place.  The module's forward and the set abstraction's kernels
+        (`models/pointnet.py`) both take their statistics here."""
+        group = data_group()
+        if group is None or not group.sharded:
+            count = float(rows)
+            mean, mean2 = (sums / count).unbind(0)
+        else:
+            red = all_reduce_sum(torch.cat([sums.new_full((1,), rows), sums.reshape(-1)]))
+            count = red[:1]
+            mean, mean2 = (red[1:] / red[0]).chunk(2)
+        var_raw = mean2 - mean * mean
+        var = torch.clamp(var_raw, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
+            self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
+        return mean, var, var_raw, count
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            group = data_group()
-            if group is None or not group.sharded:
-                mean = x.mean(axes)
-                var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
-            else:
-                count = x.new_full((1,), x.numel() // x.shape[-1])
-                sums = all_reduce_sum(torch.cat([count, x.sum(axes), (x * x).sum(axes)]))
-                mean, mean2 = (sums[1:] / sums[0]).chunk(2)
-                var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
-                self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
+            sums = torch.stack([x.sum(axes), (x * x).sum(axes)])
+            mean, var, _, _ = self.statistics(sums, x.numel() // x.shape[-1])
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 

@@ -3,7 +3,9 @@
 `fps`, `ball_group`, `attention`, `auction`, `nms`, `quant_conv`,
 `points_in_box`, `ball_query` (the first-K query), `roi_align` (the
 teacher's RoIAlign), `attn_pool` (CLIP's attention pool: `pool_tokens`
-and `pool_attend`) and `normalise` (the teacher's input normalisation) each hold wrappers that launch their CUDA kernels
+and `pool_attend`), `normalise` (the teacher's input normalisation) and
+`bn_relu` (the set abstraction's BatchNorm, ReLU and max-pool, forward and
+backward) each hold wrappers that launch their CUDA kernels
 (`ov3det_torch/csrc/*.cu`) for CUDA tensors and count the launches in a
 `launches` attribute (the attention wrappers count their radius variants
 in `radius_launches`); CPU tensors take the plain version in the same
