@@ -64,7 +64,11 @@ at once), then:
      into forward, criterion, backward and optimiser, one step under
      torch.profiler (with the device ms, the kernel count and the largest
      kernels of each of the step's profiler ranges: forward, criterion,
-     backward, optimizer), and the peak device memory of a step;
+     backward, optimizer, and the device ms and kernels by module class:
+     LayerNorm with its add & norm, the GenericMLP's BatchNorm, ReLU and
+     dropout, Dense, attention, the set abstraction, the transformer's
+     dropout and the rest, `module_times`), and the peak device memory of a
+     step;
   6. takes one training step at f32 with every dropout at 0 on one scene at
      full width, on the card and on the CPU from the same weights: matched
      masks equal, every loss within 1e-4 relative, grad_norm within 1e-3;
@@ -92,6 +96,25 @@ at once), then:
      step launches each of the four kernels once a width (3 a SA module),
      a request the apply pass alone; the first-K requests of phase 11 hold
      their own eval-mode widths (slot axis 2) the same way;
+     then (`check_add_norm`) the transformer's add & norm on the same
+     step's own inputs (`record_add_norm`: the 38 norms of a step, 14 of
+     them behind the attention's residual and its dropout, with their
+     incoming gradients), of the bf16 step and its f32 twin: `add_norm`
+     two launches equal, x_new equal to its plain version bit for bit, y
+     within 1e-5 of the largest value of the expression in f64 (or twice
+     the plain version's own error), `add_norm_grad` two launches equal,
+     dx, dweight and dbias within 1e-4 of the largest value of the f64 VJP,
+     dbranch equal to autograd's order on the kernel's dx bit for bit, the
+     Function (`AddNorm`) equal to the wrappers' launches bit for bit;
+     crafted inputs through the same gates (NaN and infinities, constant
+     rows whose variance clamps, a bf16 x, widths 8 and 768, x off a
+     16-byte boundary) and what the kernels refuse raising; each distinct
+     norm, its plain version and the library pair (the add and
+     `F.layer_norm`; `native_layer_norm_backward`) timed in turns by graph
+     replays beside the bound of its bytes.  A step launches each kernel
+     once a norm, a request the forward alone (38 each; the requests of
+     phases 3 and 7 hold their eval-mode norms the same way, and phase 11
+     the text tower's at width 640);
   7. the masked-encoder ScanNet config (3DETR-m: `scannet_quick()` with
      `EncoderConfig(kind="masked", dropout=0.3)` and the matcher and loss
      weights of reference scripts/scannet_masked_ep1080.sh), at full width
@@ -134,7 +157,8 @@ at once), then:
        split, peak memory and one profiled step; then one f32 step with
        every dropout at 0 on one scene, card against CPU, as in 6, and the
        shared MLP's check of 6 on both SA modules (the pre-encoder and the
-       interim SA: 6 widths);
+       interim SA: 6 widths), and the add & norm's check of 6 (the encoder
+       at 2048 tokens, then 1024);
   8. the training CLI: `ov3det_torch.main.main(argv)` in this process on a
      fresh directory, `--dataset_name synthetic` at the full width of
      `scannet_quick()` (3 x 256 vanilla encoder, 8 x 256 decoder, 256
@@ -180,7 +204,8 @@ at once), then:
        on the activations that forward gives them: each equal to its plain
        version bit for bit, the conv in both designs (the routed one, wgmma
        for C_in a multiple of 16, and the first) in its own epilogue, the
-       full one and the dequant-only f32 one (and at 15 rows on a 3 x 5
+       full one (also with NaN and infinities in the residual: a NaN's code
+       0) and the dequant-only f32 one (and at 15 rows on a 3 x 5
        image, C_in 40 and 48), the full one also against the CPU at the
        3 x 3 convs of at most CPU_CHECK_MACS products; the routed kernel,
        the first design, `_int_mm` alone, the plain version and cuDNN's
@@ -189,7 +214,8 @@ at once), then:
        (the routed `pool_quantize_vec` and the first, `_impl="first"`) equal
        to the plain version bit for bit at its 9 shapes and at odd ones (an
        odd H or W at pool 2, C 8 short of a multiple of 16, one and two
-       scales, f32, quotients on half-integers), both designs, the plain
+       scales, f32, quotients on half-integers, NaN and infinities: a NaN's
+       code 0), both designs, the plain
        version and `F.avg_pool2d` alone timed in turns beside the bound;
        the input end on that forward's own inputs (`check_teacher_input`):
        one `normalise` and one folded pass (`pool_quantize` with the stem's
@@ -696,6 +722,7 @@ def kernel_counters() -> dict:
     `.radius_launches`; "int_mm" counts `torch._int_mm`'s calls and
     "auction_first" the first auction design's launches, which must stay 0."""
     from ov3det_torch.ops.kernels import (
+        add_norm,
         attention,
         attn_pool,
         auction,
@@ -733,6 +760,8 @@ def kernel_counters() -> dict:
     counters["pool_attend"] = (attn_pool.pool_attend, "launches")
     for name in SA_KERNELS:
         counters[name] = (getattr(bn_relu, name), "launches")
+    for name in NORM_KERNELS:
+        counters[name] = (getattr(add_norm, name), "launches")
     counters["int_mm"] = (count_int_mm(), "launches")
     return counters
 
@@ -828,6 +857,7 @@ def reset_counts() -> None:
 def kernel_sources() -> dict:
     """name -> (source in the repo, the TPU kernel it replaces)."""
     from ov3det_torch.ops.kernels import (
+        add_norm,
         attention,
         attn_pool,
         auction,
@@ -866,7 +896,9 @@ def kernel_sources() -> dict:
             "bn_stats": (bn_relu.SOURCE, bn_relu.STATS_REPLACES),
             "bn_relu_apply": (bn_relu.SOURCE, bn_relu.APPLY_REPLACES),
             "bn_relu_grad_sums": (bn_relu.SOURCE, bn_relu.GRAD_SUMS_REPLACES),
-            "bn_relu_grad_apply": (bn_relu.SOURCE, bn_relu.GRAD_APPLY_REPLACES)}
+            "bn_relu_grad_apply": (bn_relu.SOURCE, bn_relu.GRAD_APPLY_REPLACES),
+            "add_norm": (add_norm.SOURCE, add_norm.REPLACES),
+            "add_norm_grad": (add_norm.SOURCE, add_norm.GRAD_REPLACES)}
 
 
 # the set abstraction's shared MLP (`ops/kernels/bn_relu`): an SA module of
@@ -879,6 +911,24 @@ SA_WIDTHS = 3
 def sa(modules: int = 1, train: bool = True) -> dict:
     """The shared MLP's launches of `modules` SA modules, for `expect`."""
     return {n: SA_WIDTHS * modules for n in (SA_KERNELS if train else ("bn_relu_apply",))}
+
+
+# the transformer's add & norm (`ops/kernels/add_norm`): an encoder layer runs
+# NORMS_PER_ENCODER_LAYER norms (norm1 alone, norm2 with the attention's
+# residual), a decoder layer NORMS_PER_DECODER_LAYER (norm1 alone, norm2 and
+# norm3 with the attentions' residuals, the stack's final norm on its output);
+# a training step launches the forward and the backward once a norm, eval
+# mode the forward alone
+NORM_KERNELS = ("add_norm", "add_norm_grad")
+NORMS_PER_ENCODER_LAYER, NORMS_PER_DECODER_LAYER = 2, 4
+
+
+def norms(train: bool = True, times: int = 1, layers: tuple = (3, 8)) -> dict:
+    """The add & norm launches of `times` forwards of a detector with
+    (encoder, decoder) `layers` (every config of this script but the
+    learning check's has 3 and 8), for `expect`."""
+    n = times * (NORMS_PER_ENCODER_LAYER * layers[0] + NORMS_PER_DECODER_LAYER * layers[1])
+    return {k: n for k in (NORM_KERNELS if train else ("add_norm",))}
 
 
 def expect(**counts) -> dict:
@@ -1739,10 +1789,181 @@ OWN_KERNELS = {
     "bn_relu_apply": r"\bbn_relu_apply(?:_pooled)?<",
     "bn_relu_grad_sums": (r"\bbn_grad_sums(?:_pooled)?<", r"\bsums_finish<1>\("),
     "bn_relu_grad_apply": r"\bbn_grad_apply(?:_pooled)?<",
+    "add_norm": r"\badd_norm_fwd<",
+    "add_norm_grad": (r"\badd_norm_bwd<", r"\badd_norm_finish\("),
 }
 
 
-def profile(title: str, fn, ranges: tuple = (), waits: bool = False, range_top: int = 0) -> None:
+# the step's device time by module class (`profile(by_module=True)`,
+# `profile_modules`): this script opens a profiler range around the methods of
+# the detector's module classes while it profiles (the program's modules open
+# none); a forward kernel belongs to the innermost such range open when it was
+# launched, a backward kernel to the range of the forward op that made its
+# autograd node (the profiler's sequence numbers); the rest is "rest".  The
+# transformer's residual dropouts (`models.transformer.dropout`) are a class
+# of their own: the residual's add itself runs in the layer's own code ("rest")
+# before the add & norm kernels, inside `LayerNorm.add` after.
+MODULE_CLASSES = ("LayerNorm (add & norm)", "GenericMLP BatchNorm, ReLU, dropout", "Dense",
+                  "attention", "set abstraction", "transformer dropout", "rest")
+MODULE_RANGE = "module: "
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
+
+
+@contextlib.contextmanager
+def module_ranges():
+    """Profiler ranges `MODULE_RANGE + class` around `LayerNorm.forward` and
+    `.add`, `GenericMLP.forward`, `Dense.forward`,
+    `MultiheadAttention.forward`, `PointnetSAModule.forward` and the
+    transformer's `dropout` while the block runs (a method a tree lacks is
+    skipped: PR 23's tree has no `LayerNorm.add`)."""
+    from ov3det_torch.models import mlp, pointnet, transformer
+
+    targets = [(mlp.LayerNorm, "forward", 0), (mlp.LayerNorm, "add", 0),
+               (mlp.GenericMLP, "forward", 1), (mlp.Dense, "forward", 2),
+               (transformer.MultiheadAttention, "forward", 3),
+               (pointnet.PointnetSAModule, "forward", 4), (transformer, "dropout", 5)]
+    originals = [(obj, name, getattr(obj, name), MODULE_CLASSES[i]) for obj, name, i in targets
+                 if hasattr(obj, name)]
+
+    def ranged(fn, label):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(MODULE_RANGE + label):
+                return fn(*args, **kwargs)
+        return call
+
+    for obj, name, fn, label in originals:
+        setattr(obj, name, ranged(fn, label))
+    try:
+        yield
+    finally:
+        for obj, name, fn, _ in originals:
+            setattr(obj, name, fn)
+
+
+class _Spans:
+    """Nested host intervals of one thread, sorted by start: the innermost
+    one open at a time."""
+
+    def __init__(self, spans: list):
+        import bisect
+
+        self.bisect = bisect.bisect_right
+        self.spans = sorted(spans)
+        self.starts = [s for s, _, _ in self.spans]
+        self.parent, stack = [], []
+        for i, (s, _, _) in enumerate(self.spans):
+            while stack and self.spans[stack[-1]][1] < s:
+                stack.pop()
+            self.parent.append(stack[-1] if stack else -1)
+            stack.append(i)
+
+    def at(self, t):
+        i = self.bisect(self.starts, t) - 1
+        while i >= 0 and self.spans[i][1] < t:
+            i = self.parent[i]
+        return self.spans[i][2] if i >= 0 else None
+
+
+def module_times(prof) -> dict:
+    """{class: [forward ms, forward kernels, backward ms, backward kernels]}
+    of the profiled call, by `MODULE_CLASSES` (see above); every device event
+    (kernels, copies and fills) counted once."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.events()
+    host = [e for e in events if e.device_type == cpu]
+    ranges, nodes = collections.defaultdict(list), collections.defaultdict(list)
+    for e in host:
+        span = (e.time_range.start, e.time_range.end)
+        if e.name.startswith(MODULE_RANGE):
+            ranges[e.thread].append((*span, e.name[len(MODULE_RANGE):]))
+        elif e.name.startswith(BACKWARD_NODE):
+            nodes[e.thread].append((*span, e.sequence_nr))
+    ranges = {th: _Spans(v) for th, v in ranges.items()}
+    nodes = {th: _Spans(v) for th, v in nodes.items()}
+    # each forward op's class, by its sequence number (ops outside a backward
+    # node).  Ops that make no node (a mask's draw before the add & norm) show
+    # the number the next node will take: the last op with a number made it
+    made = {}
+    for e in sorted(host, key=lambda e: e.time_range.start):
+        if e.sequence_nr >= 0 and e.thread in ranges and not e.name.startswith("autograd::") \
+                and (e.thread not in nodes or nodes[e.thread].at(e.time_range.start) is None):
+            made[e.sequence_nr] = ranges[e.thread].at(e.time_range.start) or "rest"
+    launch = {}
+    for e in host:
+        if not e.name.startswith("cu"):
+            continue
+        t = e.time_range.start
+        seq = nodes[e.thread].at(t) if e.thread in nodes else None
+        if seq is not None:
+            launch[e.id] = (made.get(seq, "rest"), 2)
+        else:
+            label = ranges[e.thread].at(t) if e.thread in ranges else None
+            launch[e.id] = (label or "rest", 0)
+    # a profiler range leaves a device-side event spanning its kernels: not a kernel
+    annotations = {e.name for e in host if getattr(e, "is_user_annotation", False)}
+    annotations |= set(STEP_RANGES) | set(TEACHER_RANGES)
+    table = {c: [0.0, 0, 0.0, 0] for c in MODULE_CLASSES}
+    for e in events:
+        if e.device_type == cpu or e.name.startswith(MODULE_RANGE) or e.name in annotations:
+            continue
+        label, col = launch.get(e.id, ("rest", 0))
+        table[label][col] += (e.time_range.end - e.time_range.start) / 1e3
+        table[label][col + 1] += 1
+    return table
+
+
+def print_module_times(title: str, table: dict) -> None:
+    busy = max(sum(v[0] + v[2] for v in table.values()), 1e-9)
+    print(f"{title}: device time by module class, forward + backward (the forward by the innermost "
+          f"class range open at the launch, the backward by the sequence number of the forward op "
+          f"that made its node), {busy:.2f} ms in {sum(v[1] + v[3] for v in table.values())} "
+          "kernels:")
+    for cls, (fm, fn, bm, bn) in table.items():
+        print(f"   {cls:36s} {fm + bm:8.3f} ms in {fn + bn:5d} kernels ({(fm + bm) / busy:.3f}): "
+              f"forward {fm:.3f} ms in {fn}, backward {bm:.3f} ms in {bn}")
+
+
+def profile_modules(title: str, fn) -> dict:
+    """`fn` twice under the profiler (a warm-up call, then the one it reads)
+    with `module_ranges`; prints and returns `module_times`.  Reads no launch
+    count, so that it runs on a tree of any slice."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    torch.cuda.synchronize()
+    with module_ranges(), warnings.catch_warnings(), \
+            torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+        warnings.filterwarnings("ignore", message=".*clears events at the end of each cycle")
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_MARGIN_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        prof.step()
+    table = module_times(prof)
+    print_module_times(title, table)
+    return table
+
+
+def attribution_step(card: str, cfg, label: str, seed: int, dev: torch.device) -> dict:
+    """`profile_modules` on one eager training step of `cfg` (after a
+    warm-up step), with the generic entry points every slice's tree has."""
+    from ov3det_torch.engine.train import batch_to_device, build_training
+
+    training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = batch_to_device(synthetic_batches(cfg, 1, seed)[0], dev)
+    training.train_step(batch, gen)
+    table = profile_modules(f"{label} eager step ({card})", lambda: training.train_step(batch, gen))
+    del training
+    gc.collect()
+    torch.cuda.empty_cache()
+    return table
+
+
+def profile(title: str, fn, ranges: tuple = (), waits: bool = False, range_top: int = 0,
+            by_module: bool = False) -> None:
     """Run `fn` twice under torch.profiler's schedule, a warm-up call (the
     profiler traces, and keeps nothing) and the active one; for the active
     call print the wall time, the device busy time (kernels only), the
@@ -1754,13 +1975,15 @@ def profile(title: str, fn, ranges: tuple = (), waits: bool = False, range_top: 
     wrappers count in the active call (`read_counts`, graph replays
     included) must be in the profile, kernel for kernel (`OWN_KERNELS`).
     With `range_top`, each range's `range_top` largest kernels by device
-    time are printed under it."""
+    time are printed under it.  With `by_module`, both calls run under
+    `module_ranges` and the device time by module class is printed
+    (`module_times`)."""
     import re
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with warnings.catch_warnings(), \
+    with module_ranges() if by_module else contextlib.nullcontext(), warnings.catch_warnings(), \
             torch.profiler.profile(activities=acts, schedule=schedule) as prof:
         # one cycle: that the profiler keeps the events of the last cycle alone says nothing here
         warnings.filterwarnings("ignore", message=".*clears events at the end of each cycle")
@@ -1831,6 +2054,8 @@ def profile(title: str, fn, ranges: tuple = (), waits: bool = False, range_top: 
     print(" ops, by host time (self, profiler on):")
     for e in host[:8]:
         print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    if by_module:
+        print_module_times(title, module_times(prof))
     if waits:
         got = {e.key: e for e in host if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize")}
         print(" host waits for the card (profiler on): " + (", ".join(
@@ -1877,12 +2102,15 @@ def sync_points(title: str, fn) -> int:
     return sum(where.values())
 
 
-def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) -> tuple:
+def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device,
+          card: str = "") -> tuple:
     """Phases 3 and 7: the serving path at full width, each request one
     CUDA-graph replay of the forward and the parse (`Detector.request`).
     Then (phase 15) the same requests eagerly from the same detector: the
-    detections equal bit for bit, both timed.  Returns the launch counts of
-    the graphed requests and the NMS inputs of the last batch's outputs."""
+    detections equal bit for bit, both timed.  With `card`, the last
+    request's eval-mode norms are held by `check_add_norm`.  Returns the
+    launch counts of the graphed requests and the NMS inputs of the last
+    batch's outputs."""
     from ov3det_torch.engine.infer import INPUT_KEYS, Detector
     from ov3det_torch.eval.parse import points_in_box_counts
 
@@ -1929,6 +2157,9 @@ def serve(cfg, batches: list, per_request: dict, label: str, dev: torch.device) 
 
     # one more request under the profiler: device time by kernel and idle share
     profile(f"profiled graphed {label} request", lambda: det.detect(batches[-1]))
+    if card:
+        check_add_norm(card, f"{label} request", record_add_norm_request(det, batches[-1]),
+                       timed=False)
 
     # the NMS inputs of the last batch's outputs, for phase 15's kernel check
     with torch.inference_mode():
@@ -2066,7 +2297,7 @@ def train(cfg, steps: int, per_step: dict, label: str, seed: int, dev: torch.dev
     ranges = STEP_RANGES if teacher is None else ("forward", "teacher", *STEP_RANGES[1:],
                                                   *TEACHER_RANGES)
     profile(f"profiled {label} train step", lambda: step(batches[2], gen), ranges=ranges,
-            waits=teacher is not None, range_top=STEP_RANGE_TOP)
+            waits=teacher is not None, range_top=STEP_RANGE_TOP, by_module=teacher is None)
     if teacher is not None:
         sync_points(f"one {label} train step under the sync debug mode",
                     lambda: step(batches[3], gen))
@@ -2399,28 +2630,35 @@ def check_sa_record(rec: dict) -> dict:
 def sa_vjp64(rec: dict) -> tuple:
     """The module expression's VJP in f64 on an f32 training record's y,
     weight, bias and gradient: ((dy, dweight, dbias), keep, moved, units).
-    At the pooled width `keep` leaves out the slots of each unit whose
-    maximum, or whether it is above 0, differs between the f64 values and
-    the Function's f32 ones (its statistics from `bn_stats`): one ulp of a
-    statistic moves a near-tie's gradient to another slot.  `moved` counts
-    those units of `units`; at a hidden width `keep` is all of y."""
+    The Function's f32 values (its statistics from `bn_stats`) decide what
+    an ulp of a statistic can move.  At the pooled width `keep` leaves out
+    the slots of each unit whose maximum, or whether it is above 0, differs
+    between the f64 values and the f32 ones: one ulp moves a near-tie's
+    gradient to another slot; `moved` counts those units of `units`.  At a
+    hidden width `keep` is all of y and each ReLU takes the f32 value's side
+    of 0 (the VJP jumps there: a value within an ulp of 0 may fall on the
+    other side in f64); `moved` counts the values whose side differs, of
+    `units` values."""
     from ov3det_torch.ops.kernels import bn_relu as bk
 
     y, axis, eps = rec["y"], rec["axis"], rec["eps"]
+    norm = sa_norm(rec)
+    m, v, _, _ = norm.statistics(bk.bn_stats(y), y.numel() // y.shape[-1])
+    sc = torch.rsqrt(v + norm.eps)
+    r32 = bk.bn_relu_apply_plain(y, m, sc * norm.weight.detach(), norm.bias.detach())
     y64 = y.double().requires_grad_()
     w64, b64 = (rec["state"][k].double().requires_grad_() for k in ("weight", "bias"))
     dims = tuple(range(y.dim() - 1))
     mean = y64.mean(dims)
     var = torch.clamp((y64 * y64).mean(dims) - mean * mean, min=0.0)
-    r64 = torch.relu((y64 - mean) * (torch.rsqrt(var + eps) * w64) + b64)
-    out = r64 if axis is None else r64.amax(axis)
-    ref = torch.autograd.grad(out, [y64, w64, b64], rec["grad"].double())
+    pre64 = (y64 - mean) * (torch.rsqrt(var + eps) * w64) + b64
     if axis is None:
-        return ref, torch.ones_like(y, dtype=torch.bool), 0, y.numel()
-    norm = sa_norm(rec)
-    m, v, _, _ = norm.statistics(bk.bn_stats(y), y.numel() // y.shape[-1])
-    sc = torch.rsqrt(v + norm.eps)
-    r32 = bk.bn_relu_apply_plain(y, m, sc * norm.weight.detach(), norm.bias.detach())
+        out = torch.where((r32 > 0) | torch.isnan(r32), pre64, 0.0)  # the f32 side of 0
+        ref = torch.autograd.grad(out, [y64, w64, b64], rec["grad"].double())
+        moved = int(((r32 > 0) != (pre64.detach() > 0)).sum().item())
+        return ref, torch.ones_like(y, dtype=torch.bool), moved, y.numel()
+    r64 = torch.relu(pre64)
+    ref = torch.autograd.grad(r64.amax(axis), [y64, w64, b64], rec["grad"].double())
 
     def at_max(t):
         return (t == t.amax(axis, keepdim=True)) & (t > 0)
@@ -2588,8 +2826,11 @@ def check_bn_relu(card: str, label: str, records: list, timed: bool) -> dict:
                      f"f64 VJP: dy {errs['chain dy']:.2f} of its gate ({SA_GRAD_REL} of the largest "
                      f"value; the module's f32 autograd {errs['module dy']:.1e}), dweight "
                      f"{errs['chain dweight']:.1e}, dbias {errs['chain dbias']:.1e}, "
-                     f"{errs['moved units']} units left out, their maximum moved by an ulp "
-                     f"({errs['moved share']:.1e} of them)")
+                     f"{errs['moved units']} " + ("units left out, their maximum moved by an ulp"
+                                                  if rec["axis"] is not None else
+                                                  "values on the other side of 0 in f64, the f32 "
+                                                  "side taken") +
+                     f" ({errs['moved share']:.1e} of them)")
         else:
             line += (f"; the Function against the module: output {errs['chain out']:.2f} of its "
                      "gate, the running statistics untouched")
@@ -2670,6 +2911,426 @@ def sa_entries(step: dict, masked: dict, checked: dict) -> dict:
         pair_ms=step["bn_relu_grad_sums"]["ms"] + step["bn_relu_grad_apply"]["ms"],
         kernels_forward_backward_ms=chains.get("kernels forward + backward"),
         module_forward_backward_ms=chains.get("module forward + backward"))
+    return entries
+
+
+# ------------------------------------------------ the transformer's add & norm
+NORM_REPS = 5  # calls a timing graph of one add & norm
+NORM_Y_REL = 1e-5  # y against the f64 expression, of the largest value ...
+NORM_PLAIN_FACTOR = 2.0  # ... or within this many times the plain version's own f32 error
+NORM_GRAD_REL = 1e-4  # dx, dweight, dbias against the f64 VJP, of the largest value
+# f32 operations an element: the forward the add (2 with the dropout's
+# product), the two sums (2) and y (4); the backward xhat (2), gw, the two row
+# sums (2), dx (4), the residual's add, the two parameter sums (2)
+NORM_OPS = {"add_norm": 10, "add_norm_grad": 13}
+NORM_CHECKED = {}  # label -> check_add_norm's result: every run whose norms were held
+
+
+@contextlib.contextmanager
+def spy_add_norm(model):
+    """`models.mlp.AddNorm` spied on while the block runs: for each call (every
+    `LayerNorm` of `model` on the card and every fused add & norm), in order,
+    a dict of the norm's module name (`name`), x, the residual's branch and
+    keep mask (None without), keep_prob, eps, weight and bias (copies),
+    whether it takes a gradient (`training`) and, from hooks on its outputs,
+    y's gradient (`grad_y`) and x_new's own (`grad_res`)."""
+    from ov3det_torch.models import mlp
+
+    names = {id(m.weight): n for n, m in model.named_modules() if isinstance(m, mlp.LayerNorm)}
+    records, original = [], mlp.AddNorm
+
+    class Spy:
+        @staticmethod
+        def apply(x, branch, weight, bias, keep, keep_prob, eps):
+            rec = dict(name=names[id(weight)], x=x.detach().clone(),
+                       branch=None if branch is None else branch.detach().clone(),
+                       keep=None if keep is None else keep.clone(), keep_prob=keep_prob, eps=eps,
+                       weight=weight.detach().clone(), bias=bias.detach().clone(),
+                       training=torch.is_grad_enabled() and weight.requires_grad)
+            out = original.apply(x, branch, weight, bias, keep, keep_prob, eps)
+            outs = (out,) if branch is None else out
+            if outs[-1].requires_grad:
+                outs[-1].register_hook(lambda g: rec.__setitem__("grad_y", g.detach().clone()))
+                if branch is not None:
+                    outs[0].register_hook(lambda g: rec.__setitem__("grad_res", g.detach().clone()))
+            records.append(rec)
+            return out
+
+    mlp.AddNorm = Spy
+    try:
+        yield records
+    finally:
+        mlp.AddNorm = original
+
+
+def record_add_norm(cfg, batch: dict, dev: torch.device) -> list:
+    """One eager training step of `cfg` (after a warm-up step) under
+    `spy_add_norm`: every norm's records, each with its gradients."""
+    from ov3det_torch.engine.train import batch_to_device, build_training
+
+    training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = batch_to_device(batch, dev)
+    training.train_step(b, gen)  # warm-up
+    with spy_add_norm(training.model) as records:
+        training.train_step(b, gen)
+    torch.cuda.synchronize()
+    require(records and all(r["training"] and "grad_y" in r
+                            and (r["branch"] is None or "grad_res" in r) for r in records),
+            "record_add_norm: a norm got no gradient")
+    del training
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+def record_add_norm_request(det, batch: dict) -> list:
+    """One request's eager forward (`Detector.eval_step`) under
+    `spy_add_norm`: every norm's records in eval mode (no mask, no
+    gradient)."""
+    from ov3det_torch.engine.infer import INPUT_KEYS
+
+    inputs = {k: torch.as_tensor(np.asarray(batch[k], np.float32)).to(det.device)
+              for k in INPUT_KEYS}
+    with spy_add_norm(det.model) as records:
+        det.eval_step(inputs)
+    torch.cuda.synchronize()
+    require(records and not any(r["training"] or r["keep"] is not None for r in records),
+            "record_add_norm_request: expected eval-mode norms without masks")
+    return [{k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in r.items()}
+            for r in records]  # plain tensors, out of inference mode
+
+
+def record_text_norms(encoder, ids: torch.Tensor) -> list:
+    """The text tower's norms (width 640, no gradient) on `ids`, under
+    `spy_add_norm`."""
+    with torch.no_grad(), spy_add_norm(encoder) as records:
+        encoder(ids)
+    torch.cuda.synchronize()
+    return records
+
+
+def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """A gradient's error in units of its gate: bf16 ulps (`dy_ulps`: one ulp,
+    or SA_DY_REL of the largest value) in bf16, NORM_GRAD_REL of the largest
+    value in f32; NaN positions must agree (else inf)."""
+    if got.dtype == torch.bfloat16:
+        return dy_ulps(got, want.float())
+    return rel_err(got, want) / NORM_GRAD_REL
+
+
+def abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| where neither is NaN."""
+    got, want = got.double(), want.double()
+    ok = ~(torch.isnan(got) | torch.isnan(want))
+    return (got[ok] - want[ok]).abs().max().item() if ok.any() else 0.0
+
+
+def norm_expression64(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float):
+    """`LayerNorm`'s expression in f64 on the f32 (or bf16) rows h."""
+    mean = h.mean(-1, keepdim=True)
+    var = torch.clamp((h * h).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    return (h - mean) * (torch.rsqrt(var + eps) * weight) + bias, mean, torch.rsqrt(var + eps)
+
+
+def check_norm_record(rec: dict) -> dict:
+    """The kernels on one recorded norm against their plain versions and the
+    expression in f64 (`check_add_norm`); returns the record's errors."""
+    from ov3det_torch.models.mlp import AddNorm
+    from ov3det_torch.ops.kernels import add_norm as an
+
+    x, br, keep, kp, eps = rec["x"], rec["branch"], rec["keep"], rec["keep_prob"], rec["eps"]
+    w, b, label = rec["weight"], rec["bias"], rec["name"]
+    errs = {}
+    first = an.add_norm(x, w, b, eps, br, keep, kp)
+    again = an.add_norm(x, w, b, eps, br, keep, kp)
+    require(all(t is None or bits_equal(t, u) for t, u in zip(first, again)),
+            f"add_norm ({label}): two launches differ")
+    x_new, y, stats = first
+    px, py, _ = an.add_norm_plain(x, w, b, eps, br, keep, kp)
+    require(br is None or bits_equal(x_new, px),
+            f"add_norm ({label}): x_new differs from the plain version")
+    h = x if br is None else x_new
+    y64, mean64, r64 = norm_expression64(h.double(), w.double(), b.double(), eps)
+    errs["y"], errs["plain y"] = rel_err(y, y64), rel_err(py, y64)
+    errs["mean"] = rel_err(stats[0], mean64.reshape(-1))
+    errs["r"] = rel_err(stats[1], r64.reshape(-1))
+    # the kernel's rsqrtf against the card's torch.rsqrt on the kernel's own variance
+    errs["rsqrt differs"] = float(not bits_equal(
+        stats[1], torch.rsqrt(torch.clamp(stats[2], min=0.0) + eps)))
+    errs["add_norm"] = abs_err(y, y64)
+    require(errs["y"] <= max(NORM_Y_REL, NORM_PLAIN_FACTOR * errs["plain y"]),
+            f"add_norm ({label}): y {errs['y']:.2e} of the largest value against f64, the plain "
+            f"version {errs['plain y']:.2e} (gate {NORM_Y_REL}, or {NORM_PLAIN_FACTOR}x the "
+            "plain version's)")
+    if not rec["training"]:
+        return errs
+
+    gy, gres = rec["grad_y"], rec.get("grad_res")
+    bdt = None if br is None else br.dtype
+    first = an.add_norm_grad(h, gy, stats, w, x.dtype, gres, bdt, keep, kp)
+    again = an.add_norm_grad(h, gy, stats, w, x.dtype, gres, bdt, keep, kp)
+    require(all(t is None or bits_equal(t, u) for t, u in zip(first, again)),
+            f"add_norm_grad ({label}): two launches differ")
+    dx, dbr, sums = first
+    hr, wr, bbr = (t.double().requires_grad_() for t in (h, w, b))
+    dh, dw, db = torch.autograd.grad(norm_expression64(hr, wr, bbr, eps)[0], [hr, wr, bbr],
+                                     gy.double())
+    total = dh if gres is None else dh + gres.double()
+    pdx, _ = an.add_norm_grad_plain(h, gy, stats, w, x.dtype, gres, bdt, keep, kp)
+    errs["dx"], errs["plain dx"] = norm_err(dx, total), norm_err(pdx, total)
+    errs["dweight"], errs["dbias"] = rel_err(sums[0], dw), rel_err(sums[1], db)
+    errs["add_norm_grad"] = max(abs_err(dx, total), abs_err(sums[0], dw), abs_err(sums[1], db))
+    if br is not None and x.dtype == torch.float32:  # dbranch from the kernel's own sum
+        d = dx.to(bdt)
+        want = d if keep is None else torch.where(keep, d, 0.0) / kp
+        require(bits_equal(dbr, want), f"add_norm_grad ({label}): dbranch differs from "
+                                       "autograd's order on the kernel's dx")
+    elif br is not None:  # an f32 dbranch of a bf16 x: the f32 sum is not written
+        want = total if keep is None else torch.where(keep, total / kp, 0.0)
+        errs["dbranch"] = norm_err(dbr, want)
+        require(errs["dbranch"] <= 1.0, f"add_norm_grad ({label}): dbranch {errs['dbranch']:.2f} "
+                                        "of its gate")
+    require(errs["dx"] <= 1.0 and max(errs["dweight"], errs["dbias"]) <= NORM_GRAD_REL,
+            f"add_norm_grad ({label}) against the f64 VJP: dx {errs['dx']:.2f} of its gate, "
+            f"dweight {errs['dweight']:.2e}, dbias {errs['dbias']:.2e} (gate {NORM_GRAD_REL})")
+
+    # the Function (`AddNorm`, what the modules call) gives the wrappers' bits
+    xr = x.clone().requires_grad_()
+    brr = None if br is None else br.clone().requires_grad_()
+    wr, bbr = w.clone().requires_grad_(), b.clone().requires_grad_()
+    out = AddNorm.apply(xr, brr, wr, bbr, keep, kp, eps)
+    outs = (out,) if br is None else out
+    wrt = [xr, wr, bbr] + ([] if brr is None else [brr])
+    got = torch.autograd.grad(outs, wrt, (gy,) if br is None else (gres, gy))
+    want = [dx, sums[0], sums[1]] + ([] if dbr is None else [dbr])
+    require(bits_equal(outs[-1], y) and (br is None or bits_equal(outs[0], x_new))
+            and all(bits_equal(a, c) for a, c in zip(got, want)),
+            f"AddNorm ({label}): the Function differs from its kernels' launches")
+    return errs
+
+
+def norm_bytes(rec: dict) -> dict:
+    """The bytes each kernel must move at the record's shapes: each input read
+    once, each output written once (x_new, y and the rows' statistics out of
+    the forward; the backward's dweight and dbias, not the partial rows)."""
+    x, br, keep = rec["x"], rec["branch"], rec["keep"]
+    n, C, e = x.numel(), x.shape[-1], x.element_size()
+    rows = n // C
+    fwd = n * e + 4 * n + 8 * C + 12 * rows
+    bwd = n * (4 if br is not None else e) + 4 * n + n * e + 4 * C + 12 * rows + 8 * C
+    if br is not None:
+        fwd += n * br.element_size() + 4 * n  # branch in, x_new out
+        bwd += 4 * n + n * br.element_size()  # x_new's own gradient in, dbranch out
+        if keep is not None:
+            fwd, bwd = fwd + n, bwd + n
+    return {"add_norm": fwd, "add_norm_grad": bwd}
+
+
+def norm_signature(rec: dict) -> tuple:
+    br = rec["branch"]
+    return (tuple(rec["x"].shape), rec["x"].dtype, None if br is None else br.dtype,
+            rec["keep"] is not None, rec["training"])
+
+
+def time_norm_record(rec: dict) -> dict:
+    """In turns by graph replays (`in_turns`): the forward kernel, its plain
+    version and the library pair's forward (the add, then `F.layer_norm`,
+    which takes the two-pass variance: a yardstick of its work); in training
+    the backward kernels (one launch), the plain versions and the library's
+    backward (`native_layer_norm_backward`, then the residual's add and the
+    dropout's backward)."""
+    import torch.nn.functional as F
+
+    from ov3det_torch.ops.kernels import add_norm as an
+
+    x, br, keep, kp, eps = rec["x"], rec["branch"], rec["keep"], rec["keep_prob"], rec["eps"]
+    w, b = rec["weight"], rec["bias"]
+    C = x.shape[-1]
+    x_new, _, stats = an.add_norm(x, w, b, eps, br, keep, kp)
+    h = x if br is None else x_new
+    runs = {"add_norm": lambda: an.add_norm(x, w, b, eps, br, keep, kp),
+            "add_norm plain": lambda: an.add_norm_plain(x, w, b, eps, br, keep, kp),
+            "add_norm library": lambda: F.layer_norm(
+                x.float() if br is None else x + an.dropped(br, keep, kp), (C,), w, b, eps)}
+    if rec["training"]:
+        gy, gres = rec["grad_y"], rec.get("grad_res")
+        bdt = None if br is None else br.dtype
+        hf = h.float()
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(hf, [C], w, b, eps)
+
+        def library_backward():
+            dxl, dwl, dbl = torch.ops.aten.native_layer_norm_backward(
+                gy, hf, [C], lmean, lrstd, w, b, [True, True, True])
+            if br is None:
+                return dxl, dwl, dbl
+            t = dxl + gres
+            d = t.to(bdt)
+            return t, d if keep is None else torch.where(keep, d, 0.0) / kp, dwl, dbl
+
+        runs["add_norm_grad"] = lambda: an.add_norm_grad(h, gy, stats, w, x.dtype, gres, bdt,
+                                                         keep, kp)
+        runs["add_norm_grad plain"] = lambda: (
+            an.add_norm_grad_plain(h, gy, stats, w, x.dtype, gres, bdt, keep, kp),
+            an.add_norm_param_grads_plain(h, gy, stats))
+        runs["add_norm_grad library"] = library_backward
+    return in_turns(runs, NORM_REPS)
+
+
+def check_norm_crafted(card: str, rec: dict) -> None:
+    """Crafted inputs through `check_norm_record`, from a training record's
+    fused add & norm (its weight, bias and eps; seeded gradients): NaN and
+    infinities in x and the branch; constant rows (var_raw above, at and
+    below 0: the clamp's backward); a bf16 x with an f32 branch, with and
+    without the mask; a bf16 x alone; widths 8 and 768; x off a 16-byte
+    boundary.  Then what the kernels refuse raises on the card: a bf16 x
+    with a bf16 branch, C 776 and C 12."""
+    from ov3det_torch.ops.kernels import add_norm as an
+
+    dev = rec["x"].device
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def seeded(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def case(x, br, keep, w=None, b=None):
+        C = x.shape[-1]
+        w = rec["weight"] if w is None else w
+        b = rec["bias"] if b is None else b
+        return dict(rec, x=x, branch=br, keep=keep, weight=w, bias=b, training=True,
+                    grad_y=seeded(x.shape), grad_res=None if br is None else seeded(x.shape),
+                    name=f"{rec['name']}, {C} channels")
+
+    x, br, keep = (t[:1, :512] for t in (rec["x"], rec["branch"], rec["keep"]))
+    rows = x.reshape(-1, x.shape[-1]).clone()
+    for i, c in enumerate((0.0099999998, 0.0119939977, 0.0149849951, 3.0, 0.0)):
+        rows[i] = c
+    nan = float("nan")
+    cases = {
+        "NaN and infinities in x and the branch": case(
+            sprinkle(x, [nan, float("inf"), -float("inf")], 96, 41), sprinkle(br, [nan], 32, 42),
+            keep),
+        "constant rows": case(rows.view_as(x), None, None),
+        "constant rows, with the branch 0": case(rows.view_as(x), torch.zeros_like(br), keep),
+        "a bf16 x, an f32 branch, the mask": case(x.to(torch.bfloat16), br.float(), keep),
+        "a bf16 x, an f32 branch": case(x.to(torch.bfloat16), br.float(), None),
+        "a bf16 x alone": case(x.to(torch.bfloat16), None, None),
+        "width 8": case(seeded((64, 8), scale=3.0), seeded((64, 8), torch.bfloat16),
+                        seeded((64, 8)) > -1.0, seeded((8,)), seeded((8,))),
+        "width 768": case(seeded((70, 768), scale=3.0), seeded((70, 768), torch.bfloat16),
+                          seeded((70, 768)) > -1.0, seeded((768,)), seeded((768,))),
+        "x off a 16-byte boundary": case(misaligned(x, 4), br, keep),
+    }
+    for name, c in cases.items():
+        check_norm_record(c)
+    refused = 0
+    for x_bad, b_bad in ((x.to(torch.bfloat16), br), (seeded((4, 776)), None),
+                         (seeded((4, 12)), None)):
+        C = x_bad.shape[-1]
+        w = rec["weight"] if C == x.shape[-1] else torch.ones(C, device=dev)
+        try:
+            an.add_norm(x_bad, w, torch.zeros_like(w), 1e-5, b_bad)
+        except ValueError:
+            refused += 1
+    require(refused == 3, f"add_norm: {3 - refused} of 3 inputs the kernels do not take ran")
+    print(f"add & norm crafted ({rec['name']}): {', '.join(cases)} through every gate of a "
+          f"record's check; a bf16 x with a bf16 branch, C 776 and C 12 refused ({card})")
+
+
+def check_add_norm(card: str, label: str, records: list, timed: bool) -> dict:
+    """The transformer's add & norm on a run's own inputs (`check_norm_record`
+    on each record): from a training step (`record_add_norm`: with the
+    incoming gradients), a request (`record_add_norm_request`, eval mode) or
+    the text tower (`record_text_norms`).  `add_norm` two launches equal,
+    x_new equal to the plain version bit for bit, y within NORM_Y_REL of the
+    largest value of the expression in f64 (or NORM_PLAIN_FACTOR times the
+    plain version's own error, where that is larger); in training
+    `add_norm_grad` two launches equal, dx within NORM_GRAD_REL of the
+    largest value of the f64 VJP (bf16: one ulp or SA_DY_REL), dweight and
+    dbias within NORM_GRAD_REL, dbranch equal to autograd's order on the
+    kernel's dx bit for bit; the Function (`AddNorm`) equal to the wrappers'
+    launches bit for bit.  With `timed`, each distinct signature (shape,
+    dtypes, mask, mode) in turns (`time_norm_record`), times its count.
+    Returns the totals over the run's norms: {kernel: ms, plain_ms,
+    library_ms, bound_ms, max_abs_err, ...}."""
+    t0 = time.perf_counter()
+    groups = collections.OrderedDict()
+    worst = collections.defaultdict(float)
+    for rec in records:
+        errs = check_norm_record(rec)
+        groups.setdefault(norm_signature(rec), []).append((rec, errs))
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+    tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, ops=0, launches=0)
+           for n in NORM_KERNELS}
+    for (shape, xdt, bdt, masked, training), members in groups.items():
+        rec, count = members[0][0], len(members)
+        run = NORM_KERNELS if training else ("add_norm",)
+        nbytes = norm_bytes(rec)
+        for n in run:
+            tot[n]["nbytes"] += count * nbytes[n]
+            tot[n]["ops"] += count * NORM_OPS[n] * rec["x"].numel()
+            tot[n]["launches"] += count
+        errs = {k: max(e.get(k, 0.0) for _, e in members) for k in members[0][1]}
+        line = (f"add & norm {label}: {count} x {'x'.join(map(str, shape))}, x {str(xdt)[6:]}, "
+                f"branch {str(bdt)[6:] if bdt else 'none'}{', the mask' if masked else ''}, "
+                f"{'training' if training else 'eval'} ({members[0][0]['name']} ...): y "
+                f"{errs['y']:.1e} of the largest value against f64 (plain {errs['plain y']:.1e}), "
+                f"mean {errs['mean']:.1e}, r {errs['r']:.1e}")
+        if training:
+            line += (f"; dx {errs['dx']:.2f} of its gate (plain {errs['plain dx']:.2f}), dweight "
+                     f"{errs['dweight']:.1e}, dbias {errs['dbias']:.1e}")
+        if timed:
+            best = time_norm_record(rec)
+            for n in run:
+                tot[n]["ms"] += count * best[n]
+                tot[n]["plain_ms"] += count * best[f"{n} plain"]
+                tot[n]["library_ms"] += count * best[f"{n} library"]
+            line += "; " + ", ".join(
+                f"{n} {best[n]:.4f} ms (plain {best[n + ' plain']:.4f}, library "
+                f"{best[n + ' library']:.4f}, bound "
+                f"{bound_ms(nbytes[n], NORM_OPS[n] * rec['x'].numel(), F32_PEAK)[0]:.4f})"
+                for n in run) + " (graph replays, in turns)"
+        print(line + f" ({card})")
+    out = {}
+    for n in NORM_KERNELS:
+        if not tot[n]["nbytes"]:
+            continue
+        b_ms, b_by = bound_ms(tot[n]["nbytes"], tot[n]["ops"], F32_PEAK)
+        out[n] = dict(max_abs_err=worst[n], bound_ms=b_ms, bound_by=b_by, nbytes=tot[n]["nbytes"],
+                      calls=tot[n]["launches"],
+                      **({} if not timed else dict(ms=tot[n]["ms"], plain_ms=tot[n]["plain_ms"],
+                                                   library_ms=tot[n]["library_ms"])))
+    NORM_CHECKED[label] = out
+    print(f"add & norm ({label}): {len(records)} norms in {len(groups)} signatures held (r equal "
+          f"to torch.rsqrt of the kernel's own variance bit for bit: {worst['rsqrt differs'] == 0}); " +
+          ", ".join(f"{n} {v['calls']} calls, bound {v['bound_ms']:.4f} ms "
+                    f"({v['nbytes'] / 1e9:.3f} GB)" + (f", kernel {v['ms']:.4f} ms, plain "
+                                                        f"{v['plain_ms']:.4f}, library "
+                                                        f"{v['library_ms']:.4f}" if timed else "")
+                    for n, v in out.items()) +
+          f"; the check took {time.perf_counter() - t0:.1f} s ({card})")
+    return out
+
+
+def norm_entries(step: dict, masked: dict, checked: dict) -> dict:
+    """The kernels-line entries of the two add & norm kernels: the times and
+    bounds of one sunrgbd_quick step's 38 norms, the masked config's beside
+    them; `library_ms` the library pair's (the add and `F.layer_norm`;
+    `native_layer_norm_backward`, the residual's add and the dropout's
+    backward).  `max_abs_err` is the largest over every checked run
+    (`checked`: label -> `check_add_norm`'s result), which the entry lists."""
+    entries = {}
+    for n in NORM_KERNELS:
+        e = {k: v for k, v in step[n].items() if k != "nbytes"}
+        e.update(per=f"one sunrgbd_quick training step's {step[n]['calls']} norms",
+                 scannet_masked={k: v for k, v in masked[n].items() if k != "nbytes"},
+                 checked_runs=sorted(label for label, c in checked.items() if n in c))
+        e["max_abs_err"] = max(c[n]["max_abs_err"] for c in checked.values() if n in c)
+        entries[n] = e
+    entries["add_norm"]["library"] = "the residual's add and F.layer_norm (two-pass variance)"
+    entries["add_norm_grad"]["library"] = ("native_layer_norm_backward, the residual's add and "
+                                           "the dropout's backward")
     return entries
 
 
@@ -2972,10 +3633,10 @@ def cli_phase(card: str) -> dict:
     launch counts of its three runs (train, guard, --test_only)."""
     import tempfile
 
-    train_step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+    train_step = expect(**sa(), **norms(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
                         attention_dkv=3, auction=1)
-    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
-    test_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
+    test_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_cli_") as run:
         argv = CLI_ARGV + ["--checkpoint_dir", run]
@@ -3105,7 +3766,7 @@ OV_CLI_ARGV = ["--dataset_name", "synthetic", "--device", "cuda", "--use_image",
 
 def ov_step() -> dict:
     """The launches of one OV training step: the detector's and the teacher's."""
-    return expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+    return expect(**sa(), **norms(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
                   auction=1, **TEACHER_STEP)
 
 
@@ -3170,8 +3831,10 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
     activations that forward gives it: `quant_conv` (the design `_route`
     picks) and its first design (`_impl="mma"`) equal `quant_conv_plain`
     bit for bit in the forward's epilogue, in the full one (bias, a random
-    residual, ReLU, bf16 and int8 out) and in the dequant-only one with an
-    f32 output ("static" and "dynamic" modes of an f32 tower); then, in
+    residual, ReLU, bf16 and int8 out), in the full one with NaN and
+    infinities in the residual (a NaN output's code 0, the plain version's)
+    and in the dequant-only one with an f32 output ("static" and "dynamic"
+    modes of an f32 tower); then, in
     turns, the routed kernel, the first design, `torch._int_mm` alone on the
     im2col, the plain version (im2col, `_int_mm`, the elementwise ops) and
     cuDNN's bf16 conv of the same shape, each by replays of a CUDA graph of
@@ -3211,11 +3874,17 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
         B, H, W, C = xq.shape
         N = kq.shape[0]
         rand_res = (torch.randn((B, H, W, N), generator=g, device=dev) * 2).to(torch.bfloat16)
+        nan_res = sprinkle(rand_res, [float("nan"), float("inf"), -float("inf")], 96, 17)
         variants = {"as called": entry["args"],
                     "full": [xq, kq, k, pad, s_x, scale, scale * 3 - 0.05, rand_res, True,
                              s_next if s_next is not None else s_x, True, torch.bfloat16],
                     "dequant only, f32": [xq, kq, k, pad, s_x, scale, None, None, False, None,
-                                          True, None]}
+                                          True, None],
+                    # NaN and infinities through the residual: a NaN's code is 0
+                    "full, NaN in the residual": [xq, kq, k, pad, s_x, scale, scale * 3 - 0.05,
+                                                  nan_res, True,
+                                                  s_next if s_next is not None else s_x, True,
+                                                  torch.bfloat16]}
         route = qc._route(C, N, k)
         for name, args in variants.items():
             want = qc.quant_conv_plain(*args)
@@ -3223,9 +3892,15 @@ def check_quant_conv(card: str, teacher, images, boxes, dev: torch.device) -> di
                 got = qc.quant_conv(*args, _impl=impl)
                 torch.cuda.synchronize()
                 for a, b in zip(got, want):
-                    require((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                    require((a is None) == (b is None) and (a is None or (
+                        bits_equal(a, b) if a.is_floating_point() else torch.equal(a, b))),
                             f"quant_conv {key} {name}: the {impl or route} design differs from "
                             f"the plain version")
+            if name == "full, NaN in the residual":  # the plain version's code of NaN is 0
+                out_bf, codes = want[0], want[1]
+                nan_out = torch.isnan(out_bf)
+                require(bool(nan_out.any()) and not bool(codes[nan_out].any()),
+                        f"quant_conv {key}: NaN outputs not coded 0 by the plain version")
         if k == 3 and B * H * W * 9 * C * N <= CPU_CHECK_MACS:  # the card against the CPU
             cpu = [t.cpu() if isinstance(t, torch.Tensor) else t for t in variants["full"]]
             for a, b in zip(qc.quant_conv(*variants["full"]), qc.quant_conv_plain(*cpu)):
@@ -3304,7 +3979,7 @@ def check_pass(card: str, pools: dict, dev: torch.device, t0: float) -> dict:
     forward (`pools`: `record_trunk`'s, on that forward's activations) and
     at odd shapes (an odd H or W at pool 2, C 8 short of a multiple of 16,
     C 8 at pool 1 in pieces of 16, one and two scales, f32 inputs, values
-    on the scale's half-integers):
+    on the scale's half-integers, NaN and infinities: a NaN codes 0):
     the routed design (`pass_launch`) and the first (`_impl="first"`) equal
     the plain version bit for bit; then, at the forward's passes, in turns,
     the routed design, the first, the plain version and `F.avg_pool2d` alone,
@@ -3322,6 +3997,13 @@ def check_pass(card: str, pools: dict, dev: torch.device, t0: float) -> dict:
         x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
         cases[("odd", shape, dtype, p, n)] = {"calls": 0, "args": [x, p, [
             torch.tensor(0.02 + 0.01 * i, device=dev) for i in range(n)]]}
+    specials = [float("nan"), float("inf"), -float("inf")]
+    for shape, dtype, p in (((2, 6, 10, 32), torch.bfloat16, 1), ((2, 6, 10, 32), torch.bfloat16, 2),
+                            ((2, 5, 7, 40), torch.float32, 1), ((2, 6, 8, 48), torch.float32, 2)):
+        x = sprinkle((torch.randn(shape, generator=g, device=dev) * 3).to(dtype), specials, 60,
+                     len(shape) + p)  # a NaN, and a pool over one, codes 0
+        cases[("NaN", shape, dtype, p)] = {"calls": 0, "args": [x, p, [
+            torch.tensor(0.02, device=dev), torch.tensor(0.05, device=dev)]]}
     halves = (torch.randint(-130, 130, (2, 6, 10, 32), generator=g, device=dev) + 0.5) * 0.25
     for p in (1, 2):  # quotients on half-integers: the exact fall-back decides every value
         cases[("half-integers", p)] = {"calls": 0, "args": [halves.to(torch.bfloat16), p, [
@@ -3337,6 +4019,10 @@ def check_pass(card: str, pools: dict, dev: torch.device, t0: float) -> dict:
             require(all(torch.equal(a, b) for a, b in zip(got, want)),
                     f"pool_quantize {key}: the {impl or 'routed'} design differs from the plain "
                     f"version")
+        if key[0] == "NaN":  # the plain version codes a NaN (a pool over one) 0
+            nan = torch.isnan(qc.avg_pool(x.float(), p) if p > 1 else x)
+            require(bool(nan.any()) and not any(bool(q[nan].any()) for q in want),
+                    f"pool_quantize {key}: NaN not coded 0 by the plain version")
         launch = qc.pass_launch(B, H, W, C, p)
         if not entry["calls"]:
             print(f"pool_quantize {'x'.join(map(str, x.shape))} {str(x.dtype)[6:]}, pool {p}, "
@@ -4073,7 +4759,7 @@ def ov_cli(card: str, dev: torch.device, argv: list = OV_CLI_ARGV, label: str = 
     from ov3det_torch.engine.train import build_training
 
     train_step = ov_step()
-    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_ov_cli_") as run:
         argv = argv + ["--checkpoint_dir", run]
@@ -4472,6 +5158,8 @@ def text_tower(card: str, dev: torch.device) -> None:
     err = ((got[:TEXT_CHECK_PROMPTS] - want).abs().max() / want.abs().max()).item()
     require(got.shape == (len(flat), 640) and torch.isfinite(got).all(), "text tower: bad output")
     require(err <= 1e-5, f"text tower: card vs CPU {err} of the largest value")
+    check_add_norm(card, "text tower", record_text_norms(on_card, ids[:TEXT_CHECK_PROMPTS]),
+                   timed=True)
     emb = extract_class_embeddings(on_card, prompts)
     require(emb.shape == (18, 640) and np.allclose(np.linalg.norm(emb, axis=-1), 1, atol=1e-5),
             "text tower: class embeddings are not unit rows")
@@ -4794,7 +5482,7 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     request_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
-    want = expect(**sa(train=False), fps=2, first_k=1, attention_fwd=3, nms=1,
+    want = expect(**sa(train=False), **norms(train=False), fps=2, first_k=1, attention_fwd=3, nms=1,
                   points_in_box=1)
     require(counts == want, f"reference checkpoint request: launches {counts}, expected {want}")
     require(len(dets) == BATCH and all(np.isfinite(c).all() and np.isfinite(s).all()
@@ -4832,7 +5520,7 @@ def reference_checkpoint(card: str, dev: torch.device) -> dict:
     m_dets = m_det.detect(batches[1])
     masked_ms = (time.perf_counter() - t0) * 1e3
     m_counts = read_counts()
-    want = expect(**sa(2, train=False), fps=3, first_k=2, attention_fwd_radius=3, nms=1,
+    want = expect(**sa(2, train=False), **norms(train=False), fps=3, first_k=2, attention_fwd_radius=3, nms=1,
                   points_in_box=1)
     require(m_counts == want, f"masked first_k request: launches {m_counts}, expected {want}")
     require(all(np.isfinite(c).all() and np.isfinite(s).all() for _, c, s in m_dets),
@@ -4880,9 +5568,9 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
     from ov3det_torch.tools.format_tools import adjust_format_to_nyu40
 
     t_phase = time.perf_counter()
-    train_step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+    train_step = expect(**sa(), **norms(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
                         attention_dkv=3, auction=1)
-    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3)
     total = collections.Counter()
     with tempfile.TemporaryDirectory(prefix="ov3det_pseudo_") as run:
         t0 = time.perf_counter()
@@ -4936,7 +5624,8 @@ def pseudo_phase(card: str, dev: torch.device) -> dict:
                 f"pseudo all: files {files}")
         require(all(r.shape == (Q, 7) and np.isfinite(r).all() for r in rows),
                 "pseudo all: a file holds non-finite or misshapen rows")
-        want = expect(**sa(2, train=False), fps=2 * 2, ball_group=2, attention_fwd=2 * 3)
+        want = expect(**sa(2, train=False), **norms(train=False, times=2), fps=2 * 2,
+                      ball_group=2, attention_fwd=2 * 3)
         require(counts == want and [d for _, d in batches] == [eval_batch, eval_batch],
                 f"pseudo all: launches {counts}, batches {[d for _, d in batches]}")
         total.update(counts)
@@ -5199,7 +5888,7 @@ def ddp_steps(card: str, dev: torch.device) -> dict:
     from ov3det_torch.config import sunrgbd_quick
     from ov3det_torch.engine.train import batch_to_device, build_training
 
-    step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+    step = expect(**sa(), **norms(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
                   auction=1)
     cfg = f32_no_dropout(sunrgbd_quick())
     training = build_training(cfg, ITERS_PER_EPOCH, device=dev, seed=0)
@@ -5338,10 +6027,10 @@ def ddp_cli(card: str) -> dict:
     import pickle
     import tempfile
 
-    train_step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+    train_step = expect(**sa(), **norms(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
                         attention_dkv=3, auction=1)
-    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
-    test_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3, auction=1)  # --eval_loss
+    test_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3)
     with tempfile.TemporaryDirectory(prefix="ov3det_ddp_cli_") as out:
         run = os.path.join(out, "run")
         argv = CLI_ARGV + ["--max_epoch", "1", "--checkpoint_dir", run]
@@ -5404,7 +6093,7 @@ def bank_cli(card: str, dev: torch.device, unbanked_waits: list) -> dict:
     from ov3det_torch.engine.train import batch_to_device, build_training, decode_banked_images
 
     train_step = ov_step()
-    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_bank_cli_") as run:
         argv = OV_CLI_ARGV + ["--image_bank", "--checkpoint_dir", run]
@@ -5600,7 +6289,7 @@ def sun_bank_cli(card: str, dev: torch.device, argv: list, unbanked_waits: list)
     from ov3det_torch.datasets.registry import build_dataset
 
     train_step = ov_step()
-    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_sun_bank_") as run:
         reset_counts()
@@ -5839,12 +6528,21 @@ def check_auction(card: str, dev: torch.device) -> dict:
 @contextlib.contextmanager
 def plain_spy():
     """Count the calls of the plain scatter, auction, RoIAlign, attention
-    pool, normalisation, quantise pass and shared MLP while the block runs
+    pool, normalisation, quantise pass, shared MLP and add & norm while the
+    block runs
     (a Counter by name): none may run on the card's main path.  (The first
     auction design has a launch counter of its own, "auction_first".)"""
-    from ov3det_torch.models import pointnet
+    from ov3det_torch.models import mlp, pointnet
     from ov3det_torch.ops import roi_align
-    from ov3det_torch.ops.kernels import attn_pool, auction, ball_group, bn_relu, normalise, quant_conv
+    from ov3det_torch.ops.kernels import (
+        add_norm,
+        attn_pool,
+        auction,
+        ball_group,
+        bn_relu,
+        normalise,
+        quant_conv,
+    )
 
     calls = collections.Counter()
     targets = [(torch.Tensor, "index_put_"), (torch.Tensor, "index_add_"),
@@ -5854,7 +6552,10 @@ def plain_spy():
                (attn_pool, "pool_attend_plain"), (normalise, "normalise_plain"),
                (quant_conv, "pool_quantize_plain"), (pointnet, "bn_relu_plain"),
                (bn_relu, "bn_stats_plain"), (bn_relu, "bn_relu_apply_plain"),
-               (bn_relu, "bn_relu_grad_sums_plain"), (bn_relu, "bn_relu_grad_apply_plain")]
+               (bn_relu, "bn_relu_grad_sums_plain"), (bn_relu, "bn_relu_grad_apply_plain"),
+               (add_norm, "add_norm_plain"), (add_norm, "layer_norm_plain"),
+               (mlp, "add_norm_plain"), (mlp, "layer_norm_plain"), (add_norm, "add_norm_grad_plain"),
+               (add_norm, "add_norm_param_grads_plain")]
     originals = [(obj, name, getattr(obj, name)) for obj, name in targets]
 
     def counted(name, fn):
@@ -5943,8 +6644,8 @@ def graph_vs_eager(card: str, dev: torch.device, label: str, cfg, batches: list,
     print(f"{label}: {GRAPH_STEPS} graphed steps equal the eager ones bit for bit (losses, "
           f"grad_norm, {len(g_s)} parameters, buffers and Adam moments), and neither called "
           f"index_put_, index_add_, _scatter, the plain auction, the plain RoIAlign, the plain "
-          f"attention pool, the plain normalisation, the plain quantise pass or the plain shared "
-          f"MLP (a spy); step time "
+          f"attention pool, the plain normalisation, the plain quantise pass, the plain shared "
+          f"MLP or the plain add & norm (a spy); step time "
           f"(host clock "
           f"to a sync, {TIMED_STEPS} steps) graphed median {np.median(times[True]):.2f} ms "
           f"({min(times[True]):.2f} to {max(times[True]):.2f}), eager median "
@@ -5963,7 +6664,7 @@ def flagged_cli(card: str, argv: list, group: int, label: str) -> tuple:
     import tempfile
 
     train_step = ov_step()
-    eval_batch = expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3)
+    eval_batch = expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1, attention_fwd=3)
     probe = CliProbe()
     with tempfile.TemporaryDirectory(prefix="ov3det_flagged_") as run:
         reset_counts()
@@ -6008,13 +6709,13 @@ def packed_phase(card: str, dev: torch.device) -> tuple:
 
     t_phase = time.perf_counter()
     entry = check_auction(card, dev)
-    step = expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+    step = expect(**sa(), **norms(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
                   auction=1)
     sun, masked, ov = sunrgbd_quick(), scannet_masked(), ov_config()
     graph_vs_eager(card, dev, "sunrgbd", sun, synthetic_batches(sun, GRAPH_STEPS, 1500), step)
     graph_vs_eager(card, dev, "scannet_masked", masked,
                    synthetic_batches(masked, GRAPH_STEPS, 1600),
-                   expect(**sa(2), fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
+                   expect(**sa(2), **norms(), fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
                           attention_fwd_radius=3, attention_dq_radius=3, attention_dkv_radius=3,
                           auction=1))
     batches = ov_batches(ov, GRAPH_STEPS, 1700)
@@ -6196,11 +6897,12 @@ def learning_phase(card: str, dev: torch.device) -> list:
     t_phase = time.perf_counter()
     tiny = learn(card, dev, "learning check (the JAX test's config)", learning_config(),
                  learning_batches(range(LEARN_BATCHES)), learning_batches(LEARN_EVAL_SEEDS),
-                 expect(**sa(), fps=2, ball_group=1, auction=1), gate=True)
+                 expect(**sa(), **norms(layers=(2, 2)), fps=2, ball_group=1, auction=1),
+                 gate=True)
     sun = sunrgbd_quick()
     wide = learn(card, dev, "learning run (sunrgbd_quick width)", sun,
                  synthetic_batches(sun, LEARN_BATCHES, 2200), synthetic_batches(sun, 2, 2300),
-                 expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
+                 expect(**sa(), **norms(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3,
                         auction=1), gate=False)
     print(f"phase 16 (the port learns): {time.perf_counter() - t_phase:.1f} s")
     return [tiny, wide]
@@ -6666,15 +7368,23 @@ def main() -> int:
     sun, masked = sunrgbd_quick(), scannet_masked()
     batches = synthetic_batches(sun, REQUESTS, 100)
     entries = {**check_kernels(batches[0], dev), **check_attention(dev)}
-    served, sun_nms = serve(sun, batches, expect(**sa(train=False), fps=2, ball_group=1, attention_fwd=3, nms=1,
-                                                 points_in_box=1), "sunrgbd", dev)
+    served, sun_nms = serve(sun, batches,
+                            expect(**sa(train=False), **norms(train=False), fps=2, ball_group=1,
+                                   attention_fwd=3, nms=1, points_in_box=1), "sunrgbd", dev, card)
     card_vs_cpu(batches[0])
-    trained = train(sun, TRAIN_STEPS, expect(**sa(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
-                                             attention_dkv=3, auction=1), "sunrgbd", 200, dev)
+    trained = train(sun, TRAIN_STEPS,
+                    expect(**sa(), **norms(), fps=2, ball_group=1, attention_fwd=3, attention_dq=3,
+                           attention_dkv=3, auction=1), "sunrgbd", 200, dev)
     train_card_vs_cpu(sun, "sunrgbd", 200)
     sa_sun = check_bn_relu(card, "sunrgbd", record_sa(sun, batches[0], dev), timed=True)
     check_bn_relu(card, "sunrgbd f32", record_sa(f32_no_dropout(sun), batches[0], dev),
                   timed=False)
+    sun_norms = record_add_norm(sun, batches[0], dev)
+    norm_sun = check_add_norm(card, "sunrgbd", sun_norms, timed=True)
+    check_norm_crafted(card, next(r for r in sun_norms if r["keep"] is not None))
+    del sun_norms
+    check_add_norm(card, "sunrgbd f32", record_add_norm(f32_no_dropout(sun), batches[0], dev),
+                   timed=False)
 
     m_batches = synthetic_batches(masked, REQUESTS, 300)
     extras, pre_xyz, mid_xyz = check_masked_points(m_batches[0], dev)
@@ -6686,23 +7396,27 @@ def main() -> int:
     entries.update(check_radius_attention(pre_xyz, mid_xyz, dev))
     del pre_xyz, mid_xyz
     m_served, masked_nms = serve(masked, m_batches,
-                                 expect(**sa(2, train=False), fps=3, ball_group=2, attention_fwd_radius=3, nms=1,
+                                 expect(**sa(2, train=False), **norms(train=False), fps=3,
+                                        ball_group=2, attention_fwd_radius=3, nms=1,
                                         points_in_box=1),
-                                 "scannet_masked", dev)
+                                 "scannet_masked", dev, card)
     m_trained = train(masked, MASKED_TRAIN_STEPS,
-                      expect(**sa(2), fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
-                             attention_fwd_radius=3, attention_dq_radius=3, attention_dkv_radius=3,
-                             auction=1),
+                      expect(**sa(2), **norms(), fps=3, ball_group=2, slot_sources=1,
+                             feature_scatter=1, attention_fwd_radius=3, attention_dq_radius=3,
+                             attention_dkv_radius=3, auction=1),
                       "scannet_masked", 400, dev)
     train_card_vs_cpu(masked, "scannet_masked", 400)
     sa_masked = check_bn_relu(card, "scannet_masked", record_sa(masked, m_batches[0], dev),
                               timed=True)
+    norm_masked = check_add_norm(card, "scannet_masked", record_add_norm(masked, m_batches[0], dev),
+                                 timed=True)
 
     cli_counts = cli_phase(card)
     ov_trained, ov_cli_counts, ov_waits, quant_entries, calibration = ov_phase(card, dev)
     entries.update(quant_entries)
     pseudo_counts, entries["first_k"] = pseudo_phase(card, dev)
     entries.update(sa_entries(sa_sun, sa_masked, SA_CHECKED))
+    entries.update(norm_entries(norm_sun, norm_masked, NORM_CHECKED))
     ddp_counts = ddp_phase(card, dev, ov_waits)
     image_counts = images_phase(card, dev)
     entries["auction"], packed_counts = packed_phase(card, dev)

@@ -212,10 +212,18 @@ struct Io<float> {
   }
 };
 
+// the int8 code of u: round_half_even(u) clamped to [-127, 127], and NaN 0, as
+// torch's and jnp's clip, round and int8 conversion give it.  The rounding
+// conversion (cvt.rni) makes a NaN 0 and saturates the infinities; the clamp
+// is on the integer
+__device__ __forceinline__ int8_t code_of(float u) {
+  const int i = __float2int_rn(u);
+  return static_cast<int8_t>(i < -127 ? -127 : (i > 127 ? 127 : i));
+}
+
 // clamp(round_half_even(v / s), -127, 127) as torch and jnp compute it in f32
 __device__ __forceinline__ int8_t quantize(float v, float s) {
-  const float t = rintf(__fdiv_rn(v, s));
-  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(t, -127.f), 127.f)));
+  return code_of(__fdiv_rn(v, s));
 }
 
 // 8 values quantised at s, as the 8 bytes of one store
@@ -243,9 +251,9 @@ __device__ __forceinline__ void store_q8(int8_t* q, const float (&v)[8], float s
 // difference is exact, and never above 0.5), or all 8 when s is outside [2^-125,
 // 2^125] (`exact`: 1 / s not a normal number): the caller then takes
 // `codes_q8`'s codes for them.  Beyond 127.5 in magnitude both clamp; NaN
-// and infinities take the same path in both.  `quantize_fast_emulated` of
-// tests/test_torch_quant_conv_hopper.py holds this formula against
-// `quantize_plain` on every boundary.
+// (code 0) and infinities take the same path in both.
+// `quantize_fast_emulated` of tests/test_torch_quant_conv_hopper.py holds
+// this formula against `quantize_plain` on every boundary.
 __device__ __forceinline__ uint32_t codes_q8_fast(const float (&v)[8], float rs, bool exact,
                                                   uint2& raw) {
   uint32_t near = exact ? 0xffu : 0u;
@@ -255,7 +263,7 @@ __device__ __forceinline__ uint32_t codes_q8_fast(const float (&v)[8], float rs,
     const float u = __fmul_rn(v[e], rs);
     const float t = rintf(u);
     near |= (fabsf(__fsub_rn(u, t)) > 0.5f - 0x1p-14f ? 1u : 0u) << e;
-    b[e] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(t, -127.f), 127.f)));
+    b[e] = code_of(u);
   }
   char4 lo = make_char4(b[0], b[1], b[2], b[3]);
   char4 hi = make_char4(b[4], b[5], b[6], b[7]);
@@ -594,13 +602,11 @@ struct PassArgs {
 // product and then the sum (x * w, + b: two torch ops), f32 takes the
 // product and the sum each rounded (no contracted multiply-add); the ReLU
 // keeps NaN (`y < 0 ? 0 : y`, not fmaxf).  Then a NaN goes to the quantise
-// as 0: the plain version's int8 conversion gives a NaN the code 0 (torch's
-// and XLA's alike), which `codes_q8_fast` would make -127 (its fmaxf; the
-// pass without the affine and the conv's epilogue keep that, PERF.md's open
-// questions).  wb: w then b of the C channels, as f32 in shared
-// memory.  A piece of VEC values crosses pixels wherever C is not a
-// multiple of VEC (C 40 at the stem), so the channel advances a value,
-// wrapping at C.
+// as 0, whose code is the one `code_of` gives a NaN: 0, as the plain
+// version's int8 conversion (torch's and XLA's alike).  wb: w then b of the
+// C channels, as f32 in shared memory.  A piece of VEC values crosses pixels
+// wherever C is not a multiple of VEC (C 40 at the stem), so the channel
+// advances a value, wrapping at C.
 template <typename T, int VEC>
 __device__ __forceinline__ void bn_relu(float (&v)[VEC / 8][8], const float* wb, uint32_t C,
                                         uint32_t c0) {

@@ -11,7 +11,10 @@ PyTorch habit:
 BatchNorm normalises each channel over all leading axes, with flax's
 training-mode statistics (below).  Dropout follows flax `nn.Dropout`: per
 element, kept values divided by the keep probability in the input's dtype,
-with the mask drawn from an explicit `torch.Generator`.
+with the mask drawn from an explicit `torch.Generator`.  On CUDA tensors
+LayerNorm, and the pre-norm residual x + dropout(branch) in front of it
+(`LayerNorm.add`), run as the kernels of `ops/kernels/add_norm.py`
+(`AddNorm`); CPU tensors keep the module expressions.
 
 Under a data group (`ov3det_torch.parallel`) the two see the global batch,
 as under the JAX package's mesh: BatchNorm's training statistics are
@@ -29,20 +32,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ov3det_torch.ops.kernels.add_norm import (
+    add_norm,
+    add_norm_grad,
+    add_norm_plain,
+    dropped,
+    layer_norm_plain,
+)
 from ov3det_torch.parallel.mesh import all_reduce_sum, data_group
 
 _TRUNC_STD = 0.87962566103423978  # std of the unit normal truncated to [-2, 2]
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            batch_dim: int = 0) -> torch.Tensor:
-    """flax `nn.Dropout` in training: each element kept with probability
-    1 - rate (uniform draw below it) and divided by it, else zeroed.  Under a
-    data group of world W the draw covers W times the rows of `batch_dim`
-    and this rank keeps its own: the masks of the ranks differ, and together
-    they are the mask of one rank holding the global batch."""
+def dropout_mask(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+                 batch_dim: int = 0) -> Optional[torch.Tensor]:
+    """The keep mask of flax `nn.Dropout` in training for a tensor like x:
+    each element kept with probability 1 - rate (a uniform draw below it);
+    None at rate 0.  Under a data group of world W the draw covers W times
+    the rows of `batch_dim` and this rank keeps its own: the masks of the
+    ranks differ, and together they are the mask of one rank holding the
+    global batch."""
     if rate <= 0.0:
-        return x
+        return None
     if generator is None:
         raise ValueError("training-mode dropout needs a torch.Generator")
     keep_prob = 1.0 - rate
@@ -50,9 +61,15 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     b = x.shape[batch_dim]
     shape = list(x.shape)
     shape[batch_dim] = b * world
-    keep = (torch.rand(shape, generator=generator, device=x.device) < keep_prob).narrow(
+    return (torch.rand(shape, generator=generator, device=x.device) < keep_prob).narrow(
         batch_dim, rank * b, b)
-    return torch.where(keep, x / keep_prob, 0.0)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            batch_dim: int = 0) -> torch.Tensor:
+    """flax `nn.Dropout` in training: the kept elements (`dropout_mask`)
+    divided by the keep probability 1 - rate in x's dtype, the rest zeroed."""
+    return dropped(x, dropout_mask(x, rate, generator, batch_dim), 1.0 - rate)
 
 
 class Dense(nn.Linear):
@@ -90,8 +107,46 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class AddNorm(torch.autograd.Function):
+    """LayerNorm(x + dropout(branch)) through the kernels of
+    `ops/kernels/add_norm.py`, or LayerNorm(x) without a branch.
+
+    Forward: `add_norm` gives x_new (f32), y (f32) and each row's mean, r
+    and var_raw, which it saves with x_new (x without a branch), the weight
+    and the keep mask; returns (x_new, y), or y alone without a branch.
+    Backward: `add_norm_grad`, one launch: dx (x's dtype) from y's gradient
+    and, with a branch, x_new's own gradient added in f32; dbranch; dweight
+    and dbias.  LayerNorm is per row, so a data group changes nothing: the
+    mask is the rank's rows of one global draw (`dropout_mask`), and
+    dweight and dbias stay the rank's, which the step sums with the other
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, branch, weight, bias, keep, keep_prob, eps):
+        x_new, y, stats = add_norm(x, weight, bias, eps, branch, keep, keep_prob)
+        ctx.dx_dtype, ctx.keep_prob = x.dtype, keep_prob
+        ctx.branch_dtype = None if branch is None else branch.dtype
+        ctx.save_for_backward(x if x_new is None else x_new, stats, weight, keep)
+        return y if x_new is None else (x_new, y)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, stats, weight, keep = ctx.saved_tensors
+        grad_res, grad_y = (None, grads[0]) if ctx.branch_dtype is None else grads
+        dx, dbranch, sums = add_norm_grad(x, grad_y, stats, weight, ctx.dx_dtype, grad_res,
+                                          ctx.branch_dtype, keep, ctx.keep_prob)
+        return dx, dbranch, sums[0], sums[1], None, None, None
+
+
 class LayerNorm(nn.Module):
-    """flax `nn.LayerNorm` (fast variance, f32 compute) with eps 1e-5."""
+    """flax `nn.LayerNorm` (fast variance, f32 compute) with eps 1e-5.
+
+    On a CUDA tensor the kernels (`AddNorm`) run it, forward and backward;
+    on a CPU tensor the module expression (`layer_norm_plain`: the mean and
+    the mean of squares in f32, var = clamp(mean(x^2) - mean^2, 0), then
+    (x - mean) * (rsqrt(var + eps) * weight) + bias).  `add` is the pre-norm
+    residual in front of it, x + dropout(branch) with a mask of
+    `dropout_mask`, fused into the same kernels."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -105,10 +160,18 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mean = x.mean(dim=-1, keepdim=True)
-        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        if x.device.type == "cuda":
+            return AddNorm.apply(x, None, self.weight, self.bias, None, 1.0, self.eps)
+        return layer_norm_plain(x, self.weight, self.bias, self.eps)[0]
+
+    def add(self, x: torch.Tensor, branch: torch.Tensor, keep: Optional[torch.Tensor] = None,
+            keep_prob: float = 1.0) -> tuple:
+        """(x_new, self(x_new)) with x_new = x + dropped(branch, keep,
+        keep_prob): one launch of the kernels on a CUDA tensor, the module
+        expressions on a CPU one."""
+        if x.device.type == "cuda":
+            return AddNorm.apply(x, branch, self.weight, self.bias, keep, keep_prob, self.eps)
+        return add_norm_plain(x, self.weight, self.bias, self.eps, branch, keep, keep_prob)[:2]
 
 
 class BatchNorm(nn.Module):

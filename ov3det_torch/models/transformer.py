@@ -26,6 +26,14 @@ Training-mode dropout, as the JAX package has it:
     `broadcast_dropout=True`.
 Every mask comes from the `torch.Generator` passed to `forward`.
 
+The pre-norm "add & norm" (the residual x + dropout(attention) and the
+LayerNorm after it, and each LayerNorm alone) runs on CUDA tensors as the
+kernels of `ops/kernels/add_norm.py` (`LayerNorm.add`, `AddNorm`).  Each
+layer's last residual add, x + dropout(FFN), stays a plain add: the next
+layer's norm1 (and, in the decoder, the final norm, which reads the same
+state) could take it as their prologue, but the add's output is the layer's
+and the stack's output, and the decoder would need one pass with two norms.
+
 Under a data group (`ov3det_torch.parallel`), as under the JAX package's
 mesh: the kernel's seed is the draw, equal on every rank, plus the rank
 (`s + jax.lax.axis_index(DATA_AXIS)`, `ov3det/models/transformer.py:119-121`;
@@ -42,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ov3det_torch.models.mlp import Dense, LayerNorm, dropout
+from ov3det_torch.models.mlp import Dense, LayerNorm, dropout, dropout_mask
 from ov3det_torch.ops.kernels.attention import fused_attention
 from ov3det_torch.parallel.mesh import data_group
 
@@ -158,8 +166,9 @@ class TransformerEncoderLayer(nn.Module):
         rate = self.dropout if self.training else 0.0
         y = self.norm1(x)
         qk = _with_pos(y, pos)
-        x = x + dropout(self.self_attn(qk, qk, y, generator, mask, radius), rate, generator)
-        y = dropout(self.act(self.linear1(self.norm2(x))), rate, generator)
+        attn = self.self_attn(qk, qk, y, generator, mask, radius)
+        x, y = self.norm2.add(x, attn, dropout_mask(attn, rate, generator), 1.0 - rate)
+        y = dropout(self.act(self.linear1(y)), rate, generator)
         return x + dropout(self.linear2(y), rate, generator)
 
 
@@ -252,12 +261,12 @@ class TransformerDecoderLayer(nn.Module):
         rate = self.dropout if self.training else 0.0
         y = self.norm1(tgt)
         qk = _with_pos(y, query_pos)
-        tgt = tgt + dropout(self.self_attn(qk, qk, y, generator), rate, generator)
-        y = self.norm2(tgt)
+        sa = self.self_attn(qk, qk, y, generator)
+        tgt, y = self.norm2.add(tgt, sa, dropout_mask(sa, rate, generator), 1.0 - rate)
         ca = self.cross_attn(_with_pos(y, query_pos), _with_pos(memory, mem_pos), memory,
                              generator)
-        tgt = tgt + dropout(ca, rate, generator)
-        y = dropout(torch.relu(self.linear1(self.norm3(tgt))), rate, generator)
+        tgt, y = self.norm3.add(tgt, ca, dropout_mask(ca, rate, generator), 1.0 - rate)
+        y = dropout(torch.relu(self.linear1(y)), rate, generator)
         return tgt + dropout(self.linear2(y), rate, generator)
 
 

@@ -21,7 +21,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 KERNEL_SOURCES = ("fps", "ball_group", "feature_grad", "attention_fwd", "attention_bwd", "auction",
                   "nms", "quant_conv", "points_in_box", "first_k", "roi_align", "attn_pool",
-                  "normalise", "bn_relu")
+                  "normalise", "bn_relu", "add_norm")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

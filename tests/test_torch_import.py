@@ -54,7 +54,8 @@ def test_importing_every_module_leaves_jax_out():
                  "datasets.image_utils", "ops.kernels", "ops.kernels.auction",
                  "ops.kernels.nms", "geometry.nms", "ops.kernels.quant_conv",
                  "ops.kernels.points_in_box", "ops.kernels.ball_query",
-                 "ops.kernels.roi_align", "ops.kernels.attn_pool", "ops.kernels.normalise"):
+                 "ops.kernels.roi_align", "ops.kernels.attn_pool", "ops.kernels.normalise",
+                 "ops.kernels.add_norm"):
         assert f"ov3det_torch.{name}" in report["modules"]
     # importing the native IoU or the JPEG decoder neither builds nor loads
     # it: that waits for the first IoU of an evaluation, the first dataset
@@ -94,7 +95,7 @@ def test_the_port_scripts_are_found():
     assert {"nms_parts.py", "pool_quantize_parts.py", "attention_parts.py",
             "quant_conv_designs.py", "feature_grad_parts.py", "auction_parts.py",
             "first_k_parts.py", "points_in_box_parts.py", "teacher_parts.py",
-            "roi_head_designs.py", "roi_head_parts.py"} <= set(PORT_SCRIPTS)
+            "roi_head_designs.py", "roi_head_parts.py", "add_norm_parts.py"} <= set(PORT_SCRIPTS)
 
 
 @pytest.mark.parametrize("script", PORT_SCRIPTS)

@@ -186,7 +186,8 @@ def _codes(v: np.ndarray, s: np.float32) -> tuple:
         t = np.rint(u)
         near = (np.abs(u - t) > F32(0.5 - 2.0 ** -14)) | exact
         t = np.where(near, np.rint(v / s), t)
-    return np.fmin(np.fmax(t, F32(-127)), F32(127)).astype(np.int8).reshape(-1), int(near.sum())
+    t = np.where(np.isnan(t), F32(0), np.clip(t, F32(-127), F32(127)))  # `code_of`: NaN 0
+    return t.astype(np.int8).reshape(-1), int(near.sum())
 
 
 def emulate_pass(x: np.ndarray, pool: int, scales, bf16: bool) -> tuple:
@@ -278,6 +279,33 @@ def test_emulated_pass_on_half_integers(pool):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert redone == x.size // (pool * pool)  # every value at 0.25, none at 1 / 16
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("pool", [1, 2])
+def test_emulated_pass_with_nan(pool, dtype):
+    """NaN (and the infinities) among the values: a NaN, and a pool over one,
+    codes 0 as JAX's and the plain version's int8 conversion give it; an
+    infinity clamps."""
+    rng = np.random.default_rng(40 + pool)
+    x = (rng.normal(size=(2, 6, 10, 32)) * 2).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[rng.choice(flat.size, 40, replace=False)] = np.nan
+    flat[rng.choice(flat.size, 6, replace=False)] = np.inf
+    flat[rng.choice(flat.size, 6, replace=False)] = -np.inf
+    bf16 = dtype == "bfloat16"
+    if bf16:
+        x = _bf16_round(x)
+    scales = [F32(0.05), F32(0.013)]
+    want = _jax_pool_quantize(x, pool, scales, jnp.bfloat16 if bf16 else jnp.float32)
+    got, _ = emulate_pass(x, pool, scales, bf16)
+    plain = qc.pool_quantize_plain(torch.from_numpy(x).to(torch.bfloat16 if bf16 else torch.float32),
+                                   pool, [torch.tensor(s) for s in scales])
+    for g, w, p in zip(got, want, plain):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(p.numpy(), w)
+    pooled = x if pool == 1 else x.reshape(2, 3, 2, 5, 2, 32).sum((2, 4))
+    assert np.isnan(pooled).any() and (got[0][np.isnan(pooled)] == 0).all()
 
 
 def test_emulation_at_a_res5_chunk_slice():

@@ -242,8 +242,8 @@ def quantize_fast_emulated(v: np.ndarray, s: float) -> tuple:
     v * rs with rs = 1 / s rounded; rint(u) unless any u of the group lies
     within 2^-14 of a half-integer (|u - rint(u)| > 0.5 - 2^-14) or 1 / s is
     not normal, then rint(v / s);
-    clamped to +-127 as fminf(fmaxf(t, -127), 127).  Returns (int8 codes, how many
-    groups took the division)."""
+    clamped to +-127 and a NaN coded 0, as `code_of` converts and clamps.
+    Returns (int8 codes, how many groups took the division)."""
     v = v.astype(np.float32).reshape(-1, 8)
     s = np.float32(s)
     exact = not (np.float32(2.0 ** -125) <= s <= np.float32(2.0 ** 125))
@@ -254,7 +254,7 @@ def quantize_fast_emulated(v: np.ndarray, s: float) -> tuple:
         near = np.abs(u - t) > np.float32(0.5 - 2.0 ** -14)  # u - t is exact and at most 0.5
         divide = near.any(axis=1) | exact
         t = np.where(divide[:, None], np.rint(v / s), t)
-    t = np.fmin(np.fmax(t, np.float32(-127)), np.float32(127))  # NaN -> -127, as fmaxf
+    t = np.where(np.isnan(t), np.float32(0), np.clip(t, np.float32(-127), np.float32(127)))
     return t.astype(np.int8).reshape(-1), int(divide.sum())
 
 
@@ -308,14 +308,20 @@ def test_fast_quantise_divides_where_one_over_s_is_not_normal(s):
 
 def test_fast_quantise_at_the_edges():
     """Infinities and values far past the clamp take the fast path and clamp
-    as the division would; NaN gives -127 on both paths (fmaxf)."""
+    as the division would; NaN gives 0 on both paths, as the plain version
+    (and JAX) code it."""
     s = np.float32(0.02)
     v = np.array([np.inf, -np.inf, 1e30, -1e30, 3.0, -3.0, 127.5 * 0.02, 0.0], np.float32)
     got, _ = quantize_fast_emulated(v, s)
     want = qc.quantize_plain(torch.from_numpy(v), torch.tensor(s)).numpy()
     np.testing.assert_array_equal(got, want)
     nan = np.full(8, np.nan, np.float32)
-    assert (quantize_fast_emulated(nan, s)[0] == -127).all()
+    assert (quantize_fast_emulated(nan, s)[0] == 0).all()
+    mixed = np.array([np.nan, 3.0, -np.nan, 127.5 * 0.02, np.inf, np.nan, -1e30, 0.0], np.float32)
+    got, _ = quantize_fast_emulated(mixed, s)
+    np.testing.assert_array_equal(got, qc.quantize_plain(torch.from_numpy(mixed),
+                                                         torch.tensor(s)).numpy())
+    assert got[0] == got[2] == got[5] == 0
 
 
 def test_fast_quantise_mirrors_the_source():
@@ -325,9 +331,12 @@ def test_fast_quantise_mirrors_the_source():
     assert "const float u = __fmul_rn(v[e], rs);" in body
     assert "const float t = rintf(u);" in body
     assert "near |= (fabsf(__fsub_rn(u, t)) > 0.5f - 0x1p-14f ? 1u : 0u) << e;" in body
-    assert "fminf(fmaxf(t, -127.f), 127.f)" in body
+    assert "b[e] = code_of(u);" in body
+    # the code: the rounding conversion (a NaN 0, the infinities saturated), then the clamp
+    assert "const int i = __float2int_rn(u);" in src
+    assert "return static_cast<int8_t>(i < -127 ? -127 : (i > 127 ? 127 : i));" in src
     # a flagged piece is stored again by the division (`store_q8`)
     assert "store_q8_fast(p.out_q + off, v, rs, exact)) redo |= 1u << i2;" in src
     assert "store_q8(p.out_q + off, v, sn);" in src
-    assert "quantize(float v, float s) {\n  const float t = rintf(__fdiv_rn(v, s));" in src
+    assert "quantize(float v, float s) {\n  return code_of(__fdiv_rn(v, s));" in src
     assert "!(sn >= 0x1p-125f && sn <= 0x1p125f)" in src and "__frcp_rn(sn)" in src
