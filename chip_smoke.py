@@ -100,15 +100,21 @@ at once), then:
      step's own inputs (`record_add_norm`: the 38 norms of a step, 14 of
      them behind the attention's residual and its dropout, with their
      incoming gradients), of the bf16 step and its f32 twin: `add_norm`
-     two launches equal, x_new equal to its plain version bit for bit, y
-     within 1e-5 of the largest value of the expression in f64 (or twice
-     the plain version's own error), `add_norm_grad` two launches equal,
-     dx, dweight and dbias within 1e-4 of the largest value of the f64 VJP,
-     dbranch equal to autograd's order on the kernel's dx bit for bit, the
-     Function (`AddNorm`) equal to the wrappers' launches bit for bit;
+     two launches equal, x_new equal to its plain version bit for bit (and
+     to the CPU's, flax's dropout division on both devices), y within 1e-5
+     of the largest value of the expression in f64 (or twice the plain
+     version's own error), `add_norm_grad` (one kernel a launch) two
+     launches equal, dx, dweight and dbias within 1e-4 of the largest value
+     of the f64 VJP, dbranch equal to autograd's order on the kernel's dx
+     bit for bit on the card and on the CPU, the Function (`AddNorm`) equal
+     to the wrappers' launches bit for bit;
      crafted inputs through the same gates (NaN and infinities, constant
      rows whose variance clamps, a bf16 x, widths 8 and 768, x off a
-     16-byte boundary) and what the kernels refuse raising; each distinct
+     16-byte boundary) and what the kernels refuse raising; the dropout
+     (`dropped`, bf16 and f32, forward and VJP) on the card equal to the
+     CPU's bit for bit; the backward (one cooperative launch) in eager calls
+     and graph replays in turns, the same bits;
+     each distinct
      norm, its plain version and the library pair (the add and
      `F.layer_norm`; `native_layer_norm_backward`) timed in turns by graph
      replays beside the bound of its bytes.  A step launches each kernel
@@ -1790,7 +1796,7 @@ OWN_KERNELS = {
     "bn_relu_grad_sums": (r"\bbn_grad_sums(?:_pooled)?<", r"\bsums_finish<1>\("),
     "bn_relu_grad_apply": r"\bbn_grad_apply(?:_pooled)?<",
     "add_norm": r"\badd_norm_fwd<",
-    "add_norm_grad": (r"\badd_norm_bwd<", r"\badd_norm_finish\("),
+    "add_norm_grad": r"\badd_norm_bwd<",
 }
 
 
@@ -2915,7 +2921,8 @@ def sa_entries(step: dict, masked: dict, checked: dict) -> dict:
 
 
 # ------------------------------------------------ the transformer's add & norm
-NORM_REPS = 5  # calls a timing graph of one add & norm
+NORM_REPS = 20  # calls a timing graph of one add & norm (at 5 a graph replay's own cost moved a
+# decoder norm's time by a microsecond from run to run)
 NORM_Y_REL = 1e-5  # y against the f64 expression, of the largest value ...
 NORM_PLAIN_FACTOR = 2.0  # ... or within this many times the plain version's own f32 error
 NORM_GRAD_REL = 1e-4  # dx, dweight, dbias against the f64 VJP, of the largest value
@@ -3050,6 +3057,9 @@ def check_norm_record(rec: dict) -> dict:
     px, py, _ = an.add_norm_plain(x, w, b, eps, br, keep, kp)
     require(br is None or bits_equal(x_new, px),
             f"add_norm ({label}): x_new differs from the plain version")
+    if br is not None:  # the dropout's division is the CPU's (flax's) on the card
+        cpu = x.cpu() + an.dropped(br.cpu(), None if keep is None else keep.cpu(), kp)
+        require(bits_equal(x_new.cpu(), cpu), f"add_norm ({label}): x_new differs from the CPU's")
     h = x if br is None else x_new
     y64, mean64, r64 = norm_expression64(h.double(), w.double(), b.double(), eps)
     errs["y"], errs["plain y"] = rel_err(y, y64), rel_err(py, y64)
@@ -3083,11 +3093,13 @@ def check_norm_record(rec: dict) -> dict:
     errs["add_norm_grad"] = max(abs_err(dx, total), abs_err(sums[0], dw), abs_err(sums[1], db))
     if br is not None and x.dtype == torch.float32:  # dbranch from the kernel's own sum
         d = dx.to(bdt)
-        want = d if keep is None else torch.where(keep, d, 0.0) / kp
-        require(bits_equal(dbr, want), f"add_norm_grad ({label}): dbranch differs from "
-                                       "autograd's order on the kernel's dx")
+        want = an.dropped(d, keep, kp)
+        cpu = an.dropped(d.cpu(), None if keep is None else keep.cpu(), kp)
+        require(bits_equal(dbr, want) and bits_equal(dbr.cpu(), cpu),
+                f"add_norm_grad ({label}): dbranch differs from autograd's order on the kernel's "
+                "dx, on the card or on the CPU")
     elif br is not None:  # an f32 dbranch of a bf16 x: the f32 sum is not written
-        want = total if keep is None else torch.where(keep, total / kp, 0.0)
+        want = total if keep is None else torch.where(keep, total / an.divisor(kp, bdt), 0.0)
         errs["dbranch"] = norm_err(dbr, want)
         require(errs["dbranch"] <= 1.0, f"add_norm_grad ({label}): dbranch {errs['dbranch']:.2f} "
                                         "of its gate")
@@ -3235,6 +3247,77 @@ def check_norm_crafted(card: str, rec: dict) -> None:
     require(refused == 3, f"add_norm: {3 - refused} of 3 inputs the kernels do not take ran")
     print(f"add & norm crafted ({rec['name']}): {', '.join(cases)} through every gate of a "
           f"record's check; a bf16 x with a bf16 branch, C 776 and C 12 refused ({card})")
+    check_dropout(card, dev)
+
+
+def check_dropout(card: str, dev: torch.device) -> None:
+    """The port's dropout (`dropped`: what `mlp.dropout` and the add & norm's
+    plain version apply) on the card equal to the CPU's bit for bit, forward
+    and through autograd, in bf16 (the FFN's and the last residual's) and f32
+    (the GenericMLP's), at keep probabilities 0.9 and 0.7 and a
+    `sunrgbd_quick` encoder's shape: flax's division on both devices.  Prints
+    how many kept values the card's product by the reciprocal (torch's
+    `x / keep_prob` with a CPU scalar there) would have changed."""
+    from ov3det_torch.ops.kernels import add_norm as an
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    moved = {}
+    for dtype, kp in ((torch.bfloat16, 0.9), (torch.float32, 0.9), (torch.bfloat16, 0.7),
+                      (torch.float32, 0.7)):
+        x = (torch.randn((8, 2048, 256), generator=g, device=dev) * 3.0).to(dtype)
+        ct = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+        keep = torch.rand(x.shape, generator=g, device=dev) < kp
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            xr = x.detach().to(d, copy=True).requires_grad_()
+            y = an.dropped(xr, keep.to(d), kp)
+            y.backward(ct.to(d))
+            outs.append((y.detach().cpu(), xr.grad.cpu()))
+        name = f"{str(dtype)[6:]} at {kp}"
+        require(bits_equal(outs[0][0], outs[1][0]) and bits_equal(outs[0][1], outs[1][1]),
+                f"dropout ({name}): the card's values or gradient differ from the CPU's")
+        product = torch.where(keep, x / kp, 0.0).cpu()
+        moved[name] = int((product != outs[0][0]).sum())
+    torch.cuda.synchronize()
+    print(f"dropout on the card = the CPU, forward and VJP, bit for bit ({', '.join(moved)}; "
+          f"8x2048x256 each); kept values the reciprocal's product would change: "
+          f"{', '.join(f'{n} {v}' for n, v in moved.items())} ({card})")
+
+
+def check_grad_turns(card: str, rec: dict) -> str:
+    """`add_norm_grad` (a cooperative launch) in eager calls and graph
+    replays in turns: on the record's own inputs an eager launch, then a
+    graph replay, an eager launch, a replay and an eager launch give the
+    first launch's bits.  Returns the record's grid."""
+    from ov3det_torch.ops.kernels import add_norm as an
+
+    x, br, keep, kp, eps = rec["x"], rec["branch"], rec["keep"], rec["keep_prob"], rec["eps"]
+    w, b = rec["weight"], rec["bias"]
+    x_new, _, stats = an.add_norm(x, w, b, eps, br, keep, kp)
+    h = x if br is None else x_new
+    bdt = None if br is None else br.dtype
+
+    def run():
+        return an.add_norm_grad(h, rec["grad_y"], stats, w, x.dtype, rec.get("grad_res"), bdt,
+                                keep, kp)
+
+    first = [t.clone() for t in run() if t is not None]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = [t for t in run() if t is not None]
+    turns = []
+    for turn in ("replay", "eager", "replay", "eager"):
+        if turn == "replay":
+            graph.replay()
+            turns.append([t.clone() for t in static])
+        else:
+            turns.append([t.clone() for t in run() if t is not None])
+    torch.cuda.synchronize()
+    require(all(bits_equal(a, c) for t in turns for a, c in zip(t, first)),
+            f"add_norm_grad ({rec['name']}): graph replays and eager launches in turns differ")
+    rows = x.numel() // x.shape[-1]
+    blocks, per = an.grad_blocks(rows, an._sms(x.device.index or 0), x.shape[-1])
+    return f"{rows} rows: {blocks} CTAs of {per} rows"
 
 
 def check_add_norm(card: str, label: str, records: list, timed: bool) -> dict:
@@ -3263,9 +3346,12 @@ def check_add_norm(card: str, label: str, records: list, timed: bool) -> dict:
             worst[k] = max(worst[k], v)
     tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, ops=0, launches=0)
            for n in NORM_KERNELS}
+    grids = []
     for (shape, xdt, bdt, masked, training), members in groups.items():
         rec, count = members[0][0], len(members)
         run = NORM_KERNELS if training else ("add_norm",)
+        if training:
+            grids.append(check_grad_turns(card, rec))
         nbytes = norm_bytes(rec)
         for n in run:
             tot[n]["nbytes"] += count * nbytes[n]
@@ -3302,6 +3388,10 @@ def check_add_norm(card: str, label: str, records: list, timed: bool) -> dict:
                       **({} if not timed else dict(ms=tot[n]["ms"], plain_ms=tot[n]["plain_ms"],
                                                    library_ms=tot[n]["library_ms"])))
     NORM_CHECKED[label] = out
+    if grids:
+        print(f"add & norm ({label}): add_norm_grad, one kernel a launch, eager and graphed in "
+              f"turns the same bits ({'; '.join(sorted(set(grids)))}) "
+              f"({card})")
     print(f"add & norm ({label}): {len(records)} norms in {len(groups)} signatures held (r equal "
           f"to torch.rsqrt of the kernel's own variance bit for bit: {worst['rsqrt differs'] == 0}); " +
           ", ".join(f"{n} {v['calls']} calls, bound {v['bound_ms']:.4f} ms "

@@ -10,8 +10,10 @@ PyTorch habit:
   * Parameters are stored in f32 and cast at use.
 BatchNorm normalises each channel over all leading axes, with flax's
 training-mode statistics (below).  Dropout follows flax `nn.Dropout`: per
-element, kept values divided by the keep probability in the input's dtype,
-with the mask drawn from an explicit `torch.Generator`.  On CUDA tensors
+element, a kept value is the IEEE quotient by the keep probability rounded
+to the input's dtype, rounded to that dtype (0.9 is 0.8984375 in bf16), on
+the CPU and on the card alike (`ops/kernels/add_norm.dropped`), with the
+mask drawn from an explicit `torch.Generator`.  On CUDA tensors
 LayerNorm, and the pre-norm residual x + dropout(branch) in front of it
 (`LayerNorm.add`), run as the kernels of `ops/kernels/add_norm.py`
 (`AddNorm`); CPU tensors keep the module expressions.
@@ -68,7 +70,9 @@ def dropout_mask(x: torch.Tensor, rate: float, generator: Optional[torch.Generat
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             batch_dim: int = 0) -> torch.Tensor:
     """flax `nn.Dropout` in training: the kept elements (`dropout_mask`)
-    divided by the keep probability 1 - rate in x's dtype, the rest zeroed."""
+    divided by the keep probability 1 - rate rounded to x's dtype, the
+    quotient rounded to x's dtype (`dropped`), the rest zeroed; its VJP the
+    same quotient of the incoming gradient."""
     return dropped(x, dropout_mask(x, rate, generator, batch_dim), 1.0 - rate)
 
 
@@ -114,7 +118,7 @@ class AddNorm(torch.autograd.Function):
     Forward: `add_norm` gives x_new (f32), y (f32) and each row's mean, r
     and var_raw, which it saves with x_new (x without a branch), the weight
     and the keep mask; returns (x_new, y), or y alone without a branch.
-    Backward: `add_norm_grad`, one launch: dx (x's dtype) from y's gradient
+    Backward: `add_norm_grad`, one kernel: dx (x's dtype) from y's gradient
     and, with a branch, x_new's own gradient added in f32; dbranch; dweight
     and dbias.  LayerNorm is per row, so a data group changes nothing: the
     mask is the rank's rows of one global draw (`dropout_mask`), and

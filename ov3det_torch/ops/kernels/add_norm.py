@@ -5,33 +5,37 @@ their plain versions.
 Counterpart of flax `nn.LayerNorm(epsilon=1e-5)` and the residual
 `x + nn.Dropout(rate)(branch)` in front of it in
 `ov3det/models/transformer.py:179-191`, `:275-294` and `:314-322` (XLA in
-JAX, not a Pallas kernel).  `ov3det_torch/csrc/add_norm.cu` holds three
-kernels on row-major (rows, C) tensors, C a multiple of 8 up to 768:
+JAX, not a Pallas kernel).  `ov3det_torch/csrc/add_norm.cu` holds two
+kernels on row-major (rows, C) tensors, C a multiple of 8 up to 768 (C 256,
+every detector path's width, one piece a lane; a generic instantiation for
+the others):
 
   * `add_norm` (`add_norm_fwd`): the optional prologue x_new = x +
-    where(keep, branch / keep_prob, 0) (f32; the division as the card's
-    torch computes it, the product by the f32 reciprocal rounded to
-    branch's dtype), then each row's mean, the fast variance var_raw =
-    mean(x^2) - mean^2 clamped at 0, r = rsqrt(var + eps) and y = (x - mean)
-    * (r * weight) + bias in f32, each operation rounded as the plain
-    version's torch ops round it.  Returns x_new, y and the rows' (mean, r,
-    var_raw) as (3, rows) f32 for the backward;
-  * `add_norm_grad` (`add_norm_bwd` + `add_norm_finish`, two kernels a
-    launch): dx = r * ((gw - mean(gw)) - xhat * mean(gw * xhat)) with gw = dy
-    * weight and xhat = (x - mean) * r, the last term dropped where var_raw <
-    0 (torch.clamp's backward), plus x_new's other gradient, in x's dtype;
-    dbranch = where(keep, dx in branch's dtype, 0) / keep_prob in autograd's
-    order; and dweight = sum dy * xhat, dbias = sum dy over the rows, each
-    CTA's partial rows added in block order (no float atomics: two launches
-    give the same bits).
+    where(keep, branch / keep_prob, 0) (f32; flax's division: the IEEE
+    quotient by the keep probability rounded to branch's dtype, rounded to
+    branch's dtype, `dropped`), then each row's mean, the fast variance
+    var_raw = mean(x^2) - mean^2 clamped at 0, r = rsqrt(var + eps) and y =
+    (x - mean) * (r * weight) + bias in f32, each operation rounded as the
+    plain version's torch ops round it.  Returns x_new, y and the rows'
+    (mean, r, var_raw) as (3, rows) f32 for the backward;
+  * `add_norm_grad` (`add_norm_bwd`, one kernel a launch): dx = r * ((gw -
+    mean(gw)) - xhat * mean(gw * xhat)) with gw = dy * weight and xhat = (x -
+    mean) * r, the last term dropped where var_raw < 0 (torch.clamp's
+    backward), plus x_new's own gradient, in x's dtype; dbranch =
+    where(keep, dx in branch's dtype, 0) / keep_prob in autograd's order, the
+    same division; and dweight = sum dy * xhat, dbias = sum dy over the rows:
+    each CTA's partial row, then, in the same cooperative launch, after a
+    grid barrier, each CTA's share of the columns over all the rows in a
+    fixed order (no float atomics: two launches give the same bits).
 
 x is f32 or bf16, branch bf16 or f32, x_new always f32: a bf16 x takes an
 f32 branch only (the module would keep a bf16 sum of two bf16 tensors, which
 no path of the port forms: the residual stream is f32).  `models/mlp.py`
 chains them (`AddNorm`).  Each wrapper takes its plain version for CPU
 tensors (the `*_plain` functions, the tests' transcription and the card's
-oracle) and launches its kernels for CUDA tensors or raises; each counts its
-launches in `.launches`.  No host wait, no workspace but torch's allocator:
+oracle) and launches its kernel for CUDA tensors or raises; each counts its
+launches in `.launches`.  No host wait, no workspace but torch's allocator
+and the divisors made once a device before any capture:
 CUDA graphs capture every launch.
 """
 from __future__ import annotations
@@ -54,16 +58,62 @@ VEC = 8  # channels a lane's piece, mirrored from `kVec` of the source
 MAX_C = 768  # mirrored from `kMaxC`
 THREADS = 256  # mirrored from `kThreads`
 WARPS = THREADS // 32
-GRAD_CTAS_PER_SM = 4  # the backward's grid: CTAs an SM
-GRAD_MIN_PASSES = 4  # and at least this many rows a warp
+WIDE_C = 256  # the width with an instantiation of its own, mirrored from `kWideC`
+BWD_CTAS_WIDE = 2  # the backward's CTAs an SM at WIDE_C (`kBwdCtasWide`) ...
+BWD_CTAS_GENERIC = 1  # ... and at the other widths (`kBwdCtasGeneric`)
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
 # ------------------------------------------------------------ plain versions
+def divisor(keep_prob: float, dtype: torch.dtype) -> float:
+    """flax `nn.Dropout`'s divisor for an input of `dtype`: the keep
+    probability rounded to that dtype (a weak-typed Python float takes the
+    input's dtype: 0.9 is 0.8984375 in bf16)."""
+    return torch.tensor(keep_prob, dtype=dtype).item()
+
+
+def reciprocal(keep_prob: float) -> float:
+    """The f32 reciprocal of the bf16 keep probability (`divisor`).  For every
+    bf16 value x, x times it rounded to bf16 is x / divisor rounded to bf16:
+    the product lies within two f32 ulps of the quotient, which is never
+    that close to a bf16 rounding boundary (tests/test_torch_add_norm.py
+    holds every bf16 x against every bf16 divisor in [0.5, 1])."""
+    return float(np.float32(1.0) / np.float32(divisor(keep_prob, torch.bfloat16)))
+
+
+_DIVISORS: dict = {}  # (device, dtype, keep_prob) -> the divisor as a 0-dim tensor there
+
+
+def _divisor_of(t: torch.Tensor, keep_prob: float):
+    """`divisor` for t's dtype: a Python float on the CPU, where torch divides
+    by it; on the card a 0-dim tensor of t's dtype on t's device (torch
+    divides by a CPU scalar as the product by its reciprocal there), made at
+    the first call on a device and dtype, outside any CUDA graph capture."""
+    if t.device.type == "cpu":
+        return divisor(keep_prob, t.dtype)
+    key = (t.device, t.dtype, keep_prob)
+    d = _DIVISORS.get(key)
+    if d is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"dropout: the divisor of {keep_prob} in {t.dtype} on {t.device} "
+                               "is made by an eager call before a CUDA graph captures one")
+        d = _DIVISORS[key] = torch.full((), divisor(keep_prob, t.dtype), dtype=t.dtype,
+                                        device=t.device)
+    return d
+
+
 def dropped(branch: torch.Tensor, keep: Optional[torch.Tensor], keep_prob: float) -> torch.Tensor:
     """flax `nn.Dropout` given its mask: where(keep, branch / keep_prob, 0) in
-    branch's dtype; branch itself without a mask."""
-    return branch if keep is None else torch.where(keep, branch / keep_prob, 0.0)
+    branch's dtype, the quotient the IEEE one by the keep probability rounded
+    to branch's dtype (`divisor`), rounded to branch's dtype, on either
+    device (a bf16 branch times `reciprocal`, one scalar product with the
+    same bits; an f32 one divided); branch itself without a mask.  Its
+    autograd VJP is the same quotient of the incoming gradient, as flax's."""
+    if keep is None:
+        return branch
+    if branch.dtype == torch.bfloat16:
+        return torch.where(keep, branch * reciprocal(keep_prob), 0.0)
+    return torch.where(keep, branch / _divisor_of(branch, keep_prob), 0.0)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -101,8 +151,8 @@ def add_norm_grad_plain(x: torch.Tensor, grad_y: torch.Tensor, stats: torch.Tens
     """(dx, dbranch): x is what the norm read (x_new with a branch); dx =
     r * ((gw - sum gw / C) - xhat * sum(gw xhat) / C), the last term 0 where
     var_raw < 0, plus `grad_res`, in `dx_dtype`; with `branch_dtype`,
-    dbranch = where(keep, that sum in branch's dtype, 0) / keep_prob (else
-    None)."""
+    dbranch = `dropped` of that sum in branch's dtype, the VJP of x +
+    dropped(branch) (else None)."""
     mean, r, var_raw = _row_stats(stats, x.shape)
     C = x.shape[-1]
     xh = (x.float() - mean) * r
@@ -114,8 +164,7 @@ def add_norm_grad_plain(x: torch.Tensor, grad_y: torch.Tensor, stats: torch.Tens
         dx = dx + grad_res.float()
     dbranch = None
     if branch_dtype is not None:
-        d = dx.to(branch_dtype)
-        dbranch = d if keep is None else torch.where(keep, d, 0.0) / keep_prob
+        dbranch = dropped(dx.to(branch_dtype), keep, keep_prob)
     return dx.to(dx_dtype), dbranch
 
 
@@ -176,12 +225,6 @@ def _vec(t: torch.Tensor, C: int, dev: torch.device, what: str) -> torch.Tensor:
     return _ready(t.detach())
 
 
-def inverse(keep_prob: float) -> float:
-    """1 / keep_prob as torch forms it on the card for a CPU scalar divisor:
-    the f32 reciprocal of the f32 keep probability."""
-    return float(np.float32(1.0) / np.float32(keep_prob))
-
-
 def _f32(t: torch.Tensor) -> int:
     return int(t.dtype == torch.float32)
 
@@ -195,11 +238,15 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def grad_blocks(rows: int, sms: int) -> tuple:
-    """(CTAs, rows a CTA) of the backward's grid: GRAD_CTAS_PER_SM CTAs an SM,
-    fewer where a warp would take fewer than GRAD_MIN_PASSES rows."""
-    blocks = max(1, min(sms * GRAD_CTAS_PER_SM, -(-rows // (WARPS * GRAD_MIN_PASSES))))
-    per_blk = -(-rows // blocks)
+def grad_blocks(rows: int, sms: int, C: int) -> tuple:
+    """(CTAs, rows a CTA) of the backward's grid: one wave of the CTAs its
+    launch bounds keep resident (BWD_CTAS_WIDE an SM at C WIDE_C, else
+    BWD_CTAS_GENERIC), which its cooperative launch must hold resident at
+    once, each warp the fewest rows that covers `rows`, a row a warp where
+    the rows are few."""
+    ctas = BWD_CTAS_WIDE if C == WIDE_C else BWD_CTAS_GENERIC
+    per_warp = -(-rows // (sms * ctas * WARPS))
+    per_blk = per_warp * WARPS
     return -(-rows // per_blk), per_blk
 
 
@@ -226,7 +273,8 @@ def add_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: flo
         status = lib.ov3_add_norm_fwd(
             x.data_ptr(), _f32(x), None if branch is None else branch.data_ptr(),
             0 if branch is None else _f32(branch), None if keep is None else keep.data_ptr(),
-            inverse(keep_prob), weight.data_ptr(), bias.data_ptr(), eps, rows, C,
+            1.0 if branch is None else divisor(keep_prob, branch.dtype), weight.data_ptr(),
+            bias.data_ptr(), eps, rows, C,
             None if x_new is None else x_new.data_ptr(), y.data_ptr(), stats.data_ptr(),
             _stream())
     _build.check(lib, status, "add_norm")
@@ -268,7 +316,7 @@ def add_norm_grad(x: torch.Tensor, grad_y: torch.Tensor, stats: torch.Tensor,
     if tuple(stats.shape) != (3, rows) or stats.dtype != torch.float32:
         raise ValueError(f"add_norm_grad: stats are (3, {rows}) f32, got {tuple(stats.shape)}")
     stats = stats.contiguous()
-    blocks, per_blk = grad_blocks(rows, _sms(x.device.index or 0))
+    blocks, per_blk = grad_blocks(rows, _sms(x.device.index or 0), C)
     dx = torch.empty(x.shape, dtype=dx_dtype, device=x.device)
     dbranch = None if not add else torch.empty(x.shape, dtype=branch_dtype, device=x.device)
     partial = torch.empty((blocks, 2, C), dtype=torch.float32, device=x.device)
@@ -279,9 +327,10 @@ def add_norm_grad(x: torch.Tensor, grad_y: torch.Tensor, stats: torch.Tensor,
             x.data_ptr(), _f32(dx), grad_y.data_ptr(),
             None if grad_res is None else grad_res.data_ptr(), stats.data_ptr(),
             weight.data_ptr(), int(add), int(add and branch_dtype == torch.float32),
-            None if keep is None else keep.data_ptr(), inverse(keep_prob), rows, C,
-            dx.data_ptr(), None if dbranch is None else dbranch.data_ptr(), blocks, per_blk,
-            partial.data_ptr(), sums.data_ptr(), _stream())
+            None if keep is None else keep.data_ptr(),
+            1.0 if not add else divisor(keep_prob, branch_dtype), rows, C, dx.data_ptr(),
+            None if dbranch is None else dbranch.data_ptr(), blocks, per_blk, partial.data_ptr(),
+            sums.data_ptr(), _stream())
     _build.check(lib, status, "add_norm_grad")
     add_norm_grad.launches += 1
     return dx, dbranch, sums

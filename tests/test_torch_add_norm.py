@@ -4,7 +4,8 @@ then LayerNorm(x_new), forward and backward, against autograd and JAX.
 - `AddNorm` (`models/mlp.py`) on CPU tensors runs the kernels' plain
   versions (`add_norm_plain`, `add_norm_grad_plain`: the closed-form input
   gradient, `add_norm_param_grads_plain`) and is held against the autograd
-  VJP of the module expression (x + where(keep, branch / keep_prob, 0), then
+  VJP of the module expression (x + where(keep, branch / keep_prob, 0), the
+  division flax's: by the keep probability rounded to branch's dtype, then
   `LayerNorm.forward` as it read before the kernels): y, x_new, dx, dbranch, dweight and dbias, for an f32
   and a bf16 x, an f32 and a bf16 branch and no branch (the norm alone),
   with dropout and without, on seeded rows, on constant rows (var_raw
@@ -13,7 +14,9 @@ then LayerNorm(x_new), forward and backward, against autograd and JAX.
   at var_raw == 0 and stops below, as torch.clamp's backward does;
 - the plain path (`LayerNorm.add`, `LayerNorm` on the CPU) against flax's
   `nn.LayerNorm(epsilon=1e-5)` applied to x + jnp.where(keep, b / keep_prob,
-  0) through `jax.vjp`, with the same keep mask;
+  0) through `jax.vjp`, with the same keep mask; the port's dropout
+  (`dropped`) equal to flax's `nn.Dropout` bit for bit in bf16 and f32,
+  forward and VJP;
 - the encoder and decoder layers on the CPU keep their bits (forward,
   gradients, the generator's stream), and dropout split into its mask and
   its application keeps its bits;
@@ -22,15 +25,21 @@ then LayerNorm(x_new), forward and backward, against autograd and JAX.
   its own share (the two add up to the global ones within 1e-5);
 - the wrappers take their plain versions on CPU tensors without counting,
   refuse the widths and dtypes the kernels do not take, and the constants
-  they mirror are read from the source.
+  they mirror are read from the source; the backward's grid (`grad_blocks`)
+  and its parameter sums in one launch, emulated in numpy (each CTA's
+  partial row, then each column over the CTAs' rows, every 32nd in block
+  order a lane, then the lanes' butterfly), against the f64 sums.
 
 Tolerances.  x_new, the dropout's values and the forward's y are the module
-expression's own ops on the CPU: equal bit for bit.  Gradients, where the
+expression's own ops on the CPU: equal bit for bit (x_new and the dropout
+to flax's too).  Gradients, where the
 closed form and autograd sum in different orders: 1e-4 of the largest value
 in f32 (the repository's module tolerance), one bf16 ulp or 1e-3 of the
 largest value in bf16 (the order may move a value across a rounding
 boundary).  Against JAX: 1e-5 of the largest value on the forward, 1e-4 on
-the gradients.  NaN positions are exact.
+the gradients.  The emulated parameter sums against f64: 1e-5 of the
+largest value (f32 sums of at most 64 rows a lane, 8 warps, 9 CTAs a lane
+and 5 butterfly steps: some 86 roundings, 6e-6 at most).  NaN positions are exact.
 
 The kernels themselves run only on the card, where chip_smoke.py
 (`check_add_norm`) holds them against these plain versions.
@@ -132,12 +141,19 @@ def _old_norm(norm, x):
     return (x - mean) * (torch.rsqrt(var + norm.eps) * norm.weight) + norm.bias
 
 
+def _rounded(keep_prob: float, dtype) -> float:
+    """flax's divisor: the keep probability rounded to the input's dtype."""
+    return torch.tensor(keep_prob, dtype=dtype).item()
+
+
 def _module(x, branch, norm, keep):
-    """The module expression: x + where(keep, branch / keep_prob, 0) and the
-    norm, as the layers computed them before the kernels."""
+    """The module expression: x + where(keep, branch / keep_prob, 0) (the
+    division flax's) and the norm, as the layers computed them before the
+    kernels."""
     if branch is None:
         return (_old_norm(norm, x),)
-    x_new = x + (branch if keep is None else torch.where(keep, branch / KEEP_PROB, 0.0))
+    x_new = x + (branch if keep is None else torch.where(
+        keep, branch / _rounded(KEEP_PROB, branch.dtype), 0.0))
     return x_new, _old_norm(norm, x_new)
 
 
@@ -266,10 +282,8 @@ def test_plain_path_matches_flax_vjp(branch, drop):
     def f(xj, bj, p):
         if bj is None:
             return (ln.apply(p, xj),)
-        # the port's division: in f32 by the f32 keep probability, rounded to
-        # b's dtype (`test_flax_dropout_rounds_the_keep_probability_to_bf16`)
-        d = bj if keep is None else jnp.where(
-            jnp.asarray(keep.numpy()), (bj.astype(jnp.float32) / KEEP_PROB).astype(bj.dtype), 0)
+        # flax's own division (`nn.Dropout`'s): a weak-typed Python float
+        d = bj if keep is None else jnp.where(jnp.asarray(keep.numpy()), bj / KEEP_PROB, 0)
         x_new = xj + d
         return x_new, ln.apply(p, x_new)
 
@@ -280,6 +294,8 @@ def test_plain_path_matches_flax_vjp(branch, drop):
     grads = [g_res, g_y] if b is not None else [g_y]
     got_out, got = _vjp(lambda xr, br, n, k: (n(xr),) if br is None else n.add(xr, br, k, KEEP_PROB),
                         x, b, norm, keep, grads)
+    if b is not None:  # x_new: flax's dropout and the f32 add, bit for bit
+        assert torch.equal(got_out[0], _t(outs[0]))
     for g, w in zip(got_out, outs):
         _close(g, _t(w), 1e-5, "forward")
     _close(got[0], _t(dx_j), 1e-4, "dx")
@@ -290,38 +306,46 @@ def test_plain_path_matches_flax_vjp(branch, drop):
 
 
 def test_flax_dropout_rounds_the_keep_probability_to_bf16():
-    """flax `nn.Dropout` on a bf16 input divides by the keep probability
-    rounded to bf16 (a weak-typed Python float takes the input's dtype: 0.9
-    is 0.8984375), the port (as torch computes `x / keep_prob`) by the f32
-    one: a kept value differs by at most one bf16 ulp, and some do.  The
-    port's dropout is held against its own division above, and this
-    difference is recorded as an open fault of the port."""
-    b = _rows((4, 8, 32), 26, torch.bfloat16)
-    jb = jnp.asarray(b.float().numpy(), jnp.bfloat16)
-    out = fnn.Dropout(1.0 - KEEP_PROB, deterministic=False).apply(
-        {}, jb, rngs={"dropout": jax.random.PRNGKey(0)})
-    flax_v = _t(np.asarray(out, np.float32))
-    keep = flax_v != 0
-    port = an.dropped(b, keep, KEEP_PROB).float()
-    assert torch.equal(flax_v, _t(np.asarray(jnp.where(keep.numpy(), jb / KEEP_PROB, 0),
-                                              np.float32)))
-    _bf16_close(port, flax_v, "the port's dropout against flax's")
-    assert not torch.equal(port, flax_v)
-    assert torch.equal(port, _t(np.asarray(
-        jnp.where(keep.numpy(), (jb.astype(jnp.float32) / KEEP_PROB).astype(jnp.bfloat16), 0),
-        np.float32)))
+    """flax `nn.Dropout` divides by the keep probability rounded to the
+    input's dtype (a weak-typed Python float: 0.9 is 0.8984375 in bf16) and
+    rounds the quotient to that dtype.  The port's dropout (`dropped`, what
+    `mlp.dropout` and the add & norm's plain version apply) equals it bit for
+    bit in bf16 and f32, forward and through `jax.vjp` against autograd, with
+    flax's own mask; in bf16 the f32 keep probability would give other bits."""
+    for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+        b = _rows((4, 8, 32), 26, dtype)
+        ct = _rows((4, 8, 32), 27, dtype)
+        jb = jnp.asarray(b.float().numpy(), jdtype)
+        drop = fnn.Dropout(1.0 - KEEP_PROB, deterministic=False)
+        out, pull = jax.vjp(lambda v: drop.apply({}, v, rngs={"dropout": jax.random.PRNGKey(0)}),
+                            jb)
+        (flax_grad,) = pull(jnp.asarray(ct.float().numpy(), jdtype))
+        flax_v = _t(np.asarray(out, np.float32))
+        keep = flax_v != 0
+        assert 0 < keep.sum() < keep.numel()
+        br = b.clone().requires_grad_()
+        port = an.dropped(br, keep, KEEP_PROB)
+        port.backward(ct)
+        assert port.dtype == br.grad.dtype == dtype
+        assert torch.equal(port.float(), flax_v), str(dtype)
+        assert torch.equal(br.grad.float(), _t(np.asarray(flax_grad, np.float32))), str(dtype)
+        if dtype == torch.bfloat16:  # the f32 keep probability: kept values an ulp apart
+            f32_div = torch.where(keep, (b.float() / np.float32(KEEP_PROB)).to(dtype), 0.0)
+            assert not torch.equal(f32_div.float(), flax_v)
+            _bf16_close(f32_div, flax_v, "the f32 divisor against flax's")
 
 
 # ------------------------------------------------------- the layers' bits
 def _old_dropout(x, rate, generator, batch_dim=0):
-    """`models.mlp.dropout` as it read before the mask was split out."""
+    """`models.mlp.dropout` as it read before the mask was split out, with
+    flax's division (by the keep probability rounded to x's dtype)."""
     if rate <= 0.0:
         return x
     keep_prob = 1.0 - rate
     b = x.shape[batch_dim]
     keep = (torch.rand(list(x.shape), generator=generator, device=x.device) < keep_prob).narrow(
         batch_dim, 0, b)
-    return torch.where(keep, x / keep_prob, 0.0)
+    return torch.where(keep, x / _rounded(keep_prob, x.dtype), 0.0)
 
 
 def _old_encoder_layer(m, x, pos, generator):
@@ -493,33 +517,129 @@ def test_widths_the_paths_use_are_taken():
 
 
 def test_grad_grid():
-    """`grad_blocks`: at most 4 CTAs an SM, each warp at least 4 rows, the
-    rows covered."""
-    for rows in (16384, 1024, 2048, 77 * 270, 5, 1):
-        blocks, per = an.grad_blocks(rows, 132)
-        assert 1 <= blocks <= 132 * an.GRAD_CTAS_PER_SM and blocks * per >= rows
-        assert (blocks - 1) * per < rows
-    assert an.grad_blocks(16384, 132) == (512, 32)
-    assert an.grad_blocks(1024, 132) == (32, 32)
+    """`grad_blocks`: one wave of the CTAs the launch bounds keep resident
+    (BWD_CTAS_WIDE an SM at C 256, BWD_CTAS_GENERIC else; a cooperative
+    launch refuses more), a row a warp where the rows are few, the rows
+    covered with no empty CTA."""
+    for C, ctas in ((256, an.BWD_CTAS_WIDE), (640, an.BWD_CTAS_GENERIC), (64, 1)):
+        for rows in (16384, 8192, 2048, 1024, 77 * 270, 5, 1):
+            blocks, per = an.grad_blocks(rows, 132, C)
+            assert 1 <= blocks <= 132 * ctas and blocks * per >= rows
+            assert (blocks - 1) * per < rows and per % an.WARPS == 0
+    assert an.grad_blocks(1024, 132, 256) == (128, 8)  # the decoder: a row a warp
+    assert an.grad_blocks(2048, 132, 256) == (256, 8)
+    assert an.grad_blocks(16384, 132, 256) == (256, 64)  # the encoder: 8 rows a warp
+    assert an.grad_blocks(1024, 132, 64) == (128, 8)
 
 
-def test_inverse_is_the_f32_reciprocal():
+def test_divisor_is_the_keep_probability_rounded():
+    """The kernels' and the plain versions' divisor: the keep probability in
+    the branch's dtype, as flax forms it for a weak-typed Python float."""
     for p in (0.9, 0.7, 1.0, 0.5):
-        assert np.float32(an.inverse(p)) == np.float32(1.0) / np.float32(p)
+        assert an.divisor(p, torch.float32) == float(np.float32(p))
+        assert an.divisor(p, torch.bfloat16) == float(jnp.asarray(p, jnp.bfloat16))
+    assert an.divisor(0.9, torch.bfloat16) == 0.8984375
+    assert an._divisor_of(torch.zeros(2, dtype=torch.bfloat16), 0.9) == 0.8984375
+
+
+def test_kernel_quotient_is_the_division_on_every_bf16():
+    """The bf16 dropout's product by the f32 reciprocal of the divisor,
+    rounded to bf16 (`quotient<bf16>` of csrc/add_norm.cu, and `dropped` on
+    bf16 through `reciprocal`), equals the IEEE quotient rounded to bf16
+    (flax's) on all 65 536 bf16 bit patterns for every bf16 divisor in
+    [0.5, 1] (every other keep probability differs from one of these by a
+    power of two), NaNs at the same places."""
+    bits = np.arange(1 << 16, dtype=np.uint32) << 16
+    x = bits.view(np.float32)
+    xb = torch.from_numpy(x.copy()).bfloat16()
+    nan = torch.isnan(xb)
+    keep = torch.ones_like(xb, dtype=torch.bool)
+    divisors = (np.arange(0x3F00, 0x3F81, dtype=np.uint32) << 16).view(np.float32)
+    for d in divisors:
+        with np.errstate(all="ignore"):
+            want = torch.from_numpy(x / d).bfloat16()  # numpy's f32 division is IEEE
+            kernel = torch.from_numpy(x * (np.float32(1.0) / d)).bfloat16()
+        port = an.dropped(xb, keep, float(d))
+        assert float(np.float32(1.0) / d) == an.reciprocal(float(d))
+        for got in (kernel, port):
+            assert torch.equal(torch.isnan(got), nan) and torch.equal(torch.isnan(want), nan)
+            assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16)), float(d)
+
+
+def _emulated_param_sums(x, gy, stats, sms: int = 132) -> torch.Tensor:
+    """(2, C) f32: dweight and dbias as one launch of `add_norm_bwd` sums them
+    on a card of `sms` SMs: each lane's f32 sums over its warp's rows in row
+    order (a fused multiply-add for dy * xhat), the CTA's 8 warps added in
+    order into its partial row; then each column over the CTAs' rows, lane
+    l of a warp adding rows l, l + 32, ... in order, and the lanes' sums in
+    the butterfly of `warp_sum` (xor 16, 8, 4, 2, 1)."""
+    C = x.shape[-1]
+    mean, r = (stats[i].numpy().astype(np.float32)[:, None] for i in (0, 1))
+    h, g = x.reshape(-1, C).float().numpy(), gy.reshape(-1, C).float().numpy()
+    xh = (h - mean) * r  # f32, each operation rounded
+    rows = h.shape[0]
+    blocks, per = an.grad_blocks(rows, sms, C)
+    pad = blocks * per - rows
+    xh = np.concatenate([xh, np.zeros((pad, C), np.float32)])
+    g = np.concatenate([g, np.zeros((pad, C), np.float32)])
+    # CTA b's row j * WARPS + w is warp w's j-th
+    xh = xh.reshape(blocks, per // an.WARPS, an.WARPS, C)
+    g = g.reshape(blocks, per // an.WARPS, an.WARPS, C)
+    pw = np.zeros((blocks, an.WARPS, C), np.float32)
+    pb = np.zeros_like(pw)
+    for j in range(per // an.WARPS):
+        pw = (g[:, j].astype(np.float64) * xh[:, j] + pw).astype(np.float32)
+        pb = pb + g[:, j]
+    part = np.zeros((blocks, 2, C), np.float32)
+    for w in range(an.WARPS):
+        part += np.stack([pw[:, w], pb[:, w]], axis=1)
+    lanes = np.zeros((32, 2, C), np.float32)
+    for b in range(blocks):
+        lanes[b % 32] += part[b]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[np.arange(32) ^ o]
+    assert (lanes == lanes[:1]).all()  # every lane the same bits
+    return torch.from_numpy(lanes[0])
+
+
+@pytest.mark.parametrize("rows,C", [(1024, 256), (16384, 256), (2000, 640)])
+def test_one_launch_param_sums_emulated(rows, C):
+    """The one-launch backward's dweight and dbias, emulated over the grid of
+    `grad_blocks`, within 1e-5 of the largest value of the f64 sums
+    (`add_norm_param_grads_plain` in f64) at the decoder's 1 024 rows, the
+    encoder's 16 384 and a generic width; the emulation adds the partial rows
+    in the kernel's fixed order, so any CTA may come last."""
+    x = _rows((rows, C), 80)
+    gy = _grad((rows, C), 81)
+    _, _, stats = an.add_norm_plain(x, torch.ones(C), torch.zeros(C), 1e-5)
+    got = _emulated_param_sums(x, gy, stats)
+    want = an.add_norm_param_grads_plain(x.double(), gy.double(), stats.double())
+    _close(got[0], want[0], 1e-5, "dweight")
+    _close(got[1], want[1], 1e-5, "dbias")
 
 
 def test_source_constants():
     src = CSRC.read_text()
-    for name, value in (("kVec", an.VEC), ("kMaxC", an.MAX_C), ("kThreads", an.THREADS)):
+    for name, value in (("kVec", an.VEC), ("kMaxC", an.MAX_C), ("kThreads", an.THREADS),
+                        ("kWideC", an.WIDE_C), ("kBwdCtasWide", an.BWD_CTAS_WIDE),
+                        ("kBwdCtasGeneric", an.BWD_CTAS_GENERIC)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
     # y's operations each rounded as the plain version's torch ops round them
     assert ("__fadd_rn(__fmul_rn(__fsub_rn(v[k][e], mean), __fmul_rn(r, wv[e])), bv[e])"
             in src)
     assert "const float var = var_raw < 0.f ? 0.f : var_raw;" in src
     assert "const float r = rsqrtf(__fadd_rn(var, eps));" in src
-    # the dropout's value: the product by the reciprocal, rounded to branch's dtype
-    assert "kept(kp, e) ? round_to<BrT>(__fmul_rn(d[e], inv_keep)) : 0.f" in src
+    # the dropout's value: the IEEE quotient by the rounded keep probability,
+    # rounded to branch's dtype (`quotient`, held below); its VJP the same
+    # quotient of dx in branch's dtype
+    assert "kept(in.keep[k], e) ? quotient<BrT>(d[e], keep_div, keep_inv) : 0.f" in src
+    assert "kept(in.keep[k], e) ? quotient<BrT>(round_to<BrT>(d[e]), keep_div, keep_inv)" in src
+    assert "const float keep_inv = __frcp_rn(keep_div);" in src
+    assert "return round_to<bf16>(__fmul_rn(x, inv));" in src and "return __fdiv_rn(x, d);" in src
+    assert "inv_keep" not in src
     # the clamp's backward: the term kept at var_raw == 0, dropped below
-    assert "const float c2 = var_raw >= 0.f ? __fdiv_rn(sb, static_cast<float>(C)) : 0.f;" in src
-    assert "kept(kp, e) ? __fmul_rn(round_to<BrT>(d[e]), inv_keep) : 0.f" in src
-    assert "atomicAdd" not in src
+    assert ("const float c2 = in.var_raw >= 0.f ? __fdiv_rn(sb, static_cast<float>(width)) : 0.f;"
+            in src)
+    # one kernel a backward: a cooperative launch, a grid barrier, no atomics
+    assert "add_norm_finish" not in src and "atomicAdd(" not in src and "atomicInc(" not in src
+    assert "cg::this_grid().sync();" in src and "cudaLaunchAttributeCooperative" in src
