@@ -128,21 +128,27 @@ at once), then:
        kernels: FPS 40000 -> 2048 -> 1024 -> 256 and a ragged 40001 -> 64,
        checked, timed and bounded as in 2; the
        ball-group at 40 000 points (C = 0) and at the interim SA's shapes
-       (2048 tokens, 1024 centers, K = 32, C = 256), as in 2; the pick pass
-       of its feature gradient (`slot_sources`) equal to its plain version at
-       every position on two launches, and on a scene where the direct and
-       the expanded distances split at r^2 (it must give the expanded pick,
-       the forward the direct one); the scatter of the feature gradient
-       (`feature_map` then `feature_sum`, counted in `feature_scatter`)
-       equal to `_scatter` (the accumulating `index_put_`) bit for bit on
-       the step's own sources on two launches and on crafted ones (a point
+       (2048 tokens, 1024 centers, K = 32, C = 256), as in 2; the picks and
+       inverse map of its feature gradient in one launch (`sources_map`,
+       `feature_sources_map`): the sources equal to the plain version at
+       every position and the list and work records to the plain inverse
+       map on two launches, the first design's pick pass (`slot_sources(...,
+       _impl="first")`) equal too, and on a scene where the direct and the
+       expanded distances split at r^2 (it must give the expanded pick, the
+       forward the direct one), timed in turns with the first pick pass and
+       `feature_map` (it must be the faster in every turn); the sum
+       (`feature_sum`) and the scatter on any sources (`feature_map` then
+       `feature_sum`, counted in `feature_scatter`) equal to `_scatter`
+       (the accumulating `index_put_`) bit for bit on the step's own
+       sources on two launches, the scatter on crafted ones too (a point
        every slot of a ball names, empty balls, points no slot names, a
        scene on one point, K 1 at N 2047 and C 40, C 4, 65536 slots a
-       scene), the whole gradient on the card equal to the CPU's bit for
-       bit, the slots-a-point distribution printed, the kernels,
-       `index_put_`'s path and `index_add_` timed in turns beside the
-       bound, and the gradient with the kernels and with the plain pick
-       pass; the attention kernels with
+       scene), the whole gradient on the card equal to the CPU's and to the
+       first route's bit for bit, the slots-a-point distribution printed,
+       the sum, `index_put_`'s path and `index_add_` timed in turns beside
+       the bound, the gradient by both routes in turns (the fused route
+       must be the faster in every turn) and with the plain pick pass; the
+       attention kernels with
        the radius bias at the three (N, r^2) of the encoder's layers, with
        token coordinates from the FPS picks above: the radius mask read
        back through the forward, dq and dk/dv kernels, in both designs,
@@ -541,7 +547,8 @@ def sass_summary() -> list:
     (HGMMA), of mma.sync products (HMMA) and of asynchronous 16-byte copies
     (LDGSTS).  A wgmma kernel must hold the first and the last and no HMMA.
     And the tile ball-group's kernels the route launches (two tiles of
-    centers of the forward, one of the pick pass) must hold no FFMA: each
+    centers of the forward, one of the pick pass) and the feature gradient's
+    fused picks and map (`feature_sources_map`) must hold no FFMA: each
     distance is rounded operation by operation."""
     import re
 
@@ -611,6 +618,20 @@ def sass_summary() -> list:
             f"ball_group: expected the forward at two tiles and the pick pass in the SASS, found "
             f"{sorted(ffma)}")
     require(not any(ffma.values()), f"ball_group tile kernels hold FFMA: {ffma}")
+    # the fused picks and map of the feature gradient: the same distances
+    res = subprocess.run([tool, "-sass", str(_build.library_path("feature_grad"))],
+                         capture_output=True, text=True, timeout=300, check=True)
+    kernel = None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = "feature_sources_map" if "feature_sources_map" in m.group(1) else None
+            if kernel:
+                ffma[kernel] = 0
+        elif kernel and re.search(r"\bFFMA\b", line):
+            ffma[kernel] += 1
+    require(ffma.get("feature_sources_map") == 0,
+            f"feature_sources_map must be in the SASS without FFMA: {ffma}")
     lines.append(f"{', '.join(sorted(ffma))}: 0 FFMA in their SASS")
     return lines
 
@@ -655,14 +676,16 @@ def graph_ms(fn, reps: int) -> float:
 def designs_in_turns(kernel, rate: float, seed, reps: int) -> tuple:
     """(ms, ms without dropout, the same two of the first design) of
     `kernel(p, seed, impl)`, timed this design, the first, the first, this,
-    the smaller of each pair kept."""
-    ms, nd_ms = cuda_ms(lambda: kernel(rate, seed), reps), cuda_ms(lambda: kernel(0.0, None), reps)
-    old_ms = cuda_ms(lambda: kernel(rate, seed, "mma"), reps)
-    old_nd = cuda_ms(lambda: kernel(0.0, None, "mma"), reps)
-    old_ms = min(old_ms, cuda_ms(lambda: kernel(rate, seed, "mma"), reps))
-    old_nd = min(old_nd, cuda_ms(lambda: kernel(0.0, None, "mma"), reps))
-    ms = min(ms, cuda_ms(lambda: kernel(rate, seed), reps))
-    nd_ms = min(nd_ms, cuda_ms(lambda: kernel(0.0, None), reps))
+    the smaller of each pair kept; by graph replays (`graph_ms`): eager
+    calls of the smaller kernels time the host's launches, which a loaded
+    host doubles."""
+    ms, nd_ms = graph_ms(lambda: kernel(rate, seed), reps), graph_ms(lambda: kernel(0.0, None), reps)
+    old_ms = graph_ms(lambda: kernel(rate, seed, "mma"), reps)
+    old_nd = graph_ms(lambda: kernel(0.0, None, "mma"), reps)
+    old_ms = min(old_ms, graph_ms(lambda: kernel(rate, seed, "mma"), reps))
+    old_nd = min(old_nd, graph_ms(lambda: kernel(0.0, None, "mma"), reps))
+    ms = min(ms, graph_ms(lambda: kernel(rate, seed), reps))
+    nd_ms = min(nd_ms, graph_ms(lambda: kernel(0.0, None), reps))
     return ms, nd_ms, old_ms, old_nd
 
 
@@ -745,6 +768,10 @@ def kernel_counters() -> dict:
 
     count_eval_replays()
     counters = {"fps": (fps.fps, "launches"), "ball_group": (ball_group.ball_group, "launches"),
+                "sources_map": (ball_group.sources_map, "launches"),
+                "feature_sum": (ball_group.feature_sum, "launches"),
+                # the first design of the pick pass and the scatter on any
+                # sources: the route where `sources_map` does not fit
                 "slot_sources": (ball_group.slot_sources, "launches"),
                 "feature_scatter": (ball_group.feature_scatter, "launches")}
     for name in ("attention_fwd", "attention_dq", "attention_dkv"):
@@ -880,8 +907,8 @@ def kernel_sources() -> dict:
 
     return {"fps": (fps.SOURCE, fps.REPLACES),
             "ball_group": (ball_group.SOURCE, ball_group.REPLACES),
-            "slot_sources": (ball_group.SOURCE, ball_group.SOURCES_REPLACES),
-            "feature_scatter": (ball_group.SCATTER_SOURCE, ball_group.SCATTER_REPLACES),
+            "sources_map": (ball_group.SCATTER_SOURCE, ball_group.SOURCES_MAP_REPLACES),
+            "feature_sum": (ball_group.SCATTER_SOURCE, ball_group.SCATTER_REPLACES),
             "attention_fwd": (attention.SOURCE, attention.REPLACES),
             "attention_dq": (attention.BWD_SOURCE, attention.DQ_REPLACES),
             "attention_dkv": (attention.BWD_SOURCE, attention.DKV_REPLACES),
@@ -1287,8 +1314,8 @@ def check_masked_points(batch: dict, dev: torch.device) -> tuple:
     ball-group at its shapes against their plain versions and first designs,
     timed, and the pick pass and the scatter of the ball-group's feature
     gradient, with the gradient itself on the card against the CPU.  Returns
-    (extras for the fps and ball_group entries, the slot_sources and
-    feature_scatter entries, the token coordinates at 2048 and 1024
+    (extras for the fps and ball_group entries, the sources_map and
+    feature_sum entries, the token coordinates at 2048 and 1024
     tokens)."""
     from ov3det_torch.ops.kernels import fps
 
@@ -1310,27 +1337,47 @@ def check_masked_points(batch: dict, dev: torch.device) -> tuple:
     bg_extra = dict(mid, library_ms=None, pre_encoder=pre,
                     work="one interim SA call: 8x2048, M=1024, K=32, C=256")
     return {"fps": fps_extra, "ball_group": bg_extra,
-            "slot_sources": check_slot_sources(pre_xyz, mid_xyz, dev),
-            "feature_scatter": check_feature_scatter(card_line(), pre_xyz, mid_xyz, dev)}, \
+            "sources_map": check_slot_sources(pre_xyz, mid_xyz, dev),
+            "feature_sum": check_feature_scatter(card_line(), pre_xyz, mid_xyz, dev)}, \
         pre_xyz, mid_xyz
 
 
+SOURCES_TURNS = 3  # turns of the fused picks and map against the first pair
+
+
 def check_slot_sources(pre_xyz, mid_xyz, dev: torch.device) -> dict:
-    """The feature gradient's pick pass (`ball_group_tile<sources>`) at the
-    interim SA's shape: equal to the plain version at every position on two
-    launches, and on a scene where the direct and the expanded distances
-    split at r^2 (the expanded pick must win); the kernel timed as
-    replays of a CUDA graph (`graph_ms`).  Returns the kernels line's
-    entry."""
+    """The feature gradient's picks and map (`sources_map`: one launch of
+    `feature_sources_map`) at the interim SA's shape: the sources equal the
+    plain version at every position and the list and work records the plain
+    inverse map, on two launches; the pick pass of the route and of the
+    first design (`slot_sources(..., _impl="first")`,
+    `ball_group_tile<sources>`) equal too; on a scene where the direct and
+    the expanded distances split at r^2 both give the expanded pick.  Timed
+    as replays of CUDA graphs in turns (SOURCES_TURNS each, the fused kernel
+    first and last) with the first pair: the first pick pass, then
+    `feature_map`; the fused kernel must be the faster in every turn.
+    Returns the kernels line's entry."""
     from ov3det_torch.ops.kernels import ball_group as BG
 
     B, N, _ = pre_xyz.shape
-    M, K, radius, C = mid_xyz.shape[1], 32, 0.4, 256
-    want = BG.slot_sources_plain(pre_xyz, mid_xyz, radius, K)
+    M, K, radius = mid_xyz.shape[1], 32, 0.4
+    want_src, want_list, want_work = BG.sources_map_plain(pre_xyz, mid_xyz, radius, K)
+    named = (want_work[..., 2] - want_work[..., 1]).sum(1)
+    listed = torch.arange(K * M, device=dev)[None] < named[:, None]
     for launch in range(2):
-        got = BG.slot_sources(pre_xyz, mid_xyz, radius, K)
-        require(torch.equal(got, want), f"slot_sources, launch {launch}: differs from the plain "
-                                        f"version at {int((got != want).sum())} positions")
+        src, lst, work = BG.sources_map(pre_xyz, mid_xyz, radius, K)
+        require(torch.equal(src, want_src), f"sources_map, launch {launch}: the sources differ from "
+                                            f"the plain version at {int((src != want_src).sum())} "
+                                            "positions")
+        require(torch.equal(work, want_work), f"sources_map, launch {launch}: the work records "
+                                              "differ from the plain inverse map")
+        require(torch.equal(lst[listed], want_list[listed]),
+                f"sources_map, launch {launch}: the list differs from the plain inverse map at "
+                f"{int((lst[listed] != want_list[listed]).sum())} places")
+    require(torch.equal(BG.slot_sources(pre_xyz, mid_xyz, radius, K), want_src),
+            "slot_sources (the route) differs from the plain version")
+    require(torch.equal(BG.slot_sources(pre_xyz, mid_xyz, radius, K, _impl="first"), want_src),
+            "slot_sources, the first design, differs from the plain version")
     # the boundary scene: center (10, 0, 0), a point just outside r by the
     # direct distance and inside by the expanded one, first in bucket 0
     c0, r = np.float32(10.0), 0.2
@@ -1344,30 +1391,63 @@ def check_slot_sources(pre_xyz, mid_xyz, dev: torch.device) -> dict:
     e_xyz = torch.from_numpy(edge).to(dev)
     e_c = torch.tensor([[[10.0, 0.0, 0.0]]], device=dev)
     e_feats = torch.arange(8, dtype=torch.float32, device=dev).view(1, 4, 2)
-    e_src = BG.slot_sources(e_xyz, e_c, r, 1)
+    e_want = BG.sources_map_plain(e_xyz, e_c, r, 1)
+    e_got = BG.sources_map(e_xyz, e_c, r, 1)
+    e_first = BG.slot_sources(e_xyz, e_c, r, 1, _impl="first")
     e_out = BG.ball_group(e_xyz, e_feats, e_c, r, 1)
-    require(e_src.item() == 1 and torch.equal(e_src, BG.slot_sources_plain(e_xyz, e_c, r, 1)),
-            f"slot_sources at the r^2 boundary: {e_src.item()}, the expanded pick is 1")
+    require(e_got[0].item() == 1 and e_first.item() == 1 and torch.equal(e_got[0], e_want[0])
+            and torch.equal(e_got[2], e_want[2]) and e_got[1][0, 0].item() == 0,
+            f"sources_map at the r^2 boundary: {e_got[0].item()} (the first design "
+            f"{e_first.item()}), the expanded pick is 1")
     require(e_out[0, 0, 0, 3:].tolist() == [4.0, 5.0], "ball_group at the r^2 boundary must take "
                                                         "the direct pick, point 2")
 
-    ms = graph_ms(lambda: BG.slot_sources(pre_xyz, mid_xyz, radius, K), 10)
-    plain = cuda_ms(lambda: BG.slot_sources_plain(pre_xyz, mid_xyz, radius, K), 2)
-    ms = min(ms, graph_ms(lambda: BG.slot_sources(pre_xyz, mid_xyz, radius, K), 10))
-    tests = distance_tests(*BG.bucket_picks_expanded(pre_xyz, mid_xyz, radius, K), N, K)
-    # 10 f32 operations a test: c.x five, then add, multiply by 2, subtract,
-    # clamp, compare; |x|^2 five once a point and |c|^2 five once a center
-    b_ms, b_by = bound_ms((pre_xyz.numel() + mid_xyz.numel()) * 4 + want.numel() * 4,
-                          10 * tests + 5 * B * (N + M), F32_PEAK)
+    first_src = torch.empty_like(want_src)
+    slots = torch.empty((B, K * M), dtype=torch.int32, device=dev)
+    first_work = torch.empty((B, N, 4), dtype=torch.int32, device=dev)
 
-    print(f"slot_sources ({B}x{N}, M={M}, K={K}): equals the plain version at all {want.numel()} "
-          f"positions on two launches, and gives the expanded pick at the r^2 boundary (the forward "
-          f"the direct one); {tests} distance tests with early exit; kernel {ms:.4f} ms, plain "
-          f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, distance_tests=tests,
-                design="ball_group_tile<sources>: the forward's tile design with the expanded "
-                       "distance, (B, K, M) int32 out",
+    def pick_alone():  # `slot_sources(..., _impl="first")` into a buffer of its own
+        BG._launch("ov3_ball_group_sources", dev, pre_xyz, mid_xyz, B, N, M, K,
+                   BG._f32(radius * radius), first_src)
+
+    def first_pair():
+        pick_alone()
+        BG._fg_launch("ov3_feature_map", dev, first_src, B, N, K * M, slots, first_work)
+
+    fns = {"fused": lambda: BG.sources_map(pre_xyz, mid_xyz, radius, K),
+           "first": first_pair, "first pick pass": pick_alone}
+    turns = {k: [] for k in fns}
+    for turn in range(SOURCES_TURNS):
+        for name in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+            turns[name].append(graph_ms(fns[name], 10))
+    require(all(a < b for a, b in zip(turns["fused"], turns["first"])),
+            f"sources_map: the fused kernel is not faster than the first pick pass and "
+            f"feature_map in every turn: {turns}")
+    ms, first = min(turns["fused"]), min(turns["first"])
+    plain = cuda_ms(lambda: BG.sources_map_plain(pre_xyz, mid_xyz, radius, K), 2)
+    tests = distance_tests(*BG.bucket_picks_expanded(pre_xyz, mid_xyz, radius, K), N, K)
+    # 9 f32 operations a test: c.x five, then add, multiply by 2, subtract,
+    # compare; |x|^2 five once a point and |c|^2 five once a center; the
+    # points and centers read once, the sources, list and records written once
+    b_ms, b_by = bound_ms((pre_xyz.numel() + mid_xyz.numel()) * 4 + (2 * want_src.numel()
+                                                                     + want_work.numel()) * 4,
+                          9 * tests + 5 * B * (N + M), F32_PEAK)
+
+    print(f"sources_map ({B}x{N}, M={M}, K={K}): the sources equal the plain version at all "
+          f"{want_src.numel()} positions, the list and work records the plain inverse map, on two "
+          f"launches; the first pick pass equal; the expanded pick at the r^2 boundary (the forward "
+          f"the direct one); {tests} distance tests with early exit; in turns (graph replays): fused "
+          f"{', '.join(f'{v:.4f}' for v in turns['fused'])} ms, the first pick pass and feature_map "
+          f"{', '.join(f'{v:.4f}' for v in turns['first'])} ms (the pick pass alone "
+          f"{', '.join(f'{v:.4f}' for v in turns['first pick pass'])}); plain {plain:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=0.0, ms=ms, ms_previous_design=first, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, distance_tests=tests, turns=turns,
+                first_pick_ms=min(turns["first pick pass"]),
+                design="feature_sources_map: a cluster of 8 CTAs a scene, each its 4 buckets' "
+                       "points against every center, the empty slots filled over DSMEM, the "
+                       "counting sort from shared memory; first: ball_group_tile<sources, 32> "
+                       "then feature_map",
                 work="one masked training step's backward: 8x2048, M=1024, K=32")
 
 
@@ -1402,14 +1482,17 @@ def crafted_sources(dev: torch.device) -> dict:
 
 
 def check_feature_scatter(card: str, pre_xyz, mid_xyz, dev: torch.device) -> dict:
-    """Phase 7, the feature gradient's scatter (`csrc/feature_grad.cu`, two
-    launches) at the interim SA's shape: equal to `_scatter` (the
-    accumulating `index_put_`) bit for bit on the masked step's own sources
-    on two launches and on crafted ones; the whole gradient (pick pass and
-    scatter) on the card equal to the CPU's bit for bit; the slots-a-point
-    distribution; the kernels, `_scatter` and `index_add_` timed in turns
-    (graph replays), and the whole gradient with the kernels and with the
-    plain pick pass and `_scatter`.  Returns the kernels line's entry."""
+    """Phase 7, the feature gradient's sum (`feature_sum` over the map of
+    `sources_map`) and the scatter on any sources (`feature_scatter`:
+    `feature_map`, then `feature_sum`) at the interim SA's shape: each equal
+    to `_scatter` (the accumulating `index_put_`) bit for bit on the masked
+    step's own sources on two launches, the scatter on crafted sources too;
+    the whole gradient (two launches: `sources_map`, `feature_sum`) on the
+    card equal to the CPU's bit for bit, and to the first route's (the first
+    pick pass, then `feature_scatter`); the slots-a-point distribution; the
+    sum, its plain version and `index_add_` timed in turns (graph replays),
+    and the whole gradient by both routes in turns, and with the plain pick
+    pass and `_scatter`.  Returns the kernels line's entry of the sum."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import feature_grad_parts
 
@@ -1417,58 +1500,79 @@ def check_feature_scatter(card: str, pre_xyz, mid_xyz, dev: torch.device) -> dic
 
     B, N, _ = pre_xyz.shape
     M, K, radius, C = mid_xyz.shape[1], 32, 0.4, 256
-    src = BG.slot_sources(pre_xyz, mid_xyz, radius, K)
+    src, lst, work = BG.sources_map(pre_xyz, mid_xyz, radius, K)
     g = torch.randn(B, K, M, 3 + C, generator=torch.Generator().manual_seed(3)).to(dev)
     want = BG._scatter(src, g, N, C)
+    require(torch.equal(BG.feature_sum_plain(g, lst, work, N, C), want),
+            "feature_sum_plain differs from _scatter")
     for launch in range(2):
-        got = BG.feature_scatter(src, g, N, C)
-        require(torch.equal(got, want), f"feature_scatter, launch {launch}: differs from _scatter at "
-                                        f"{int((got != want).sum())} values")
+        for name, got in (("feature_sum", BG.feature_sum(g, lst, work, N, C)),
+                          ("feature_scatter", BG.feature_scatter(src, g, N, C))):
+            require(torch.equal(got, want), f"{name}, launch {launch}: differs from _scatter at "
+                                            f"{int((got != want).sum())} values")
     crafted = crafted_sources(dev)
     for label, (c_src, c_g, c_n, c_c) in crafted.items():
         require(torch.equal(BG.feature_scatter(c_src, c_g, c_n, c_c), BG._scatter(c_src, c_g, c_n, c_c)),
                 f"feature_scatter on crafted sources ({label}): differs from _scatter")
+
+    def first_route():
+        return BG.feature_scatter(BG.slot_sources(pre_xyz, mid_xyz, radius, K, _impl="first"), g, N,
+                                  C)
+
     grad = BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C)
     cpu = BG.feature_grad(pre_xyz.cpu(), mid_xyz.cpu(), radius, K, g.cpu(), C)
-    # both sum each point's slots from 0 in slot order: the same bits
+    # all sum each point's slots from 0 in slot order: the same bits
     require(torch.equal(grad.cpu(), cpu), "ball_group feature gradient: card and CPU differ at "
                                           f"{int((grad.cpu() != cpu).sum())} values")
+    require(torch.equal(first_route(), grad), "ball_group feature gradient: the first route "
+                                              "differs")
     dist = feature_grad_parts.distribution(src, N)
 
     rows = torch.where(src >= 0, src.long() + N * torch.arange(B, device=dev)[:, None, None],
                        B * N).reshape(-1)
     feats = g[..., 3:].reshape(-1, C)
     atomics = torch.zeros(B * N + 1, C, dtype=torch.float32, device=dev)
-    fns = {"kernels": lambda: BG.feature_scatter(src, g, N, C),
-           "index_put_": lambda: BG._scatter(src, g, N, C),
-           "index_add_": lambda: atomics.index_add_(0, rows, feats)}
+    fns = {"sum": lambda: BG.feature_sum(g, lst, work, N, C),
+           "index_put_": lambda: BG.feature_sum_plain(g, lst, work, N, C),
+           "index_add_": lambda: atomics.index_add_(0, rows, feats),
+           "scatter": lambda: BG.feature_scatter(src, g, N, C),
+           "gradient": lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C),
+           "first gradient": first_route}
     ms = {k: [] for k in fns}
-    for name in list(fns) + list(fns)[::-1]:
-        ms[name].append(graph_ms(fns[name], 10))
+    for turn in range(SOURCES_TURNS):
+        for name in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+            ms[name].append(graph_ms(fns[name], 10))
+    require(all(a < b for a, b in zip(ms["gradient"], ms["first gradient"])),
+            f"ball_group feature gradient: the fused route is not faster than the first in every "
+            f"turn: {ms['gradient']} against {ms['first gradient']}")
+    turns = ms
     ms = {k: min(v) for k, v in ms.items()}
-    with_kernels = cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10)
+    eager = cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10)
     plain_grad = cuda_ms(lambda: BG.feature_grad_plain(pre_xyz, mid_xyz, radius, K, g, C), 3)
-    with_kernels = min(with_kernels, cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g,
-                                                                     C), 10))
+    eager = min(eager, cuda_ms(lambda: BG.feature_grad(pre_xyz, mid_xyz, radius, K, g, C), 10))
     # the bound: the grouped gradient's features read once, the feature gradient written once
     g_bound = (B * K * M * C + B * N * C) * 4 / HBM_BYTES_PER_S * 1e3
-    print(f"feature_scatter ({B}x{N}, M={M}, K={K}, C={C}): equals _scatter bit for bit on the "
-          f"masked step's sources (two launches) and on {len(crafted)} crafted sets "
-          f"({', '.join(crafted)}); the whole gradient on the card equals the CPU's bit for bit; slots a "
-          f"point: max {dist['max']}, mean {dist['mean']:.2f}, p99 {dist['p99']:.1f}, named by no "
-          f"slot {dist['unnamed']:.4f}")
-    print(f"feature_scatter times (graph replays, in turns): kernels {ms['kernels']:.4f} ms, "
-          f"index_put_ (_scatter) {ms['index_put_']:.4f} ms, index_add_ {ms['index_add_']:.4f} ms "
-          f"(atomics: its sums' order changes from run to run), bound {g_bound:.4f} ms (bytes); the "
-          f"whole gradient with the pick kernel and the scatter kernels {with_kernels:.4f} ms, with "
-          f"the plain pick pass and _scatter {plain_grad:.3f} ms ({card})")
-    return dict(max_abs_err=0.0, ms=ms["kernels"], plain_ms=ms["index_put_"], bound_ms=g_bound,
+    print(f"feature_sum ({B}x{N}, M={M}, K={K}, C={C}): equals _scatter bit for bit on the masked "
+          f"step's sources (two launches), as does feature_scatter there and on {len(crafted)} "
+          f"crafted sets ({', '.join(crafted)}); the whole gradient on the card equals the CPU's and "
+          f"the first route's bit for bit; slots a point: max {dist['max']}, mean "
+          f"{dist['mean']:.2f}, p99 {dist['p99']:.1f}, named by no slot {dist['unnamed']:.4f}")
+    print(f"feature_sum times (graph replays, in turns): the sum {ms['sum']:.4f} ms, index_put_ "
+          f"{ms['index_put_']:.4f} ms, index_add_ {ms['index_add_']:.4f} ms (atomics: its sums' "
+          f"order changes from run to run), feature_map and the sum {ms['scatter']:.4f} ms, bound "
+          f"{g_bound:.4f} ms (bytes); the whole gradient: sources_map and the sum "
+          f"{', '.join(f'{v:.4f}' for v in turns['gradient'])} ms, the first pick pass and "
+          f"feature_scatter {', '.join(f'{v:.4f}' for v in turns['first gradient'])} ms; eager "
+          f"{eager:.4f} ms, with the plain pick pass and _scatter {plain_grad:.3f} ms ({card})")
+    return dict(max_abs_err=0.0, ms=ms["sum"], plain_ms=ms["index_put_"], bound_ms=g_bound,
                 bound_by="bytes", library_ms=ms["index_add_"],
                 library="index_add_: atomics, its sums' order changes from run to run",
-                distribution=dist, feature_grad_ms=with_kernels, feature_grad_plain_ms=plain_grad,
-                design="feature_map (a cluster of 8 CTAs a scene: a stable counting sort of the "
-                       "slots by point) + feature_sum<64, 16> (a warp a point and 64 channels, "
-                       "rows staged by cp.async, added in slot order)",
+                distribution=dist, scatter_ms=ms["scatter"], feature_grad_ms=ms["gradient"],
+                feature_grad_first_ms=ms["first gradient"], feature_grad_eager_ms=eager,
+                feature_grad_plain_ms=plain_grad, gradient_turns=turns["gradient"],
+                first_gradient_turns=turns["first gradient"],
+                design="feature_sum<64, 16> (a warp a point and 64 channels, rows staged by "
+                       "cp.async, added in slot order) over the map of sources_map",
                 work="one masked training step's backward: 8x2048, M=1024, K=32, C=256")
 
 
@@ -1775,6 +1879,8 @@ OWN_KERNELS = {
     "ball_group": r"\bball_group_tile<0, |\bfill_kernel\(float const\*, float const\*, float const\*, "
                   r"int const\*",
     "slot_sources": r"\bball_group_tile<1, ",
+    "sources_map": r"\bfeature_sources_map\(",
+    "feature_sum": r"\bfeature_sum<",
     "feature_scatter": (r"\bfeature_map\(", r"\bfeature_sum<"),
     **{f"attention_{k}{'_radius' if radius else ''}":
        rf"\battn_{k}_(?:wgmma<{str(radius).lower()}>|(?:bf16|f32)<\d+, {str(radius).lower()}>)\("
@@ -6805,7 +6911,7 @@ def packed_phase(card: str, dev: torch.device) -> tuple:
     graph_vs_eager(card, dev, "sunrgbd", sun, synthetic_batches(sun, GRAPH_STEPS, 1500), step)
     graph_vs_eager(card, dev, "scannet_masked", masked,
                    synthetic_batches(masked, GRAPH_STEPS, 1600),
-                   expect(**sa(2), **norms(), fps=3, ball_group=2, slot_sources=1, feature_scatter=1,
+                   expect(**sa(2), **norms(), fps=3, ball_group=2, sources_map=1, feature_sum=1,
                           attention_fwd_radius=3, attention_dq_radius=3, attention_dkv_radius=3,
                           auction=1))
     batches = ov_batches(ov, GRAPH_STEPS, 1700)
@@ -7491,8 +7597,8 @@ def main() -> int:
                                         points_in_box=1),
                                  "scannet_masked", dev, card)
     m_trained = train(masked, MASKED_TRAIN_STEPS,
-                      expect(**sa(2), **norms(), fps=3, ball_group=2, slot_sources=1,
-                             feature_scatter=1, attention_fwd_radius=3, attention_dq_radius=3,
+                      expect(**sa(2), **norms(), fps=3, ball_group=2, sources_map=1,
+                             feature_sum=1, attention_fwd_radius=3, attention_dq_radius=3,
                              attention_dkv_radius=3, auction=1),
                       "scannet_masked", 400, dev)
     train_card_vs_cpu(masked, "scannet_masked", 400)

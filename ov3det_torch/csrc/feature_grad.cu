@@ -1,5 +1,7 @@
 // The ball-group's feature gradient, summed onto the picked points in a
-// fixed order: two launches, no atomics whose order matters.
+// fixed order: two launches, no atomics whose order matters.  The first,
+// `feature_sources_map` (3. below), also recomputes the picks; on arbitrary
+// sources `feature_map` (1.) takes its place.
 //
 // Counterpart of the scatter-add in the custom VJP `_bwd` of the Pallas
 // ball-group (`ov3det/ops/pallas/ball_group_kernel.py:207-238`,
@@ -21,8 +23,9 @@
 //    contiguous segments, one a warp of the cluster in slot order; each warp
 //    counts its keys into its own row of its CTA's (warps, N) uint16
 //    histogram by shared atomics (counts do not depend on the atomics'
-//    order); a column prefix over the warps, sums over the CTAs read from
-//    their shared memory (DSMEM) and a scan over the points turn the
+//    order); a column prefix over the warps, sums over the CTAs (each CTA
+//    reads a slice of the points' counts from every CTA's shared memory and
+//    writes every CTA its sums, DSMEM) and a scan over the points turn the
 //    histograms into each (CTA, warp, point)'s first place; the warps then
 //    walk their segments again in the same order and place each slot at its
 //    place plus its rank among the warp's equal keys of that step
@@ -37,6 +40,26 @@
 //    shared memory by 4-byte cp.async (CW / 32 coalesced copies a lane a
 //    row, all RB rows in flight, no registers held) and adds them in list
 //    order.
+// 3. `feature_sources_map`, the route of `BallGroup`'s backward: the picks
+//    of `_bwd` (`bucket_picks` with the expanded, clamped distance of
+//    `_pairwise_d2`, ov3det/ops/pointcloud.py:156-165 and :222-244; an empty
+//    slot takes the first non-empty bucket's pick, `eff_pick` of
+//    ball_group_kernel.py:225-231) and the map of 1. in one launch, a cluster
+//    of kMapCluster CTAs a scene.  CTA c owns a contiguous range of buckets
+//    (4 at K 32), which is also the contiguous range of slots k * M + m
+//    that 1. gives a CTA's warps, so the map's segments are the CTAs' own
+//    picks: it stages only its own points (256 at the masked step's 2048
+//    points), once, as (x, y, z, |x|^2) float4s read as broadcasts, tests
+//    them against every center (a thread a center, each bucket's scan ending
+//    at its first hit) and keeps its K_c x M picks in shared memory; each
+//    CTA publishes every center's first hit, a cluster barrier, and each
+//    empty slot takes the first hit of the lowest rank that has one, read
+//    over DSMEM (-1 throughout a ball with no hit); the map then counts and
+//    places the picks from shared memory, not from `src`, which is written
+//    (1 MB at the masked step) for the checks alone.  The distances are
+//    `ball_group_tile<sources>`'s bits (csrc/ball_group.cu, the first design
+//    of the pick pass and the route of the shapes this kernel does not fit),
+//    every operation rounded on its own.
 //
 // Bound: the cotangent's feature columns read once and the gradient written
 // once, 0.0851 ms at the masked step's shape (8 x 32 x 1024 rows of 256
@@ -45,9 +68,15 @@
 // all take its first non-empty bucket's pick: on the masked step's sources
 // at most 245 a point against a mean of 16); an item's time is its
 // slot count over the rows in flight, so the heavy items go first and the
-// light ones fill in behind them.
+// light ones fill in behind them.  `feature_sources_map`: the points and
+// centers read once and the sources, list and records written once (2.7 MB
+// at the masked step, 0.0008 ms), or its distance tests with early exit at
+// the f32 rate (9 operations a test; about 0.0019 ms there), whichever is
+// larger.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 #include <cooperative_groups.h>
 
@@ -68,8 +97,13 @@ constexpr int kSumThreads = 256;
 constexpr int kHeavy = 4;  // a point with more than kHeavy x the mean slots goes first
 constexpr int kMaxSlots = 65536;  // places fit the uint16 histogram
 constexpr int kMaxDevices = 64;
+constexpr int kStagePoints = 2048;  // points `feature_sources_map` stages at a time
+constexpr int kPickTests = 4;  // distance tests a thread makes before it looks for a hit
+constexpr int kRowBatch = 8;  // histogram rows whose words a thread reads at once
+constexpr int kHistRows = 8;  // histogram rows (segments) a CTA of `feature_sources_map`
 
 int opted_in[kMaxDevices] = {0};
+int fused_opted_in[kMaxDevices] = {0};
 
 __device__ __forceinline__ unsigned lanemask_lt() {
   unsigned m;
@@ -107,8 +141,178 @@ __device__ int block_scan(int v, int* sums, int& total) {
   return out;
 }
 
+// A split cluster barrier: `cluster_arrive` releases this thread's writes
+// to shared memory, `cluster_wait` returns once every thread of the cluster
+// has arrived and acquires theirs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // The histogram's row length: N rounded up to even, two uint16 to a word.
 __host__ __device__ __forceinline__ int hist_row(int N) { return N + (N & 1); }
+
+// Bytes of a histogram of `rows` rows.
+__host__ __device__ __forceinline__ size_t hist_bytes(int rows, int N) {
+  return static_cast<size_t>(rows) * hist_row(N) * 2;
+}
+
+// The histogram rows of `feature_sources_map` (the warps that hold a segment
+// of the CTA's slots): at most kHistRows, so that its passes over the
+// histogram stay short.
+__host__ __device__ __forceinline__ int hist_rows(int warps) {
+  return warps < kHistRows ? warps : kHistRows;
+}
+
+// The stable counting sort of a scene's slots by point, by the CTAs of a
+// cluster together.  Warp w < rows of this CTA holds the slots [lo, hi) (the
+// others none); the warps' ranges follow one another in slot order, over the
+// warps of a CTA and over the CTAs in rank order.  key(j) is slot j's point
+// (outside [0, N): none).  `hist` is the CTA's (rows, hist_row(N)) uint16
+// histogram, a row a warp, zeroed by the caller before a barrier; `tot`,
+// `all` and `ahead` hold N ints each, at one offset in every CTA.  Writes
+// the scene's list `li` and work records `rec`.
+template <class Key>
+__device__ __forceinline__ void sort_slots(const Key& key, int lo, int hi, int N, int rows,
+                                           uint16_t* hist, int* tot, int* all, int* ahead,
+                                           int* sums, int* __restrict__ li,
+                                           int4* __restrict__ rec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int W = rows, T = blockDim.x, Np = hist_row(N);
+  const int tid = threadIdx.x, lane = tid & 31, w = min(tid >> 5, rows - 1);
+  unsigned* hist32 = reinterpret_cast<unsigned*>(hist);
+  uint16_t* mine = hist + static_cast<size_t>(w) * Np;
+
+  // counts of each warp's segment (integer atomics: no order)
+  for (int base = lo; base < hi; base += 128) {
+    int key4[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = base + u * 32 + lane;
+      key4[u] = j < hi ? key(j) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (static_cast<unsigned>(key4[u]) < static_cast<unsigned>(N))
+        atomicAdd(hist32 + (static_cast<size_t>(w) * Np + key4[u]) / 2, 1u << (16 * (key4[u] & 1)));
+  }
+  __syncthreads();
+
+  // this CTA's count of each point, and each warp's place in it: a thread
+  // takes consecutive words of the rows, two points each, and reads a
+  // word's column kRowBatch rows at a time
+  const int words = Np / 2, wpt = (words + T - 1) / T;
+  const int q0 = min(tid * wpt, words), q1 = min(q0 + wpt, words);
+  const int k0 = min(2 * q0, N), k1 = min(2 * q1, N);
+  for (int q = q0; q < q1; ++q) {
+    unsigned lo_run = 0, hi_run = 0;
+    for (int w0 = 0; w0 < W; w0 += kRowBatch) {
+      unsigned v[kRowBatch];
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) v[u] = w0 + u < W ? hist32[(w0 + u) * words + q] : 0u;
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) {
+        if (w0 + u < W) hist32[(w0 + u) * words + q] = lo_run | hi_run << 16;
+        lo_run += v[u] & 0xffffu;
+        hi_run += v[u] >> 16;
+      }
+    }
+    tot[2 * q] = static_cast<int>(lo_run);
+    if (2 * q + 1 < N) tot[2 * q + 1] = static_cast<int>(hi_run);
+  }
+  cluster.sync();  // every CTA's counts are in its shared memory
+
+  // each point's count over the cluster and the CTAs' shares before each
+  // rank: CTA c takes points c N / G .. (c + 1) N / G - 1, reads their
+  // counts from every CTA and writes every CTA its `ahead` and `all`
+  for (int k = c * N / kMapCluster + tid; k < (c + 1) * N / kMapCluster; k += T) {
+    int t[kMapCluster];
+#pragma unroll
+    for (int cc = 0; cc < kMapCluster; ++cc) t[cc] = cluster.map_shared_rank(tot, cc)[k];
+    int run = 0;
+#pragma unroll
+    for (int cc = 0; cc < kMapCluster; ++cc) {
+      const int before = run;
+      run += t[cc];
+      t[cc] = before;
+    }
+    // the stores one rank at a time: eight ranks' addresses at once spill
+#pragma unroll 1
+    for (int cc = 0; cc < kMapCluster; ++cc) {
+      int before = t[0];
+#pragma unroll
+      for (int r = 1; r < kMapCluster; ++r) before = r == cc ? t[r] : before;
+      cluster.map_shared_rank(ahead, cc)[k] = before;
+      cluster.map_shared_rank(all, cc)[k] = run;
+    }
+  }
+  cluster.sync();  // every CTA's `all` and `ahead` in place; no remote access after this
+  int sum = 0;
+  for (int k = k0; k < k1; ++k) sum += all[k];
+  int total;
+  const int first = block_scan(sum, sums, total);  // the place of this thread's first point
+  int heavy = 0, run = first;
+  for (int q = q0; q < q1; ++q) {
+    const int ka = 2 * q, kb = ka + 1;
+    const unsigned pa = static_cast<unsigned>(run + ahead[ka]);
+    run += all[ka];
+    heavy += static_cast<long long>(all[ka]) * N > static_cast<long long>(kHeavy) * total;
+    unsigned pb = 0;
+    if (kb < N) {
+      pb = static_cast<unsigned>(run + ahead[kb]);
+      run += all[kb];
+      heavy += static_cast<long long>(all[kb]) * N > static_cast<long long>(kHeavy) * total;
+    }
+    for (int w0 = 0; w0 < W; w0 += kRowBatch) {
+      unsigned v[kRowBatch];
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) v[u] = w0 + u < W ? hist32[(w0 + u) * words + q] : 0u;
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u)
+        if (w0 + u < W)
+          hist32[(w0 + u) * words + q] = ((v[u] + pa) & 0xffffu) | ((v[u] >> 16) + pb) << 16;
+    }
+  }
+  int nheavy;
+  int hrun = block_scan(heavy, sums, nheavy);
+  if (c == 0) {
+    // the work records: heavy points first, each group in point order
+    int lrun = nheavy + (k0 - hrun);  // the light points before k0 follow every heavy one
+    run = first;
+    for (int k = k0; k < k1; ++k) {
+      const int4 r = make_int4(k, run, run + all[k], 0);
+      if (static_cast<long long>(all[k]) * N > static_cast<long long>(kHeavy) * total)
+        rec[hrun++] = r;
+      else
+        rec[lrun++] = r;
+      run += all[k];
+    }
+  }
+
+  // the placement: the same walk, each slot at its warp's place plus its rank
+  const unsigned lt = lanemask_lt();
+  for (int base = lo; base < hi; base += 128) {
+    int key4[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = base + u * 32 + lane;
+      key4[u] = j < hi ? key(j) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = static_cast<unsigned>(key4[u]) < static_cast<unsigned>(N) ? key4[u] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, k);
+      if (k >= 0) li[mine[k] + __popc(peers & lt)] = base + u * 32 + lane;
+      __syncwarp();
+      if (k >= 0 && lane == __ffs(peers) - 1) mine[k] = static_cast<uint16_t>(mine[k] + __popc(peers));
+      __syncwarp();
+    }
+  }
+}
 
 // A cluster of kMapCluster CTAs a scene; warp w of CTA c owns segment
 // c * warps + w of the scene's slots.
@@ -121,106 +325,189 @@ __global__ void __launch_bounds__(kMapMaxWarps * 32, 1)
   const int W = blockDim.x >> 5, T = blockDim.x, Np = hist_row(N);
   uint16_t* hist = reinterpret_cast<uint16_t*>(smem);  // [W][Np]: counts, then places
   unsigned* hist32 = reinterpret_cast<unsigned*>(smem);
-  int* tot = reinterpret_cast<int*>(smem + static_cast<size_t>(W) * Np * 2);  // [N] this CTA's
+  int* tot = reinterpret_cast<int*>(smem + hist_bytes(W, N));  // [N] this CTA's
   int* all = tot + N;  // [N] the cluster's
   int* ahead = all + N;  // [N] the CTAs' before this one
   __shared__ int sums[33];
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, b = blockIdx.x / G;
+  const int tid = threadIdx.x, w = tid >> 5, b = blockIdx.x / G;
   const int* s = src + static_cast<size_t>(b) * KM;
   for (int i = tid; i < W * Np / 2; i += T) hist32[i] = 0u;
   __syncthreads();
   const int segs = G * W, seg = (KM + segs - 1) / segs;
   const int lo = min((c * W + w) * seg, KM), hi = min(lo + seg, KM);
-  uint16_t* mine = hist + static_cast<size_t>(w) * Np;
+  sort_slots([s](int j) { return __ldg(s + j); }, lo, hi, N, W, hist, tot, all, ahead, sums,
+             list + static_cast<size_t>(b) * KM, work + static_cast<size_t>(b) * N);
+}
 
-  // counts of each warp's segment (integer atomics: no order)
-  for (int base = lo; base < hi; base += 128) {
-    int key[4];
+// |x|^2 (or |c|^2) as `_pairwise_d2` forms it: (x*x + y*y) + z*z, each
+// operation rounded on its own.
+__device__ __forceinline__ float norm2(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+// The expanded distance of `_pairwise_d2` below r^2: (|c|^2 + |x|^2) - 2 c.x
+// with c.x = (cx*x + cy*y) + cz*z, nothing contracted; p holds (x, y, z,
+// |x|^2).  `_pairwise_d2` clamps the difference at 0 first: for r2 > 0 the
+// clamp changes no comparison (a NaN stays NaN, below nothing), and the entry
+// hands r2 <= 0 over as -inf, below which nothing lies either.
+__device__ __forceinline__ bool in_ball(const float4& p, float cx, float cy, float cz, float c2,
+                                        float r2) {
+  const float cross = __fadd_rn(__fadd_rn(__fmul_rn(cx, p.x), __fmul_rn(cy, p.y)), __fmul_rn(cz, p.z));
+  return __fsub_rn(__fadd_rn(c2, p.w), __fmul_rn(2.0f, cross)) < r2;
+}
+
+// The first of the staged points lo .. hi - 1 in the ball, or -1: kPickTests
+// tests before each look for a hit.
+__device__ __forceinline__ int first_hit(const float4* st, int lo, int hi, float cx, float cy,
+                                         float cz, float c2, float r2) {
+  int i = lo;
+  for (; i + kPickTests <= hi; i += kPickTests) {
+    bool hit[kPickTests];
+    bool any = false;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = base + u * 32 + lane;
-      key[u] = j < hi ? __ldg(s + j) : -1;
+    for (int u = 0; u < kPickTests; ++u) {
+      hit[u] = in_ball(st[i + u], cx, cy, cz, c2, r2);
+      any |= hit[u];
     }
+    if (any) {
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (static_cast<unsigned>(key[u]) < static_cast<unsigned>(N))
-        atomicAdd(hist32 + (static_cast<size_t>(w) * Np + key[u]) / 2, 1u << (16 * (key[u] & 1)));
+      for (int u = 0; u < kPickTests - 1; ++u)
+        if (hit[u]) return i + u;
+      return i + kPickTests - 1;
+    }
+  }
+  for (; i < hi; ++i)
+    if (in_ball(st[i], cx, cy, cz, c2, r2)) return i;
+  return -1;
+}
+
+// Buckets first_bucket(c, K) .. first_bucket(c + 1, K) - 1 belong to CTA c of
+// the cluster: K split as evenly as it goes, in order, so that the CTAs' slots
+// k * M + m follow one another in slot order (at most max_buckets(K) a CTA).
+__host__ __device__ __forceinline__ int first_bucket(int c, int K) { return c * K / kMapCluster; }
+
+__host__ __device__ __forceinline__ int max_buckets(int K) {
+  return (K + kMapCluster - 1) / kMapCluster;
+}
+
+// Points a chunk of the pick phase stages: a CTA's buckets, at most
+// kStagePoints.
+__host__ __device__ __forceinline__ int stage_points(int N, int K) {
+  const int span = max_buckets(K) * ((N + K - 1) / K);
+  return span < kStagePoints ? span : kStagePoints;
+}
+
+// Shared memory of `feature_sources_map`: the histogram, whose room the pick
+// phase's stage of float4 points takes before it; the map's three point
+// arrays; the CTA's picks; its first hits.
+__host__ __device__ __forceinline__ size_t fused_region(int warps, int N, int K) {
+  const size_t hist = hist_bytes(hist_rows(warps), N);
+  const size_t stage = static_cast<size_t>(stage_points(N, K)) * sizeof(float4);
+  return ((hist > stage ? hist : stage) + 15) / 16 * 16;
+}
+
+size_t fused_bytes(int warps, int N, int M, int K) {
+  return fused_region(warps, N, K) +
+         (3 * static_cast<size_t>(N) + static_cast<size_t>(max_buckets(K)) * M + M) * sizeof(int);
+}
+
+// The picks and the inverse map in one launch: a cluster of kMapCluster CTAs
+// a scene, CTA c holding buckets first_bucket(c) .. first_bucket(c + 1) - 1.
+// 1. Its points, staged as (x, y, z, |x|^2) float4s (kStagePoints at a time),
+//    tested against every center, a thread a center, bucket after bucket:
+//    each slot's first hit, kept in shared memory in slot order.
+// 2. Each center's first hit over the CTA's buckets, published; a cluster
+//    barrier; each empty slot takes the first hit of the lowest rank that has
+//    one (read over DSMEM), -1 where none has: the effective sources, written
+//    to `src` as well.
+// 3. `sort_slots` over the CTA's slots, read from shared memory.
+__global__ void __launch_bounds__(kMapMaxWarps * 32, 1)
+    feature_sources_map(const float* __restrict__ xyz, const float* __restrict__ centers, int N,
+                        int M, int K, float r2, int* __restrict__ src, int* __restrict__ list,
+                        int4* __restrict__ work) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int W = blockDim.x >> 5, T = blockDim.x, tid = threadIdx.x;
+  const int b = blockIdx.x / kMapCluster, Nb = (N + K - 1) / K, cap = stage_points(N, K);
+  const int k0 = first_bucket(c, K), nk = first_bucket(c + 1, K) - k0, nloc = nk * M;
+  const size_t region = fused_region(W, N, K);
+  uint16_t* hist = reinterpret_cast<uint16_t*>(smem);  // [rows][Np], after the stage
+  unsigned* hist32 = reinterpret_cast<unsigned*>(smem);
+  float4* stage = reinterpret_cast<float4*>(smem);  // [cap] the pick phase's points
+  int* tot = reinterpret_cast<int*>(smem + region);  // [N] this CTA's counts
+  int* all = tot + N;  // [N] the cluster's
+  int* ahead = all + N;  // [N] the CTAs' before this one
+  int* pick = ahead + N;  // [nk][M] the CTA's slots in slot order
+  int* pub = pick + static_cast<size_t>(max_buckets(K)) * M;  // [M] first hits, one offset in every CTA
+  __shared__ int sums[33];
+  const float* pts = xyz + static_cast<size_t>(b) * N * 3;
+  const float* cen = centers + static_cast<size_t>(b) * M * 3;
+
+  // ---- 1. the picks
+  for (int l = tid; l < nloc; l += T) pick[l] = -1;
+  const int p1 = min((k0 + nk) * Nb, N);
+  for (int s = min(k0 * Nb, N); s < p1; s += cap) {
+    const int n = min(cap, p1 - s);
+    __syncthreads();  // the picks' -1, or every test of the last chunk done
+    for (int i = tid; i < n; i += T) {
+      const float* p = pts + static_cast<size_t>(s + i) * 3;
+      const float x = __ldg(p), y = __ldg(p + 1), z = __ldg(p + 2);
+      stage[i] = make_float4(x, y, z, norm2(x, y, z));
+    }
+    __syncthreads();
+    for (int m = tid; m < M; m += T) {
+      const float* q = cen + static_cast<size_t>(m) * 3;
+      const float cx = __ldg(q), cy = __ldg(q + 1), cz = __ldg(q + 2), c2 = norm2(cx, cy, cz);
+      for (int g = 0; g < nk; ++g) {
+        const int lo = max((k0 + g) * Nb, s), hi = min(min((k0 + g + 1) * Nb, N), s + n);
+        int* slot = pick + g * M + m;
+        if (lo >= hi || *slot >= 0) continue;  // not in this chunk, or found in an earlier one
+        const int i = first_hit(stage, lo - s, hi - s, cx, cy, cz, c2, r2);
+        if (i >= 0) *slot = s + i;
+      }
+    }
   }
   __syncthreads();
 
-  // this CTA's count of each point, and each warp's place in it
-  const int per = (N + T - 1) / T, k0 = min(tid * per, N), k1 = min(k0 + per, N);
-  for (int k = k0; k < k1; ++k) {
-    int run = 0;
-    for (int ww = 0; ww < W; ++ww) {
-      const int cnt = hist[ww * Np + k];
-      hist[ww * Np + k] = static_cast<uint16_t>(run);
-      run += cnt;
-    }
-    tot[k] = run;
+  // ---- 2. the effective sources
+  for (int m = tid; m < M; m += T) {
+    int f = -1;
+    for (int g = 0; g < nk && f < 0; ++g) f = pick[g * M + m];
+    pub[m] = f;
   }
-  cluster.sync();  // every CTA's counts are in its shared memory
-
-  // each point's count over the cluster; the CTAs before this one's share
-  int sum = 0;
-  for (int k = k0; k < k1; ++k) {
-    int before = 0, n = 0;
-    for (int cc = 0; cc < G; ++cc) {
-      const int t = cluster.map_shared_rank(tot, cc)[k];
-      before += cc < c ? t : 0;
-      n += t;
-    }
-    all[k] = n;
-    ahead[k] = before;
-    sum += n;
-  }
-  int total;
-  const int first = block_scan(sum, sums, total);  // the place of this thread's first point
-  int heavy = 0, run = first;
-  for (int k = k0; k < k1; ++k) {
-    const int place = run + ahead[k];
-    for (int ww = 0; ww < W; ++ww) hist[ww * Np + k] = static_cast<uint16_t>(hist[ww * Np + k] + place);
-    heavy += static_cast<long long>(all[k]) * N > static_cast<long long>(kHeavy) * total;
-    run += all[k];
-  }
-  int nheavy;
-  int hrun = block_scan(heavy, sums, nheavy);
-  if (c == 0) {
-    // the work records: heavy points first, each group in point order
-    int lrun = nheavy + (k0 - hrun);  // the light points before k0 follow every heavy one
-    int4* rec = work + static_cast<size_t>(b) * N;
-    run = first;
-    for (int k = k0; k < k1; ++k) {
-      const int4 r = make_int4(k, run, run + all[k], 0);
-      if (static_cast<long long>(all[k]) * N > static_cast<long long>(kHeavy) * total)
-        rec[hrun++] = r;
-      else
-        rec[lrun++] = r;
-      run += all[k];
-    }
-  }
-  cluster.sync();  // no CTA leaves while another reads its counts
-
-  // the placement: the same walk, each slot at its warp's place plus its rank
-  int* li = list + static_cast<size_t>(b) * KM;
-  const unsigned lt = lanemask_lt();
-  for (int base = lo; base < hi; base += 128) {
-    int key[4];
+  cluster_arrive();  // this CTA's first hits published
+  const int Np = hist_row(N);
+  const int rows = hist_rows(W);
+  for (int i = tid; i < rows * Np / 2; i += T) hist32[i] = 0u;  // the stage is spent
+  cluster_wait();  // and every other CTA's
+  int* sb = src + static_cast<size_t>(b) * K * M + static_cast<size_t>(k0) * M;
+  if (nk > 0) {
+    for (int m = tid; m < M; m += T) {
+      int v[kMapCluster];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = base + u * 32 + lane;
-      key[u] = j < hi ? __ldg(s + j) : -1;
-    }
+      for (int r = 0; r < kMapCluster; ++r) v[r] = cluster.map_shared_rank(pub, r)[m];
+      int eff = -1;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int k = static_cast<unsigned>(key[u]) < static_cast<unsigned>(N) ? key[u] : -1;
-      const unsigned peers = __match_any_sync(0xffffffffu, k);
-      if (k >= 0) li[mine[k] + __popc(peers & lt)] = base + u * 32 + lane;
-      __syncwarp();
-      if (k >= 0 && lane == __ffs(peers) - 1) mine[k] = static_cast<uint16_t>(mine[k] + __popc(peers));
-      __syncwarp();
+      for (int r = kMapCluster - 1; r >= 0; --r) eff = v[r] >= 0 ? v[r] : eff;
+      for (int g = 0; g < nk; ++g) {
+        int p = pick[g * M + m];
+        if (p < 0) {
+          p = eff;
+          pick[g * M + m] = p;
+        }
+        sb[static_cast<size_t>(g) * M + m] = p;
+      }
     }
   }
+  __syncthreads();
+
+  // ---- 3. the map over the CTA's slots, a segment each of its first `rows` warps
+  const int seg = (nloc + rows - 1) / rows, w = tid >> 5, j0 = k0 * M;
+  const int lo = w < rows ? min(w * seg, nloc) : nloc, hi = min(lo + seg, nloc);
+  sort_slots([pick, j0](int j) { return pick[j - j0]; }, j0 + lo, j0 + hi, N, rows, hist, tot,
+             all, ahead, sums, list + static_cast<size_t>(b) * K * M,
+             work + static_cast<size_t>(b) * N);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -288,7 +575,7 @@ __global__ void __launch_bounds__(kSumThreads)
 }
 
 size_t map_bytes(int warps, int N) {
-  return static_cast<size_t>(warps) * hist_row(N) * 2 + static_cast<size_t>(N) * 12;
+  return hist_bytes(warps, N) + static_cast<size_t>(N) * 12;
 }
 
 cudaError_t shared_limit(int* limit) {
@@ -298,44 +585,38 @@ cudaError_t shared_limit(int* limit) {
   return cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-}  // namespace
-
-// The warps of a CTA of the map at this shape (the most, up to 32, whose
-// histogram fits the current device's shared memory), or 0 where the shape
-// is refused (more than 65536 slots a scene, or no histogram fits).
-extern "C" int ov3_feature_map_warps(int N, int KM, int* warps) {
+// The most warps, up to 32, whose CTA's `bytes(warps)` of shared memory fit
+// the current device, or 0.
+template <class Bytes>
+cudaError_t most_warps(const Bytes& bytes, int* warps) {
   *warps = 0;
   int limit = 0;
   const cudaError_t e = shared_limit(&limit);
   if (e != cudaSuccess) return e;
-  if (N <= 0 || KM <= 0 || KM > kMaxSlots) return cudaSuccess;
   for (int w = kMapMaxWarps; w >= 1; w >>= 1)
-    if (map_bytes(w, N) <= static_cast<size_t>(limit)) {
+    if (bytes(w) <= static_cast<size_t>(limit)) {
       *warps = w;
       break;
     }
   return cudaSuccess;
 }
 
-// sources (B, KM) int32 -> list (B, KM) int32 and work (B, N) int4,
-// contiguous, on the device.  Returns a cudaError_t.
-extern "C" int ov3_feature_map(const int* src, int B, int N, int KM, int* list, int4* work,
-                               cudaStream_t stream) {
-  int warps = 0;
-  cudaError_t e = static_cast<cudaError_t>(ov3_feature_map_warps(N, KM, &warps));
-  if (e != cudaSuccess) return e;
-  if (B <= 0 || warps == 0) return cudaErrorInvalidValue;
+// `kernel` on a cluster of kMapCluster CTAs a scene, `warps` warps and
+// `bytes` of shared memory a CTA; `opted` holds what each device's kernel
+// has been allowed so far.
+template <class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int* opted, int B, int warps, size_t bytes,
+                           cudaStream_t stream, Args... args) {
   int dev = 0;
-  e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  const size_t bytes = map_bytes(warps, N);
-  if (bytes > 48 * 1024 && static_cast<size_t>(opted_in[dev]) < bytes) {
+  if (bytes > 48 * 1024 && static_cast<size_t>(opted[dev]) < bytes) {
     // set once a device, at the first call (a warm-up, before any capture)
-    e = cudaFuncSetAttribute(feature_map, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    opted_in[dev] = static_cast<int>(bytes);
+    opted[dev] = static_cast<int>(bytes);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B * kMapCluster));
@@ -349,8 +630,57 @@ extern "C" int ov3_feature_map(const int* src, int B, int N, int KM, int* list, 
   cluster_dim.val.clusterDim.z = 1;
   cfg.attrs = &cluster_dim;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, feature_map, src, KM, N, list, work);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+}  // namespace
+
+// The warps of a CTA of the map at this shape (the most, up to 32, whose
+// histogram fits the current device's shared memory), or 0 where the shape
+// is refused (more than 65536 slots a scene, or no histogram fits).
+extern "C" int ov3_feature_map_warps(int N, int KM, int* warps) {
+  *warps = 0;
+  if (N <= 0 || KM <= 0 || KM > kMaxSlots) return cudaSuccess;
+  return most_warps([N](int w) { return map_bytes(w, N); }, warps);
+}
+
+// sources (B, KM) int32 -> list (B, KM) int32 and work (B, N) int4,
+// contiguous, on the device.  Returns a cudaError_t.
+extern "C" int ov3_feature_map(const int* src, int B, int N, int KM, int* list, int4* work,
+                               cudaStream_t stream) {
+  int warps = 0;
+  const cudaError_t e = static_cast<cudaError_t>(ov3_feature_map_warps(N, KM, &warps));
+  if (e != cudaSuccess) return e;
+  if (B <= 0 || warps == 0) return cudaErrorInvalidValue;
+  return launch_cluster(feature_map, opted_in, B, warps, map_bytes(warps, N), stream, src, KM, N,
+                        list, work);
+}
+
+// The route of the feature gradient's picks and map: the warps of a CTA of
+// `feature_sources_map` at this shape (the most, up to 32, whose shared
+// memory fits the current device), or 0 where it does not take the shape
+// (more than 65536 slots a scene, or no CTA fits), which the pick pass
+// `ball_group_tile<sources>` and `feature_map` then take.
+extern "C" int ov3_sources_map_warps(int N, int M, int K, int* warps) {
+  *warps = 0;
+  if (N <= 0 || M <= 0 || K <= 0 || static_cast<long long>(K) * M > kMaxSlots) return cudaSuccess;
+  return most_warps([=](int w) { return fused_bytes(w, N, M, K); }, warps);
+}
+
+// xyz (B, N, 3) and centers (B, M, 3) f32 -> src (B, K, M) int32 (each
+// slot's effective source by the expanded distance, -1 throughout an empty
+// ball), list (B, K * M) int32 and work (B, N) int4, as `feature_map` writes
+// them from src; r2 the f32 radius^2.  Returns a cudaError_t.
+extern "C" int ov3_sources_map(const float* xyz, const float* centers, int B, int N, int M, int K,
+                               float r2, int* src, int* list, int4* work, cudaStream_t stream) {
+  int warps = 0;
+  const cudaError_t e = static_cast<cudaError_t>(ov3_sources_map_warps(N, M, K, &warps));
+  if (e != cudaSuccess) return e;
+  if (B <= 0 || warps == 0) return cudaErrorInvalidValue;
+  const float r2k = r2 > 0.0f ? r2 : -INFINITY;  // nothing lies below a radius^2 of 0
+  return launch_cluster(feature_sources_map, fused_opted_in, B, warps, fused_bytes(warps, N, M, K),
+                        stream, xyz, centers, N, M, K, r2k, src, list, work);
 }
 
 // The sum over the map: grad (B, KM, 3 + C) f32 -> out (B, N, C) f32.

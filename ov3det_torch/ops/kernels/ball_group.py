@@ -20,13 +20,17 @@ yardstick the on-card check times beside the tile design.
 `BallGroup` is the custom VJP of `ball_group_pallas`
 (`ball_group_kernel.py:174-241`): the forward is the kernel (or its plain
 version); the backward, `feature_grad`, is the port of `_bwd`
-(`:207-238`): the pick pass `slot_sources` (`ball_group_tile<sources>` on
-the card) and `feature_scatter`, the scatter-add of the output's feature
-cotangent onto the picked points that XLA's `.at[].add` is in JAX: on the
-card the two launches of `csrc/feature_grad.cu` (the inverse map by a
-stable counting sort, then each point's rows summed in slot order), on the
-CPU `_scatter`, an accumulating `index_put_`; both sum each point's slots
-in ascending slot order from 0, the same bits every run.  It recomputes the picks as `bucket_picks` of the
+(`:207-238`): the picks, then the scatter-add of the output's feature
+cotangent onto the picked points that XLA's `.at[].add` is in JAX.  On the
+card that is two launches of `csrc/feature_grad.cu`: `sources_map`
+(`feature_sources_map`, a cluster of CTAs a scene: the picks and the
+inverse map by a stable counting sort), then `feature_sum` (each point's
+rows summed in slot order); where `sources_map` does not fit the shape, the
+pick pass `slot_sources` (`ball_group_tile<sources>` of
+`csrc/ball_group.cu`) and `feature_scatter` (`feature_map`, then
+`feature_sum`) take it.  On the CPU the plain pick pass and `_scatter`, an
+accumulating `index_put_`; all sum each point's slots in ascending slot
+order from 0, the same bits every run.  It recomputes the picks as `bucket_picks` of the
 JAX package does (`ov3det/ops/pointcloud.py:222-244`), with the expanded,
 clamped distance of `_pairwise_d2` (`:156-165`) and not the forward's
 direct subtraction, so at the r^2 boundary the gradient can land on a point
@@ -45,11 +49,16 @@ from ov3det_torch.ops.kernels import _build
 
 SOURCE = "ov3det_torch/csrc/ball_group.cu"
 REPLACES = "ov3det/ops/pallas/ball_group_kernel.py:45"
-# the pick pass replaces the recomputation of the picks in the custom VJP
-# `_bwd` (XLA in JAX, not Pallas), the scatter its `.at[].add`
-SOURCES_REPLACES = "ov3det/ops/pallas/ball_group_kernel.py:207"
 SCATTER_SOURCE = "ov3det_torch/csrc/feature_grad.cu"
+# the sum replaces the custom VJP `_bwd`'s `.at[].add` (XLA in JAX, not
+# Pallas); `feature_sources_map` its picks (:207-231) and the indices of the
+# `.at[].add` (:235)
 SCATTER_REPLACES = "ov3det/ops/pallas/ball_group_kernel.py:235 (_bwd's .at[].add, XLA, not Pallas)"
+SOURCES_MAP_REPLACES = ("ov3det/ops/pallas/ball_group_kernel.py:207 (_bwd's picks and its .at[].add's "
+                        "indices, XLA, not Pallas)")
+# `kHeavy` of csrc/feature_grad.cu: the map puts a point with more than
+# MAP_HEAVY times the mean number of slots first in the work records
+MAP_HEAVY = 4
 
 
 def _f32(x: float) -> float:
@@ -159,12 +168,181 @@ def _scatter(src: torch.Tensor, grad_out: torch.Tensor, N: int, num_channels: in
     return out[:B * N].view(B, N, num_channels)
 
 
+def _runs_kernel(device: torch.device, what: str) -> bool:
+    """True for a CUDA device (a kernel runs), False for the CPU (the plain
+    version runs); raises for any other device."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {device}")
+    return True
+
+
+def _fg_launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry(*args, stream)` of csrc/feature_grad.cu
+    on the current stream of `device`; tensors among `args` pass as
+    pointers.  Raises if the launch fails."""
+    lib = _build.load("feature_grad", _SCATTER_SIGNATURES)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(*ptrs, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, status, entry)
+
+
+def _map_warps(entry: str, device: torch.device, *dims) -> int:
+    """The warps of a CTA that the route `entry` of csrc/feature_grad.cu
+    gives these dimensions on `device`'s card, 0 where its kernel does not
+    take them."""
+    lib = _build.load("feature_grad", _SCATTER_SIGNATURES)
+    warps = ctypes.c_int()
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(*dims, ctypes.byref(warps))
+    _build.check(lib, status, entry)
+    return warps.value
+
+
+def _inverse_map(src: torch.Tensor, N: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inverse map of sources (B, K, M) int32 as the kernels write it:
+    list (B, K * M) int32, each scene's slot indices by point and then slot
+    (-1 past the named ones, which the kernels leave unwritten), and work
+    (B, N, 4) int32, one record {point, first, end, 0} a point, the points
+    named more than MAP_HEAVY times the mean first, each group in point
+    order."""
+    B = src.shape[0]
+    keys = src.reshape(B, -1).long()
+    valid = keys >= 0
+    order = torch.sort(torch.where(valid, keys, N), dim=1, stable=True).indices
+    lst = torch.where(torch.gather(valid, 1, order), order, -1)
+    count = torch.zeros(B, N + 1, dtype=torch.int64, device=src.device)
+    count = count.scatter_add_(1, torch.where(valid, keys, N), torch.ones_like(keys))[:, :N]
+    start = torch.cumsum(count, 1) - count
+    heavy = count * N > MAP_HEAVY * count.sum(1, keepdim=True)
+    points = torch.sort((~heavy).to(torch.int32), dim=1, stable=True).indices
+    work = torch.stack([points, start.gather(1, points), (start + count).gather(1, points),
+                        torch.zeros_like(points)], dim=-1)
+    return lst.to(torch.int32), work.to(torch.int32)
+
+
+def sources_map_plain(xyz, centers, radius: float, nsample: int) -> tuple:
+    """Plain PyTorch version of `feature_sources_map`: (src (B, K, M) int32
+    as :func:`slot_sources_plain` gives it, list (B, K * M) int32 and work
+    (B, N, 4) int32 as :func:`_inverse_map` gives them)."""
+    src = slot_sources_plain(xyz, centers, radius, nsample)
+    return (src, *_inverse_map(src, xyz.shape[1]))
+
+
+def sources_map(xyz, centers, radius: float, nsample: int) -> tuple:
+    """The feature gradient's picks and their inverse map in one launch ->
+    (src (B, K, M) int32: each slot's effective source by the expanded
+    distance, -1 throughout an empty ball; list (B, K * M) int32; work
+    (B, N, 4) int32), what `feature_sum` reads.
+
+    Launches `feature_sources_map` for CUDA tensors (counted in
+    `sources_map.launches`); the list past each scene's named slots is left
+    unwritten.  CPU tensors take :func:`sources_map_plain`.  The card
+    refuses a shape the kernel does not fit (more than 65536 slots a scene,
+    or more shared memory than a CTA has: `fits_sources_map`)."""
+    if not _on_cuda(xyz, None, centers, radius, nsample, "sources_map"):
+        return sources_map_plain(xyz, centers, radius, nsample)
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    if not fits_sources_map(N, M, nsample, xyz.device):
+        raise ValueError(f"sources_map kernel: {nsample} x {M} slots and {N} points a scene do not "
+                         "fit it (at most 65536 slots, and its picks and histogram in shared "
+                         "memory)")
+    src = torch.empty((B, nsample, M), dtype=torch.int32, device=xyz.device)
+    lst = torch.empty((B, nsample * M), dtype=torch.int32, device=xyz.device)
+    work = torch.empty((B, N, 4), dtype=torch.int32, device=xyz.device)
+    _fg_launch("ov3_sources_map", xyz.device, xyz, centers, B, N, M, nsample,
+               _f32(radius * radius), src, lst, work)
+    sources_map.launches += 1
+    return src, lst, work
+
+
+sources_map.launches = 0
+
+
+def fits_sources_map(N: int, M: int, nsample: int, device: torch.device) -> bool:
+    """Whether `feature_sources_map` takes this shape on `device`'s card (the
+    route of csrc/feature_grad.cu, `ov3_sources_map_warps`): by the shape
+    alone."""
+    return _map_warps("ov3_sources_map_warps", device, N, M, nsample) > 0
+
+
+def _check_sum_operands(grad_out: torch.Tensor, shape: tuple, N: int, num_channels: int,
+                        what: str) -> None:
+    if tuple(grad_out.shape) != (*shape, 3 + num_channels) or grad_out.dtype != torch.float32:
+        raise TypeError(f"{what} expects a (B, K, M, 3 + C) f32 cotangent beside sources "
+                        f"{tuple(shape)} and C = {num_channels}, got {tuple(grad_out.shape)} "
+                        f"{grad_out.dtype}")
+    if N < 1 or num_channels < 1:
+        raise ValueError(f"{what} needs N >= 1 and C >= 1, got {N}, {num_channels}")
+
+
+def feature_sum_plain(grad_out: torch.Tensor, lst: torch.Tensor, work: torch.Tensor, N: int,
+                      num_channels: int) -> torch.Tensor:
+    """Plain PyTorch version of `feature_sum`: each point's cotangent rows
+    grad_out[..., 3:] (B, K, M, 3 + C) summed from 0 in list order (an
+    accumulating `index_put_`; the list's unnamed tail goes to a spare row,
+    dropped), by the list (B, K * M) and the work records (B, N, 4) of the
+    inverse map -> (B, N, C) f32.  Shapes alone decide its work: a CUDA
+    graph can hold it."""
+    B, KM = lst.shape
+    C = num_channels
+    scene = torch.arange(B, device=lst.device)[:, None]
+    count = torch.zeros(B, N, dtype=torch.int64, device=lst.device)
+    count = count.scatter_(1, work[..., 0].long(), (work[..., 2] - work[..., 1]).long())
+    place = torch.arange(KM, device=lst.device).expand(B, KM).contiguous()
+    point = torch.searchsorted(torch.cumsum(count, 1), place, right=True)  # N past the named
+    named = point < N
+    rows = (torch.where(named, lst.long(), 0) + KM * scene).reshape(-1)
+    index = torch.where(named, point + N * scene, B * N).reshape(-1)
+    out = torch.zeros(B * N + 1, C, dtype=torch.float32, device=lst.device)
+    out.index_put_((index,), grad_out.reshape(B * KM, 3 + C)[rows, 3:], accumulate=True)
+    return out[:B * N].view(B, N, C)
+
+
+def feature_sum(grad_out: torch.Tensor, lst: torch.Tensor, work: torch.Tensor, N: int,
+                num_channels: int) -> torch.Tensor:
+    """The sum of the feature gradient over an inverse map (`sources_map`'s
+    list and work records): the cotangent (B, K, M, 3 + C) f32 -> (B, N, C)
+    f32, each point's slots summed from 0 in list order.
+
+    Launches `feature_sum` of `csrc/feature_grad.cu` for CUDA tensors
+    (counted in `feature_sum.launches`; the cotangent read in place); CPU
+    tensors take :func:`feature_sum_plain`, the same bits."""
+    C = num_channels
+    if grad_out.dim() != 4:
+        raise TypeError(f"feature_sum expects a (B, K, M, 3 + C) cotangent, got "
+                        f"{tuple(grad_out.shape)}")
+    B, K, M = grad_out.shape[:3]
+    if tuple(lst.shape) != (B, K * M) or lst.dtype != torch.int32 or \
+            tuple(work.shape) != (B, N, 4) or work.dtype != torch.int32:
+        raise TypeError(f"feature_sum expects an int32 list {(B, K * M)} and work records "
+                        f"{(B, N, 4)}, got {tuple(lst.shape)} {lst.dtype} and "
+                        f"{tuple(work.shape)} {work.dtype}")
+    _check_sum_operands(grad_out, (B, K, M), N, C, "feature_sum")
+    if len({grad_out.device, lst.device, work.device}) != 1:
+        raise ValueError(f"feature_sum operands on several devices: {grad_out.device}, "
+                         f"{lst.device}, {work.device}")
+    if not _runs_kernel(lst.device, "feature_sum"):
+        return feature_sum_plain(grad_out, lst, work, N, C)
+    out = torch.empty((B, N, C), dtype=torch.float32, device=lst.device)
+    _fg_launch("ov3_feature_sum", lst.device, grad_out.contiguous(), B, N, K * M, C,
+               lst.contiguous(), work.contiguous(), out)
+    feature_sum.launches += 1
+    return out
+
+
+feature_sum.launches = 0
+
+
 def feature_scatter(src: torch.Tensor, grad_out: torch.Tensor, N: int,
                     num_channels: int) -> torch.Tensor:
-    """The scatter of the feature gradient: sources (B, K, M) int32 (-1
-    throughout an empty ball) and the cotangent (B, K, M, 3 + C) f32 ->
-    (B, N, C) f32, each point's slots summed from 0 in ascending slot order
-    k * M + m.
+    """The scatter of the feature gradient on any sources: sources (B, K, M)
+    int32 (-1 throughout an empty ball) and the cotangent (B, K, M, 3 + C)
+    f32 -> (B, N, C) f32, each point's slots summed from 0 in ascending slot
+    order k * M + m.
 
     For CUDA tensors, the two launches of `csrc/feature_grad.cu`
     (`feature_map`, then `feature_sum`), counted once a call in
@@ -175,37 +353,23 @@ def feature_scatter(src: torch.Tensor, grad_out: torch.Tensor, N: int,
     if src.dim() != 3 or src.dtype != torch.int32:
         raise TypeError(f"feature_scatter expects (B, K, M) int32 sources, got "
                         f"{tuple(src.shape)} {src.dtype}")
-    if tuple(grad_out.shape) != (*src.shape, 3 + C) or grad_out.dtype != torch.float32:
-        raise TypeError(f"feature_scatter expects a (B, K, M, 3 + C) f32 cotangent beside sources "
-                        f"{tuple(src.shape)} and C = {C}, got {tuple(grad_out.shape)} "
-                        f"{grad_out.dtype}")
+    _check_sum_operands(grad_out, tuple(src.shape), N, C, "feature_scatter")
     if src.device != grad_out.device:
         raise ValueError(f"feature_scatter operands on several devices: {src.device}, "
                          f"{grad_out.device}")
-    if N < 1 or C < 1:
-        raise ValueError(f"feature_scatter needs N >= 1 and C >= 1, got {N}, {C}")
-    if src.device.type == "cpu":
+    if not _runs_kernel(src.device, "feature_scatter"):
         return _scatter(src, grad_out, N, C)
-    if src.device.type != "cuda":
-        raise ValueError(f"feature_scatter runs on cuda or cpu tensors, got {src.device}")
     B, K, M = src.shape
     KM = K * M
-    lib = _build.load("feature_grad", _SCATTER_SIGNATURES)
-    with torch.cuda.device(src.device):
-        warps = ctypes.c_int()
-        _build.check(lib, lib.ov3_feature_map_warps(N, KM, ctypes.byref(warps)), "feature_scatter")
-        if not warps.value:
-            raise ValueError(f"feature_scatter kernel: {KM} slots and {N} points a scene do not fit "
-                             "its map (at most 65536 slots, and a histogram of the points in shared "
-                             "memory)")
-        src, grad_out = src.contiguous(), grad_out.contiguous()
-        slots = torch.empty((B, KM), dtype=torch.int32, device=src.device)
-        work = torch.empty((B, N, 4), dtype=torch.int32, device=src.device)
-        out = torch.empty((B, N, C), dtype=torch.float32, device=src.device)
-        status = lib.ov3_feature_scatter(src.data_ptr(), grad_out.data_ptr(), B, N, KM, C,
-                                         slots.data_ptr(), work.data_ptr(), out.data_ptr(),
-                                         torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, status, "feature_scatter")
+    if not _map_warps("ov3_feature_map_warps", src.device, N, KM):
+        raise ValueError(f"feature_scatter kernel: {KM} slots and {N} points a scene do not fit "
+                         "its map (at most 65536 slots, and a histogram of the points in shared "
+                         "memory)")
+    slots = torch.empty((B, KM), dtype=torch.int32, device=src.device)
+    work = torch.empty((B, N, 4), dtype=torch.int32, device=src.device)
+    out = torch.empty((B, N, C), dtype=torch.float32, device=src.device)
+    _fg_launch("ov3_feature_scatter", src.device, src.contiguous(), grad_out.contiguous(), B, N,
+               KM, C, slots, work, out)
     feature_scatter.launches += 1
     return out
 
@@ -217,13 +381,19 @@ def feature_grad(xyz, centers, radius: float, nsample: int, grad_out: torch.Tens
                  num_channels: int) -> torch.Tensor:
     """The feature cotangent of the ball-group, `_bwd` of
     `ball_group_kernel.py:207-238`: (B, N, C) from the output's cotangent
-    grad_out (B, K, M, 3 + C).  The picks come from :func:`slot_sources` (the
-    kernel for CUDA tensors); an empty slot takes the first non-empty
-    bucket's pick; an empty ball passes no gradient; the rest is summed onto
-    the picked points by :func:`feature_scatter` (XLA's scatter-add in
-    JAX; the kernels for CUDA tensors)."""
-    return feature_scatter(slot_sources(xyz, centers, radius, nsample), grad_out, xyz.shape[1],
-                           num_channels)
+    grad_out (B, K, M, 3 + C).  The picks by the expanded distance; an empty
+    slot takes the first non-empty bucket's pick; an empty ball passes no
+    gradient; the rest is summed onto the picked points (XLA's scatter-add
+    in JAX).  For CUDA tensors :func:`sources_map` then :func:`feature_sum`,
+    two launches, or, where `sources_map` does not fit the shape,
+    :func:`slot_sources` then :func:`feature_scatter`; CPU tensors take the
+    plain pick pass and :func:`_scatter`."""
+    N = xyz.shape[1]
+    if _on_cuda(xyz, None, centers, radius, nsample, "feature_grad") and \
+            fits_sources_map(N, centers.shape[1], nsample, xyz.device):
+        _, lst, work = sources_map(xyz, centers, radius, nsample)
+        return feature_sum(grad_out, lst, work, N, num_channels)
+    return feature_scatter(slot_sources(xyz, centers, radius, nsample), grad_out, N, num_channels)
 
 
 def feature_grad_plain(xyz, centers, radius: float, nsample: int, grad_out: torch.Tensor,
@@ -301,11 +471,8 @@ def _on_cuda(xyz, features, centers, radius: float, nsample: int, what: str) -> 
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{what} tensors lie on several devices: {devices}")
-    device = xyz.device
-    if device.type == "cpu":
+    if not _runs_kernel(xyz.device, what):
         return False
-    if device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu tensors, got {device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} expects contiguous tensors")
     return True
@@ -357,19 +524,32 @@ def ball_group(xyz, features, centers, radius: float, nsample: int,
 ball_group.launches = 0
 
 
-def slot_sources(xyz, centers, radius: float, nsample: int) -> torch.Tensor:
+def slot_sources(xyz, centers, radius: float, nsample: int,
+                 _impl: Optional[str] = None) -> torch.Tensor:
     """The feature gradient's pick pass -> (B, K, M) int32: each slot's
     effective source point by the expanded distance, -1 throughout an empty
     ball.
 
-    Launches `ball_group_tile<sources>` for CUDA tensors (counted in
-    `slot_sources.launches`); CPU tensors take :func:`slot_sources_plain`.
-    The source refuses K > MAX_SLOTS on the card, and the call raises.
+    For CUDA tensors the source of :func:`sources_map` where that kernel
+    takes the shape (its launch counted there), else
+    `ball_group_tile<sources>` of csrc/ball_group.cu, the first design
+    (counted in `slot_sources.launches`; the source refuses K > MAX_SLOTS,
+    and the call raises).  The private `_impl = "first"` keeps a CUDA call on
+    the first design, for timing and comparison on one card.  CPU tensors
+    take :func:`slot_sources_plain`.
     """
-    if not _on_cuda(xyz, None, centers, radius, nsample, "slot_sources"):
+    on_cuda = _on_cuda(xyz, None, centers, radius, nsample, "slot_sources")
+    if _impl not in (None, "first"):
+        raise ValueError(f"slot_sources: _impl is None (the route) or 'first', got {_impl!r}")
+    if not on_cuda:
+        if _impl is not None:
+            raise ValueError("slot_sources: _impl chooses between CUDA kernels; these tensors lie "
+                             "on the CPU")
         return slot_sources_plain(xyz, centers, radius, nsample)
     B, N, _ = xyz.shape
     M = centers.shape[1]
+    if _impl is None and fits_sources_map(N, M, nsample, xyz.device):
+        return sources_map(xyz, centers, radius, nsample)[0]
     src = torch.empty((B, nsample, M), dtype=torch.int32, device=xyz.device)
     _launch("ov3_ball_group_sources", xyz.device, xyz, centers, B, N, M, nsample,
             _f32(radius * radius), src)
@@ -382,6 +562,8 @@ slot_sources.launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SCATTER_SIGNATURES = {
     "ov3_feature_map_warps": ([_I, _I, ctypes.POINTER(_I)], _I),
+    "ov3_sources_map_warps": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+    "ov3_sources_map": ([_P, _P] + [_I] * 4 + [_F, _P, _P, _P, _P], _I),
     "ov3_feature_map": ([_P, _I, _I, _I, _P, _P, _P], _I),
     "ov3_feature_sum": ([_P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "ov3_feature_scatter": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),

@@ -67,7 +67,11 @@ REPS = 20  # calls a timing graph of the variants and of every tree's norms
 SA_STEP = dict(bn_stats=3, bn_relu_apply=3, bn_relu_grad_sums=3, bn_relu_grad_apply=3)
 NORM_STEP = dict(add_norm=38, add_norm_grad=38)  # 3 encoder layers x 2, 8 decoder layers x 4
 SUN_STEP = dict(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
-MASKED_STEP = dict(fps=3, ball_group=2, slot_sources=1, feature_scatter=1, attention_fwd_radius=3,
+# the feature gradient's launches: the fused picks and map, then the sum;
+# a tree from before the fused kernel, the pick pass and the scatter
+FEATURE_GRAD = dict(sources_map=1, feature_sum=1)
+FEATURE_GRAD_FIRST = dict(slot_sources=1, feature_scatter=1)
+MASKED_STEP = dict(fps=3, ball_group=2, attention_fwd_radius=3,
                    attention_dq_radius=3, attention_dkv_radius=3, auction=1)
 # the variants' cuts of csrc/add_norm.cu: the launches without the
 # programmatic stream-serialization attribute (NO_PDL: its flag 0); each
@@ -136,7 +140,9 @@ def one(tree: str, norms_only: bool = False) -> int:
     dev = torch.device("cuda")
     sun, masked = sunrgbd_quick(), c.scannet_masked()
     sun_step = c.expect(**SUN_STEP, **SA_STEP, **NORM_STEP)
-    masked_step = c.expect(**MASKED_STEP, **{k: 2 * v for k, v in SA_STEP.items()}, **NORM_STEP)
+    grad = FEATURE_GRAD if "sources_map" in c.kernel_counters() else FEATURE_GRAD_FIRST
+    masked_step = c.expect(**MASKED_STEP, **grad, **{k: 2 * v for k, v in SA_STEP.items()},
+                           **NORM_STEP)
     print(f"[{label}] the add & norm kernels: {'add_norm' in c.kernel_counters()} ({card})")
     c.NORM_REPS = REPS  # every tree's norms timed alike
     for cfg, name, seed in ((sun, "sunrgbd", 100), (masked, "scannet_masked", 300)):

@@ -34,7 +34,11 @@ STEPS = 3  # eager steps timed a config, after the warm-up
 # tree without the kernels has no such counter, and `expect` drops the names
 SA_STEP = dict(bn_stats=3, bn_relu_apply=3, bn_relu_grad_sums=3, bn_relu_grad_apply=3)
 SUN_STEP = dict(fps=2, ball_group=1, attention_fwd=3, attention_dq=3, attention_dkv=3, auction=1)
-MASKED_STEP = dict(fps=3, ball_group=2, slot_sources=1, feature_scatter=1, attention_fwd_radius=3,
+# the feature gradient's launches: the fused picks and map, then the sum;
+# a tree from before the fused kernel, the pick pass and the scatter
+FEATURE_GRAD = dict(sources_map=1, feature_sum=1)
+FEATURE_GRAD_FIRST = dict(slot_sources=1, feature_scatter=1)
+MASKED_STEP = dict(fps=3, ball_group=2, attention_fwd_radius=3,
                    attention_dq_radius=3, attention_dkv_radius=3, auction=1)
 
 
@@ -58,7 +62,8 @@ def one(tree: str) -> int:
     dev = torch.device("cuda")
     sun, masked = sunrgbd_quick(), c.scannet_masked()
     sun_step = c.expect(**SUN_STEP, **SA_STEP)
-    masked_step = c.expect(**MASKED_STEP, **{k: 2 * v for k, v in SA_STEP.items()})
+    grad = FEATURE_GRAD if "sources_map" in c.kernel_counters() else FEATURE_GRAD_FIRST
+    masked_step = c.expect(**MASKED_STEP, **grad, **{k: 2 * v for k, v in SA_STEP.items()})
     print(f"[{label}] the shared MLP's kernels: "
           f"{'bn_stats' in c.kernel_counters()} ({card})")
     c.train(sun, STEPS, sun_step, f"[{label}] sunrgbd", 200, dev)

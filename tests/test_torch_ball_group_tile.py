@@ -295,12 +295,16 @@ def test_route_depends_on_the_shape_alone(K, C, want, monkeypatch):
 class _FakeCard:
     """Stands in for the card: the wrappers take their CUDA branch on CPU
     tensors, and each launch runs the numpy emulation of its kernel with the
-    arguments the wrapper passes."""
+    arguments the wrapper passes.  On this card the fused picks and map
+    (`sources_map`, `test_torch_sources_map.py`) take no shape, so the
+    feature gradient's route is the tile pick pass, then `feature_scatter`
+    (its plain version: the scatter's tensors lie on the CPU)."""
 
     def __init__(self, monkeypatch):
         self.entries = []
         monkeypatch.setattr(BG, "_on_cuda", lambda *a, **k: True)
         monkeypatch.setattr(BG, "_launch", self.launch)
+        monkeypatch.setattr(BG, "_map_warps", lambda entry, device, *dims: 0)
 
     def launch(self, entry, device, *args):
         self.entries.append((entry, args))
@@ -344,14 +348,17 @@ def test_slot_sources_launches_once_and_refuses_too_many_slots(monkeypatch):
     xyz, _, centers, radius, K = _case("empty_balls")
     card = _FakeCard(monkeypatch)
     before = BG.slot_sources.launches
-    got = BG.slot_sources(_t(xyz), _t(centers), radius, K)
-    assert [e for e, _ in card.entries] == ["ov3_ball_group_sources"]
-    assert BG.slot_sources.launches == before + 1
-    assert got.dtype == torch.int32 and got.shape == (2, K, centers.shape[1])
-    np.testing.assert_array_equal(got.numpy(), _jax_eff_pick(xyz, centers, radius, K))
+    for impl in (None, "first"):  # the route on this card, and the first design asked for
+        got = BG.slot_sources(_t(xyz), _t(centers), radius, K, _impl=impl)
+        assert [e for e, _ in card.entries] == ["ov3_ball_group_sources"]
+        assert BG.slot_sources.launches == before + 1
+        assert got.dtype == torch.int32 and got.shape == (2, K, centers.shape[1])
+        np.testing.assert_array_equal(got.numpy(), _jax_eff_pick(xyz, centers, radius, K))
+        card.entries.clear()
+        before += 1
     with pytest.raises(RuntimeError, match="slots"):
-        BG.slot_sources(_t(xyz), _t(centers), radius, MAX_K + 1)
-    assert BG.slot_sources.launches == before + 1
+        BG.slot_sources(_t(xyz), _t(centers), radius, MAX_K + 1, _impl="first")
+    assert BG.slot_sources.launches == before
 
 
 @pytest.mark.parametrize("name", ["random", "empty_balls", "past_n"])
