@@ -1,0 +1,7 @@
+"""Device ms a step of the autograd backward: the kernels launched inside the
+program's profiler range "backward", over eager steps profiled after the
+window (a graph replay carries no ranges)."""
+
+
+def read(ctx):
+    return (ctx.trace or {}).get("ranges", {}).get("backward")

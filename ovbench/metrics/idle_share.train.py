@@ -1,0 +1,10 @@
+"""The device's idle share over a stretch of graphed training steps after
+the window: 1 - (the union of the device's operations) / (the stretch's
+host wall time, from its first step to the device sync)."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if not t or t["window_s"] <= 0 or t["busy_s"] <= 0:
+        return None
+    return 1.0 - t["busy_s"] / t["window_s"]
